@@ -1,0 +1,355 @@
+"""EMVB retrieval engine — the four-phase pipeline on batched queries
+(counterpart of ``repro/core/engine.py``).
+
+  1. centroid scores + candidate generation (CS matmul, masked
+     top-nprobe, IVF union -> candidate bitmap)                  [§4.1]
+  2. bit-vector pre-filter F(P, q), top-n_filter                 [§4.2]
+  3. centroid interaction S̄ on the survivors, top-n_docs        [§4.3]
+  4. PQ late interaction with the dynamic term filter, top-k     [§4.4]
+
+``use_kernels=True`` runs phases 1b-2 and 3-4 through the two fused
+kernels (``kernels/ops.py``): hand-written CUDA on the card, their plain
+PyTorch versions on the CPU. ``use_kernels=False`` runs the reference math
+of ``core`` (the reference's unfused score_all path). Both give the same ids
+and score bits.
+
+This slice covers the reference's main path: score_all candidates, float32
+CS, no document filter. The other configurations raise
+``NotImplementedError`` naming the ROADMAP item that ports them.
+
+The batch dimension is written out: there is no vmap. At B = 1 the batched
+kernels run with B = 1 (row b of the batched kernels equals the
+single-query kernel, the reference's tested contract). Internal helpers
+take ``cs=`` and ``lut=`` overrides so a test can inject the reference's
+matmul outputs and hold phases 1b-4 to the bit.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import NamedTuple, Optional
+
+import torch
+
+from ..device import resolve_device
+from ..kernels import ops
+from . import bitvector, interaction
+from .index import PackedIndex
+from .pq import build_lut
+from .topk import topk
+
+
+@dataclasses.dataclass(frozen=True)
+class EngineConfig:
+    """Static retrieval configuration — the reference's fields and defaults
+    (``repro/core/engine.py:57``) minus ``kernel_interpret``, whose job the
+    tensors' device does here. ``__post_init__`` raises the reference's
+    errors, then ``NotImplementedError`` for configurations this slice does
+    not port."""
+
+    n_q: int = 32
+    nprobe: int = 4
+    th: float = 0.4
+    th_r: Optional[float] = 0.5
+    n_filter: int = 512
+    n_docs: int = 64
+    k: int = 10
+    use_kernels: bool = False
+    fused_prefilter: bool = True
+    fused_late_interaction: bool = True
+    # the port always runs the batch-native kernels; the reference's vmap
+    # path is bit-identical to them, so False changes nothing here
+    batched_kernels: bool = True
+    candidate_mode: str = "score_all"
+    cand_cap: int = 4096
+    compact_cap: Optional[int] = None
+    cs_dtype: str = "float32"
+    doc_filter: Optional[object] = None
+
+    def __post_init__(self):
+        """Reject inconsistent and not-yet-ported configurations."""
+        if self.n_q > 32:
+            raise ValueError(
+                f"n_q={self.n_q} > 32: the stacked bit vector packs one "
+                "query term per bit of a uint32 word (paper Fig. 3); split "
+                "the query or widen the word type first")
+        if self.k > self.n_docs:
+            raise ValueError(
+                f"k={self.k} > n_docs={self.n_docs}: phase 4 can only rank "
+                "the n_docs survivors of phase 3; raise n_docs (paper uses "
+                "n_docs >= 4*k) or lower k")
+        if self.n_docs > self.n_filter:
+            raise ValueError(
+                f"n_docs={self.n_docs} > n_filter={self.n_filter}: phase 3 "
+                "selects from the n_filter bit-vector survivors; raise "
+                "n_filter or lower n_docs")
+        if self.candidate_mode not in ("score_all", "compact"):
+            raise ValueError(
+                f"unknown candidate_mode={self.candidate_mode!r}: expected "
+                "'score_all' (mask the whole corpus by the candidate "
+                "bitmap) or 'compact' (gather candidates into a cand_cap "
+                "buffer)")
+        if self.candidate_mode == "compact" and self.cand_cap < self.n_filter:
+            raise ValueError(
+                f"cand_cap={self.cand_cap} < n_filter={self.n_filter}: in "
+                "candidate_mode='compact' the top-n_filter selection runs "
+                "over the cand_cap candidate buffer; raise cand_cap to at "
+                "least n_filter")
+        if self.compact_cap is not None and self.th_r is None:
+            raise ValueError(
+                f"compact_cap={self.compact_cap} requires th_r: per-token "
+                "compaction keeps tokens whose centroid beats the Eq. 6 "
+                "threshold — set th_r or drop compact_cap")
+        if self.cs_dtype not in ("float32", "bfloat16"):
+            raise ValueError(
+                f"unknown cs_dtype={self.cs_dtype!r}: expected 'float32' or "
+                "'bfloat16'")
+        todo = {
+            "candidate_mode='compact'": self.candidate_mode == "compact",
+            "compact_cap": self.compact_cap is not None,
+            "cs_dtype='bfloat16'": self.cs_dtype == "bfloat16",
+            "doc_filter": self.doc_filter is not None,
+        }
+        for what, hit in todo.items():
+            if hit:
+                raise NotImplementedError(
+                    f"{what} is not ported yet (ROADMAP Queue 1, item 4: "
+                    "engine remainder)")
+        if self.use_kernels and not (self.fused_prefilter
+                                     and self.fused_late_interaction):
+            raise NotImplementedError(
+                "use_kernels with fused_prefilter=False or "
+                "fused_late_interaction=False needs the unfused kernels "
+                "(bitpack, bitfilter, cinter, pqscore), which are not ported "
+                "yet (ROADMAP Queue 2, items 5-8)")
+
+
+class RetrievalResult(NamedTuple):
+    """Top-k retrieval output: scores sorted descending + global doc ids."""
+
+    scores: torch.Tensor   # (B, k) float32
+    doc_ids: torch.Tensor  # (B, k) int32
+
+
+class QueryBatch(NamedTuple):
+    """A batch of queries ``q`` (B, n_q, d) with its optional per-term mask
+    ``q_mask`` (B, n_q) bool (True = live term; None = all live)."""
+
+    q: torch.Tensor
+    q_mask: Optional[torch.Tensor] = None
+
+
+def _as_query_batch(queries, q_masks=None) -> QueryBatch:
+    if isinstance(queries, QueryBatch):
+        if q_masks is not None and queries.q_mask is not None:
+            raise ValueError(
+                "got a q_mask both inside the QueryBatch and as a separate "
+                "argument — pass exactly one")
+        return QueryBatch(queries.q,
+                          queries.q_mask if q_masks is None else q_masks)
+    return QueryBatch(queries, q_masks)
+
+
+# ---------------------------------------------------------------------------
+# Phase 1 — centroid scores and the candidate bitmap
+# ---------------------------------------------------------------------------
+
+def centroid_scores(q: torch.Tensor, centroids: torch.Tensor,
+                    dtype: str = "float32") -> torch.Tensor:
+    """q (..., n_q, d), centroids (n_c, d) -> CS (..., n_q, n_c), float32.
+
+    TF32 stays off: a float32 product in TF32 keeps about three decimal
+    digits and would change the bit vectors and every score."""
+    if dtype != "float32":
+        raise NotImplementedError("only float32 CS is ported")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.matmul(q, centroids.T)
+
+
+def candidate_bitmap(ivf: torch.Tensor, ivf_lens: torch.Tensor,
+                     probe_ids: torch.Tensor, n_docs: int) -> torch.Tensor:
+    """Union of the IVF lists of the probed centroids (ref
+    ``engine.py:237``). probe_ids (..., n_q, nprobe) -> (..., n_docs) bool.
+    Probe ids >= n_c (the masked-term sentinel) contribute nothing."""
+    n_c, list_cap = ivf.shape
+    lead = tuple(probe_ids.shape[:-2])
+    flat = probe_ids.reshape(*lead, -1).long()
+    safe = torch.clamp(flat, 0, n_c - 1)
+    lens = torch.where(flat < n_c, ivf_lens[safe].long(),
+                       torch.zeros_like(flat))
+    valid = torch.arange(list_cap, device=ivf.device) < lens[..., None]
+    ids = ivf[safe].long()                                  # (..., P, cap)
+    valid = valid & (ids < n_docs)
+    nrows = math.prod(lead)
+    row = torch.arange(nrows, device=ivf.device).reshape(*lead, 1, 1)
+    bitmap = torch.zeros(nrows * n_docs, dtype=torch.bool, device=ivf.device)
+    bitmap[(row * n_docs + ids)[valid]] = True
+    return bitmap.reshape(*lead, n_docs)
+
+
+# ---------------------------------------------------------------------------
+# Reference math (use_kernels=False)
+# ---------------------------------------------------------------------------
+
+def _phase2(index: PackedIndex, bits: torch.Tensor, bitmap: torch.Tensor,
+            cfg: EngineConfig) -> torch.Tensor:
+    """Unfused pre-filter: Eq. 4 on every doc, masked by the bitmap,
+    top-n_filter -> sel1 (B, n_filter) int64."""
+    token_mask = index.token_mask()
+    f = torch.stack([bitvector.filter_score(b, index.codes, token_mask)
+                     for b in bits])
+    f = torch.where(bitmap, f, torch.full_like(f, -1))
+    return topk(f, cfg.n_filter)[1]
+
+
+def _phase3(index: PackedIndex, cs: torch.Tensor, sel1: torch.Tensor,
+            cfg: EngineConfig, q_masks=None) -> torch.Tensor:
+    """Centroid interaction on the survivors -> sel2 (B, n_docs) int64."""
+    token_mask = index.token_mask()
+    sbar = interaction.centroid_interaction(
+        cs.transpose(1, 2), index.codes[sel1],
+        token_mask[sel1], q_masks)
+    _, local = topk(sbar, cfg.n_docs)
+    return torch.gather(sel1, 1, local)
+
+
+def _phase4(index: PackedIndex, cs: torch.Tensor, lut: torch.Tensor,
+            sel2: torch.Tensor, cfg: EngineConfig, q_masks=None):
+    """PQ late interaction (+ Eq. 6) -> (scores (B, k), ids (B, k))."""
+    token_mask = index.token_mask()
+    scores = interaction.late_interaction_pq(
+        cs.transpose(1, 2), lut, index.codes[sel2],
+        index.res_codes[sel2], token_mask[sel2], cfg.th_r,
+        q_masks)
+    top, local = topk(scores, cfg.k)
+    return top, torch.gather(sel2, 1, local)
+
+
+# ---------------------------------------------------------------------------
+# Batched phases — the one pipeline ``retrieve`` and the phase entry points
+# share
+# ---------------------------------------------------------------------------
+
+def _candidates(index: PackedIndex, cs: torch.Tensor, cfg: EngineConfig,
+                q_masks=None) -> torch.Tensor:
+    """Phase 1 after CS: masked top-nprobe probes -> (B, n_docs) bitmap."""
+    probe_ids = bitvector.masked_topk_centroids(cs, cfg.th, cfg.nprobe,
+                                                q_masks)
+    return candidate_bitmap(index.ivf, index.ivf_lens, probe_ids,
+                            index.codes.shape[0])
+
+
+def _phase12_batch(index: PackedIndex, queries: torch.Tensor,
+                   cfg: EngineConfig, q_masks=None, *, cs=None):
+    """Phases 1-2 -> (cs (B, n_q, n_c), sel1 (B, n_filter) int64)."""
+    if cs is None:
+        cs = centroid_scores(queries, index.centroids, cfg.cs_dtype)
+    bitmap = _candidates(index, cs, cfg, q_masks)
+    if cfg.use_kernels:
+        _, sel1, _ = ops.prefilter_batched(cs, cfg.th, index.codes,
+                                           index.doc_lens, bitmap,
+                                           cfg.n_filter, q_masks)
+        return cs, sel1.long()
+    bits = bitvector.build_bitvectors(cs, cfg.th, q_masks)
+    return cs, _phase2(index, bits, bitmap, cfg)
+
+
+def _query_lut(index: PackedIndex, queries: torch.Tensor) -> torch.Tensor:
+    """The OPQ rotation, then the PQ inner-product LUT -> (B, n_q, m, K)."""
+    return build_lut(torch.matmul(queries, index.opq_rotation), index.pq)
+
+
+def _survivor_operands(index: PackedIndex, cs: torch.Tensor,
+                       lut: torch.Tensor, sel1: torch.Tensor):
+    """What the phase 3-4 kernel reads: (cs_t (B, n_c, n_q), lut, and the
+    survivors' codes, residual codes and token lengths). CS is computed
+    once; the transposed copy is made from that same tensor, so both
+    kernels see the same bits."""
+    return (cs.transpose(1, 2).contiguous(), lut, index.codes[sel1],
+            index.res_codes[sel1], index.doc_lens[sel1])
+
+
+def _phase34_batch(index: PackedIndex, queries: torch.Tensor,
+                   cs: torch.Tensor, sel1: torch.Tensor, cfg: EngineConfig,
+                   q_masks=None, *, lut=None) -> RetrievalResult:
+    """Phases 3-4 -> RetrievalResult with (B, k) scores and doc ids."""
+    if lut is None:
+        lut = _query_lut(index, queries)
+    sel1 = sel1.long()
+    if cfg.use_kernels:
+        scores, pos, _, _ = ops.pqinter_batched(
+            *_survivor_operands(index, cs, lut, sel1), cfg.th_r, cfg.n_docs,
+            cfg.k, q_masks)
+        ids = torch.gather(sel1, 1, pos.long())
+    else:
+        sel2 = _phase3(index, cs, sel1, cfg, q_masks)
+        scores, ids = _phase4(index, cs, lut, sel2, cfg, q_masks)
+    return RetrievalResult(scores, ids.to(torch.int32))
+
+
+def _retrieve_batch(index: PackedIndex, queries: torch.Tensor,
+                    cfg: EngineConfig, q_masks=None, *, cs=None,
+                    lut=None) -> RetrievalResult:
+    """The full batched pipeline."""
+    cs, sel1 = _phase12_batch(index, queries, cfg, q_masks, cs=cs)
+    return _phase34_batch(index, queries, cs, sel1, cfg, q_masks, lut=lut)
+
+
+def _inputs(index: PackedIndex, queries, q_masks, device):
+    """Normalize queries/mask onto the index's device, which must be the
+    requested one (CUDA unless the caller passes ``device="cpu"``)."""
+    dev = resolve_device(device)
+    idev = index.codes.device
+    if idev.type != dev.type or (dev.index is not None
+                                 and idev.index != dev.index):
+        raise ValueError(f"the index lives on {idev} but device={dev} was "
+                         "requested; load it there (load_index(..., "
+                         "device=...)) first")
+    qb = _as_query_batch(queries, q_masks)
+    q = torch.as_tensor(qb.q, dtype=torch.float32, device=idev)
+    qm = (None if qb.q_mask is None
+          else torch.as_tensor(qb.q_mask, dtype=torch.bool, device=idev))
+    return q, qm
+
+
+def retrieve(index: PackedIndex, queries, cfg: EngineConfig, q_masks=None,
+             *, doc_filter=None, device=None) -> RetrievalResult:
+    """queries (B, n_q, d) or QueryBatch -> RetrievalResult, (B, k) each
+    (ref ``engine.py:576``).
+
+    Runs on CUDA unless ``device="cpu"``: with no GPU and no device given
+    it raises rather than running on the CPU. ``q_masks`` (B, n_q) bool
+    marks live query terms; masked terms are excluded from every phase.
+    ``doc_filter`` is not ported yet and raises ``NotImplementedError``.
+    """
+    if doc_filter is not None:
+        raise NotImplementedError("doc_filter is not ported yet (ROADMAP "
+                                  "Queue 1, item 4: engine remainder)")
+    q, qm = _inputs(index, queries, q_masks, device)
+    return _retrieve_batch(index, q, cfg, qm)
+
+
+def phase12_prefilter(index: PackedIndex, queries, cfg: EngineConfig, *,
+                      q_mask=None, device=None):
+    """Fused phases 1-2 (ref ``engine.py:738``), batched signature only:
+    ``(index, queries, cfg, *, q_mask=None)`` -> (cs (B, n_q, n_c),
+    sel1 (B, n_filter) int32)."""
+    q, qm = _inputs(index, queries, q_mask, device)
+    cs, sel1 = _phase12_batch(index, q, cfg, qm)
+    return cs, sel1.to(torch.int32)
+
+
+def phase34_late_interaction(index: PackedIndex, queries, cfg: EngineConfig,
+                             *, q_mask=None, cs=None, sel1=None,
+                             device=None) -> RetrievalResult:
+    """Fused phases 3-4 (ref ``engine.py:809``), batched signature only:
+    ``(index, queries, cfg, *, q_mask=None, cs, sel1)`` -> RetrievalResult.
+    ``cs``/``sel1`` are phase 1-2's outputs; omitted, phases 1-2 run
+    here."""
+    q, qm = _inputs(index, queries, q_mask, device)
+    if cs is None or sel1 is None:
+        cs_c, sel1_c = _phase12_batch(index, q, cfg, qm)
+        cs = cs_c if cs is None else cs
+        sel1 = sel1_c if sel1 is None else sel1
+    return _phase34_batch(index, q, cs, torch.as_tensor(sel1), cfg, qm)

@@ -1,0 +1,196 @@
+"""Synthetic data with planted relevance.
+
+Two parts:
+
+* A numpy copy of the reference corpus generator and metrics
+  (``repro/data/synthetic.py``): :func:`make_corpus`, :func:`mrr_at_k`,
+  :func:`success_at_k`. The tests build the reference's index from it.
+* :func:`make_packed_index` / :func:`make_queries`: a seeded, planted index
+  built directly in index space on the device, at any width. This is the
+  data of ``chip_smoke.py``, not a user feature: a real MS MARCO index
+  cannot be downloaded here, and building one takes k-means over about 700M
+  token vectors. Its shapes and dtypes are a real index's; its contents are
+  random but structured so that retrieval has a right answer.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+from ..core.index import IndexMeta, PackedIndex, build_ivf
+from ..core.pq import PQCodebooks, decode_pq
+
+
+class Corpus(NamedTuple):
+    """Padded token embeddings, lengths, queries and planted targets."""
+
+    doc_embs: np.ndarray   # (n_docs, cap, d) fp32, zero-padded, L2-normed rows
+    doc_lens: np.ndarray   # (n_docs,) int32
+    queries: np.ndarray    # (n_queries, n_q, d) fp32, L2-normed
+    gt_doc: np.ndarray     # (n_queries,) int32 planted ground-truth doc
+
+
+def make_corpus(seed: int, *, n_docs: int = 2000, cap: int = 48,
+                min_len: int = 16, d: int = 128, n_topics: int = 64,
+                n_queries: int = 64, n_q: int = 32,
+                token_noise: float = 0.35, query_noise: float = 0.12,
+                topic_shift: float = 0.0) -> Corpus:
+    """Topic-clustered token embeddings; each query perturbs n_q tokens of a
+    planted target doc. The same numbers as the reference for a seed."""
+    rng = np.random.default_rng(seed)
+    topics = rng.normal(size=(n_topics, d)).astype(np.float32)
+    if topic_shift:
+        topics += topic_shift * rng.normal(size=(1, d)).astype(np.float32)
+    topics /= np.linalg.norm(topics, axis=-1, keepdims=True)
+
+    doc_lens = rng.integers(min_len, cap + 1, size=n_docs).astype(np.int32)
+    doc_topic = rng.integers(0, n_topics, size=n_docs)
+    noise = rng.normal(size=(n_docs, cap, d)).astype(np.float32) * token_noise
+    doc_embs = topics[doc_topic][:, None, :] + noise
+    doc_embs /= np.maximum(
+        np.linalg.norm(doc_embs, axis=-1, keepdims=True), 1e-12)
+    pad_mask = np.arange(cap)[None, :] >= doc_lens[:, None]
+    doc_embs[pad_mask] = 0.0
+
+    gt = rng.integers(0, n_docs, size=n_queries).astype(np.int32)
+    queries = np.empty((n_queries, n_q, d), np.float32)
+    for qi, docid in enumerate(gt):
+        take = rng.integers(0, doc_lens[docid], size=n_q)
+        qtok = doc_embs[docid, take] + \
+            rng.normal(size=(n_q, d)).astype(np.float32) * query_noise
+        queries[qi] = qtok / np.maximum(
+            np.linalg.norm(qtok, axis=-1, keepdims=True), 1e-12)
+    return Corpus(doc_embs, doc_lens, queries, gt)
+
+
+def mrr_at_k(ranked_ids: np.ndarray, gt: np.ndarray, k: int = 10) -> float:
+    """ranked_ids (B, >=k) -> mean reciprocal rank@k of the planted doc."""
+    rr = 0.0
+    for ids, g in zip(ranked_ids[:, :k], gt):
+        hits = np.nonzero(ids == g)[0]
+        if hits.size:
+            rr += 1.0 / (hits[0] + 1)
+    return rr / len(gt)
+
+
+def recall_at_k(ranked_ids: np.ndarray, gt: np.ndarray, k: int) -> float:
+    """Fraction of queries whose planted doc is in the top k."""
+    return float(np.mean([g in ids[:k] for ids, g in zip(ranked_ids, gt)]))
+
+
+def success_at_k(ranked_ids: np.ndarray, gt: np.ndarray, k: int) -> float:
+    """Success@k: with one planted doc per query, Recall@k."""
+    return recall_at_k(ranked_ids, gt, k)
+
+
+# --- the planted index, built in index space on the device --------------------
+
+GEN_BLOCK_DOCS = 1 << 20   # docs generated per step (bounds temporaries)
+CENTROIDS_PER_TOPIC = 64
+CENTROID_SPREAD = 3.0      # two centroids of a topic: cosine about 0.1
+PRIMARY_SHARE = 0.75       # tokens drawn from a doc's primary topic
+CODEBOOK_SCALE = 0.3       # norm of a decoded PQ residual
+QUERY_NOISE = 0.1          # norm of the noise added to a query term
+
+
+def _unit(x: torch.Tensor) -> torch.Tensor:
+    return x / torch.clamp(torch.linalg.norm(x, dim=-1, keepdim=True), 1e-12)
+
+
+def make_packed_index(seed: int, *, n_docs: int, cap: int, min_len: int,
+                      d: int, n_centroids: int, m: int, nbits: int,
+                      list_cap, device=None
+                      ) -> tuple[PackedIndex, IndexMeta]:
+    """A seeded planted index at the given widths, on ``device`` — the data
+    ``chip_smoke.py`` serves, not a user feature (see the module docstring).
+
+    * Centroids: unit vectors in topics of ``CENTROIDS_PER_TOPIC``, each
+      ``normalize(topic + CENTROID_SPREAD * g / sqrt(d))``: two centroids of
+      a topic have cosine about 0.1, so a query term is close (above th) to
+      little beyond its own centroid.
+    * Documents: lengths uniform in [min_len, cap]; each doc has a primary
+      and a secondary topic, and each token draws a centroid uniformly from
+      the primary topic (share ``PRIMARY_SHARE``) or the secondary.
+    * PQ: uniform uint8 residual codes and normal codebooks whose decoded
+      residual has norm about ``CODEBOOK_SCALE``; identity OPQ rotation;
+      zero predicate plane;
+      PLAID fields are placeholders of the smallest shapes.
+    * IVF: :func:`build_ivf` over the codes, truncated at ``list_cap``.
+    """
+    dev = resolve_device(device)
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    ksub = 1 << nbits
+    per = max(1, min(CENTROIDS_PER_TOPIC, n_centroids))
+    n_topics = max(1, n_centroids // per)
+    topics = _unit(torch.randn(n_topics, d, generator=g, device=dev))
+    topic_of = torch.clamp(torch.arange(n_centroids, device=dev) // per,
+                           max=n_topics - 1)
+    centroids = _unit(topics[topic_of] + CENTROID_SPREAD / d ** 0.5
+                      * torch.randn(n_centroids, d, generator=g, device=dev))
+
+    codes = torch.empty((n_docs, cap), dtype=torch.int32, device=dev)
+    doc_lens = torch.randint(min_len, cap + 1, (n_docs,), generator=g,
+                             device=dev, dtype=torch.int32)
+    tok = torch.arange(cap, device=dev)
+    for s in range(0, n_docs, GEN_BLOCK_DOCS):
+        e = min(s + GEN_BLOCK_DOCS, n_docs)
+        nb = e - s
+        two = torch.randint(0, n_topics, (nb, 2), generator=g, device=dev)
+        primary = torch.rand((nb, cap), generator=g, device=dev) \
+            < PRIMARY_SHARE
+        topic = torch.where(primary, two[:, :1], two[:, 1:])
+        slot = torch.randint(0, per, (nb, cap), generator=g, device=dev)
+        c = torch.clamp(topic * per + slot, max=n_centroids - 1)
+        pad = tok[None, :] >= doc_lens[s:e, None]
+        codes[s:e] = torch.where(pad, n_centroids, c).to(torch.int32)
+    res_codes = torch.randint(0, ksub, (n_docs, cap, m), generator=g,
+                              device=dev, dtype=torch.uint8)
+    pq_codebooks = CODEBOOK_SCALE / d ** 0.5 * torch.randn(
+        m, ksub, d // m, generator=g, device=dev)
+    ivf, ivf_lens, list_cap, n_dropped = build_ivf(
+        codes, n_centroids, list_cap, origin="make_packed_index")
+    index = PackedIndex(
+        centroids=centroids, codes=codes, doc_lens=doc_lens,
+        res_codes=res_codes, pq_codebooks=pq_codebooks, ivf=ivf,
+        ivf_lens=ivf_lens,
+        plaid_res=torch.zeros((1, 1, 1), dtype=torch.uint8, device=dev),
+        plaid_cutoffs=torch.zeros(3, device=dev),
+        plaid_weights=torch.zeros(4, device=dev),
+        opq_rotation=torch.eye(d, device=dev),
+        pred_words=torch.zeros(n_docs, dtype=torch.uint32, device=dev))
+    meta = IndexMeta(n_docs=n_docs, n_centroids=n_centroids, d=d, cap=cap,
+                     m=m, nbits=nbits, plaid_b=2, list_cap=list_cap,
+                     n_dropped=n_dropped,
+                     n_raw_tokens=int(doc_lens.sum()))
+    return index, meta
+
+
+def make_queries(index: PackedIndex, seed: int, n_queries: int,
+                 n_q: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Queries planted on target docs: each term is one of the target's
+    tokens rebuilt as ``centroid + decode_pq(residual code) + noise``,
+    normalized. -> (queries (n_queries, n_q, d) float32, gt (n_queries,)
+    int64 target doc ids), on the index's device."""
+    dev = index.codes.device
+    n_docs = index.codes.shape[0]
+    d = index.centroids.shape[1]
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    gt = torch.randint(0, n_docs, (n_queries,), generator=g, device=dev)
+    u = torch.rand((n_queries, n_q), generator=g, device=dev)
+    take = torch.clamp((u * index.doc_lens[gt, None]).long(), min=0)
+    take = torch.minimum(take, (index.doc_lens[gt, None] - 1).clamp(min=0)
+                         .long())
+    c = index.codes[gt[:, None], take].long()
+    c = torch.clamp(c, max=index.centroids.shape[0] - 1)
+    res = index.res_codes[gt[:, None], take]                 # (Q, n_q, m)
+    vec = index.centroids[c] + decode_pq(
+        res.reshape(-1, res.shape[-1]),
+        PQCodebooks(index.pq_codebooks)).reshape(n_queries, n_q, d)
+    vec = vec + QUERY_NOISE / d ** 0.5 * torch.randn(n_queries, n_q, d,
+                                               generator=g, device=dev)
+    return _unit(vec), gt

@@ -1,0 +1,24 @@
+"""Device selection shared by every entry point of the port."""
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on.
+
+    ``None`` means the GPU: it raises when CUDA is absent, so a caller that
+    did not ask for the CPU never silently gets it. Pass ``"cpu"`` (as the
+    tests do) to run the plain PyTorch versions of the kernels.
+    """
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "repro_torch runs on CUDA by default and no CUDA device is "
+                "available; pass device='cpu' to run the plain PyTorch path")
+        return torch.device("cuda")
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device={device!r} requested but CUDA is not "
+                           "available")
+    return dev

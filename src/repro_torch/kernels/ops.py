@@ -1,0 +1,88 @@
+"""Public kernel wrappers with the reference's signatures (counterpart of
+``repro/kernels/ops.py``), minus ``interpret``: the tensors' device picks
+the path. On the CPU each wrapper runs its kernel's plain PyTorch version;
+on CUDA it launches the hand-written kernel or raises.
+
+The B = 1 forms run the batched kernel with B = 1: row b of the batched
+kernel is bit-identical to the single-query kernel by the reference's own
+tested contract.
+
+Out of this slice (they raise ``NotImplementedError``): the predicate
+filter operands (``pred_words``/``plan``, ``doc_pass``) and per-query
+(compact-mode) candidate codes.
+"""
+from __future__ import annotations
+
+import torch
+
+from . import pqinter as _pqinter
+from . import prefilter as _prefilter
+
+
+def launch_counts() -> dict:
+    """Kernel launches per kernel since the last :func:`reset_launches`."""
+    return {"prefilter": _prefilter.launches, "pqinter": _pqinter.launches}
+
+
+def reset_launches() -> None:
+    """Set every kernel's launch count to 0."""
+    _prefilter.launches = 0
+    _pqinter.launches = 0
+
+
+def _no_filter(**operands) -> None:
+    given = sorted(k for k, v in operands.items() if v is not None)
+    if given:
+        raise NotImplementedError(
+            f"{given}: predicate filtering is not ported yet (ROADMAP "
+            "Queue 1, engine remainder: doc_filter)")
+
+
+def prefilter_batched(cs: torch.Tensor, th, codes: torch.Tensor,
+                      token_mask: torch.Tensor, bitmap: torch.Tensor,
+                      n_filter: int, q_masks=None, *, pred_words=None,
+                      plan=None):
+    """Batch-native phases 1b-2 megakernel -> (scores, doc_ids, bits), each
+    with a leading batch axis. ``codes``/``token_mask`` are the shared
+    (n_docs, cap) corpus (or (n_docs,) lengths for the mask)."""
+    _no_filter(pred_words=pred_words, plan=plan)
+    if codes.dim() != 2:
+        raise NotImplementedError(
+            "per-query (compact-mode) candidate codes are not ported yet "
+            "(ROADMAP Queue 1, engine remainder: candidate_mode='compact')")
+    return _prefilter.prefilter_batched(cs, th, codes, token_mask, bitmap,
+                                        n_filter, q_masks)
+
+
+def prefilter(cs: torch.Tensor, th, codes: torch.Tensor,
+              token_mask: torch.Tensor, bitmap: torch.Tensor, n_filter: int,
+              q_mask=None, *, pred_words=None, plan=None):
+    """Fused phases 1b-2 for one query -> (scores (n_filter,),
+    doc_ids (n_filter,), bits (n_c,))."""
+    out = prefilter_batched(cs[None], th, codes, token_mask, bitmap[None],
+                            n_filter, None if q_mask is None else q_mask[None],
+                            pred_words=pred_words, plan=plan)
+    return tuple(x[0] for x in out)
+
+
+def pqinter_batched(cs_t: torch.Tensor, lut: torch.Tensor,
+                    codes: torch.Tensor, res_codes: torch.Tensor,
+                    token_mask: torch.Tensor, th_r, n_docs: int, k: int,
+                    q_masks=None, *, doc_pass=None):
+    """Batch-native phases 3-4 megakernel -> (scores, pos, sel2, sbar),
+    each with a leading batch axis."""
+    _no_filter(doc_pass=doc_pass)
+    return _pqinter.pqinter_batched(cs_t, lut, codes, res_codes, token_mask,
+                                    th_r, n_docs, k, q_masks)
+
+
+def pqinter(cs_t: torch.Tensor, lut: torch.Tensor, codes: torch.Tensor,
+            res_codes: torch.Tensor, token_mask: torch.Tensor, th_r,
+            n_docs: int, k: int, q_mask=None, *, doc_pass=None):
+    """Fused phases 3-4 for one query -> (scores (k,), pos (k,),
+    sel2 (n_docs,), sbar (n_docs,))."""
+    out = pqinter_batched(cs_t[None], lut[None], codes[None], res_codes[None],
+                          token_mask[None], th_r, n_docs, k,
+                          None if q_mask is None else q_mask[None],
+                          doc_pass=doc_pass)
+    return tuple(x[0] for x in out)

@@ -1,0 +1,139 @@
+"""Fused phases 3-4 (S̄, top-n_docs, Eq. 5/6 PQ scores, top-k) for a
+micro-batch over each query's phase-2 survivors.
+
+Replaces ``repro/kernels/pqinter.py::pqinter_batched`` (Pallas body
+``_pqinter_batched_kernel``, :256, inlining ``cinter.py::sbar_block_batched``
+and ``pqscore.py::eq56_block_batched``) and, at B = 1, ``pqinter``
+(``_pqinter_kernel``, :87). The CUDA kernel is ``csrc/pqinter.cu``; its
+source note says what bounds it on the H100 and how the design answers.
+:func:`pqinter_batched_ref` is its plain PyTorch version.
+
+Both cuts match the reference's running merges exactly: phase 3 keeps the
+top ``n_docs`` survivors by (S̄ desc, survivor position asc), phase 4 the
+top ``k`` of those by (score desc, phase-3 rank asc).
+
+:func:`pqinter_batched` dispatches on the tensors' device: on the CPU it
+runs the plain version; on CUDA it launches the kernel (and counts the launch
+in ``launches``) or raises — it never falls back.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ..core.interaction import centroid_interaction, late_interaction_pq
+from ..core.topk import topk
+from . import _build
+from .prefilter import lengths_of
+
+MAX_SORT = 4096   # n_filter and n_docs: each cut sorts in shared memory
+
+launches = 0      # kernel launches since the last reset
+
+
+def _rows(x: torch.Tensor, sel: torch.Tensor) -> torch.Tensor:
+    """x (B, nf, ...) gathered at sel (B, n) along axis 1."""
+    b = torch.arange(x.shape[0], device=x.device)[:, None]
+    return x[b, sel]
+
+
+def pqinter_batched_ref(cs_t: torch.Tensor, lut: torch.Tensor,
+                        codes: torch.Tensor, res_codes: torch.Tensor,
+                        lens: torch.Tensor, th_r, n_docs: int, k: int,
+                        q_masks=None):
+    """Plain PyTorch version of the kernel, built on ``core``.
+    -> (scores (B, k) f32, pos (B, k) i32, sel2 (B, n_docs) i32,
+        sbar (B, n_docs) f32)"""
+    cap = codes.shape[-1]
+    valid = torch.arange(cap, device=codes.device) < lens[..., None]
+    sbar_all = centroid_interaction(cs_t, codes, valid, q_masks)  # (B, nf)
+    sbar, sel2 = topk(sbar_all, n_docs)
+    score = late_interaction_pq(cs_t, lut, _rows(codes, sel2),
+                                _rows(res_codes, sel2), _rows(valid, sel2),
+                                th_r, q_masks)                     # (B, nd)
+    scores, rank = topk(score, k)
+    pos = torch.gather(sel2, 1, rank)
+    return scores, pos.to(torch.int32), sel2.to(torch.int32), sbar
+
+
+def _launch(cs_t, lut2, codes, res_codes, lens, qm, th_r, n_docs, k, m,
+            ksub):
+    """One launch of ``csrc/pqinter.cu``."""
+    global launches
+    fn = _build.load("pqinter").pqinter_batched
+    fn.restype = ctypes.c_int
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci,
+                   ctypes.c_float, ci, ci, ci, vp, vp, vp, vp, vp, vp, vp]
+    nb, nf, cap = codes.shape
+    n_c, n_q = cs_t.shape[1:]
+    dev = cs_t.device
+
+    def f32(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=dev)
+
+    def i32(*shape):
+        return torch.empty(shape, dtype=torch.int32, device=dev)
+
+    sbar_all, score2 = f32(nb, nf), f32(nb, n_docs)
+    scores, pos = f32(nb, k), i32(nb, k)
+    sel2, sbar = i32(nb, n_docs), f32(nb, n_docs)
+    p = _build.ptr
+    err = fn(p(cs_t), p(lut2), p(codes), p(res_codes), p(lens), p(qm), nb,
+             nf, cap, n_c, n_q, m, ksub, 0.0 if th_r is None else float(th_r),
+             int(th_r is not None), n_docs, k, p(sbar_all), p(score2),
+             p(scores), p(pos), p(sel2), p(sbar), _build.stream())
+    _build.check(err, "pqinter_batched")
+    launches += 1
+    return scores, pos, sel2, sbar
+
+
+def pqinter_batched(cs_t: torch.Tensor, lut: torch.Tensor,
+                    codes: torch.Tensor, res_codes: torch.Tensor,
+                    token_mask: torch.Tensor, th_r, n_docs: int, k: int,
+                    q_masks=None):
+    """Batch-native fused phases 3-4.
+
+    cs_t (B, n_c, n_q <= 32) float32; lut (B, n_q, m, K) float32; codes
+    (B, n_filter, cap) int32; res_codes (B, n_filter, cap, m) uint8;
+    token_mask (B, n_filter, cap) bool prefix mask or (B, n_filter) int32
+    lengths; th_r None (Eq. 5) or a float (Eq. 6); q_masks optional
+    (B, n_q) bool.
+    -> (scores (B, k) f32, pos (B, k) i32, sel2 (B, n_docs) i32,
+        sbar (B, n_docs) f32); ``pos``/``sel2`` index the survivor axis.
+    """
+    nb, nf, cap = codes.shape
+    n_q, m, ksub = lut.shape[1:]
+    if not k <= n_docs <= nf:
+        raise ValueError(f"need k <= n_docs <= n_filter, got {k}/{n_docs}/"
+                         f"{nf}")
+    if cs_t.shape[-1] != n_q or n_q > 32:
+        raise ValueError(f"cs_t {tuple(cs_t.shape)} and lut "
+                         f"{tuple(lut.shape)} disagree on n_q (<= 32)")
+    lens = lengths_of(token_mask)
+    if tuple(lens.shape) != (nb, nf):
+        raise ValueError(f"token validity covers {tuple(lens.shape)}, "
+                         f"expected {(nb, nf)}")
+    if cs_t.device.type == "cpu":
+        return pqinter_batched_ref(cs_t, lut, codes, res_codes, lens, th_r,
+                                   n_docs, k, q_masks)
+    if cs_t.device.type != "cuda":
+        raise ValueError(f"pqinter: unsupported device {cs_t.device}")
+    if nf > MAX_SORT:
+        raise ValueError(f"n_filter={nf} > {MAX_SORT}: the kernel's cuts "
+                         "sort in shared memory")
+    qm = (torch.ones((nb, n_q), dtype=torch.bool, device=cs_t.device)
+          if q_masks is None else q_masks)
+    # (B, n_q, m, K) -> (B, m*K, n_q): one LUT row is n_q contiguous floats
+    lut2 = lut.permute(0, 2, 3, 1).reshape(nb, m * ksub, n_q).contiguous()
+    n_c = cs_t.shape[1]
+    _build.check_operands("pqinter", cs_t.device, (
+        ("cs_t", cs_t, torch.float32, (nb, n_c, n_q)),
+        ("lut", lut2, torch.float32, (nb, m * ksub, n_q)),
+        ("codes", codes, torch.int32, (nb, nf, cap)),
+        ("res_codes", res_codes, torch.uint8, (nb, nf, cap, m)),
+        ("token lengths", lens, torch.int32, (nb, nf)),
+        ("q_masks", qm, torch.bool, (nb, n_q))))
+    return _launch(cs_t, lut2, codes, res_codes, lens, qm, th_r, n_docs, k,
+                   m, ksub)

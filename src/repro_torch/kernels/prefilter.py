@@ -1,0 +1,176 @@
+"""Fused phases 1b-2 (bit vectors, Eq. 4, top-n_filter) for a micro-batch.
+
+Replaces ``repro/kernels/prefilter.py::prefilter_batched`` (Pallas body
+``_prefilter_batched_kernel``, :106) and, at B = 1, ``prefilter``
+(``_prefilter_kernel``, :62). The CUDA kernel is ``csrc/prefilter.cu``; its
+source note says what bounds it on the H100 and how the design answers.
+:func:`prefilter_batched_ref` is its plain PyTorch version.
+
+Selection is ``lax.top_k(where(bitmap, F, -1), n_filter)`` exactly: scores
+and doc ids pack into the unique int32 key ``(f + 1) << 25 | (2^25 - 1 -
+id)``, so "higher f, then lower id" is integer order and any exact
+selection over the keys is the reference's, tie order included.
+
+:func:`prefilter_batched` dispatches on the tensors' device: on the CPU it
+runs the plain version; on CUDA it launches the kernel (and counts the launch
+in ``launches``) or raises — it never falls back.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ..core.bitvector import build_bitvectors, or_reduce, popcount
+from ..core.topk import topk
+from . import _build
+
+ID_BITS = 25
+MAX_ID = (1 << ID_BITS) - 1
+MAX_BATCH = 32          # queries per launch: one lane group per query
+MAX_N_FILTER = 8192     # the final per-query sort runs in shared memory
+REF_BLOCK_D = 1 << 17   # docs per step of the plain version
+
+launches = 0            # kernel launches since the last reset
+
+
+def lengths_of(token_mask: torch.Tensor) -> torch.Tensor:
+    """Token validity as lengths. Accepts (..., cap) bool prefix masks (real
+    tokens first, what ``PackedIndex.token_mask()`` builds) or (...) int
+    lengths; returns int32 lengths."""
+    if token_mask.dtype != torch.bool:
+        return token_mask.to(torch.int32)
+    lens = token_mask.sum(-1, dtype=torch.int32)
+    cap = token_mask.shape[-1]
+    prefix = torch.arange(cap, device=token_mask.device) < lens[..., None]
+    if not torch.equal(prefix, token_mask):
+        raise ValueError("token_mask must be a prefix mask (real tokens "
+                         "first, padding after), as PackedIndex.token_mask() "
+                         "builds it")
+    return lens
+
+
+def filter_scores_ref(bits: torch.Tensor, codes: torch.Tensor,
+                      doc_lens: torch.Tensor,
+                      bitmap: torch.Tensor) -> torch.Tensor:
+    """Eq. 4 for every (query, doc), -1 where the bitmap is False: bits
+    (B, n_c) int32 words, codes (n_docs, cap), doc_lens (n_docs,), bitmap
+    (B, n_docs) -> F (B, n_docs) int32. Walks the documents in blocks of
+    ``REF_BLOCK_D``, so no (B, n_docs, cap) tensor is made."""
+    n_docs, cap = codes.shape
+    n_c = bits.shape[-1]
+    f = torch.empty((bits.shape[0], n_docs), dtype=torch.int32,
+                    device=bits.device)
+    tok = torch.arange(cap, device=bits.device)
+    for s in range(0, n_docs, REF_BLOCK_D):
+        e = min(s + REF_BLOCK_D, n_docs)
+        idx = torch.clamp(codes[s:e], 0, n_c - 1).long()
+        words = bits[:, idx]                                # (B, blk, cap)
+        valid = tok[None, :] < doc_lens[s:e, None]
+        words = torch.where(valid[None], words, torch.zeros_like(words))
+        f[:, s:e] = popcount(or_reduce(words, -1))
+    return torch.where(bitmap, f, torch.full_like(f, -1))
+
+
+def prefilter_batched_ref(cs: torch.Tensor, th: float, codes: torch.Tensor,
+                          doc_lens: torch.Tensor, bitmap: torch.Tensor,
+                          n_filter: int, q_masks=None):
+    """Plain PyTorch version of the kernel, built on ``core``: the bit
+    words, Eq. 4 block by block (:func:`filter_scores_ref`), then one exact
+    top-n_filter over the packed keys.
+    -> (scores (B, n_filter) int32, doc_ids (B, n_filter) int32,
+        bits (B, n_c) int32 words)"""
+    bits = build_bitvectors(cs, th, q_masks)                # (B, n_c)
+    f = filter_scores_ref(bits, codes, doc_lens, bitmap)
+    ids = torch.arange(codes.shape[0], device=cs.device, dtype=torch.int32)
+    keys = ((f + 1) << ID_BITS) + (MAX_ID - ids)
+    top, _ = topk(keys, n_filter)
+    return ((top >> ID_BITS) - 1).to(torch.int32), \
+        (MAX_ID - (top & MAX_ID)).to(torch.int32), bits
+
+
+def _launch(cs, th, codes, doc_lens, bitmap, n_filter, qm):
+    """One launch of ``csrc/prefilter.cu`` for B <= MAX_BATCH queries."""
+    global launches
+    lib = _build.load("prefilter")
+    fn = lib.prefilter_batched
+    fn.restype = ctypes.c_int
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [vp, ctypes.c_float, vp, vp, vp, vp, ci, ci, ci, ci, ci,
+                   ci, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp]
+    for const in (lib.prefilter_tile, lib.prefilter_nbins):
+        const.restype, const.argtypes = ctypes.c_int, []
+    nb, n_q, n_c = cs.shape
+    n_docs, cap = codes.shape
+    tile = lib.prefilter_tile()
+    nbins = lib.prefilter_nbins()
+    n_tiles = -(-n_docs // tile)
+    dev = cs.device
+
+    def i32(*shape):
+        return torch.empty(shape, dtype=torch.int32, device=dev)
+
+    bits, bits_t = i32(nb, n_c), i32(n_c, nb)
+    f = torch.empty((nb, n_docs), dtype=torch.int8, device=dev)
+    hist = i32(nb, n_tiles, nbins)
+    off_hi, off_eq = i32(nb, n_tiles + 1), i32(nb, n_tiles + 1)
+    params, keys = i32(nb, 4), i32(nb, n_filter)
+    scores, ids = i32(nb, n_filter), i32(nb, n_filter)
+    p = _build.ptr
+    err = fn(p(cs), float(th), p(qm), p(codes), p(doc_lens), p(bitmap), nb,
+             n_q, n_c, n_docs, cap, n_filter, p(bits), p(bits_t), p(f),
+             p(hist), p(off_hi), p(off_eq), p(params), p(keys), p(scores),
+             p(ids), _build.stream())
+    _build.check(err, "prefilter_batched")
+    launches += 1
+    return scores, ids, bits
+
+
+def prefilter_batched(cs: torch.Tensor, th: float, codes: torch.Tensor,
+                      token_mask: torch.Tensor, bitmap: torch.Tensor,
+                      n_filter: int, q_masks=None):
+    """Batch-native fused phases 1b-2 for shared corpus codes.
+
+    cs (B, n_q <= 32, n_c) float32; codes (n_docs, cap) int32; token_mask
+    (n_docs, cap) bool prefix mask or (n_docs,) int32 lengths; bitmap
+    (B, n_docs) bool; q_masks optional (B, n_q) bool.
+    -> (scores (B, n_filter) int32, doc_ids (B, n_filter) int32,
+        bits (B, n_c) int32 holding the reference's uint32 words)
+    """
+    nb, n_q, n_c = cs.shape
+    n_docs, cap = codes.shape
+    if n_q > 32:
+        raise ValueError("stacked bitvector packs one query term per bit")
+    if not 1 <= n_filter <= n_docs:
+        raise ValueError(f"n_filter={n_filter} must be in [1, {n_docs}]")
+    if n_docs > MAX_ID:
+        raise ValueError("int32 packed keys support up to 2^25 docs/shard")
+    if tuple(bitmap.shape) != (nb, n_docs):
+        raise ValueError(f"bitmap is {tuple(bitmap.shape)}, expected "
+                         f"{(nb, n_docs)}")
+    doc_lens = lengths_of(token_mask)
+    if tuple(doc_lens.shape) != (n_docs,):
+        raise ValueError(f"token validity covers {tuple(doc_lens.shape)}, "
+                         f"expected ({n_docs},)")
+    if cs.device.type == "cpu":
+        return prefilter_batched_ref(cs, th, codes, doc_lens, bitmap,
+                                     n_filter, q_masks)
+    if cs.device.type != "cuda":
+        raise ValueError(f"prefilter: unsupported device {cs.device}")
+    if n_filter > MAX_N_FILTER:
+        raise ValueError(f"n_filter={n_filter} > {MAX_N_FILTER}: the "
+                         "kernel's final sort runs in shared memory")
+    qm = (torch.ones((nb, n_q), dtype=torch.bool, device=cs.device)
+          if q_masks is None else q_masks)
+    _build.check_operands("prefilter", cs.device, (
+        ("cs", cs, torch.float32, (nb, n_q, n_c)),
+        ("codes", codes, torch.int32, (n_docs, cap)),
+        ("token lengths", doc_lens, torch.int32, (n_docs,)),
+        ("bitmap", bitmap, torch.bool, (nb, n_docs)),
+        ("q_masks", qm, torch.bool, (nb, n_q))))
+    parts = [_launch(cs[s:s + MAX_BATCH], th, codes, doc_lens,
+                     bitmap[s:s + MAX_BATCH], n_filter, qm[s:s + MAX_BATCH])
+             for s in range(0, nb, MAX_BATCH)]
+    if len(parts) == 1:
+        return parts[0]
+    return tuple(torch.cat(x) for x in zip(*parts))

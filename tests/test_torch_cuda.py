@@ -1,0 +1,91 @@
+"""The port's CUDA kernels against their plain PyTorch versions on the
+card: ids, int scores, bit words and float32 score bits, exactly. Every test
+here needs a CUDA card, is marked ``cuda`` and skips without one.
+
+The tests directory's conftest imports jax, which the GPU machine lacks, so
+run this file there without it:
+
+    PYTHONPATH=src python -m pytest -q --noconftest -m cuda \
+        tests/test_torch_cuda.py
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import ops
+from repro_torch.kernels import pqinter as kpq
+from repro_torch.kernels import prefilter as kpf
+from torch_inputs import pqinter_inputs, prefilter_inputs
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels are CUDA C++ for sm_90a "
+                    "and have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _on(dev, *xs):
+    return [torch.from_numpy(np.ascontiguousarray(x)).to(dev) for x in xs]
+
+
+def _same(got, want):
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        if g.dtype == torch.float32:
+            g, w = g.view(torch.int32), w.view(torch.int32)
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nb", [1, 3, 32, 40])
+def test_prefilter_kernel_equals_plain(card, nb):
+    cs, codes, mask, bitmap, qm = _on(card, *prefilter_inputs(
+        nb, nb, 32, 300, 2100, 12))
+    lens = mask.sum(-1, dtype=torch.int32)
+    before = kpf.launches
+    got = ops.prefilter_batched(cs, 0.25, codes, lens, bitmap, 200, qm)
+    torch.cuda.synchronize()
+    assert kpf.launches == before + -(-nb // kpf.MAX_BATCH)
+    _same(got, kpf.prefilter_batched_ref(cs, 0.25, codes, lens, bitmap, 200,
+                                         qm))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nb", [1, 3, 32])
+@pytest.mark.parametrize("th_r", [None, 0.25])
+def test_pqinter_kernel_equals_plain(card, nb, th_r):
+    cs_t, lut, codes, res, mask, qm = _on(card, *pqinter_inputs(
+        nb, nb, 32, 200, 150, 10, 16, 256))
+    lens = mask.sum(-1, dtype=torch.int32)
+    before = kpq.launches
+    got = ops.pqinter_batched(cs_t, lut, codes, res, lens, th_r, 40, 10, qm)
+    torch.cuda.synchronize()
+    assert kpq.launches == before + 1
+    _same(got, kpq.pqinter_batched_ref(cs_t, lut, codes, res, lens, th_r, 40,
+                                       10, qm))
+
+
+@pytest.mark.cuda
+def test_wrappers_refuse_bad_card_operands(card):
+    cs, codes, mask, bitmap, qm = _on(card, *prefilter_inputs(
+        0, 2, 32, 64, 100, 6))
+    lens = mask.sum(-1, dtype=torch.int32)
+    with pytest.raises(TypeError, match="int32"):
+        ops.prefilter_batched(cs, 0.2, codes.long(), lens, bitmap, 10, qm)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.prefilter_batched(cs.transpose(1, 2).contiguous().transpose(
+            1, 2), 0.2, codes, lens, bitmap, 10, qm)
+    with pytest.raises(ValueError, match="on cpu"):
+        ops.prefilter_batched(cs, 0.2, codes, lens, bitmap.cpu(), 10, qm)
+    with pytest.raises(ValueError, match="expected"):
+        ops.prefilter_batched(cs, 0.2, codes, lens, bitmap, 10,
+                              qm[:, :16].contiguous())
+    cs_t, lut, pcodes, res, pmask, pqm = _on(card, *pqinter_inputs(
+        0, 2, 32, 64, 20, 6, 4, 16))
+    plens = pmask.sum(-1, dtype=torch.int32)
+    with pytest.raises(ValueError, match="expected"):
+        ops.pqinter_batched(cs_t[:1].contiguous(), lut, pcodes, res, plens,
+                            None, 8, 4, pqm)

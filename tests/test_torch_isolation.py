@@ -1,0 +1,122 @@
+"""The port stands alone: every module of ``repro_torch`` and ``chip_smoke``
+import with ``jax`` and ``repro`` blocked; entry points refuse to run on the
+CPU unless asked; the planted synthetic generator is deterministic per seed
+and its IVF is the reference's ``_build_ivf`` layout."""
+import os
+import pkgutil
+import subprocess
+import sys
+import textwrap
+
+import numpy as np
+import pytest
+import torch
+
+import repro_torch
+from repro.core.index import _build_ivf
+from repro_torch.core import engine as teng
+from repro_torch.core import store as tstore
+from repro_torch.core.index import build_ivf, index_from_arrays
+from repro_torch.data import synthetic
+
+torch.set_num_threads(1)
+
+ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
+
+
+def test_port_imports_without_jax_or_repro():
+    modules = sorted(m.name for m in pkgutil.walk_packages(
+        repro_torch.__path__, "repro_torch."))
+    assert "repro_torch.kernels.prefilter" in modules
+    code = textwrap.dedent(f"""
+        import importlib, sys
+        class Block:
+            def find_spec(self, name, path=None, target=None):
+                if name.split(".")[0] in ("jax", "jaxlib", "repro"):
+                    raise ImportError("blocked: " + name)
+        sys.meta_path.insert(0, Block())
+        sys.path[:0] = [{os.path.join(ROOT, "src")!r}, {ROOT!r}]
+        for name in {modules!r} + ["chip_smoke"]:
+            importlib.import_module(name)
+        assert not any(m.split(".")[0] in ("jax", "repro")
+                       for m in sys.modules), "a blocked package got in"
+        print("ok", len(sys.modules))
+    """)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300, cwd=ROOT, env=env)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("ok")
+
+
+def test_entry_points_refuse_the_cpu_unless_asked(monkeypatch, small_index,
+                                                  tmp_path):
+    ref, _ = small_index
+    arrays = {f: np.asarray(getattr(ref, f)) for f in ref._fields}
+    index = index_from_arrays(arrays, device="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    q = torch.zeros(1, 32, 128)
+    cfg = teng.EngineConfig(n_filter=64, n_docs=16, k=10, use_kernels=True)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        teng.retrieve(index, q, cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        index_from_arrays(arrays)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        synthetic.make_packed_index(0, n_docs=10, cap=4, min_len=1, d=8,
+                                    n_centroids=4, m=2, nbits=2, list_cap=8)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tstore.load_index(str(tmp_path))
+    assert teng.retrieve(index, q, cfg, device="cpu").doc_ids.shape == (1, 10)
+
+
+TINY = dict(n_docs=700, cap=12, min_len=5, d=32, n_centroids=96, m=4,
+            nbits=4, list_cap=None, device="cpu")
+
+
+def test_synthetic_index_is_deterministic_and_ivf_matches():
+    a, meta = synthetic.make_packed_index(3, **TINY)
+    b, _ = synthetic.make_packed_index(3, **TINY)
+    c, _ = synthetic.make_packed_index(4, **TINY)
+    for f in a._fields:
+        assert torch.equal(getattr(a, f), getattr(b, f)), f
+    assert not torch.equal(a.codes, c.codes)
+    codes = a.codes.numpy()
+    want = _build_ivf(codes, TINY["n_centroids"], None)
+    np.testing.assert_array_equal(a.ivf.numpy(), want[0])
+    np.testing.assert_array_equal(a.ivf_lens.numpy(), want[1])
+    assert (meta.list_cap, meta.n_dropped) == want[2:]
+    got = build_ivf(a.codes, TINY["n_centroids"], None)
+    assert torch.equal(got[0], a.ivf)
+    # the layout the reference index uses: pad = n_c past each length
+    lens = a.doc_lens.numpy()
+    assert ((codes == TINY["n_centroids"])
+            == (np.arange(TINY["cap"]) >= lens[:, None])).all()
+    assert lens.min() >= TINY["min_len"] and lens.max() <= TINY["cap"]
+    assert a.res_codes.dtype == torch.uint8
+    assert torch.equal(a.opq_rotation, torch.eye(TINY["d"]))
+    assert not a.pred_words.any()
+
+
+def test_planted_queries_find_their_docs():
+    index, _ = synthetic.make_packed_index(5, **TINY)
+    q, gt = synthetic.make_queries(index, 6, n_queries=8, n_q=16)
+    q2, gt2 = synthetic.make_queries(index, 6, n_queries=8, n_q=16)
+    assert torch.equal(q, q2) and torch.equal(gt, gt2)
+    assert torch.allclose(q.norm(dim=-1), torch.ones(8, 16))
+    cfg = teng.EngineConfig(n_q=16, n_filter=64, n_docs=16, k=10,
+                            use_kernels=True)
+    ids = teng.retrieve(index, q, cfg, device="cpu").doc_ids.numpy()
+    assert synthetic.success_at_k(ids, gt.numpy(), 10) >= 0.9
+
+
+def test_numpy_corpus_copy_matches_reference():
+    from repro.data import synthetic as rsyn
+    kw = dict(n_docs=50, cap=8, min_len=3, n_queries=4, n_topics=5)
+    a, b = synthetic.make_corpus(2, **kw), rsyn.make_corpus(2, **kw)
+    for x, y in zip(a, b):
+        np.testing.assert_array_equal(x, y)
+    ranked = np.arange(40).reshape(4, 10)
+    gt = np.array([3, 15, 99, 30])
+    assert synthetic.mrr_at_k(ranked, gt, 10) == rsyn.mrr_at_k(ranked, gt, 10)
+    assert synthetic.success_at_k(ranked, gt, 10) == \
+        rsyn.success_at_k(ranked, gt, 10)

@@ -1,0 +1,131 @@
+"""The port's kernel wrappers (``repro_torch.kernels.ops``) against the
+reference's Pallas kernels in interpret mode, as tests/test_kernels.py runs
+them. On the CPU the wrappers run the kernels' plain PyTorch versions; the
+outputs must be bit-exact: ids, int scores, bit words, sel2, and the float32
+bits of S̄ and the final scores.
+
+Inputs (``torch_inputs.py``) are tie-heavy, ragged (document counts that
+are no multiple of any block), with dead query terms, and with ``th_r``
+both None and set. tests/test_torch_cuda.py holds the CUDA kernels against
+the same plain versions on the card.
+"""
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+from repro.kernels import ops as rops
+from repro_torch.kernels import ops as tops
+from repro_torch.kernels import pqinter as tpqinter
+from repro_torch.kernels import prefilter as tprefilter
+from torch_inputs import pqinter_inputs as _pqinter_inputs
+from torch_inputs import prefilter_inputs as _prefilter_inputs
+
+torch.set_num_threads(1)
+
+
+def _u32(x):
+    a = np.asarray(x)
+    return a.view(np.uint32) if a.dtype in (np.float32, np.int32) else a
+
+
+def _eq(port, ref):
+    for p, r in zip(port, ref):
+        np.testing.assert_array_equal(_u32(p.cpu().numpy()), _u32(r))
+
+
+def _t(*xs):
+    return [torch.from_numpy(np.ascontiguousarray(x)) for x in xs]
+
+
+def _j(*xs):
+    return [jnp.asarray(x) for x in xs]
+
+
+@pytest.mark.parametrize("nb,n_q,n_c,n_docs,cap,n_filter", [
+    (3, 32, 200, 300, 12, 64),      # 300 docs: ragged against block 256
+    (2, 16, 130, 517, 9, 100),
+    (4, 32, 64, 90, 6, 90),         # n_filter == n_docs: the whole corpus
+])
+@pytest.mark.parametrize("masked", [False, True])
+def test_prefilter_batched_matches_pallas(nb, n_q, n_c, n_docs, cap,
+                                          n_filter, masked):
+    cs, codes, mask, bitmap, qm = _prefilter_inputs(
+        n_docs, nb, n_q, n_c, n_docs, cap)
+    qm = qm if masked else None
+    ref = rops.prefilter_batched(*_j(cs), 0.25, *_j(codes, mask, bitmap),
+                                 n_filter, None if qm is None
+                                 else jnp.asarray(qm), interpret=True)
+    before = tprefilter.launches
+    port = tops.prefilter_batched(*_t(cs), 0.25, *_t(codes, mask, bitmap),
+                                  n_filter, None if qm is None
+                                  else torch.from_numpy(qm))
+    assert tprefilter.launches == before       # the CPU runs no kernel
+    _eq(port, ref)
+
+
+def test_prefilter_single_query_matches_pallas():
+    cs, codes, mask, bitmap, qm = _prefilter_inputs(5, 1, 32, 160, 270, 10)
+    ref = rops.prefilter(*_j(cs[0]), 0.5, *_j(codes, mask, bitmap[0]), 50,
+                         jnp.asarray(qm[0]), interpret=True)
+    port = tops.prefilter(*_t(cs[0]), 0.5, *_t(codes, mask, bitmap[0]), 50,
+                          torch.from_numpy(qm[0]))
+    _eq(port, ref)
+
+
+@pytest.mark.parametrize("nb,n_q,n_c,nf,cap,m,ksub,n_docs,k", [
+    (3, 32, 100, 70, 10, 8, 16, 20, 7),     # ragged nf and n_docs
+    (2, 16, 64, 40, 7, 4, 256, 40, 40),     # n_docs == nf, k == n_docs
+])
+@pytest.mark.parametrize("th_r", [None, 0.25])
+@pytest.mark.parametrize("masked", [False, True])
+def test_pqinter_batched_matches_pallas(nb, n_q, n_c, nf, cap, m, ksub,
+                                        n_docs, k, th_r, masked):
+    cs_t, lut, codes, res, mask, qm = _pqinter_inputs(
+        nf + cap, nb, n_q, n_c, nf, cap, m, ksub)
+    qm = qm if masked else None
+    ref = rops.pqinter_batched(*_j(cs_t, lut, codes, res, mask), th_r,
+                               n_docs, k, None if qm is None
+                               else jnp.asarray(qm), interpret=True)
+    before = tpqinter.launches
+    port = tops.pqinter_batched(*_t(cs_t, lut, codes, res, mask), th_r,
+                                n_docs, k, None if qm is None
+                                else torch.from_numpy(qm))
+    assert tpqinter.launches == before
+    _eq(port, ref)
+
+
+def test_pqinter_single_query_matches_pallas():
+    cs_t, lut, codes, res, mask, qm = _pqinter_inputs(9, 1, 32, 90, 50, 8,
+                                                      8, 16)
+    ref = rops.pqinter(*_j(cs_t[0], lut[0], codes[0], res[0], mask[0]), 0.0,
+                       16, 5, jnp.asarray(qm[0]), interpret=True)
+    port = tops.pqinter(*_t(cs_t[0], lut[0], codes[0], res[0], mask[0]),
+                        0.0, 16, 5, torch.from_numpy(qm[0]))
+    _eq(port, ref)
+
+
+def test_wrappers_refuse_out_of_slice_operands():
+    cs, codes, mask, bitmap, _ = _prefilter_inputs(0, 2, 8, 32, 40, 4)
+    cs, codes, mask, bitmap = _t(cs, codes, mask, bitmap)
+    with pytest.raises(NotImplementedError, match="predicate"):
+        tops.prefilter_batched(cs, 0.2, codes, mask, bitmap, 8,
+                               pred_words=torch.zeros(40, dtype=torch.int32))
+    with pytest.raises(NotImplementedError, match="predicate"):
+        tops.prefilter(cs[0], 0.2, codes, mask, bitmap[0], 8, plan=())
+    with pytest.raises(NotImplementedError, match="compact"):
+        tops.prefilter_batched(cs, 0.2, codes[None].expand(2, -1, -1),
+                               mask[None].expand(2, -1, -1), bitmap, 8)
+    cs_t, lut, pcodes, res, pmask, _ = _t(*_pqinter_inputs(
+        0, 2, 8, 32, 12, 4, 4, 16))
+    with pytest.raises(NotImplementedError, match="predicate"):
+        tops.pqinter_batched(cs_t, lut, pcodes, res, pmask, None, 8, 4,
+                             doc_pass=torch.ones(2, 12, dtype=torch.bool))
+
+
+def test_token_mask_must_be_a_prefix():
+    cs, codes, mask, bitmap, _ = _t(*_prefilter_inputs(1, 1, 8, 32, 40, 4))
+    holey = mask.clone()
+    holey[0, 0], holey[0, -1] = False, True
+    with pytest.raises(ValueError, match="prefix"):
+        tops.prefilter_batched(cs, 0.2, codes, holey, bitmap, 8)

@@ -1,0 +1,44 @@
+"""Seeded numpy inputs for the port's kernel tests (no jax, so the card-only
+tests can import them on a machine without it).
+
+Tie-heavy: CS and LUT are quantized to a few levels (``+ 0.0`` turns
+numpy's ``-0.0`` into ``0.0``, so no signed zero decides a max). Token
+validity is a prefix of each doc (pad code ``n_c`` after it), as
+``PackedIndex.token_mask()`` builds it; term masks have dead terms.
+"""
+import numpy as np
+
+
+def quant(x, levels):
+    return np.asarray(np.round(x * levels) / levels + 0.0, np.float32)
+
+
+def prefilter_inputs(seed, nb, n_q, n_c, n_docs, cap, levels=4):
+    """-> cs (B, n_q, n_c), codes (n_docs, cap), mask (n_docs, cap),
+    bitmap (B, n_docs), q_mask (B, n_q)."""
+    rng = np.random.default_rng(seed)
+    cs = quant(rng.normal(size=(nb, n_q, n_c)) * 0.5, levels)
+    codes = rng.integers(0, n_c, size=(n_docs, cap)).astype(np.int32)
+    lens = rng.integers(0, cap + 1, size=n_docs).astype(np.int32)
+    mask = np.arange(cap)[None, :] < lens[:, None]
+    codes[~mask] = n_c
+    bitmap = rng.random((nb, n_docs)) < 0.6
+    qm = rng.random((nb, n_q)) < 0.75
+    qm[:, 0] = True
+    return cs, codes, mask, bitmap, qm
+
+
+def pqinter_inputs(seed, nb, n_q, n_c, nf, cap, m, ksub, levels=2):
+    """-> cs_t (B, n_c, n_q), lut (B, n_q, m, K), codes (B, nf, cap),
+    res_codes (B, nf, cap, m) uint8, mask (B, nf, cap), q_mask (B, n_q)."""
+    rng = np.random.default_rng(seed)
+    cs_t = quant(rng.normal(size=(nb, n_c, n_q)) * 0.5, levels)
+    lut = quant(rng.normal(size=(nb, n_q, m, ksub)) * 0.3, levels)
+    codes = rng.integers(0, n_c, size=(nb, nf, cap)).astype(np.int32)
+    lens = rng.integers(0, cap + 1, size=(nb, nf))
+    mask = np.arange(cap) < lens[..., None]
+    codes[~mask] = n_c
+    res = rng.integers(0, ksub, size=(nb, nf, cap, m)).astype(np.uint8)
+    qm = rng.random((nb, n_q)) < 0.75
+    qm[:, 0] = True
+    return cs_t, lut, codes, res, mask, qm
