@@ -12,28 +12,36 @@ emvb_msmarco.py``) on a planted synthetic index. Every phase prints one JSON
 line; a failing phase raises, so the script exits non-zero and prints no
 result. It needs a CUDA card and fails without one.
 
+Two lanes of ``retrieve`` run: the fused one (the default kernel config:
+the prefilter and pqinter megakernels) and the unfused one
+(``fused_prefilter=False, fused_late_interaction=False``: bitpack,
+bitfilter, cinter and pqscore, with the selections between them in torch).
+
 Phases:
   1. device  — the card's name and power limit (nvidia-smi), torch, TF32 off
   2. build   — one nvcc per kernel source, all started together
-  3. small   — each kernel == its plain version, exactly, on small, ragged,
-               tie-heavy inputs with dead query terms, at B in {1, 3, 32} and
-               th_r None and set
+  3. small   — each of the six kernels == its plain version, exactly, on
+               small, ragged, tie-heavy inputs with dead query terms, at B in
+               {1, 3, 32} and th_r None and set
   4. full    — the planted index on the card at MS MARCO width; retrieve at
-               B = 32 and B = 1 through both kernels (launch counts read
-               around those runs only); each phase held against the plain
-               versions on the same CS and LUT; the candidate funnel; the
-               planted docs' Success@100 and MRR@10
-  5. timing  — CUDA-event medians of every step, end to end, each kernel
-               beside its plain version and its bound
-  6. profile — torch.profiler over retrieve at B = 32 and B = 1: the
-               device's busy share, device time and launches by CUDA
-               kernel, and each hand-written kernel's __global__ launches
-               per wrapper call (tables in chiprun_out/profile_b<B>.txt)
-  7. kernels — one JSON line describing both kernels
+               B = 32 and B = 1 on each lane (launch counts read around those
+               runs only); each kernel held against its plain version on the
+               same operands; unfused == fused ids and score bits on the same
+               CS and LUT; the candidate funnel; the planted docs'
+               Success@100 and MRR@10 on both lanes
+  5. timing  — CUDA-event medians of every step of both lanes, end to end,
+               each kernel beside its plain version and its bound
+  6. profile — torch.profiler over retrieve on both lanes at B = 32 and
+               B = 1: the device's busy share, device time and launches by
+               CUDA kernel, and each hand-written kernel's __global__
+               launches per wrapper call (tables in OUT_DIR, one
+               profile_<lane>_b<B>.txt each)
+  7. kernels — one JSON line describing the six kernels
 and last ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import statistics
@@ -141,15 +149,24 @@ def small_phase(dev) -> dict:
     tie-heavy inputs. -> max abs error per kernel (0: exact)."""
     import numpy as np
     import torch
+    from repro_torch.kernels import bitfilter as kbf
+    from repro_torch.kernels import bitpack as kbp
+    from repro_torch.kernels import cinter as kci
     from repro_torch.kernels import ops
     from repro_torch.kernels import pqinter as kpq
+    from repro_torch.kernels import pqscore as kps
     from repro_torch.kernels import prefilter as kpf
 
     def t(x):
         return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
 
-    err = {"prefilter": 0.0, "pqinter": 0.0}
+    err = dict.fromkeys(KERNELS, 0.0)
     cases = 0
+
+    def hold(name, got, want):
+        nonlocal cases
+        err[name] = max(err[name], _exact(got, want))
+        cases += 1
     for nb in (1, 3, 32):
         rng = np.random.default_rng(nb)
         n_q, n_c, n_docs, cap, n_filter = 32, 700, 5003, 17, 300
@@ -161,9 +178,14 @@ def small_phase(dev) -> dict:
         qm = rng.random((nb, n_q)) < 0.8
         qm[:, 0] = True
         args = (t(cs), 0.25, t(codes), t(lens), t(bitmap), n_filter, t(qm))
-        err["prefilter"] = max(err["prefilter"], _exact(
-            ops.prefilter_batched(*args), kpf.prefilter_batched_ref(*args)))
-        cases += 1
+        hold("prefilter", ops.prefilter_batched(*args),
+             kpf.prefilter_batched_ref(*args))
+        args = (t(cs), 0.25, t(qm))
+        bits = kbp.bitpack_batched_ref(*args)
+        hold("bitpack", (ops.bitpack_batched(*args),), (bits,))
+        args = (bits, t(codes), t(lens))
+        hold("bitfilter", (ops.bitfilter_batched(*args),),
+             (kbf.bitfilter_batched_ref(*args),))
 
         nf, m, ksub, n_docs2, k = 700, 16, 256, 90, 25
         cs_t = _quant(rng, (nb, n_c, n_q), 0.5, 2)
@@ -172,12 +194,18 @@ def small_phase(dev) -> dict:
         plens = rng.integers(0, cap + 1, size=(nb, nf)).astype(np.int32)
         pcodes[np.arange(cap) >= plens[..., None]] = n_c
         res = rng.integers(0, ksub, size=(nb, nf, cap, m)).astype(np.uint8)
+        args = (t(cs_t), t(pcodes), t(plens), t(qm))
+        hold("cinter", (ops.cinter_batched(*args),),
+             (kci.cinter_batched_ref(*args),))
         for th_r in (None, 0.25):
             args = (t(cs_t), t(lut), t(pcodes), t(res), t(plens), th_r,
                     n_docs2, k, t(qm))
-            err["pqinter"] = max(err["pqinter"], _exact(
-                ops.pqinter_batched(*args), kpq.pqinter_batched_ref(*args)))
-            cases += 1
+            hold("pqinter", ops.pqinter_batched(*args),
+                 kpq.pqinter_batched_ref(*args))
+            args = (t(cs_t), t(lut), t(pcodes), t(res), t(plens), th_r,
+                    t(qm))
+            hold("pqscore", (ops.pqscore_batched(*args),),
+                 (kps.pqscore_batched_ref(*args),))
     torch.cuda.synchronize()
     emit("small", cases=cases, exact=True, max_abs_err=err)
     return err
@@ -205,6 +233,17 @@ def prefilter_bound(cs, index, bitmap, n_filter) -> dict:
     return _bound(nbytes, ops_)
 
 
+def _rows_touched(codes, lens, n_c: int) -> int:
+    """Distinct (query, centroid) rows of CS^T that the valid tokens of
+    codes (B, docs, cap) touch."""
+    import torch
+    nb, _, cap = codes.shape
+    valid = torch.arange(cap, device=codes.device) < lens[..., None]
+    rows = (torch.arange(nb, device=codes.device)[:, None, None] * n_c
+            + codes.clamp(0, n_c - 1).long())[valid]
+    return int(torch.unique(rows).numel())
+
+
 def pqinter_bound(cs_t, lut, codes, lens, sel2, n_docs, k) -> dict:
     """Least bytes the pqinter must move on these inputs: the survivors'
     valid-token codes and lengths, the CS^T rows those tokens touch, the
@@ -213,16 +252,56 @@ def pqinter_bound(cs_t, lut, codes, lens, sel2, n_docs, k) -> dict:
     nb, nf, cap = codes.shape
     n_c, n_q = cs_t.shape[1:]
     m = lut.shape[2]
-    valid = torch.arange(cap, device=codes.device) < lens[..., None]
-    rows = (torch.arange(nb, device=codes.device)[:, None, None] * n_c
-            + codes.clamp(0, n_c - 1).long())[valid]
-    n_rows = int(torch.unique(rows).numel())
+    n_rows = _rows_touched(codes, lens, n_c)
     win_tokens = int(torch.gather(lens, 1, sel2.long()).sum())
     tokens = int(lens.sum())
     nbytes = (tokens * 4 + nb * nf * 4 + n_rows * n_q * 4 + lut.numel() * 4
               + win_tokens * m + nb * n_q + nb * k * 8 + nb * n_docs * 8)
     ops_ = tokens * n_q + win_tokens * n_q * (m + 1)   # maxes + LUT adds
     return _bound(nbytes, ops_)
+
+
+def bitpack_bound(cs) -> dict:
+    """Least bytes bitpack must move: the CS, the term mask, the words."""
+    nb, n_q, n_c = cs.shape
+    return _bound(cs.numel() * 4 + nb * n_q + nb * n_c * 4, nb * n_q * n_c)
+
+
+def bitfilter_bound(nb: int, index) -> dict:
+    """Least bytes bitfilter must move: every doc's length and valid-token
+    codes, the B words of every centroid, and F out; one OR per (valid
+    token, query)."""
+    n_docs = index.codes.shape[0]
+    n_c = index.centroids.shape[0]
+    tokens = int(index.doc_lens.sum())
+    return _bound(n_docs * 4 + tokens * 4 + nb * n_c * 4 + nb * n_docs * 4,
+                  nb * tokens)
+
+
+def cinter_bound(cs_t, codes, lens) -> dict:
+    """Least bytes cinter must move: the survivors' lengths and valid-token
+    codes, the CS^T rows those tokens touch, the term mask and S̄ out; one
+    max per (valid token, term)."""
+    nb, nd, _ = codes.shape
+    n_c, n_q = cs_t.shape[1:]
+    tokens = int(lens.sum())
+    nbytes = (nb * nd * 4 + tokens * 4 + _rows_touched(codes, lens, n_c)
+              * n_q * 4 + nb * n_q + nb * nd * 4)
+    return _bound(nbytes, tokens * n_q)
+
+
+def pqscore_bound(cs_t, lut, codes, lens) -> dict:
+    """Least bytes pqscore must move: the winners' lengths, valid-token
+    codes and residual codes, the CS^T rows those tokens touch, the LUT,
+    the term mask and the scores out; m LUT adds and a max per (valid
+    token, term)."""
+    nb, nd, _ = codes.shape
+    n_c, n_q = cs_t.shape[1:]
+    m = lut.shape[2]
+    tokens = int(lens.sum())
+    nbytes = (nb * nd * 4 + tokens * (4 + m) + _rows_touched(codes, lens, n_c)
+              * n_q * 4 + lut.numel() * 4 + nb * n_q + nb * nd * 4)
+    return _bound(nbytes, tokens * n_q * (m + 1))
 
 
 def _bound(nbytes: int, n_ops: int) -> dict:
@@ -254,8 +333,49 @@ def hold_phases(index, q, cfg) -> dict:
     pq = ops.pqinter_batched(*pq_args)
     err_pq = _exact(pq, kpq.pqinter_batched_ref(*pq_args))
     return dict(cs=cs, bitmap=bitmap, pf=pf, sel1=sel1, lut=lut,
-                operands=operands, pq=pq, err=(err_pf, err_pq),
+                operands=operands, pq=pq,
+                err={"prefilter": err_pf, "pqinter": err_pq},
                 ids=torch.gather(sel1, 1, pq[1].long()).to(torch.int32))
+
+
+def hold_unfused(index, q, cfg, h) -> dict:
+    """One batch through the unfused lane's own steps on the fused lane's
+    CS, bitmap and LUT (``h``): each kernel against its plain version on
+    the same operands, the phase-2 cut against the prefilter's. Returns the
+    intermediates and the composed result."""
+    import torch
+    from repro_torch.core import engine as teng
+    from repro_torch.core.topk import topk
+    from repro_torch.kernels import bitfilter as kbf
+    from repro_torch.kernels import bitpack as kbp
+    from repro_torch.kernels import cinter as kci
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import pqscore as kps
+    err = {}
+    bp_args = (h["cs"], cfg.th)
+    bits = ops.bitpack_batched(*bp_args)
+    err["bitpack"] = _exact((bits,), (kbp.bitpack_batched_ref(*bp_args),))
+    bf_args = (bits, index.codes, index.doc_lens)
+    f = ops.bitfilter_batched(*bf_args)
+    err["bitfilter"] = _exact((f,), (kbf.bitfilter_batched_ref(*bf_args),))
+    sel1 = topk(torch.where(h["bitmap"], f, torch.full_like(f, -1)),
+                cfg.n_filter)[1]
+    if not torch.equal(sel1, h["sel1"]):
+        raise AssertionError("the unfused phase-2 cut differs from the "
+                             "prefilter megakernel's")
+    cs_t = teng._transposed(h["cs"])
+    ci_args = (cs_t, index.codes[sel1], index.doc_lens[sel1])
+    sbar = ops.cinter_batched(*ci_args)
+    err["cinter"] = _exact((sbar,), (kci.cinter_batched_ref(*ci_args),))
+    sel2 = torch.gather(sel1, 1, topk(sbar, cfg.n_docs)[1])
+    ps_args = (cs_t, h["lut"], index.codes[sel2], index.res_codes[sel2],
+               index.doc_lens[sel2], cfg.th_r)
+    score = ops.pqscore_batched(*ps_args)
+    err["pqscore"] = _exact((score,), (kps.pqscore_batched_ref(*ps_args),))
+    top, local = topk(score, cfg.k)
+    return dict(bits=bits, f=f, sel1=sel1, ci_args=ci_args, sbar=sbar,
+                sel2=sel2, ps_args=ps_args, score=score, err=err,
+                scores=top, ids=torch.gather(sel2, 1, local).to(torch.int32))
 
 
 def funnel(index, h, cfg) -> dict:
@@ -308,62 +428,80 @@ def full_phase(dev) -> dict:
          max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9)
 
     cfg = teng.EngineConfig(**ENGINE, use_kernels=True)
+    ucfg = dataclasses.replace(cfg, fused_prefilter=False,
+                               fused_late_interaction=False)
     batches = [queries[s:s + 32] for s in range(0, N_QUERIES, 32)]
-    # the main path, B = 32: counts read just around these calls
-    ops.reset_launches()
-    res = [teng.retrieve(index, q, cfg) for q in batches]
-    torch.cuda.synchronize()
-    launches = ops.launch_counts()
-    # the main path, B = 1
-    ops.reset_launches()
-    res1 = [teng.retrieve(index, queries[i:i + 1], cfg)
-            for i in range(N_SINGLE)]
-    torch.cuda.synchronize()
-    launches_b1 = ops.launch_counts()
-    for name in ("prefilter", "pqinter"):
-        if launches[name] != len(batches) or launches_b1[name] != N_SINGLE:
-            raise AssertionError(
-                f"{name} launched {launches[name]}x at B=32 (expected "
-                f"{len(batches)}) and {launches_b1[name]}x at B=1 (expected "
-                f"{N_SINGLE}): the main path did not run through it")
-
-    ids = torch.cat([r.doc_ids for r in res])
-    scores = torch.cat([r.scores for r in res])
-    if ids.shape != (N_QUERIES, ENGINE["k"]) or not torch.isfinite(
-            scores).all() or not (scores[:, :-1] >= scores[:, 1:]).all() \
-            or not ((ids >= 0) & (ids < WIDTHS["n_docs"])).all():
-        raise AssertionError("retrieve returned malformed results")
     gt_np = gt.cpu().numpy()
-    ids_np = ids.cpu().numpy()
-    ids1_np = torch.cat([r.doc_ids for r in res1]).cpu().numpy()
-    quality = {
-        "success_at_100": synthetic.success_at_k(ids_np, gt_np, 100),
-        "mrr_at_10": synthetic.mrr_at_k(ids_np, gt_np, 10),
-        "success_at_100_b1": synthetic.success_at_k(ids1_np,
-                                                    gt_np[:N_SINGLE], 100),
-        "mrr_at_10_b1": synthetic.mrr_at_k(ids1_np, gt_np[:N_SINGLE], 10),
-        "b1_rows_equal_b32": int(sum(
-            np.array_equal(ids1_np[i], ids_np[i]) for i in range(N_SINGLE))),
-    }
+    launches, results, quality = {}, {}, {}
+    for lane, c in (("fused", cfg), ("unfused", ucfg)):
+        # the main path of the lane, B = 32 then B = 1: counts read just
+        # around these calls
+        ops.reset_launches()
+        res = [teng.retrieve(index, q, c) for q in batches]
+        torch.cuda.synchronize()
+        launches[lane] = {"b32": ops.launch_counts()}
+        ops.reset_launches()
+        res1 = [teng.retrieve(index, queries[i:i + 1], c)
+                for i in range(N_SINGLE)]
+        torch.cuda.synchronize()
+        launches[lane]["b1"] = ops.launch_counts()
+        for name, kern in KERNELS.items():
+            want = (len(batches), N_SINGLE) if kern["lane"] == lane else (0, 0)
+            got = (launches[lane]["b32"][name], launches[lane]["b1"][name])
+            if got != want:
+                raise AssertionError(
+                    f"{lane} lane: {name} launched {got[0]}x at B=32 and "
+                    f"{got[1]}x at B=1, expected {want[0]}x and {want[1]}x")
+        ids = torch.cat([r.doc_ids for r in res])
+        scores = torch.cat([r.scores for r in res])
+        if ids.shape != (N_QUERIES, ENGINE["k"]) or not torch.isfinite(
+                scores).all() or not (scores[:, :-1] >= scores[:, 1:]).all() \
+                or not ((ids >= 0) & (ids < WIDTHS["n_docs"])).all():
+            raise AssertionError(f"{lane} retrieve returned malformed results")
+        ids_np = ids.cpu().numpy()
+        ids1_np = torch.cat([r.doc_ids for r in res1]).cpu().numpy()
+        quality[lane] = {
+            "success_at_100": synthetic.success_at_k(ids_np, gt_np, 100),
+            "mrr_at_10": synthetic.mrr_at_k(ids_np, gt_np, 10),
+            "success_at_100_b1": synthetic.success_at_k(
+                ids1_np, gt_np[:N_SINGLE], 100),
+            "mrr_at_10_b1": synthetic.mrr_at_k(ids1_np, gt_np[:N_SINGLE], 10),
+            "b1_rows_equal_b32": int(sum(
+                np.array_equal(ids1_np[i], ids_np[i])
+                for i in range(N_SINGLE))),
+        }
+        results[lane] = {"b32": res[0], "b1": res1[0]}
 
-    held = {}
+    held, held_u, lanes_equal = {}, {}, {}
     for name, q in (("b32", batches[0]), ("b1", queries[:1])):
         h = hold_phases(index, q, cfg)
-        ref = res[0] if name == "b32" else res1[0]
-        if not (torch.equal(h["ids"], ref.doc_ids) and torch.equal(
-                h["pq"][0].view(torch.int32), ref.scores.view(torch.int32))):
-            raise AssertionError(f"{name}: the held phases do not compose "
-                                 "to retrieve's result")
-        held[name] = h
+        u = hold_unfused(index, q, ucfg, h)
+        for lane, got in (("fused", (h["ids"], h["pq"][0])),
+                          ("unfused", (u["ids"], u["scores"]))):
+            ref = results[lane][name]
+            if not (torch.equal(got[0], ref.doc_ids) and torch.equal(
+                    got[1].view(torch.int32), ref.scores.view(torch.int32))):
+                raise AssertionError(f"{lane} {name}: the held phases do not "
+                                     "compose to retrieve's result")
+        # the reference's fused == unfused contract on the same CS and LUT
+        a = teng._retrieve_batch(index, q, cfg, cs=h["cs"], lut=h["lut"])
+        b = teng._retrieve_batch(index, q, ucfg, cs=h["cs"], lut=h["lut"])
+        if not (torch.equal(a.doc_ids, b.doc_ids) and torch.equal(
+                a.scores.view(torch.int32), b.scores.view(torch.int32))):
+            raise AssertionError(f"{name}: unfused != fused on the same CS "
+                                 "and LUT")
+        lanes_equal[name] = True
+        held[name], held_u[name] = h, u
     fun = funnel(index, held["b32"], cfg)
-    emit("full", launches_b32=launches, launches_b1=launches_b1,
-         phases_exact=True, funnel=fun, **quality,
+    emit("full", launches=launches, phases_exact=True,
+         unfused_equals_fused=lanes_equal, funnel=fun, quality=quality,
          max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9)
-    if quality["success_at_100"] < SUCCESS_FLOOR:
-        raise AssertionError(f"planted Success@100 "
-                             f"{quality['success_at_100']} < {SUCCESS_FLOOR}")
-    return dict(index=index, cfg=cfg, queries=queries, held=held,
-                launches=launches, launches_b1=launches_b1)
+    for lane, qual in quality.items():
+        if qual["success_at_100"] < SUCCESS_FLOOR:
+            raise AssertionError(f"{lane} lane: planted Success@100 "
+                                 f"{qual['success_at_100']} < {SUCCESS_FLOOR}")
+    return dict(index=index, cfg=cfg, ucfg=ucfg, queries=queries, held=held,
+                held_u=held_u, launches=launches)
 
 
 # --- 5. timing -----------------------------------------------------------------
@@ -404,25 +542,32 @@ def latency_stats(times: list) -> dict:
 
 
 def timing_phase(full: dict) -> dict:
-    """Phase 5: every step, end to end, each kernel beside its plain
-    version and its bound, at B = 32 and B = 1."""
+    """Phase 5: every step of both lanes, end to end, each kernel beside its
+    plain version and its bound, at B = 32 and B = 1."""
     import torch
     from repro_torch.core import bitvector
     from repro_torch.core import engine as teng
+    from repro_torch.core.topk import topk
+    from repro_torch.kernels import bitfilter as kbf
+    from repro_torch.kernels import bitpack as kbp
+    from repro_torch.kernels import cinter as kci
     from repro_torch.kernels import ops
     from repro_torch.kernels import pqinter as kpq
+    from repro_torch.kernels import pqscore as kps
     from repro_torch.kernels import prefilter as kpf
-    index, cfg = full["index"], full["cfg"]
+    index, cfg, ucfg = full["index"], full["cfg"], full["ucfg"]
     flush = torch.empty(64 << 20, dtype=torch.int32, device=index.device)
     out = {}
     for name, q in (("b32", full["queries"][:32]),
                     ("b1", full["queries"][:1])):
-        h = full["held"][name]
+        h, u = full["held"][name], full["held_u"][name]
         cs, bitmap, sel1 = h["cs"], h["bitmap"], h["sel1"]
         probe = bitvector.masked_topk_centroids(cs, cfg.th, cfg.nprobe)
         pf_args = (cs, cfg.th, index.codes, index.doc_lens, bitmap,
                    cfg.n_filter)
         pq_args = (*h["operands"], cfg.th_r, cfg.n_docs, cfg.k)
+        bf_args = (u["bits"], index.codes, index.doc_lens)
+        f, sel2 = u["f"], u["sel2"]
         steps = {
             "cs_matmul": lambda: teng.centroid_scores(q, index.centroids),
             "probe_topk": lambda: bitvector.masked_topk_centroids(
@@ -434,11 +579,32 @@ def timing_phase(full: dict) -> dict:
                 index, cs, teng._query_lut(index, q), sel1),
             "pqinter_kernel": lambda: ops.pqinter_batched(*pq_args),
         }
+        # the unfused lane's own steps; cs_matmul, probe_topk and bitmap are
+        # the fused lane's
+        usteps = {
+            "bitpack_kernel": lambda: ops.bitpack_batched(cs, cfg.th),
+            "bitfilter_kernel": lambda: ops.bitfilter_batched(*bf_args),
+            "mask_and_topk_n_filter": lambda: topk(
+                torch.where(bitmap, f, torch.full_like(f, -1)), cfg.n_filter),
+            "cs_transpose_and_gathers": lambda: (
+                teng._transposed(cs), index.codes[sel1], index.doc_lens[sel1]),
+            "cinter_kernel": lambda: ops.cinter_batched(*u["ci_args"]),
+            "topk_n_docs": lambda: topk(u["sbar"], cfg.n_docs),
+            "lut_and_gathers": lambda: (
+                teng._query_lut(index, q), index.codes[sel2],
+                index.res_codes[sel2], index.doc_lens[sel2]),
+            "pqscore_kernel": lambda: ops.pqscore_batched(*u["ps_args"]),
+            "final_topk": lambda: topk(u["score"], cfg.k),
+        }
         ms = {k: time_ms(fn, flush=flush) for k, fn in steps.items()}
+        ums = {k: time_ms(fn, flush=flush) for k, fn in usteps.items()}
+        n_e2e = 50 if name == "b32" else 100
         e2e = latency_stats(time_samples(
-            lambda: teng.retrieve(index, q, cfg), n=50 if name == "b32"
-            else 100, flush=flush))
+            lambda: teng.retrieve(index, q, cfg), n=n_e2e, flush=flush))
+        ue2e = latency_stats(time_samples(
+            lambda: teng.retrieve(index, q, ucfg), n=n_e2e, flush=flush))
         ms["end_to_end"] = e2e["median_ms"]
+        ums["end_to_end"] = ue2e["median_ms"]
         t0 = time.perf_counter()
         for _ in range(5):
             teng.retrieve(index, q, cfg)
@@ -449,17 +615,33 @@ def timing_phase(full: dict) -> dict:
                                  n=3, warmup=1, flush=flush),
             "pqinter": time_ms(lambda: kpq.pqinter_batched_ref(*pq_args),
                                n=5, warmup=1, flush=flush),
+            "bitpack": time_ms(lambda: kbp.bitpack_batched_ref(cs, cfg.th),
+                               n=5, warmup=1, flush=flush),
+            "bitfilter": time_ms(lambda: kbf.bitfilter_batched_ref(*bf_args),
+                                 n=3, warmup=1, flush=flush),
+            "cinter": time_ms(lambda: kci.cinter_batched_ref(*u["ci_args"]),
+                              n=5, warmup=1, flush=flush),
+            "pqscore": time_ms(lambda: kps.pqscore_batched_ref(
+                *u["ps_args"]), n=5, warmup=1, flush=flush),
         }
+        ci_cs_t, ci_codes, ci_lens = u["ci_args"]
+        ps_cs_t, ps_lut, ps_codes, _, ps_lens, _ = u["ps_args"]
         bounds = {
             "prefilter": prefilter_bound(cs, index, bitmap, cfg.n_filter),
             "pqinter": pqinter_bound(h["operands"][0], h["operands"][1],
                                      h["operands"][2], h["operands"][4],
                                      h["pq"][2], cfg.n_docs, cfg.k),
+            "bitpack": bitpack_bound(cs),
+            "bitfilter": bitfilter_bound(q.shape[0], index),
+            "cinter": cinter_bound(ci_cs_t, ci_codes, ci_lens),
+            "pqscore": pqscore_bound(ps_cs_t, ps_lut, ps_codes, ps_lens),
         }
         nb = q.shape[0]
-        out[name] = dict(step_ms=ms, end_to_end=e2e, plain_ms=plain,
+        out[name] = dict(step_ms=ms, end_to_end=e2e, unfused_step_ms=ums,
+                         unfused_end_to_end=ue2e, plain_ms=plain,
                          bounds=bounds, host_ms_per_batch=host_ms,
-                         qps=nb * 1e3 / ms["end_to_end"])
+                         qps=nb * 1e3 / ms["end_to_end"],
+                         unfused_qps=nb * 1e3 / ums["end_to_end"])
         emit(f"timing_{name}", batch=nb, **out[name])
     return out
 
@@ -472,21 +654,25 @@ KERNEL_FUNCTIONS = {
                   "collect_kernel", "sort_kernel"),
     "pqinter": ("sbar_kernel", "select1_kernel", "eq56_kernel",
                 "select2_kernel"),
+    "bitpack": ("bitpack_kernel",),
+    "bitfilter": ("bitfilter_transpose_kernel", "bitfilter_kernel"),
+    "cinter": ("cinter_kernel",),
+    "pqscore": ("pqscore_kernel",),
 }
 
 
 def profile_phase(full: dict, calls: int = 5) -> dict:
-    """Phase 6: ``torch.profiler`` over ``calls`` ``retrieve`` calls at
-    B = 32 and B = 1 on the index already built: the device's busy share
-    of the profiled window, device time and launches per call by CUDA
+    """Phase 6: ``torch.profiler`` over ``calls`` ``retrieve`` calls of each
+    lane at B = 32 and B = 1 on the index already built: the device's busy
+    share of the profiled window, device time and launches per call by CUDA
     kernel, and each hand-written kernel's __global__ launches per wrapper
-    call. The profiler's table goes to chiprun_out/profile_b<B>.txt."""
+    call. The profiler's table goes to OUT_DIR/profile_<lane>_b<B>.txt."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.core import engine as teng
     from repro_torch.kernels import ops
-    index, cfg = full["index"], full["cfg"]
+    index = full["index"]
     smi = RECORD["device"]["nvidia_smi"]
 
     def dev_us(e):
@@ -494,8 +680,11 @@ def profile_phase(full: dict, calls: int = 5) -> dict:
             e, "self_cuda_time_total", 0.0)
 
     out = {}
-    for name, q in (("b32", full["queries"][:32]),
-                    ("b1", full["queries"][:1])):
+    for name, cfg, q in (
+            ("fused_b32", full["cfg"], full["queries"][:32]),
+            ("fused_b1", full["cfg"], full["queries"][:1]),
+            ("unfused_b32", full["ucfg"], full["queries"][:32]),
+            ("unfused_b1", full["ucfg"], full["queries"][:1])):
         for _ in range(3):
             teng.retrieve(index, q, cfg)
         torch.cuda.synchronize()
@@ -519,6 +708,8 @@ def profile_phase(full: dict, calls: int = 5) -> dict:
         busy_us = sum(dev_us(e) for e in events)
         per_wrapper = {}
         for kern, fns in KERNEL_FUNCTIONS.items():
+            if not wrapper_calls[kern]:
+                continue                     # the other lane's kernel
             n = sum(e.count for e in events
                     if any(e.key.startswith(f"(anonymous namespace)::{fn}(")
                            for fn in fns))
@@ -547,38 +738,59 @@ def profile_phase(full: dict, calls: int = 5) -> dict:
 
 KERNELS = {
     "prefilter": dict(
+        lane="fused",
         source="src/repro_torch/kernels/csrc/prefilter.cu",
         replaces="src/repro/kernels/prefilter.py:163",
         replaces_b1="src/repro/kernels/prefilter.py:258"),
     "pqinter": dict(
+        lane="fused",
         source="src/repro_torch/kernels/csrc/pqinter.cu",
         replaces="src/repro/kernels/pqinter.py:322",
         replaces_b1="src/repro/kernels/pqinter.py:159"),
+    "bitpack": dict(
+        lane="unfused",
+        source="src/repro_torch/kernels/csrc/bitpack.cu",
+        replaces="src/repro/kernels/bitpack.py:33"),
+    "bitfilter": dict(
+        lane="unfused",
+        source="src/repro_torch/kernels/csrc/bitfilter.cu",
+        replaces="src/repro/kernels/bitfilter.py:45"),
+    "cinter": dict(
+        lane="unfused",
+        source="src/repro_torch/kernels/csrc/cinter.cu",
+        replaces="src/repro/kernels/cinter.py:86"),
+    "pqscore": dict(
+        lane="unfused",
+        source="src/repro_torch/kernels/csrc/pqscore.cu",
+        replaces="src/repro/kernels/pqscore.py:127"),
 }
 
 
 def kernels_line(small_err: dict, full: dict, timing: dict,
                  prof: dict) -> dict:
-    """Phase 6: one record per kernel, from this run's measurements."""
+    """Phase 7: one record per kernel, from this run's measurements. Each
+    kernel's launches, time and profile come from the lane that runs it."""
     rows = []
-    for i, (name, info) in enumerate(KERNELS.items()):
+    for name, info in KERNELS.items():
+        lane = info["lane"]
+        held = full["held" if lane == "fused" else "held_u"]
+        held_err = [held[b]["err"][name] for b in ("b32", "b1")]
+        step = "step_ms" if lane == "fused" else "unfused_step_ms"
         t32, t1 = timing["b32"], timing["b1"]
-        err = max(small_err[name], full["held"]["b32"]["err"][i],
-                  full["held"]["b1"]["err"][i])
         rows.append({
             "name": name, "route": "cuda", **info,
-            "launches": full["launches"][name],
-            "launches_b1": full["launches_b1"][name],
-            "kernel_launches_per_call": prof["b32"][
+            "launches": full["launches"][lane]["b32"][name],
+            "launches_b1": full["launches"][lane]["b1"][name],
+            "kernel_launches_per_call": prof[f"{lane}_b32"][
                 "kernel_launches_per_wrapper_call"][name],
-            "max_abs_err": err,
-            "ms": t32["step_ms"][f"{name}_kernel"],
+            "max_abs_err": max(small_err[name], *held_err),
+            "ms": t32[step][f"{name}_kernel"],
             "plain_ms": t32["plain_ms"][name],
             "bound_ms": t32["bounds"][name]["bound_ms"],
             "bound_by": t32["bounds"][name]["bound_by"],
             "bound_bytes": t32["bounds"][name]["bytes"],
             "library_ms": None,
-            "ms_b1": t1["step_ms"][f"{name}_kernel"],
+            "ms_b1": t1[step][f"{name}_kernel"],
             "plain_ms_b1": t1["plain_ms"][name],
             "bound_ms_b1": t1["bounds"][name]["bound_ms"],
             "ok": True,

@@ -7,15 +7,18 @@
   3. centroid interaction S̄ on the survivors, top-n_docs        [§4.3]
   4. PQ late interaction with the dynamic term filter, top-k     [§4.4]
 
-``use_kernels=True`` runs phases 1b-2 and 3-4 through the two fused
-kernels (``kernels/ops.py``): hand-written CUDA on the card, their plain
-PyTorch versions on the CPU. ``use_kernels=False`` runs the reference math
-of ``core`` (the reference's unfused score_all path). Both give the same ids
-and score bits.
+``use_kernels=True`` runs the hand-written kernels (``kernels/ops.py``):
+CUDA on the card, their plain PyTorch versions on the CPU. With the default
+``fused_prefilter``/``fused_late_interaction`` phases 1b-2 and 3-4 are the
+two fused megakernels; with either flag False that half runs the unfused
+kernels of the reference's second kernel lane (bitpack + bitfilter, cinter +
+pqscore) with the selections between them in torch. ``use_kernels=False``
+runs the reference math of ``core`` (the reference's unfused score_all
+path). All lanes give the same ids and score bits.
 
-This slice covers the reference's main path: score_all candidates, float32
-CS, no document filter. The other configurations raise
-``NotImplementedError`` naming the ROADMAP item that ports them.
+This slice covers score_all candidates, float32 CS and no document filter.
+The other configurations raise ``NotImplementedError`` naming the ROADMAP
+item that ports them.
 
 The batch dimension is written out: there is no vmap. At B = 1 the batched
 kernels run with B = 1 (row b of the batched kernels equals the
@@ -115,13 +118,6 @@ class EngineConfig:
                 raise NotImplementedError(
                     f"{what} is not ported yet (ROADMAP Queue 1, item 4: "
                     "engine remainder)")
-        if self.use_kernels and not (self.fused_prefilter
-                                     and self.fused_late_interaction):
-            raise NotImplementedError(
-                "use_kernels with fused_prefilter=False or "
-                "fused_late_interaction=False needs the unfused kernels "
-                "(bitpack, bitfilter, cinter, pqscore), which are not ported "
-                "yet (ROADMAP Queue 2, items 5-8)")
 
 
 class RetrievalResult(NamedTuple):
@@ -189,46 +185,9 @@ def candidate_bitmap(ivf: torch.Tensor, ivf_lens: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# Reference math (use_kernels=False)
-# ---------------------------------------------------------------------------
-
-def _phase2(index: PackedIndex, bits: torch.Tensor, bitmap: torch.Tensor,
-            cfg: EngineConfig) -> torch.Tensor:
-    """Unfused pre-filter: Eq. 4 on every doc, masked by the bitmap,
-    top-n_filter -> sel1 (B, n_filter) int64."""
-    token_mask = index.token_mask()
-    f = torch.stack([bitvector.filter_score(b, index.codes, token_mask)
-                     for b in bits])
-    f = torch.where(bitmap, f, torch.full_like(f, -1))
-    return topk(f, cfg.n_filter)[1]
-
-
-def _phase3(index: PackedIndex, cs: torch.Tensor, sel1: torch.Tensor,
-            cfg: EngineConfig, q_masks=None) -> torch.Tensor:
-    """Centroid interaction on the survivors -> sel2 (B, n_docs) int64."""
-    token_mask = index.token_mask()
-    sbar = interaction.centroid_interaction(
-        cs.transpose(1, 2), index.codes[sel1],
-        token_mask[sel1], q_masks)
-    _, local = topk(sbar, cfg.n_docs)
-    return torch.gather(sel1, 1, local)
-
-
-def _phase4(index: PackedIndex, cs: torch.Tensor, lut: torch.Tensor,
-            sel2: torch.Tensor, cfg: EngineConfig, q_masks=None):
-    """PQ late interaction (+ Eq. 6) -> (scores (B, k), ids (B, k))."""
-    token_mask = index.token_mask()
-    scores = interaction.late_interaction_pq(
-        cs.transpose(1, 2), lut, index.codes[sel2],
-        index.res_codes[sel2], token_mask[sel2], cfg.th_r,
-        q_masks)
-    top, local = topk(scores, cfg.k)
-    return top, torch.gather(sel2, 1, local)
-
-
-# ---------------------------------------------------------------------------
-# Batched phases — the one pipeline ``retrieve`` and the phase entry points
-# share
+# Single-phase helpers (ref ``engine.py:269-452``): each has a kernel branch
+# through ``ops`` and the reference math of ``core``. ``retrieve`` and the
+# phase entry points share them.
 # ---------------------------------------------------------------------------
 
 def _candidates(index: PackedIndex, cs: torch.Tensor, cfg: EngineConfig,
@@ -240,19 +199,80 @@ def _candidates(index: PackedIndex, cs: torch.Tensor, cfg: EngineConfig,
                             index.codes.shape[0])
 
 
+def _phase1(index: PackedIndex, queries: torch.Tensor, cfg: EngineConfig,
+            q_masks=None, *, cs=None):
+    """Phase 1 -> (cs (B, n_q, n_c), bits (B, n_c) int32 words, bitmap
+    (B, n_docs) bool). Masked terms pack a 0 bit and probe no IVF list."""
+    if cs is None:
+        cs = centroid_scores(queries, index.centroids, cfg.cs_dtype)
+    if cfg.use_kernels:
+        bits = ops.bitpack_batched(cs, cfg.th, q_masks)
+    else:
+        bits = bitvector.build_bitvectors(cs, cfg.th, q_masks)
+    return cs, bits, _candidates(index, cs, cfg, q_masks)
+
+
+def _phase2(index: PackedIndex, bits: torch.Tensor, bitmap: torch.Tensor,
+            cfg: EngineConfig) -> torch.Tensor:
+    """Unfused pre-filter: Eq. 4 on every doc, -1 outside the bitmap,
+    top-n_filter -> sel1 (B, n_filter) int64."""
+    if cfg.use_kernels:
+        f = ops.bitfilter_batched(bits, index.codes, index.doc_lens)
+    else:
+        token_mask = index.token_mask()
+        f = torch.stack([bitvector.filter_score(b, index.codes, token_mask)
+                         for b in bits])
+    f = torch.where(bitmap, f, torch.full_like(f, -1))
+    return topk(f, cfg.n_filter)[1]
+
+
+def _phase3(index: PackedIndex, cs_t: torch.Tensor, sel1: torch.Tensor,
+            cfg: EngineConfig, q_masks=None) -> torch.Tensor:
+    """Centroid interaction on the survivors -> sel2 (B, n_docs) int64.
+    cs_t is the (B, n_c, n_q) transposed CS."""
+    codes = index.codes[sel1]
+    if cfg.use_kernels:
+        sbar = ops.cinter_batched(cs_t, codes, index.doc_lens[sel1], q_masks)
+    else:
+        sbar = interaction.centroid_interaction(
+            cs_t, codes, index.token_mask()[sel1], q_masks)
+    _, local = topk(sbar, cfg.n_docs)
+    return torch.gather(sel1, 1, local)
+
+
+def _phase4(index: PackedIndex, cs_t: torch.Tensor, lut: torch.Tensor,
+            sel2: torch.Tensor, cfg: EngineConfig, q_masks=None):
+    """PQ late interaction (+ Eq. 6) -> (scores (B, k), ids (B, k))."""
+    codes, res = index.codes[sel2], index.res_codes[sel2]
+    if cfg.use_kernels:
+        scores = ops.pqscore_batched(cs_t, lut, codes, res,
+                                     index.doc_lens[sel2], cfg.th_r, q_masks)
+    else:
+        scores = interaction.late_interaction_pq(
+            cs_t, lut, codes, res, index.token_mask()[sel2], cfg.th_r,
+            q_masks)
+    top, local = topk(scores, cfg.k)
+    return top, torch.gather(sel2, 1, local)
+
+
+# ---------------------------------------------------------------------------
+# Batched phase pairs — the megakernels when configured, else the
+# single-phase helpers
+# ---------------------------------------------------------------------------
+
 def _phase12_batch(index: PackedIndex, queries: torch.Tensor,
                    cfg: EngineConfig, q_masks=None, *, cs=None):
     """Phases 1-2 -> (cs (B, n_q, n_c), sel1 (B, n_filter) int64)."""
+    if not (cfg.use_kernels and cfg.fused_prefilter):
+        cs, bits, bitmap = _phase1(index, queries, cfg, q_masks, cs=cs)
+        return cs, _phase2(index, bits, bitmap, cfg)
     if cs is None:
         cs = centroid_scores(queries, index.centroids, cfg.cs_dtype)
     bitmap = _candidates(index, cs, cfg, q_masks)
-    if cfg.use_kernels:
-        _, sel1, _ = ops.prefilter_batched(cs, cfg.th, index.codes,
-                                           index.doc_lens, bitmap,
-                                           cfg.n_filter, q_masks)
-        return cs, sel1.long()
-    bits = bitvector.build_bitvectors(cs, cfg.th, q_masks)
-    return cs, _phase2(index, bits, bitmap, cfg)
+    _, sel1, _ = ops.prefilter_batched(cs, cfg.th, index.codes,
+                                       index.doc_lens, bitmap, cfg.n_filter,
+                                       q_masks)
+    return cs, sel1.long()
 
 
 def _query_lut(index: PackedIndex, queries: torch.Tensor) -> torch.Tensor:
@@ -260,14 +280,19 @@ def _query_lut(index: PackedIndex, queries: torch.Tensor) -> torch.Tensor:
     return build_lut(torch.matmul(queries, index.opq_rotation), index.pq)
 
 
+def _transposed(cs: torch.Tensor) -> torch.Tensor:
+    """CS (B, n_q, n_c) -> the contiguous CS^T (B, n_c, n_q) the phase 3-4
+    kernels read, made from that same tensor so every kernel sees the same
+    bits."""
+    return cs.transpose(1, 2).contiguous()
+
+
 def _survivor_operands(index: PackedIndex, cs: torch.Tensor,
                        lut: torch.Tensor, sel1: torch.Tensor):
     """What the phase 3-4 kernel reads: (cs_t (B, n_c, n_q), lut, and the
-    survivors' codes, residual codes and token lengths). CS is computed
-    once; the transposed copy is made from that same tensor, so both
-    kernels see the same bits."""
-    return (cs.transpose(1, 2).contiguous(), lut, index.codes[sel1],
-            index.res_codes[sel1], index.doc_lens[sel1])
+    survivors' codes, residual codes and token lengths)."""
+    return (_transposed(cs), lut, index.codes[sel1], index.res_codes[sel1],
+            index.doc_lens[sel1])
 
 
 def _phase34_batch(index: PackedIndex, queries: torch.Tensor,
@@ -277,14 +302,15 @@ def _phase34_batch(index: PackedIndex, queries: torch.Tensor,
     if lut is None:
         lut = _query_lut(index, queries)
     sel1 = sel1.long()
-    if cfg.use_kernels:
+    if cfg.use_kernels and cfg.fused_late_interaction:
         scores, pos, _, _ = ops.pqinter_batched(
             *_survivor_operands(index, cs, lut, sel1), cfg.th_r, cfg.n_docs,
             cfg.k, q_masks)
         ids = torch.gather(sel1, 1, pos.long())
     else:
-        sel2 = _phase3(index, cs, sel1, cfg, q_masks)
-        scores, ids = _phase4(index, cs, lut, sel2, cfg, q_masks)
+        cs_t = _transposed(cs)
+        sel2 = _phase3(index, cs_t, sel1, cfg, q_masks)
+        scores, ids = _phase4(index, cs_t, lut, sel2, cfg, q_masks)
     return RetrievalResult(scores, ids.to(torch.int32))
 
 
@@ -330,6 +356,43 @@ def retrieve(index: PackedIndex, queries, cfg: EngineConfig, q_masks=None,
     return _retrieve_batch(index, q, cfg, qm)
 
 
+# ---------------------------------------------------------------------------
+# Phase-split entry points (ref ``engine.py:697-841``), batched signatures
+# only: ``phaseN(index, queries, cfg, *, q_mask=None, ...)`` with the
+# intermediates as keyword arguments with a leading batch axis. They compose
+# the same helpers ``retrieve`` runs; the single-phase ones run the unfused
+# helpers whatever the fused flags say, as the reference's do.
+# ---------------------------------------------------------------------------
+
+def _on(index: PackedIndex, x, dtype=None) -> torch.Tensor:
+    """An intermediate handed back in, on the index's device."""
+    return torch.as_tensor(x, dtype=dtype, device=index.codes.device)
+
+
+def phase1_candidates(index: PackedIndex, queries, cfg: EngineConfig, *,
+                      q_mask=None, device=None):
+    """Phase 1 (ref ``engine.py:697``) -> (cs (B, n_q, n_c), bits (B, n_c)
+    int32 holding the reference's uint32 words, bitmap (B, n_docs) bool):
+    centroid scores, the stacked Eq. 4 bit vectors and the IVF candidate
+    bitmap."""
+    q, qm = _inputs(index, queries, q_mask, device)
+    return _phase1(index, q, cfg, qm)
+
+
+def phase2_prefilter(index: PackedIndex, queries, cfg: EngineConfig, *,
+                     q_mask=None, bits=None, bitmap=None, device=None):
+    """Phase 2 (ref ``engine.py:714``) -> sel1 (B, n_filter) int32: Eq. 4
+    for every doc, the top-n_filter candidates. ``bits``/``bitmap`` are
+    phase 1's outputs; omitted, phase 1 runs here (the only use of
+    ``q_mask``: masked terms are already 0 bits in ``bits``)."""
+    q, qm = _inputs(index, queries, q_mask, device)
+    if bits is None or bitmap is None:
+        _, bits, bitmap = _phase1(index, q, cfg, qm)
+    sel1 = _phase2(index, _on(index, bits, torch.int32),
+                   _on(index, bitmap, torch.bool), cfg)
+    return sel1.to(torch.int32)
+
+
 def phase12_prefilter(index: PackedIndex, queries, cfg: EngineConfig, *,
                       q_mask=None, device=None):
     """Fused phases 1-2 (ref ``engine.py:738``), batched signature only:
@@ -338,6 +401,41 @@ def phase12_prefilter(index: PackedIndex, queries, cfg: EngineConfig, *,
     q, qm = _inputs(index, queries, q_mask, device)
     cs, sel1 = _phase12_batch(index, q, cfg, qm)
     return cs, sel1.to(torch.int32)
+
+
+def phase3_centroid_interaction(index: PackedIndex, queries,
+                                cfg: EngineConfig, *, q_mask=None, cs=None,
+                                sel1=None, device=None) -> torch.Tensor:
+    """Phase 3 (ref ``engine.py:757``) -> sel2 (B, n_docs) int32: S̄ on the
+    phase-2 survivors, the top-n_docs. ``cs``/``sel1`` are phase 1-2's
+    outputs; omitted, phases 1-2 run here."""
+    q, qm = _inputs(index, queries, q_mask, device)
+    if cs is None or sel1 is None:
+        cs_c, sel1_c = _phase12_batch(index, q, cfg, qm)
+        cs = cs_c if cs is None else cs
+        sel1 = sel1_c if sel1 is None else sel1
+    cs_t = _transposed(_on(index, cs, torch.float32))
+    return _phase3(index, cs_t, _on(index, sel1).long(), cfg,
+                   qm).to(torch.int32)
+
+
+def phase4_late_interaction(index: PackedIndex, queries, cfg: EngineConfig,
+                            *, q_mask=None, cs=None, sel2=None,
+                            device=None) -> RetrievalResult:
+    """Phase 4 (ref ``engine.py:782``) -> RetrievalResult ((B, k) scores
+    and doc ids): Eq. 5, or Eq. 6 when ``cfg.th_r`` is set, on the phase-3
+    survivors, then the top-k. ``cs``/``sel2`` are phase 1-3's outputs;
+    omitted, phases 1-3 run here."""
+    q, qm = _inputs(index, queries, q_mask, device)
+    if cs is None or sel2 is None:
+        cs_c, sel1 = _phase12_batch(index, q, cfg, qm)
+        cs = cs_c if cs is None else cs
+    cs_t = _transposed(_on(index, cs, torch.float32))
+    if sel2 is None:
+        sel2 = _phase3(index, cs_t, sel1, cfg, qm)
+    scores, ids = _phase4(index, cs_t, _query_lut(index, q),
+                          _on(index, sel2).long(), cfg, qm)
+    return RetrievalResult(scores, ids.to(torch.int32))
 
 
 def phase34_late_interaction(index: PackedIndex, queries, cfg: EngineConfig,
@@ -352,4 +450,5 @@ def phase34_late_interaction(index: PackedIndex, queries, cfg: EngineConfig,
         cs_c, sel1_c = _phase12_batch(index, q, cfg, qm)
         cs = cs_c if cs is None else cs
         sel1 = sel1_c if sel1 is None else sel1
-    return _phase34_batch(index, q, cs, torch.as_tensor(sel1), cfg, qm)
+    return _phase34_batch(index, q, _on(index, cs, torch.float32),
+                          _on(index, sel1), cfg, qm)

@@ -110,3 +110,20 @@ def late_interaction_pq(cs_t: torch.Tensor, lut: torch.Tensor,
         colmax = torch.where(_live(q_mask, colmax.dim()), colmax,
                              torch.zeros_like(colmax))
     return term_sum(colmax)
+
+
+def scored_term_fraction(cs_t: torch.Tensor, codes: torch.Tensor,
+                         token_mask: torch.Tensor, th_r: float,
+                         q_mask: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
+    """Share of (term, token) residual evaluations the Eq. 6 filter keeps
+    (paper Fig. 5, right; ref ``:213``): one query's cs_t (n_c, n_q),
+    codes/token_mask (docs, cap) -> a float32 scalar in [0, 1]. Masked terms
+    count in neither the numerator nor the denominator."""
+    keep = (gather_centroid_scores(cs_t, codes) > th_r) & token_mask[..., None]
+    n_terms = torch.tensor(cs_t.shape[-1])
+    if q_mask is not None:
+        keep = keep & q_mask
+        n_terms = q_mask.sum()
+    den = torch.clamp(token_mask.sum() * n_terms, min=1)
+    return keep.sum().to(torch.float32) / den.to(torch.float32)

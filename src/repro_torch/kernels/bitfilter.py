@@ -1,0 +1,84 @@
+"""Unfused Eq. 4: the bit-vector filter score of every document for a
+micro-batch of queries sharing one corpus.
+
+Replaces ``repro/kernels/bitfilter.py::bitfilter`` (Pallas body
+``_bitfilter_kernel``, :33), batched: row b equals the reference kernel on
+query b's words. The CUDA kernel is ``csrc/bitfilter.cu``; its source note
+says what bounds it on the H100 and how the design answers.
+:func:`bitfilter_batched_ref` is its plain PyTorch version: the blocked
+Eq. 4 the prefilter's plain version runs (``prefilter.filter_scores_ref``),
+without the bitmap.
+
+Unlike the prefilter, nothing is masked: every doc is scored, and the
+engine applies the candidate bitmap after (``where(bitmap, F, -1)``), as the
+reference's unfused phase 2 does.
+
+:func:`bitfilter_batched` dispatches on the tensors' device: on the CPU it
+runs the plain version; on CUDA it launches the kernel (and counts the launch
+in ``launches``) or raises — it never falls back.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _build
+from .prefilter import filter_scores_ref, lengths_of
+
+MAX_BATCH = 32    # queries per launch: one lane group per query
+
+launches = 0      # kernel launches since the last reset
+
+
+def bitfilter_batched_ref(bits: torch.Tensor, codes: torch.Tensor,
+                          doc_lens: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of the kernel: F (B, n_docs) int32."""
+    return filter_scores_ref(bits, codes, doc_lens)
+
+
+def _launch(bits, codes, doc_lens):
+    """One launch of ``csrc/bitfilter.cu`` for B <= MAX_BATCH queries."""
+    global launches
+    fn = _build.load("bitfilter").bitfilter_batched
+    fn.restype = ctypes.c_int
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [vp, vp, vp, ci, ci, ci, ci, vp, vp, vp]
+    nb, n_c = bits.shape
+    n_docs, cap = codes.shape
+    dev = bits.device
+    bits_t = torch.empty((n_c, nb), dtype=torch.int32, device=dev)
+    f = torch.empty((nb, n_docs), dtype=torch.int32, device=dev)
+    p = _build.ptr
+    err = fn(p(bits), p(codes), p(doc_lens), nb, n_c, n_docs, cap, p(bits_t),
+             p(f), _build.stream())
+    _build.check(err, "bitfilter_batched")
+    launches += 1
+    return f
+
+
+def bitfilter_batched(bits: torch.Tensor, codes: torch.Tensor,
+                      token_mask: torch.Tensor) -> torch.Tensor:
+    """Batch-native Eq. 4 over shared corpus codes.
+
+    bits (B, n_c) int32 words (masked terms already 0 bits); codes
+    (n_docs, cap) int32; token_mask (n_docs, cap) bool prefix mask or
+    (n_docs,) int32 lengths. -> F (B, n_docs) int32.
+    """
+    nb, n_c = bits.shape
+    n_docs, cap = codes.shape
+    doc_lens = lengths_of(token_mask)
+    if tuple(doc_lens.shape) != (n_docs,):
+        raise ValueError(f"token validity covers {tuple(doc_lens.shape)}, "
+                         f"expected ({n_docs},)")
+    if bits.device.type == "cpu":
+        return bitfilter_batched_ref(bits, codes, doc_lens)
+    if bits.device.type != "cuda":
+        raise ValueError(f"bitfilter: unsupported device {bits.device}")
+    _build.check_operands("bitfilter", bits.device, (
+        ("bits", bits, torch.int32, (nb, n_c)),
+        ("codes", codes, torch.int32, (n_docs, cap)),
+        ("token lengths", doc_lens, torch.int32, (n_docs,))))
+    parts = [_launch(bits[s:s + MAX_BATCH], codes, doc_lens)
+             for s in range(0, nb, MAX_BATCH)]
+    return parts[0] if len(parts) == 1 else torch.cat(parts)

@@ -1,0 +1,71 @@
+"""Unfused phase 1b: the stacked bit vectors of a micro-batch.
+
+Replaces ``repro/kernels/bitpack.py::bitpack`` (Pallas body
+``_bitpack_kernel``, :22), batched: row b equals the reference kernel on
+query b. The CUDA kernel is ``csrc/bitpack.cu``; its source note says what
+bounds it on the H100 and how the design answers.
+:func:`bitpack_batched_ref` is its plain PyTorch version
+(``core.bitvector.build_bitvectors``).
+
+Words come back as int32 tensors holding the reference's uint32 bits, as the
+prefilter's ``bits`` output does (bit 31, term 31, reads as negative).
+
+:func:`bitpack_batched` dispatches on the tensors' device: on the CPU it
+runs the plain version; on CUDA it launches the kernel (and counts the launch
+in ``launches``) or raises — it never falls back.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ..core.bitvector import build_bitvectors
+from . import _build
+
+launches = 0      # kernel launches since the last reset
+
+
+def bitpack_batched_ref(cs: torch.Tensor, th: float,
+                        q_masks=None) -> torch.Tensor:
+    """Plain PyTorch version of the kernel: (B, n_c) int32 words."""
+    return build_bitvectors(cs, th, q_masks)
+
+
+def _launch(cs, th, qm):
+    """One launch of ``csrc/bitpack.cu``."""
+    global launches
+    fn = _build.load("bitpack").bitpack_batched
+    fn.restype = ctypes.c_int
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [vp, ctypes.c_float, vp, ci, ci, ci, vp, vp]
+    nb, n_q, n_c = cs.shape
+    bits = torch.empty((nb, n_c), dtype=torch.int32, device=cs.device)
+    p = _build.ptr
+    err = fn(p(cs), float(th), p(qm), nb, n_q, n_c, p(bits), _build.stream())
+    _build.check(err, "bitpack_batched")
+    launches += 1
+    return bits
+
+
+def bitpack_batched(cs: torch.Tensor, th: float,
+                    q_masks=None) -> torch.Tensor:
+    """Batch-native bit pack.
+
+    cs (B, n_q <= 32, n_c) float32; th scalar; q_masks optional (B, n_q)
+    bool (masked terms pack a 0 bit for every centroid).
+    -> (B, n_c) int32 holding the reference's uint32 words.
+    """
+    nb, n_q, n_c = cs.shape
+    if n_q > 32:
+        raise ValueError("stacked bitvector packs one query term per bit")
+    if cs.device.type == "cpu":
+        return bitpack_batched_ref(cs, th, q_masks)
+    if cs.device.type != "cuda":
+        raise ValueError(f"bitpack: unsupported device {cs.device}")
+    qm = (torch.ones((nb, n_q), dtype=torch.bool, device=cs.device)
+          if q_masks is None else q_masks)
+    _build.check_operands("bitpack", cs.device, (
+        ("cs", cs, torch.float32, (nb, n_q, n_c)),
+        ("q_masks", qm, torch.bool, (nb, n_q))))
+    return _launch(cs, th, qm)

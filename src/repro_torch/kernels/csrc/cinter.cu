@@ -1,0 +1,60 @@
+// Unfused EMVB phase 3: the centroid interaction S̄ (Eq. 2) of every
+// survivor of each query: per live term the max over valid tokens of
+// cs_t[code, term], masked terms 0.0, then term_sum.
+//
+// Replaces: repro/kernels/cinter.py::cinter (Pallas body _cinter_kernel,
+// cinter.py:77, calling sbar_block :31; pallas_call :99), batched: row b is
+// the reference kernel on query b.
+//
+// What bounds it on the H100: the bytes are small — the survivors' codes
+// and lengths, the rows of CS^T their tokens touch (n_q floats each) and
+// B x docs floats out. What costs time is latency: per (doc, token) one
+// dependent gather of a CS^T row.
+//
+// What the design does about it: one warp per document and one lane per
+// query term (n_q <= 32), as the fused pqinter's S̄ pass. A row of CS^T is
+// n_q contiguous floats, so each token's gather is one coalesced 128-byte
+// load at n_q = 32. The per-document math is emvb::sbar_doc, the function
+// the fused pqinter runs, so the two lanes agree to the bit.
+#include "common.cuh"
+#include "doc_math.cuh"
+
+namespace {
+
+constexpr int WARPS = 8;
+
+// grid (ceil(nd / WARPS), B).
+__global__ void cinter_kernel(const float* __restrict__ cs_t,
+                              const int32_t* __restrict__ codes,
+                              const int32_t* __restrict__ lens,
+                              const uint8_t* __restrict__ qmask, int nd,
+                              int cap, int n_c, int n_q,
+                              float* __restrict__ sbar) {
+  const int lane = threadIdx.x & 31;
+  const int p = blockIdx.x * WARPS + (threadIdx.x >> 5);
+  const int b = blockIdx.y;
+  if (p >= nd) return;                                   // warp-uniform
+  const size_t row = (size_t)b * nd + p;
+  const float s = emvb::sbar_doc(cs_t + (size_t)b * n_c * n_q,
+                                 codes + row * cap, lens[row],
+                                 qmask + (size_t)b * n_q, cap, n_c, n_q, lane);
+  if (lane == 0) sbar[row] = s;
+}
+
+}  // namespace
+
+extern "C" {
+
+// All pointers are device pointers. cs_t (B, n_c, n_q) f32; codes
+// (B, nd, cap) i32; lens (B, nd) i32; qmask (B, n_q) u8. Output: sbar
+// (B, nd) f32.
+int cinter_batched(const float* cs_t, const int32_t* codes,
+                   const int32_t* lens, const uint8_t* qmask, int B, int nd,
+                   int cap, int n_c, int n_q, float* sbar, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cinter_kernel<<<dim3((nd + WARPS - 1) / WARPS, B), WARPS * 32, 0, st>>>(
+      cs_t, codes, lens, qmask, nd, cap, n_c, n_q, sbar);
+  return cudaGetLastError();
+}
+
+}  // extern "C"

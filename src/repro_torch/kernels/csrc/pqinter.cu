@@ -27,19 +27,15 @@
 //    (S̄ desc, survivor position asc) for phase 3 and (score desc, phase-3
 //    rank asc) for phase 4, the order the reference's running merges give —
 //    and sort them in shared memory, one block per query.
+//  * The per-document math (emvb::sbar_doc, emvb::eq56_doc in doc_math.cuh)
+//    is the one the unfused cinter.cu and pqscore.cu run, so the two lanes
+//    agree to the bit by construction.
 #include "common.cuh"
-#include <math.h>
+#include "doc_math.cuh"
 
 namespace {
 
-constexpr float NEG = -1e9f;
 constexpr int WARPS = 8;
-
-__device__ __forceinline__ float term_sum_lanes(float colmax, int n_q) {
-  float s = __shfl_sync(0xffffffffu, colmax, 0);
-  for (int i = 1; i < n_q; ++i) s = s + __shfl_sync(0xffffffffu, colmax, i);
-  return s;
-}
 
 // Pass 1: S̄ of every survivor row. grid (ceil(nf / WARPS), B).
 __global__ void sbar_kernel(const float* __restrict__ cs_t,
@@ -52,20 +48,9 @@ __global__ void sbar_kernel(const float* __restrict__ cs_t,
   const int b = blockIdx.y;
   if (p >= nf) return;                                   // warp-uniform
   const size_t row = (size_t)b * nf + p;
-  const int len = min(max(lens[row], 0), cap);
-  const int32_t* cd = codes + row * cap;
-  const float* cb = cs_t + (size_t)b * n_c * n_q;
-  float acc = len < cap ? NEG : -INFINITY;
-  if (lane < n_q) {
-    for (int t = 0; t < len; ++t) {
-      const int c = min(max(cd[t], 0), n_c - 1);
-      const float v = cb[(size_t)c * n_q + lane];
-      acc = v > acc ? v : acc;
-    }
-  }
-  const float colmax =
-      lane < n_q && qmask[(size_t)b * n_q + lane] ? acc : 0.0f;
-  const float s = term_sum_lanes(colmax, n_q);
+  const float s = emvb::sbar_doc(cs_t + (size_t)b * n_c * n_q,
+                                 codes + row * cap, lens[row],
+                                 qmask + (size_t)b * n_q, cap, n_c, n_q, lane);
   if (lane == 0) sbar_all[row] = s;
 }
 
@@ -107,35 +92,10 @@ __global__ void eq56_kernel(const float* __restrict__ cs_t,
   if (r >= n_docs) return;                               // warp-uniform
   const int p = sel2[(size_t)b * n_docs + r];
   const size_t row = (size_t)b * nf + p;
-  const int len = min(max(lens[row], 0), cap);
-  const int32_t* cd = codes + row * cap;
-  const uint8_t* rs = res + row * cap * m;
-  const float* cb = cs_t + (size_t)b * n_c * n_q;
-  const float* lb = lut2 + (size_t)b * m * ksub * n_q;
-  float full_max = len < cap ? NEG : -INFINITY;
-  float kept_max = -INFINITY;
-  int n_keep = 0;
-  if (lane < n_q) {
-    for (int t = 0; t < len; ++t) {
-      const int c = min(max(cd[t], 0), n_c - 1);
-      const float cen = cb[(size_t)c * n_q + lane];
-      const uint8_t* rt = rs + (size_t)t * m;
-      float resid = lb[(size_t)rt[0] * n_q + lane];
-      for (int s = 1; s < m; ++s)
-        resid = resid + lb[((size_t)s * ksub + rt[s]) * n_q + lane];
-      const float full = cen + resid;
-      full_max = full > full_max ? full : full_max;
-      if (use_filter && cen > th_r) {
-        kept_max = full > kept_max ? full : kept_max;
-        ++n_keep;
-      }
-    }
-  }
-  float colmax = full_max;
-  if (use_filter && n_keep > 0)
-    colmax = n_keep < cap ? (kept_max > NEG ? kept_max : NEG) : kept_max;
-  colmax = lane < n_q && qmask[(size_t)b * n_q + lane] ? colmax : 0.0f;
-  const float s = term_sum_lanes(colmax, n_q);
+  const float s = emvb::eq56_doc(
+      cs_t + (size_t)b * n_c * n_q, lut2 + (size_t)b * m * ksub * n_q,
+      codes + row * cap, res + row * cap * m, lens[row],
+      qmask + (size_t)b * n_q, cap, n_c, n_q, m, ksub, th_r, use_filter, lane);
   if (lane == 0) score2[(size_t)b * n_docs + r] = s;
 }
 

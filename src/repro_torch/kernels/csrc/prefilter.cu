@@ -33,7 +33,11 @@
 //    every selected doc its slot (docs with f > f*, then the lowest ids with
 //    f == f*), and one block per query sorts its n_filter keys. Only F
 //    (B x n_docs int8) goes through device memory between the passes.
+//  * The column pack and a doc's word OR (emvb::pack_column,
+//    emvb::doc_word_or in doc_math.cuh) are the ones the unfused bitpack.cu
+//    and bitfilter.cu run.
 #include "common.cuh"
+#include "doc_math.cuh"
 
 namespace {
 
@@ -53,11 +57,8 @@ __global__ void pack_kernel(const float* __restrict__ cs, float th,
   const int c = blockIdx.x * blockDim.x + threadIdx.x;
   if (c >= n_c) return;
   for (int b = 0; b < B; ++b) {
-    const float* col = cs + (size_t)b * n_q * n_c + c;
-    uint32_t w = 0;
-    for (int i = 0; i < n_q; ++i) {
-      if (qmask[b * n_q + i] && col[(size_t)i * n_c] > th) w |= 1u << i;
-    }
+    const uint32_t w = emvb::pack_column(cs + (size_t)b * n_q * n_c + c, n_c,
+                                         th, qmask + (size_t)b * n_q, n_q);
     bits[(size_t)b * n_c + c] = w;
     bitsT[(size_t)c * B + b] = w;
   }
@@ -105,16 +106,8 @@ __global__ void score_kernel(const int32_t* __restrict__ codes,
       continue;
     }
     const int len = min(max(doc_lens[d], 0), cap);
-    const int32_t* cd = codes + d * cap;
-    uint32_t acc = 0;
-    if (cand) {
-#pragma unroll 4
-      for (int tok = g; tok < len; tok += G) {
-        const int c = min(max(cd[tok], 0), n_c - 1);
-        acc |= bitsT[(size_t)c * B + bq];
-      }
-    }
-    for (int o = Q; o < 32; o <<= 1) acc |= __shfl_xor_sync(0xffffffffu, acc, o);
+    const uint32_t acc = emvb::doc_word_or(codes + d * cap, len, n_c, bitsT, B,
+                                           bq, g, G, Q, cand);
     if (g == 0 && bq < B) {
       const int f = cand ? __popc(acc) : -1;
       sF[bq * TILE + t] = (int8_t)f;

@@ -15,19 +15,81 @@ from __future__ import annotations
 
 import torch
 
+from . import bitfilter as _bitfilter
+from . import bitpack as _bitpack
+from . import cinter as _cinter
 from . import pqinter as _pqinter
+from . import pqscore as _pqscore
 from . import prefilter as _prefilter
+
+_KERNELS = {"prefilter": _prefilter, "pqinter": _pqinter,
+            "bitpack": _bitpack, "bitfilter": _bitfilter,
+            "cinter": _cinter, "pqscore": _pqscore}
 
 
 def launch_counts() -> dict:
     """Kernel launches per kernel since the last :func:`reset_launches`."""
-    return {"prefilter": _prefilter.launches, "pqinter": _pqinter.launches}
+    return {name: mod.launches for name, mod in _KERNELS.items()}
 
 
 def reset_launches() -> None:
     """Set every kernel's launch count to 0."""
-    _prefilter.launches = 0
-    _pqinter.launches = 0
+    for mod in _KERNELS.values():
+        mod.launches = 0
+
+
+def _shared_codes(codes: torch.Tensor) -> None:
+    if codes.dim() != 2:
+        raise NotImplementedError(
+            "per-query (compact-mode) candidate codes are not ported yet "
+            "(ROADMAP Queue 1, engine remainder: candidate_mode='compact')")
+
+
+def _row(q_mask):
+    return None if q_mask is None else q_mask[None]
+
+
+# batch-native forms with nothing to refuse beyond their own checks
+bitpack_batched = _bitpack.bitpack_batched
+cinter_batched = _cinter.cinter_batched
+pqscore_batched = _pqscore.pqscore_batched
+
+
+def bitpack(cs: torch.Tensor, th, q_mask=None) -> torch.Tensor:
+    """Bit pack for one query: cs (n_q, n_c) -> (n_c,) int32 words holding
+    the reference's uint32 bits."""
+    return bitpack_batched(cs[None], th, _row(q_mask))[0]
+
+
+def bitfilter_batched(bits: torch.Tensor, codes: torch.Tensor,
+                      token_mask: torch.Tensor) -> torch.Tensor:
+    """Batch-native Eq. 4 over every doc: bits (B, n_c), shared codes
+    (n_docs, cap) -> F (B, n_docs) int32."""
+    _shared_codes(codes)
+    return _bitfilter.bitfilter_batched(bits, codes, token_mask)
+
+
+def bitfilter(bits: torch.Tensor, codes: torch.Tensor,
+              token_mask: torch.Tensor) -> torch.Tensor:
+    """Eq. 4 for one query: bits (n_c,) -> F (n_docs,) int32."""
+    return bitfilter_batched(bits[None], codes, token_mask)[0]
+
+
+def cinter(cs_t: torch.Tensor, codes: torch.Tensor, token_mask: torch.Tensor,
+           q_mask=None) -> torch.Tensor:
+    """S̄ for one query: cs_t (n_c, n_q), codes (docs, cap) -> (docs,)."""
+    return cinter_batched(cs_t[None], codes[None], token_mask[None],
+                          _row(q_mask))[0]
+
+
+def pqscore(cs_t: torch.Tensor, lut: torch.Tensor, codes: torch.Tensor,
+            res_codes: torch.Tensor, token_mask: torch.Tensor, th_r,
+            q_mask=None) -> torch.Tensor:
+    """Eq. 5/6 scores for one query: cs_t (n_c, n_q), lut (n_q, m, K),
+    codes (docs, cap), res_codes (docs, cap, m) uint8 -> (docs,)."""
+    return pqscore_batched(cs_t[None], lut[None], codes[None],
+                           res_codes[None], token_mask[None], th_r,
+                           _row(q_mask))[0]
 
 
 def _no_filter(**operands) -> None:
@@ -46,10 +108,7 @@ def prefilter_batched(cs: torch.Tensor, th, codes: torch.Tensor,
     with a leading batch axis. ``codes``/``token_mask`` are the shared
     (n_docs, cap) corpus (or (n_docs,) lengths for the mask)."""
     _no_filter(pred_words=pred_words, plan=plan)
-    if codes.dim() != 2:
-        raise NotImplementedError(
-            "per-query (compact-mode) candidate codes are not ported yet "
-            "(ROADMAP Queue 1, engine remainder: candidate_mode='compact')")
+    _shared_codes(codes)
     return _prefilter.prefilter_batched(cs, th, codes, token_mask, bitmap,
                                         n_filter, q_masks)
 
@@ -60,7 +119,7 @@ def prefilter(cs: torch.Tensor, th, codes: torch.Tensor,
     """Fused phases 1b-2 for one query -> (scores (n_filter,),
     doc_ids (n_filter,), bits (n_c,))."""
     out = prefilter_batched(cs[None], th, codes, token_mask, bitmap[None],
-                            n_filter, None if q_mask is None else q_mask[None],
+                            n_filter, _row(q_mask),
                             pred_words=pred_words, plan=plan)
     return tuple(x[0] for x in out)
 
@@ -82,7 +141,6 @@ def pqinter(cs_t: torch.Tensor, lut: torch.Tensor, codes: torch.Tensor,
     """Fused phases 3-4 for one query -> (scores (k,), pos (k,),
     sel2 (n_docs,), sbar (n_docs,))."""
     out = pqinter_batched(cs_t[None], lut[None], codes[None], res_codes[None],
-                          token_mask[None], th_r, n_docs, k,
-                          None if q_mask is None else q_mask[None],
+                          token_mask[None], th_r, n_docs, k, _row(q_mask),
                           doc_pass=doc_pass)
     return tuple(x[0] for x in out)

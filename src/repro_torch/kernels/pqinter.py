@@ -57,6 +57,13 @@ def pqinter_batched_ref(cs_t: torch.Tensor, lut: torch.Tensor,
     return scores, pos.to(torch.int32), sel2.to(torch.int32), sbar
 
 
+def flat_lut(lut: torch.Tensor) -> torch.Tensor:
+    """(B, n_q, m, K) -> the (B, m*K, n_q) table the Eq. 5/6 kernels read:
+    one LUT row is n_q contiguous floats."""
+    nb, n_q, m, ksub = lut.shape
+    return lut.permute(0, 2, 3, 1).reshape(nb, m * ksub, n_q).contiguous()
+
+
 def _launch(cs_t, lut2, codes, res_codes, lens, qm, th_r, n_docs, k, m,
             ksub):
     """One launch of ``csrc/pqinter.cu``."""
@@ -125,8 +132,7 @@ def pqinter_batched(cs_t: torch.Tensor, lut: torch.Tensor,
                          "sort in shared memory")
     qm = (torch.ones((nb, n_q), dtype=torch.bool, device=cs_t.device)
           if q_masks is None else q_masks)
-    # (B, n_q, m, K) -> (B, m*K, n_q): one LUT row is n_q contiguous floats
-    lut2 = lut.permute(0, 2, 3, 1).reshape(nb, m * ksub, n_q).contiguous()
+    lut2 = flat_lut(lut)
     n_c = cs_t.shape[1]
     _build.check_operands("pqinter", cs_t.device, (
         ("cs_t", cs_t, torch.float32, (nb, n_c, n_q)),

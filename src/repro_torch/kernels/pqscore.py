@@ -1,0 +1,97 @@
+"""Unfused phase 4: the PQ late-interaction scores (Eq. 5, or Eq. 6 with the
+dynamic term filter) of each query's phase-3 winners.
+
+Replaces ``repro/kernels/pqscore.py::pqscore`` (Pallas body
+``_pqscore_kernel``, :116, calling ``eq56_block``, :33), batched: row b
+equals the reference kernel on query b. The CUDA kernel is
+``csrc/pqscore.cu``; its per-document math is the fused pqinter's Eq. 5/6
+pass (``csrc/doc_math.cuh``). :func:`pqscore_batched_ref` is its plain
+PyTorch version (``core.interaction.late_interaction_pq``). The residual
+codes stay uint8 in memory (the reference widens them to int32, :139).
+
+:func:`pqscore_batched` dispatches on the tensors' device: on the CPU it
+runs the plain version; on CUDA it launches the kernel (and counts the launch
+in ``launches``) or raises — it never falls back.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ..core.interaction import late_interaction_pq
+from . import _build
+from .pqinter import flat_lut
+from .prefilter import lengths_of
+
+launches = 0      # kernel launches since the last reset
+
+
+def pqscore_batched_ref(cs_t: torch.Tensor, lut: torch.Tensor,
+                        codes: torch.Tensor, res_codes: torch.Tensor,
+                        lens: torch.Tensor, th_r, q_masks=None
+                        ) -> torch.Tensor:
+    """Plain PyTorch version of the kernel: scores (B, docs) float32."""
+    valid = torch.arange(codes.shape[-1], device=codes.device) < lens[..., None]
+    return late_interaction_pq(cs_t, lut, codes, res_codes, valid, th_r,
+                               q_masks)
+
+
+def _launch(cs_t, lut2, codes, res_codes, lens, qm, th_r, m, ksub):
+    """One launch of ``csrc/pqscore.cu``."""
+    global launches
+    fn = _build.load("pqscore").pqscore_batched
+    fn.restype = ctypes.c_int
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci,
+                   ctypes.c_float, ci, vp, vp]
+    nb, nd, cap = codes.shape
+    n_c, n_q = cs_t.shape[1:]
+    score = torch.empty((nb, nd), dtype=torch.float32, device=cs_t.device)
+    p = _build.ptr
+    err = fn(p(cs_t), p(lut2), p(codes), p(res_codes), p(lens), p(qm), nb, nd,
+             cap, n_c, n_q, m, ksub, 0.0 if th_r is None else float(th_r),
+             int(th_r is not None), p(score), _build.stream())
+    _build.check(err, "pqscore_batched")
+    launches += 1
+    return score
+
+
+def pqscore_batched(cs_t: torch.Tensor, lut: torch.Tensor,
+                    codes: torch.Tensor, res_codes: torch.Tensor,
+                    token_mask: torch.Tensor, th_r,
+                    q_masks=None) -> torch.Tensor:
+    """Batch-native Eq. 5/6 scores.
+
+    cs_t (B, n_c, n_q <= 32) float32; lut (B, n_q, m, K) float32; codes
+    (B, docs, cap) int32; res_codes (B, docs, cap, m) uint8; token_mask
+    (B, docs, cap) bool prefix mask or (B, docs) int32 lengths; th_r None
+    (Eq. 5) or a float (Eq. 6); q_masks optional (B, n_q) bool.
+    -> scores (B, docs) float32.
+    """
+    nb, nd, cap = codes.shape
+    n_q, m, ksub = lut.shape[1:]
+    if cs_t.shape[-1] != n_q or n_q > 32:
+        raise ValueError(f"cs_t {tuple(cs_t.shape)} and lut "
+                         f"{tuple(lut.shape)} disagree on n_q (<= 32)")
+    lens = lengths_of(token_mask)
+    if tuple(lens.shape) != (nb, nd):
+        raise ValueError(f"token validity covers {tuple(lens.shape)}, "
+                         f"expected {(nb, nd)}")
+    if cs_t.device.type == "cpu":
+        return pqscore_batched_ref(cs_t, lut, codes, res_codes, lens, th_r,
+                                   q_masks)
+    if cs_t.device.type != "cuda":
+        raise ValueError(f"pqscore: unsupported device {cs_t.device}")
+    qm = (torch.ones((nb, n_q), dtype=torch.bool, device=cs_t.device)
+          if q_masks is None else q_masks)
+    lut2 = flat_lut(lut)
+    n_c = cs_t.shape[1]
+    _build.check_operands("pqscore", cs_t.device, (
+        ("cs_t", cs_t, torch.float32, (nb, n_c, n_q)),
+        ("lut", lut2, torch.float32, (nb, m * ksub, n_q)),
+        ("codes", codes, torch.int32, (nb, nd, cap)),
+        ("res_codes", res_codes, torch.uint8, (nb, nd, cap, m)),
+        ("token lengths", lens, torch.int32, (nb, nd)),
+        ("q_masks", qm, torch.bool, (nb, n_q))))
+    return _launch(cs_t, lut2, codes, res_codes, lens, qm, th_r, m, ksub)

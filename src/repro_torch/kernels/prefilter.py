@@ -52,10 +52,11 @@ def lengths_of(token_mask: torch.Tensor) -> torch.Tensor:
 
 def filter_scores_ref(bits: torch.Tensor, codes: torch.Tensor,
                       doc_lens: torch.Tensor,
-                      bitmap: torch.Tensor) -> torch.Tensor:
+                      bitmap: torch.Tensor | None = None) -> torch.Tensor:
     """Eq. 4 for every (query, doc), -1 where the bitmap is False: bits
     (B, n_c) int32 words, codes (n_docs, cap), doc_lens (n_docs,), bitmap
-    (B, n_docs) -> F (B, n_docs) int32. Walks the documents in blocks of
+    (B, n_docs) or None (every doc scored: the unfused ``bitfilter``'s plain
+    version) -> F (B, n_docs) int32. Walks the documents in blocks of
     ``REF_BLOCK_D``, so no (B, n_docs, cap) tensor is made."""
     n_docs, cap = codes.shape
     n_c = bits.shape[-1]
@@ -69,6 +70,8 @@ def filter_scores_ref(bits: torch.Tensor, codes: torch.Tensor,
         valid = tok[None, :] < doc_lens[s:e, None]
         words = torch.where(valid[None], words, torch.zeros_like(words))
         f[:, s:e] = popcount(or_reduce(words, -1))
+    if bitmap is None:
+        return f
     return torch.where(bitmap, f, torch.full_like(f, -1))
 
 

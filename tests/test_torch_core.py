@@ -200,3 +200,23 @@ def test_topk_matches_lax_on_ties(dtype):
         np.testing.assert_array_equal(idx.numpy(), np.asarray(ri))
     vals, idx = topk(torch.tensor([1.0, 3.0, 3.0, 2.0, 3.0]), 3)
     assert idx.tolist() == [1, 2, 4]
+
+
+@pytest.mark.parametrize("th_r", [0.0, 0.3])
+@pytest.mark.parametrize("masked", [False, True])
+def test_scored_term_fraction(th_r, masked):
+    rng = np.random.default_rng(11)
+    cs_t = _cs(rng, (60, 32), 4)
+    codes = rng.integers(0, 60, size=(40, 12)).astype(np.int32)
+    mask = np.arange(12) < rng.integers(0, 13, size=40)[:, None]
+    qm = _q_mask(rng, (), 32) if masked else None
+    ref = rint.scored_term_fraction(
+        jnp.asarray(cs_t), jnp.asarray(codes), jnp.asarray(mask), th_r,
+        None if qm is None else jnp.asarray(qm))
+    port = tint.scored_term_fraction(
+        torch.from_numpy(cs_t), torch.from_numpy(codes),
+        torch.from_numpy(mask), th_r,
+        None if qm is None else torch.from_numpy(qm))
+    assert port.dtype == torch.float32 and port.shape == ()
+    assert 0.0 < float(port) < 1.0
+    _bits_eq(port, ref)

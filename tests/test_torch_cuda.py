@@ -12,8 +12,12 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import bitfilter as kbf
+from repro_torch.kernels import bitpack as kbp
+from repro_torch.kernels import cinter as kci
 from repro_torch.kernels import ops
 from repro_torch.kernels import pqinter as kpq
+from repro_torch.kernels import pqscore as kps
 from repro_torch.kernels import prefilter as kpf
 from torch_inputs import pqinter_inputs, prefilter_inputs
 
@@ -89,3 +93,67 @@ def test_wrappers_refuse_bad_card_operands(card):
     with pytest.raises(ValueError, match="expected"):
         ops.pqinter_batched(cs_t[:1].contiguous(), lut, pcodes, res, plens,
                             None, 8, 4, pqm)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nb", [1, 3, 32, 40])
+def test_bitpack_and_bitfilter_kernels_equal_plain(card, nb):
+    cs, codes, mask, _, qm = _on(card, *prefilter_inputs(
+        nb, nb, 32, 300, 2100, 12))
+    lens = mask.sum(-1, dtype=torch.int32)
+    before = (kbp.launches, kbf.launches)
+    bits = ops.bitpack_batched(cs, 0.25, qm)
+    f = ops.bitfilter_batched(bits, codes, lens)
+    torch.cuda.synchronize()
+    assert (kbp.launches, kbf.launches) == (
+        before[0] + 1, before[1] + -(-nb // kbf.MAX_BATCH))
+    want_bits = kbp.bitpack_batched_ref(cs, 0.25, qm)
+    _same((bits, f), (want_bits, kbf.bitfilter_batched_ref(want_bits, codes,
+                                                           lens)))
+    assert (bits < 0).any()        # bit 31 set: the words are unsigned
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nb", [1, 3, 32])
+@pytest.mark.parametrize("th_r", [None, 0.25])
+def test_cinter_and_pqscore_kernels_equal_plain(card, nb, th_r):
+    cs_t, lut, codes, res, mask, qm = _on(card, *pqinter_inputs(
+        nb, nb, 32, 200, 150, 10, 16, 256))
+    lens = mask.sum(-1, dtype=torch.int32)
+    before = (kci.launches, kps.launches)
+    sbar = ops.cinter_batched(cs_t, codes, lens, qm)
+    score = ops.pqscore_batched(cs_t, lut, codes, res, lens, th_r, qm)
+    torch.cuda.synchronize()
+    assert (kci.launches, kps.launches) == (before[0] + 1, before[1] + 1)
+    _same((sbar, score), (
+        kci.cinter_batched_ref(cs_t, codes, lens, qm),
+        kps.pqscore_batched_ref(cs_t, lut, codes, res, lens, th_r, qm)))
+
+
+@pytest.mark.cuda
+def test_unfused_wrappers_refuse_bad_card_operands(card):
+    cs, codes, mask, _, qm = _on(card, *prefilter_inputs(0, 2, 32, 64, 100,
+                                                         6))
+    lens = mask.sum(-1, dtype=torch.int32)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.bitpack_batched(cs.transpose(1, 2).contiguous().transpose(1, 2),
+                            0.2, qm)
+    with pytest.raises(ValueError, match="on cpu"):
+        ops.bitpack_batched(cs, 0.2, qm.cpu())
+    bits = ops.bitpack_batched(cs, 0.2, qm)
+    with pytest.raises(TypeError, match="int32"):
+        ops.bitfilter_batched(bits.long(), codes, lens)
+    with pytest.raises(ValueError, match="on cpu"):
+        ops.bitfilter_batched(bits, codes.cpu(), lens.cpu())
+    cs_t, lut, pcodes, res, pmask, pqm = _on(card, *pqinter_inputs(
+        0, 2, 32, 64, 20, 6, 4, 16))
+    plens = pmask.sum(-1, dtype=torch.int32)
+    with pytest.raises(TypeError, match="int32"):
+        ops.cinter_batched(cs_t, pcodes.long(), plens, pqm)
+    with pytest.raises(ValueError, match="expected"):
+        ops.cinter_batched(cs_t[:1].contiguous(), pcodes, plens, pqm)
+    with pytest.raises(TypeError, match="uint8"):
+        ops.pqscore_batched(cs_t, lut, pcodes, res.int(), plens, 0.1, pqm)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.pqscore_batched(cs_t, lut, pcodes.transpose(1, 2).contiguous()
+                            .transpose(1, 2), res, plens, 0.1, pqm)

@@ -1,13 +1,17 @@
-"""The slice as a whole: the port's ``retrieve`` against the reference's
+"""The port's engine as a whole: ``retrieve`` against the reference's
 ``repro.core.engine.retrieve`` (``use_kernels=True``, Pallas interpret mode)
 on the same index bytes and the same queries, at B = 4 and B = 1, with a
-padded query-term mask and with ``th_r`` both set and None.
+padded query-term mask and with ``th_r`` both set and None — on the fused
+lane (the default) and on the unfused one (``fused_prefilter=False`` and/or
+``fused_late_interaction=False``: bitpack + bitfilter, cinter + pqscore).
 
-Each case first holds the CS and LUT bits (the two framework matmuls; 0
-mismatches at these shapes), so a failure names the layer, then the final
-doc ids and float32 score bits. One case injects the reference's CS and LUT
-through the ``cs=``/``lut=`` overrides, which holds phases 1b-4 exactly
-whatever the matmuls do.
+Each fused case first holds the CS and LUT bits (the two framework matmuls;
+0 mismatches at these shapes), so a failure names the layer, then the final
+doc ids and float32 score bits. Injecting the reference's CS and LUT through
+the ``cs=``/``lut=`` overrides holds phases 1b-4 exactly whatever the
+matmuls do. The four single-phase entry points are held output by output on
+the reference's own intermediates, and every lane composes to ``retrieve``
+and equals every other.
 """
 import dataclasses
 
@@ -89,7 +93,7 @@ def test_retrieve_matches_reference(small_corpus, small_index, port_index,
     got = teng.retrieve(port_index, tq, teng.EngineConfig(
         **kw, use_kernels=True), None if qm is None else torch.from_numpy(qm),
         device="cpu")
-    assert tops.launch_counts() == {"prefilter": 0, "pqinter": 0}
+    assert set(tops.launch_counts().values()) == {0}   # no CPU launch
     assert got.doc_ids.dtype == torch.int32
     np.testing.assert_array_equal(got.doc_ids.numpy(), np.asarray(
         want.doc_ids))
@@ -154,9 +158,7 @@ def test_engine_config_raises_reference_errors(bad):
 
 @pytest.mark.parametrize("todo", [
     {"candidate_mode": "compact"}, {"compact_cap": 8},
-    {"cs_dtype": "bfloat16"}, {"doc_filter": object()},
-    {"use_kernels": True, "fused_prefilter": False},
-    {"use_kernels": True, "fused_late_interaction": False}])
+    {"cs_dtype": "bfloat16"}, {"doc_filter": object()}])
 def test_engine_config_refuses_configs_outside_the_slice(todo):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         teng.EngineConfig(**{**KW, **todo})
@@ -167,3 +169,142 @@ def test_engine_config_fields_match_reference():
     port = {f.name: f.default for f in dataclasses.fields(teng.EngineConfig)}
     del ref["kernel_interpret"]
     assert port == ref
+
+
+LANES = {
+    "unfused_prefilter": dict(fused_prefilter=False),
+    "unfused_late": dict(fused_late_interaction=False),
+    "unfused_both": dict(fused_prefilter=False, fused_late_interaction=False),
+}
+
+
+def _t(x):
+    return None if x is None else torch.from_numpy(np.array(x))
+
+
+def _j(x):
+    return None if x is None else jnp.asarray(x)
+
+
+def _same_result(got, want):
+    assert got.doc_ids.dtype == torch.int32
+    np.testing.assert_array_equal(got.doc_ids.numpy(),
+                                  np.asarray(want.doc_ids))
+    np.testing.assert_array_equal(_bits(got.scores), _bits(want.scores))
+
+
+@pytest.mark.parametrize("lane", sorted(LANES))
+@pytest.mark.parametrize("case", ["b1_padded_mask_eq5", "b4",
+                                  "b4_eq5", "b4_padded_mask"])
+def test_unfused_retrieve_matches_reference(small_corpus, small_index,
+                                            port_index, lane, case):
+    rows, pad, over = CASES[case]
+    q, qm = _queries(small_corpus, rows, pad)
+    kw = {**KW, **over, "use_kernels": True, **LANES[lane]}
+    want = reng.retrieve(small_index[0], jnp.asarray(q),
+                         reng.EngineConfig(**kw), _j(qm))
+    tops.reset_launches()
+    got = teng.retrieve(port_index, _t(q), teng.EngineConfig(**kw), _t(qm),
+                        device="cpu")
+    assert set(tops.launch_counts().values()) == {0}   # no CPU launch
+    _same_result(got, want)
+
+
+@pytest.mark.parametrize("lane", sorted(LANES))
+def test_unfused_lane_with_injected_cs_and_lut(small_corpus, small_index,
+                                               port_index, lane):
+    ref_index, _ = small_index
+    q, qm = _queries(small_corpus, slice(14, 18), 4)
+    kw = {**KW, "use_kernels": True, **LANES[lane]}
+    ref_cs, ref_lut = _ref_cs_lut(ref_index, jnp.asarray(q))
+    want = reng.retrieve(ref_index, jnp.asarray(q), reng.EngineConfig(**kw),
+                         jnp.asarray(qm))
+    got = teng._retrieve_batch(port_index, _t(q), teng.EngineConfig(**kw),
+                               _t(qm), cs=_t(ref_cs), lut=_t(ref_lut))
+    _same_result(got, want)
+
+
+@pytest.mark.parametrize("pad", [0, 6])
+def test_single_phase_entry_points_match_reference(small_corpus, small_index,
+                                                   port_index, pad):
+    """Each entry point on the reference's own intermediates, output by
+    output, under the unfused kernel config."""
+    ref_index, _ = small_index
+    q, qm = _queries(small_corpus, slice(0, 3), pad)
+    kw = {**KW, "use_kernels": True, **LANES["unfused_both"]}
+    rcfg, tcfg = reng.EngineConfig(**kw), teng.EngineConfig(**kw)
+    jq, tq = jnp.asarray(q), _t(q)
+
+    r_cs, r_bits, r_bitmap = reng.phase1_candidates(ref_index, jq, rcfg,
+                                                    q_mask=_j(qm))
+    t_cs, t_bits, t_bitmap = teng.phase1_candidates(
+        port_index, tq, tcfg, q_mask=_t(qm), device="cpu")
+    assert t_bits.dtype == torch.int32
+    np.testing.assert_array_equal(_bits(t_cs), _bits(r_cs))
+    np.testing.assert_array_equal(t_bits.numpy().view(np.uint32),
+                                  np.asarray(r_bits))
+    np.testing.assert_array_equal(t_bitmap.numpy(), np.asarray(r_bitmap))
+
+    r_sel1 = reng.phase2_prefilter(ref_index, jq, rcfg, bits=r_bits,
+                                   bitmap=r_bitmap)
+    t_sel1 = teng.phase2_prefilter(
+        port_index, tq, tcfg, bits=_t(np.asarray(r_bits).view(np.int32)),
+        bitmap=_t(r_bitmap), device="cpu")
+    assert t_sel1.dtype == torch.int32
+    np.testing.assert_array_equal(t_sel1.numpy(), np.asarray(r_sel1))
+
+    r_sel2 = reng.phase3_centroid_interaction(
+        ref_index, jq, rcfg, q_mask=_j(qm), cs=r_cs, sel1=r_sel1)
+    t_sel2 = teng.phase3_centroid_interaction(
+        port_index, tq, tcfg, q_mask=_t(qm), cs=_t(r_cs), sel1=_t(r_sel1),
+        device="cpu")
+    assert t_sel2.dtype == torch.int32
+    np.testing.assert_array_equal(t_sel2.numpy(), np.asarray(r_sel2))
+
+    want = reng.phase4_late_interaction(ref_index, jq, rcfg, q_mask=_j(qm),
+                                        cs=r_cs, sel2=r_sel2)
+    got = teng.phase4_late_interaction(port_index, tq, tcfg, q_mask=_t(qm),
+                                       cs=_t(r_cs), sel2=_t(r_sel2),
+                                       device="cpu")
+    _same_result(got, want)
+
+
+@pytest.mark.parametrize("lane", ["fused", *sorted(LANES)])
+def test_single_phase_entry_points_compose_to_retrieve(small_corpus,
+                                                       port_index, lane):
+    q, qm = (_t(x) for x in _queries(small_corpus, slice(2, 5), 3))
+    cfg = teng.EngineConfig(**KW, use_kernels=True, **LANES.get(lane, {}))
+    kw = dict(q_mask=qm, device="cpu")
+    cs, bits, bitmap = teng.phase1_candidates(port_index, q, cfg, **kw)
+    sel1 = teng.phase2_prefilter(port_index, q, cfg, bits=bits,
+                                 bitmap=bitmap, **kw)
+    assert sel1.shape == (3, KW["n_filter"])
+    sel2 = teng.phase3_centroid_interaction(port_index, q, cfg, cs=cs,
+                                            sel1=sel1, **kw)
+    assert sel2.shape == (3, KW["n_docs"])
+    got = teng.phase4_late_interaction(port_index, q, cfg, cs=cs, sel2=sel2,
+                                       **kw)
+    want = teng.retrieve(port_index, q, cfg, qm, device="cpu")
+    assert torch.equal(got.doc_ids, want.doc_ids)
+    assert torch.equal(got.scores.view(torch.int32),
+                       want.scores.view(torch.int32))
+    # each entry point also runs the phases it was not handed
+    alone = teng.phase4_late_interaction(port_index, q, cfg, **kw)
+    assert torch.equal(alone.doc_ids, want.doc_ids)
+    assert torch.equal(teng.phase3_centroid_interaction(
+        port_index, q, cfg, **kw), sel2)
+    assert torch.equal(teng.phase2_prefilter(port_index, q, cfg, **kw), sel1)
+
+
+@pytest.mark.parametrize("th_r", [None, 0.4])
+def test_fused_equals_unfused(small_corpus, port_index, th_r):
+    q, qm = (_t(x) for x in _queries(small_corpus, slice(18, 24), 6))
+    kw = {**KW, "th_r": th_r, "use_kernels": True}
+    fused = teng.retrieve(port_index, q, teng.EngineConfig(**kw), qm,
+                          device="cpu")
+    for lane, flags in LANES.items():
+        got = teng.retrieve(port_index, q, teng.EngineConfig(**kw, **flags),
+                            qm, device="cpu")
+        assert torch.equal(got.doc_ids, fused.doc_ids), lane
+        assert torch.equal(got.scores.view(torch.int32),
+                           fused.scores.view(torch.int32)), lane

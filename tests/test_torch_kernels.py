@@ -1,13 +1,17 @@
 """The port's kernel wrappers (``repro_torch.kernels.ops``) against the
 reference's Pallas kernels in interpret mode, as tests/test_kernels.py runs
 them. On the CPU the wrappers run the kernels' plain PyTorch versions; the
-outputs must be bit-exact: ids, int scores, bit words, sel2, and the float32
-bits of S̄ and the final scores.
+outputs must be bit-exact: ids, int scores, bit words (as uint32), F, sel2,
+and the float32 bits of S̄ and the final scores.
 
-Inputs (``torch_inputs.py``) are tie-heavy, ragged (document counts that
-are no multiple of any block), with dead query terms, and with ``th_r``
-both None and set. tests/test_torch_cuda.py holds the CUDA kernels against
-the same plain versions on the card.
+The fused megakernels (prefilter, pqinter) and the unfused lane's kernels
+(bitpack, bitfilter, cinter, pqscore) are covered; batched forms of the
+unfused kernels are held row by row against the single-query Pallas kernel.
+Inputs (``torch_inputs.py``) are tie-heavy, ragged (sizes that are no
+multiple of any block: ``DEFAULT_BC`` 512, ``DEFAULT_BD`` 256 / 128 / 32),
+with dead query terms, and with ``th_r`` both None and set.
+tests/test_torch_cuda.py holds the CUDA kernels against the same plain
+versions on the card.
 """
 import numpy as np
 import pytest
@@ -129,3 +133,127 @@ def test_token_mask_must_be_a_prefix():
     holey[0, 0], holey[0, -1] = False, True
     with pytest.raises(ValueError, match="prefix"):
         tops.prefilter_batched(cs, 0.2, codes, holey, bitmap, 8)
+
+
+def _no_launch(fn):
+    """Run ``fn`` and check it launched no kernel (the CPU runs none)."""
+    before = tops.launch_counts()
+    out = fn()
+    assert tops.launch_counts() == before
+    return out
+
+
+def _bit_words(seed, nb, n_c):
+    """Sparse uint32 words with bit 31 set in some (int32-negative)."""
+    rng = np.random.default_rng(seed)
+    w = rng.integers(0, 1 << 32, size=(nb, n_c), dtype=np.uint64)
+    w &= rng.integers(0, 1 << 32, size=(nb, n_c), dtype=np.uint64)
+    return w.astype(np.uint32)
+
+
+def _row(qm, b):
+    return None if qm is None else jnp.asarray(qm[b])
+
+
+@pytest.mark.parametrize("nb,n_q,n_c", [
+    (3, 32, 700),     # n_c ragged against block 512; bit 31 in use
+    (2, 16, 130),     # less than one block
+    (1, 7, 1024),     # whole blocks
+])
+@pytest.mark.parametrize("masked", [False, True])
+def test_bitpack_matches_pallas(nb, n_q, n_c, masked):
+    cs, _, _, _, qm = _prefilter_inputs(n_c, nb, n_q, n_c, 4, 2)
+    qm = qm if masked else None
+    tqm = None if qm is None else torch.from_numpy(qm)
+    port = _no_launch(lambda: tops.bitpack_batched(*_t(cs), 0.25, tqm))
+    assert port.dtype == torch.int32 and port.shape == (nb, n_c)
+    for b in range(nb):
+        _eq([port[b]], [rops.bitpack(*_j(cs[b]), 0.25, _row(qm, b),
+                                     interpret=True)])
+    single = tops.bitpack(*_t(cs[0]), 0.25, None if tqm is None else tqm[0])
+    assert torch.equal(single, port[0])
+
+
+@pytest.mark.parametrize("nb,n_c,n_docs,cap", [
+    (3, 200, 300, 12),     # 300 docs: ragged against block 256
+    (2, 130, 517, 9),
+    (1, 64, 256, 5),       # one whole block
+])
+@pytest.mark.parametrize("as_lengths", [False, True])
+def test_bitfilter_matches_pallas(nb, n_c, n_docs, cap, as_lengths):
+    _, codes, mask, _, _ = _prefilter_inputs(n_docs, 1, 1, n_c, n_docs, cap)
+    bits = _bit_words(n_docs + cap, nb, n_c)
+    validity = mask.sum(-1).astype(np.int32) if as_lengths else mask
+    port = _no_launch(lambda: tops.bitfilter_batched(
+        *_t(bits.view(np.int32), codes, validity)))
+    assert port.dtype == torch.int32 and port.shape == (nb, n_docs)
+    for b in range(nb):
+        _eq([port[b]], [rops.bitfilter(*_j(bits[b], codes, mask),
+                                       interpret=True)])
+    single = tops.bitfilter(*_t(bits[0].view(np.int32), codes, mask))
+    assert torch.equal(single, port[0])
+
+
+@pytest.mark.parametrize("nb,n_q,n_c,nd,cap", [
+    (3, 32, 100, 130, 10),     # 130 docs: ragged against block 128
+    (2, 16, 64, 70, 7),        # less than one block
+])
+@pytest.mark.parametrize("masked", [False, True])
+def test_cinter_matches_pallas(nb, n_q, n_c, nd, cap, masked):
+    cs_t, _, codes, _, mask, qm = _pqinter_inputs(nd + cap, nb, n_q, n_c, nd,
+                                                  cap, 2, 4)
+    qm = qm if masked else None
+    tqm = None if qm is None else torch.from_numpy(qm)
+    port = _no_launch(lambda: tops.cinter_batched(*_t(cs_t, codes, mask),
+                                                  tqm))
+    assert port.dtype == torch.float32 and port.shape == (nb, nd)
+    for b in range(nb):
+        _eq([port[b]], [rops.cinter(*_j(cs_t[b], codes[b], mask[b]),
+                                    _row(qm, b), interpret=True)])
+    single = tops.cinter(*_t(cs_t[0], codes[0], mask[0]),
+                         None if tqm is None else tqm[0])
+    assert torch.equal(single.view(torch.int32), port[0].view(torch.int32))
+
+
+@pytest.mark.parametrize("nb,n_q,n_c,nd,cap,m,ksub", [
+    (3, 32, 100, 45, 10, 8, 16),     # 45 docs: ragged against block 32
+    (2, 16, 64, 70, 7, 4, 256),
+])
+@pytest.mark.parametrize("th_r", [None, 0.25])
+@pytest.mark.parametrize("masked", [False, True])
+def test_pqscore_matches_pallas(nb, n_q, n_c, nd, cap, m, ksub, th_r,
+                                masked):
+    cs_t, lut, codes, res, mask, qm = _pqinter_inputs(
+        nd + m, nb, n_q, n_c, nd, cap, m, ksub)
+    qm = qm if masked else None
+    tqm = None if qm is None else torch.from_numpy(qm)
+    port = _no_launch(lambda: tops.pqscore_batched(
+        *_t(cs_t, lut, codes, res, mask), th_r, tqm))
+    assert port.dtype == torch.float32 and port.shape == (nb, nd)
+    for b in range(nb):
+        _eq([port[b]], [rops.pqscore(
+            *_j(cs_t[b], lut[b], codes[b], res[b], mask[b]), th_r,
+            _row(qm, b), interpret=True)])
+    single = tops.pqscore(*_t(cs_t[0], lut[0], codes[0], res[0], mask[0]),
+                          th_r, None if tqm is None else tqm[0])
+    assert torch.equal(single.view(torch.int32), port[0].view(torch.int32))
+
+
+def test_unfused_wrappers_refuse_out_of_slice_operands():
+    cs_t, lut, codes, res, mask, _ = _t(*_pqinter_inputs(
+        0, 2, 8, 32, 12, 4, 4, 16))
+    with pytest.raises(NotImplementedError, match="compact"):
+        tops.bitfilter_batched(torch.zeros(2, 32, dtype=torch.int32), codes,
+                               mask)
+    holey = mask.clone()
+    holey[0, 0, 0], holey[0, 0, -1] = False, True
+    with pytest.raises(ValueError, match="prefix"):
+        tops.cinter_batched(cs_t, codes, holey)
+    with pytest.raises(ValueError, match="prefix"):
+        tops.pqscore_batched(cs_t, lut, codes, res, holey, 0.1)
+    with pytest.raises(ValueError, match="n_q"):
+        tops.pqscore_batched(cs_t, lut[:, :4], codes, res, mask, 0.1)
+    with pytest.raises(ValueError, match="expected"):
+        tops.cinter_batched(cs_t, codes, mask[:1])
+    with pytest.raises(ValueError, match="one query term per bit"):
+        tops.bitpack_batched(torch.zeros(1, 33, 8), 0.1)
