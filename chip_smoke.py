@@ -22,7 +22,13 @@ Phases:
   2. build   — one nvcc per kernel source, all started together
   3. small   — each of the six kernels == its plain version, exactly, on
                small, ragged, tie-heavy inputs with dead query terms, at B in
-               {1, 3, 32} and th_r None and set
+               {1, 3, 32} and th_r None and set, then on the stress cases
+               (PREFILTER_STRESS, PQINTER_STRESS: sparse, dense and shared
+               candidacy (the prefilter's sparse and dense forms), cap 80
+               and 200 with edge lengths, ties across tiles, a tile plus
+               one doc, cuts ranked and sorted, m in {4, 5, 8, 16, 32}
+               (all but 16 on the serial path), odd K, Eq. 6 with no kept
+               token; each with and without a term mask)
   4. full    — the planted index on the card at MS MARCO width; retrieve at
                B = 32 and B = 1 on each lane (launch counts read around those
                runs only); each kernel held against its plain version on the
@@ -31,12 +37,16 @@ Phases:
                Success@100 and MRR@10 on both lanes
   5. timing  — CUDA-event medians of every step of both lanes, end to end,
                each kernel beside its plain version and its bound
-  6. profile — torch.profiler over retrieve on both lanes at B = 32 and
+  6. limits  — the prefilter and pqinter megakernels, each held against
+               its plain version and timed by pass, on a B = 32 batch
+               whose queries share candidates and at the largest cuts
+               their wrappers take (n_filter 4096 and 8192)
+  7. profile — torch.profiler over retrieve on both lanes at B = 32 and
                B = 1: the device's busy share, device time and launches by
                CUDA kernel, and each hand-written kernel's __global__
                launches per wrapper call (tables in OUT_DIR, one
                profile_<lane>_b<B>.txt each)
-  7. kernels — one JSON line describing the six kernels
+  8. kernels — one JSON line describing the six kernels
 and last ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -44,6 +54,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -144,6 +155,45 @@ def _quant(rng, shape, scale, levels):
     return x.astype(np.float32)
 
 
+# Stress cases of the small phase, each held exactly like the cases above.
+# Lengths at cap 80 and 200 are drawn from STRESS_LENS (a 32-token round's
+# edges, and the prefilter's 128-token chunk's); the prefilter's tile is
+# 1024 docs.
+STRESS_LENS = {80: (0, 1, 31, 32, 33, 80), 200: (0, 127, 128, 129, 200)}
+PREFILTER_STRESS = (
+    # name, B, n_c, n_docs, cap, n_filter, bitmap density, kind
+    ("sparse_candidacy", 32, 700, 5003, 17, 300, 0.02, ""),
+    ("dense_candidacy", 32, 700, 3001, 17, 300, 0.9, ""),
+    ("dense_candidacy_odd_batch", 21, 700, 3001, 17, 300, 0.97, ""),
+    ("one_candidate_set", 32, 700, 3001, 17, 300, 0.3, "shared"),
+    ("cap80_edge_lengths", 3, 700, 2100, 80, 300, 0.3, ""),
+    ("ties_across_tiles", 3, 64, 4100, 12, 2500, 0.9, "flat"),
+    ("ties_sorted_cut", 32, 64, 4100, 12, 2500, 0.9, "flat"),
+    ("tile_plus_one_docs", 1, 700, 1025, 17, 1025, 0.3, ""),
+    ("cap200_two_chunks", 32, 700, 2100, 200, 300, 0.6, ""),
+)
+PQINTER_STRESS = (
+    # name, B, n_c, n_filter, cap, m, K, n_docs, k, th_r values
+    ("m16_cap80_edge_lengths", 3, 700, 700, 80, 16, 256, 90, 25,
+     (None, 0.25)),
+    ("odd_m_and_K", 3, 700, 300, 17, 5, 7, 60, 20, (None, 0.25)),
+    ("m8_cap33", 2, 300, 200, 33, 8, 16, 50, 10, (0.25,)),
+    ("m4", 2, 300, 200, 12, 4, 16, 50, 10, (0.25,)),
+    ("m32", 2, 300, 200, 12, 32, 16, 50, 10, (0.25,)),
+    ("eq6_no_kept_token", 3, 700, 300, 17, 16, 256, 60, 20, (100.0,)),
+    ("sorted_cuts", 32, 300, 2100, 12, 4, 16, 2100, 50, (0.25,)),
+)
+
+
+def _stress_lens(rng, shape, cap: int):
+    """Token counts: from STRESS_LENS at its caps, else uniform in
+    [0, cap]."""
+    import numpy as np
+    if cap in STRESS_LENS:
+        return rng.choice(np.asarray(STRESS_LENS[cap], np.int32), size=shape)
+    return rng.integers(0, cap + 1, size=shape).astype(np.int32)
+
+
 def small_phase(dev) -> dict:
     """Phase 3: each kernel against its plain version on small, ragged,
     tie-heavy inputs. -> max abs error per kernel (0: exact)."""
@@ -206,8 +256,59 @@ def small_phase(dev) -> dict:
                     t(qm))
             hold("pqscore", (ops.pqscore_batched(*args),),
                  (kps.pqscore_batched_ref(*args),))
+    for name, nb, n_c, n_docs, cap, n_filter, density, kind in (
+            PREFILTER_STRESS):
+        rng = np.random.default_rng(len(name) * 1000 + nb)
+        n_q = 32
+        cs = _quant(rng, (nb, n_q, n_c), 0.5, 4)
+        if kind == "flat":           # one word per query: F ties everywhere
+            cs = np.repeat(cs[:, :, :1], n_c, axis=2)
+        codes = rng.integers(0, n_c, size=(n_docs, cap)).astype(np.int32)
+        lens = _stress_lens(rng, n_docs, cap)
+        codes[np.arange(cap)[None, :] >= lens[:, None]] = n_c
+        bitmap = rng.random((nb, n_docs)) < density
+        if kind == "shared":         # every query has the same candidates
+            bitmap[:] = bitmap[:1]
+        qm = rng.random((nb, n_q)) < 0.8
+        qm[:, 0] = True
+        for q in (t(qm), None):
+            args = (t(cs), 0.25, t(codes), t(lens), t(bitmap), n_filter, q)
+            hold("prefilter", ops.prefilter_batched(*args),
+                 kpf.prefilter_batched_ref(*args))
+            hold("bitpack", (ops.bitpack_batched(t(cs), 0.25, q),),
+                 (kbp.bitpack_batched_ref(t(cs), 0.25, q),))
+        bits = kbp.bitpack_batched_ref(t(cs), 0.25, t(qm))
+        args = (bits, t(codes), t(lens))
+        hold("bitfilter", (ops.bitfilter_batched(*args),),
+             (kbf.bitfilter_batched_ref(*args),))
+    for name, nb, n_c, nf, cap, m, ksub, n_docs2, k, th_rs in PQINTER_STRESS:
+        rng = np.random.default_rng(len(name) * 1000 + m)
+        n_q = 32
+        cs_t = _quant(rng, (nb, n_c, n_q), 0.5, 2)
+        lut = _quant(rng, (nb, n_q, m, ksub), 0.1, 8)
+        pcodes = rng.integers(0, n_c, size=(nb, nf, cap)).astype(np.int32)
+        plens = _stress_lens(rng, (nb, nf), cap)
+        pcodes[np.arange(cap) >= plens[..., None]] = n_c
+        res = rng.integers(0, ksub, size=(nb, nf, cap, m)).astype(np.uint8)
+        qm = rng.random((nb, n_q)) < 0.8
+        qm[:, 0] = True
+        for th_r in th_rs:
+            for q in (t(qm), None):
+                args = (t(cs_t), t(lut), t(pcodes), t(res), t(plens), th_r,
+                        n_docs2, k, q)
+                hold("pqinter", ops.pqinter_batched(*args),
+                     kpq.pqinter_batched_ref(*args))
+                args = (t(cs_t), t(lut), t(pcodes), t(res), t(plens), th_r,
+                        q)
+                hold("pqscore", (ops.pqscore_batched(*args),),
+                     (kps.pqscore_batched_ref(*args),))
+        for q in (t(qm), None):
+            args = (t(cs_t), t(pcodes), t(plens), q)
+            hold("cinter", (ops.cinter_batched(*args),),
+                 (kci.cinter_batched_ref(*args),))
     torch.cuda.synchronize()
-    emit("small", cases=cases, exact=True, max_abs_err=err)
+    emit("small", cases=cases, exact=True, max_abs_err=err,
+         stress=[c[0] for c in PREFILTER_STRESS + PQINTER_STRESS])
     return err
 
 
@@ -387,6 +488,9 @@ def funnel(index, h, cfg) -> dict:
     bits = bitvector.build_bitvectors(h["cs"], cfg.th)
     f = kpf.filter_scores_ref(bits, index.codes, index.doc_lens, h["bitmap"])
     cand = h["bitmap"].sum(1)
+    # candidate queries per doc: how much of a batch shares one doc's codes
+    cand_q = h["bitmap"].sum(0)
+    cand_q = cand_q[cand_q > 0]
     hist = torch.bincount(f[f >= 0].long(), minlength=33)
     f_cut = h["pf"][0][:, -1:]
     tied = ((f == f_cut) & h["bitmap"]).sum(1)
@@ -394,6 +498,11 @@ def funnel(index, h, cfg) -> dict:
     return {"candidates_per_query": {"mean": float(cand.float().mean()),
                                      "min": int(cand.min()),
                                      "max": int(cand.max())},
+            "docs_some_query_candidate": int(cand_q.numel()),
+            "candidate_queries_per_candidate_doc": {
+                "mean": float(cand_q.float().mean()),
+                "histogram": torch.bincount(
+                    cand_q, minlength=h["bitmap"].shape[0] + 1).tolist()},
             "F_histogram_over_candidates": hist.tolist(),
             "F_at_cut": h["pf"][0][:, -1].tolist(),
             "docs_tied_at_cut_mean": float(tied.float().mean()),
@@ -526,6 +635,22 @@ def time_samples(fn, n: int = 10, warmup: int = 2, flush=None) -> list:
     return times
 
 
+def host_ms(fn, n: int = 20) -> float:
+    """Median host time (ms) of one call of ``fn`` from an idle device to
+    its return, without waiting for the device: what a wrapper costs the
+    host to check, allocate and launch."""
+    import torch
+    fn()
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return statistics.median(times)
+
+
 def time_ms(fn, **kw) -> float:
     """Median of :func:`time_samples`."""
     return statistics.median(time_samples(fn, **kw))
@@ -609,7 +734,7 @@ def timing_phase(full: dict) -> dict:
         for _ in range(5):
             teng.retrieve(index, q, cfg)
         torch.cuda.synchronize()
-        host_ms = (time.perf_counter() - t0) / 5 * 1e3
+        host_ms_e2e = (time.perf_counter() - t0) / 5 * 1e3
         plain = {
             "prefilter": time_ms(lambda: kpf.prefilter_batched_ref(*pf_args),
                                  n=3, warmup=1, flush=flush),
@@ -624,6 +749,9 @@ def timing_phase(full: dict) -> dict:
             "pqscore": time_ms(lambda: kps.pqscore_batched_ref(
                 *u["ps_args"]), n=5, warmup=1, flush=flush),
         }
+        wrapper_host = {
+            "prefilter": host_ms(lambda: ops.prefilter_batched(*pf_args)),
+            "pqinter": host_ms(lambda: ops.pqinter_batched(*pq_args))}
         ci_cs_t, ci_codes, ci_lens = u["ci_args"]
         ps_cs_t, ps_lut, ps_codes, _, ps_lens, _ = u["ps_args"]
         bounds = {
@@ -639,19 +767,107 @@ def timing_phase(full: dict) -> dict:
         nb = q.shape[0]
         out[name] = dict(step_ms=ms, end_to_end=e2e, unfused_step_ms=ums,
                          unfused_end_to_end=ue2e, plain_ms=plain,
-                         bounds=bounds, host_ms_per_batch=host_ms,
+                         bounds=bounds, host_ms_per_batch=host_ms_e2e,
+                         wrapper_host_ms=wrapper_host,
                          qps=nb * 1e3 / ms["end_to_end"],
                          unfused_qps=nb * 1e3 / ums["end_to_end"])
         emit(f"timing_{name}", batch=nb, **out[name])
     return out
 
 
-# --- 6. device time by kernel ---------------------------------------------------
+# --- 6. the megakernels away from the default config ----------------------------
+
+def _passes_ms(fn, kern: str, calls: int = 3) -> dict:
+    """Device ms per call of each __global__ function of ``kern`` over
+    ``calls`` calls of ``fn`` (torch.profiler)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return {f: sum(_dev_us(e) for e in es) / 1e3 / calls
+            for f, es in _pass_events(_device_events(prof), kern).items()}
+
+
+def limits_phase(full: dict) -> dict:
+    """Phase 6: the two megakernels at full width on inputs the default
+    config does not give them, each held exactly against its plain version:
+    the prefilter at B = 32 on batches whose queries share candidates (every
+    query with query 0's candidates; each doc of the batch's union a
+    candidate of queries 0..k-1, k in {8, 16, 24, 32}),
+    and the largest cuts the wrappers take (n_filter 4096 and 8192; pqinter
+    over 4096 survivors, keeping 256 and 4096), at B = 32 and B = 1. Per
+    case: the wrapper's median ms (as in the timing phase) and its per-pass
+    device ms."""
+    import torch
+    from repro_torch.core import engine as teng
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import pqinter as kpq
+    from repro_torch.kernels import prefilter as kpf
+    index, cfg = full["index"], full["cfg"]
+    flush = torch.empty(64 << 20, dtype=torch.int32, device=index.device)
+    out = {}
+
+    def case(name, kern, fn, ref):
+        _exact(fn(), ref())
+        out[name] = {"ms": time_ms(fn, flush=flush),
+                     "pass_ms": _passes_ms(fn, kern)}
+
+    h = full["held"]["b32"]
+    bm = h["bitmap"]
+    union = bm.any(0, keepdim=True)
+    first = torch.arange(bm.shape[0], device=bm.device)[:, None]
+    for name, bitmap in (
+            ("planted", bm),
+            ("query0_candidates", bm[:1].expand_as(bm).contiguous()),
+            *((f"union_to_first{k}_queries", (union & (first < k)))
+              for k in (8, 16, 24)),
+            ("union_candidates", union.expand_as(bm).contiguous())):
+        args = (h["cs"], cfg.th, index.codes, index.doc_lens, bitmap,
+                cfg.n_filter)
+        case(f"prefilter_{name}_b32", "prefilter",
+             lambda: ops.prefilter_batched(*args),
+             lambda: kpf.prefilter_batched_ref(*args))
+        out[f"prefilter_{name}_b32"].update(
+            candidate_pairs=int(bitmap.sum()),
+            bound=prefilter_bound(h["cs"], index, bitmap, cfg.n_filter))
+    for b in ("b32", "b1"):
+        h = full["held"][b]
+        q = full["queries"][:h["cs"].shape[0]]
+        for n_filter in (4096, 8192):
+            args = (h["cs"], cfg.th, index.codes, index.doc_lens,
+                    h["bitmap"], n_filter)
+            case(f"prefilter_n_filter{n_filter}_{b}", "prefilter",
+                 lambda: ops.prefilter_batched(*args),
+                 lambda: kpf.prefilter_batched_ref(*args))
+        sel1 = ops.prefilter_batched(*args[:5], kpq.MAX_SORT)[1].long()
+        operands = teng._survivor_operands(index, h["cs"],
+                                           teng._query_lut(index, q), sel1)
+        for n_docs in (256, kpq.MAX_SORT):
+            def ref():
+                # four queries at a time: the plain version's (docs, cap,
+                # n_q, m) LUT gather would not fit at once
+                parts = [kpq.pqinter_batched_ref(
+                    *(x[s:s + 4] for x in operands), cfg.th_r, n_docs, cfg.k)
+                    for s in range(0, sel1.shape[0], 4)]
+                return tuple(torch.cat(p) for p in zip(*parts))
+            case(f"pqinter_nf{kpq.MAX_SORT}_n_docs{n_docs}_{b}", "pqinter",
+                 lambda: ops.pqinter_batched(*operands, cfg.th_r, n_docs,
+                                             cfg.k), ref)
+    emit("limits", **out)
+    return out
+
+
+# --- 7. device time by kernel ---------------------------------------------------
 
 # The __global__ functions each wrapper launches, in launch order.
 KERNEL_FUNCTIONS = {
-    "prefilter": ("pack_kernel", "score_kernel", "threshold_kernel",
-                  "collect_kernel", "sort_kernel"),
+    "prefilter": ("pack_kernel", "transpose_kernel", "score_kernel",
+                  "threshold_kernel", "collect_kernel", "sort_kernel"),
     "pqinter": ("sbar_kernel", "select1_kernel", "eq56_kernel",
                 "select2_kernel"),
     "bitpack": ("bitpack_kernel",),
@@ -661,24 +877,47 @@ KERNEL_FUNCTIONS = {
 }
 
 
+def _dev_us(e) -> float:
+    """A profiler event's own device time, us (the attribute's name differs
+    between torch versions)."""
+    return getattr(e, "self_device_time_total", None) or getattr(
+        e, "self_cuda_time_total", 0.0)
+
+
+def _device_events(prof) -> list:
+    """The profiler's device-side events (kernels, copies) with time, the
+    longest first: an aten op's row repeats the time of its kernels."""
+    from torch.autograd import DeviceType
+    return sorted((e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA and _dev_us(e) > 0),
+                  key=_dev_us, reverse=True)
+
+
+def _pass_events(events: list, kern: str) -> dict:
+    """{__global__ function of ``kern``: its events}."""
+    return {fn: [e for e in events if _launched(e.key, fn)]
+            for fn in KERNEL_FUNCTIONS[kern]}
+
+
+def _launched(key: str, fn: str) -> bool:
+    """Whether a profiler key names the __global__ function ``fn`` of an
+    anonymous namespace (a template's key starts with its return type)."""
+    return re.match(rf"(?:void )?\(anonymous namespace\)::{fn}[<(]",
+                    key) is not None
+
+
 def profile_phase(full: dict, calls: int = 5) -> dict:
-    """Phase 6: ``torch.profiler`` over ``calls`` ``retrieve`` calls of each
+    """Phase 7: ``torch.profiler`` over ``calls`` ``retrieve`` calls of each
     lane at B = 32 and B = 1 on the index already built: the device's busy
     share of the profiled window, device time and launches per call by CUDA
     kernel, and each hand-written kernel's __global__ launches per wrapper
     call. The profiler's table goes to OUT_DIR/profile_<lane>_b<B>.txt."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.core import engine as teng
     from repro_torch.kernels import ops
     index = full["index"]
     smi = RECORD["device"]["nvidia_smi"]
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total", None) or getattr(
-            e, "self_cuda_time_total", 0.0)
-
     out = {}
     for name, cfg, q in (
             ("fused_b32", full["cfg"], full["queries"][:32]),
@@ -698,22 +937,20 @@ def profile_phase(full: dict, calls: int = 5) -> dict:
             wall_us = (time.perf_counter() - t0) * 1e6
         wrapper_calls = ops.launch_counts()
         averages = prof.key_averages()
-        # device-side events only (kernels, copies): an aten op's row
-        # repeats the time of the kernels it launched
-        events = sorted((e for e in averages if e.device_type ==
-                         DeviceType.CUDA and dev_us(e) > 0),
-                        key=dev_us, reverse=True)
+        events = _device_events(prof)
         if not events:
             raise AssertionError("the profiler saw no device time")
-        busy_us = sum(dev_us(e) for e in events)
-        per_wrapper = {}
-        for kern, fns in KERNEL_FUNCTIONS.items():
+        busy_us = sum(_dev_us(e) for e in events)
+        per_wrapper, pass_ms = {}, {}
+        for kern in KERNEL_FUNCTIONS:
             if not wrapper_calls[kern]:
                 continue                     # the other lane's kernel
-            n = sum(e.count for e in events
-                    if any(e.key.startswith(f"(anonymous namespace)::{fn}(")
-                           for fn in fns))
-            per_wrapper[kern] = n / wrapper_calls[kern]
+            mine = _pass_events(events, kern)
+            per_wrapper[kern] = sum(
+                e.count for es in mine.values() for e in es) / \
+                wrapper_calls[kern]
+            pass_ms[kern] = {fn: sum(_dev_us(e) for e in es) / 1e3
+                             / wrapper_calls[kern] for fn, es in mine.items()}
         os.makedirs(OUT_DIR, exist_ok=True)
         with open(os.path.join(OUT_DIR, f"profile_{name}.txt"), "w") as f:
             f.write(f"{smi}\n" + averages.table(
@@ -725,8 +962,9 @@ def profile_phase(full: dict, calls: int = 5) -> dict:
             "device_busy_share": busy_us / wall_us,
             "device_launches_per_call": sum(e.count for e in events) / calls,
             "kernel_launches_per_wrapper_call": per_wrapper,
+            "pass_device_ms_per_wrapper_call": pass_ms,
             "by_kernel_ms_per_call": {
-                e.key[:90]: dev_us(e) / calls / 1e3 for e in events[:25]},
+                e.key[:90]: _dev_us(e) / calls / 1e3 for e in events[:25]},
             "launches_per_call": {
                 e.key[:90]: e.count / calls for e in events[:25]},
         }
@@ -734,7 +972,7 @@ def profile_phase(full: dict, calls: int = 5) -> dict:
     return out
 
 
-# --- 7. the kernels line ---------------------------------------------------------
+# --- 8. the kernels line ---------------------------------------------------------
 
 KERNELS = {
     "prefilter": dict(
@@ -768,7 +1006,7 @@ KERNELS = {
 
 def kernels_line(small_err: dict, full: dict, timing: dict,
                  prof: dict) -> dict:
-    """Phase 7: one record per kernel, from this run's measurements. Each
+    """Phase 8: one record per kernel, from this run's measurements. Each
     kernel's launches, time and profile come from the lane that runs it."""
     rows = []
     for name, info in KERNELS.items():
@@ -793,6 +1031,12 @@ def kernels_line(small_err: dict, full: dict, timing: dict,
             "ms_b1": t1[step][f"{name}_kernel"],
             "plain_ms_b1": t1["plain_ms"][name],
             "bound_ms_b1": t1["bounds"][name]["bound_ms"],
+            "wrapper_host_ms": t32["wrapper_host_ms"].get(name),
+            "wrapper_host_ms_b1": t1["wrapper_host_ms"].get(name),
+            "pass_ms": prof[f"{lane}_b32"][
+                "pass_device_ms_per_wrapper_call"][name],
+            "pass_ms_b1": prof[f"{lane}_b1"][
+                "pass_device_ms_per_wrapper_call"][name],
             "ok": True,
         })
     return {"kernels": rows}
@@ -808,6 +1052,7 @@ def main() -> None:
     small_err = small_phase(dev)
     full = full_phase(dev)
     timing = timing_phase(full)
+    limits_phase(full)
     prof = profile_phase(full)
     line = kernels_line(small_err, full, timing, prof)
     RECORD["kernels"] = line["kernels"]

@@ -28,6 +28,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
+_fns: dict[tuple[str, str], object] = {}
 
 
 def sources() -> list[str]:
@@ -95,6 +96,18 @@ def load(name: str) -> ctypes.CDLL:
         return _libs[name]
 
 
+def function(lib: str, name: str, restype, argtypes: list):
+    """The C entry point ``name`` of ``csrc/<lib>.cu``, its ``restype`` and
+    ``argtypes`` bound once, when it is first asked for."""
+    fn = _fns.get((lib, name))
+    if fn is None:
+        fn = getattr(load(lib), name)
+        fn.restype, fn.argtypes = restype, argtypes
+        with _lock:
+            fn = _fns.setdefault((lib, name), fn)
+    return fn
+
+
 def check(err: int, what: str) -> None:
     """Raise when a C entry point returned a nonzero ``cudaError_t``."""
     if err != 0:
@@ -120,8 +133,9 @@ def check_operands(kernel: str, device, operands) -> None:
 
 
 def ptr(t) -> ctypes.c_void_p:
-    """A tensor's device pointer as a ctypes argument."""
-    return ctypes.c_void_p(t.data_ptr())
+    """A tensor's device pointer as a ctypes argument; None gives a null
+    pointer."""
+    return ctypes.c_void_p(None if t is None else t.data_ptr())
 
 
 def stream() -> ctypes.c_void_p:

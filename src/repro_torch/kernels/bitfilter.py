@@ -40,10 +40,9 @@ def bitfilter_batched_ref(bits: torch.Tensor, codes: torch.Tensor,
 def _launch(bits, codes, doc_lens):
     """One launch of ``csrc/bitfilter.cu`` for B <= MAX_BATCH queries."""
     global launches
-    fn = _build.load("bitfilter").bitfilter_batched
-    fn.restype = ctypes.c_int
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [vp, vp, vp, ci, ci, ci, ci, vp, vp, vp]
+    fn = _build.function("bitfilter", "bitfilter_batched", ctypes.c_int,
+                         [vp, vp, vp, ci, ci, ci, ci, vp, vp, vp])
     nb, n_c = bits.shape
     n_docs, cap = codes.shape
     dev = bits.device

@@ -33,12 +33,12 @@ def bitpack_batched_ref(cs: torch.Tensor, th: float,
 
 
 def _launch(cs, th, qm):
-    """One launch of ``csrc/bitpack.cu``."""
+    """One launch of ``csrc/bitpack.cu``; qm None means every term is
+    live."""
     global launches
-    fn = _build.load("bitpack").bitpack_batched
-    fn.restype = ctypes.c_int
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [vp, ctypes.c_float, vp, ci, ci, ci, vp, vp]
+    fn = _build.function("bitpack", "bitpack_batched", ctypes.c_int,
+                         [vp, ctypes.c_float, vp, ci, ci, ci, vp, vp])
     nb, n_q, n_c = cs.shape
     bits = torch.empty((nb, n_c), dtype=torch.int32, device=cs.device)
     p = _build.ptr
@@ -63,9 +63,8 @@ def bitpack_batched(cs: torch.Tensor, th: float,
         return bitpack_batched_ref(cs, th, q_masks)
     if cs.device.type != "cuda":
         raise ValueError(f"bitpack: unsupported device {cs.device}")
-    qm = (torch.ones((nb, n_q), dtype=torch.bool, device=cs.device)
-          if q_masks is None else q_masks)
-    _build.check_operands("bitpack", cs.device, (
-        ("cs", cs, torch.float32, (nb, n_q, n_c)),
-        ("q_masks", qm, torch.bool, (nb, n_q))))
-    return _launch(cs, th, qm)
+    operands = [("cs", cs, torch.float32, (nb, n_q, n_c))]
+    if q_masks is not None:
+        operands.append(("q_masks", q_masks, torch.bool, (nb, n_q)))
+    _build.check_operands("bitpack", cs.device, operands)
+    return _launch(cs, th, q_masks)

@@ -33,12 +33,12 @@ def cinter_batched_ref(cs_t: torch.Tensor, codes: torch.Tensor,
 
 
 def _launch(cs_t, codes, lens, qm):
-    """One launch of ``csrc/cinter.cu``."""
+    """One launch of ``csrc/cinter.cu``; qm None means every term is
+    live."""
     global launches
-    fn = _build.load("cinter").cinter_batched
-    fn.restype = ctypes.c_int
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, vp, vp]
+    fn = _build.function("cinter", "cinter_batched", ctypes.c_int,
+                         [vp, vp, vp, vp, ci, ci, ci, ci, ci, vp, vp])
     nb, nd, cap = codes.shape
     n_c, n_q = cs_t.shape[1:]
     sbar = torch.empty((nb, nd), dtype=torch.float32, device=cs_t.device)
@@ -71,11 +71,10 @@ def cinter_batched(cs_t: torch.Tensor, codes: torch.Tensor,
         return cinter_batched_ref(cs_t, codes, lens, q_masks)
     if cs_t.device.type != "cuda":
         raise ValueError(f"cinter: unsupported device {cs_t.device}")
-    qm = (torch.ones((nb, n_q), dtype=torch.bool, device=cs_t.device)
-          if q_masks is None else q_masks)
-    _build.check_operands("cinter", cs_t.device, (
-        ("cs_t", cs_t, torch.float32, (nb, n_c, n_q)),
-        ("codes", codes, torch.int32, (nb, nd, cap)),
-        ("token lengths", lens, torch.int32, (nb, nd)),
-        ("q_masks", qm, torch.bool, (nb, n_q))))
-    return _launch(cs_t, codes, lens, qm)
+    operands = [("cs_t", cs_t, torch.float32, (nb, n_c, n_q)),
+                ("codes", codes, torch.int32, (nb, nd, cap)),
+                ("token lengths", lens, torch.int32, (nb, nd))]
+    if q_masks is not None:
+        operands.append(("q_masks", q_masks, torch.bool, (nb, n_q)))
+    _build.check_operands("cinter", cs_t.device, operands)
+    return _launch(cs_t, codes, lens, q_masks)

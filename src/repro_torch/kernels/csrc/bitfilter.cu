@@ -15,12 +15,15 @@
 // shared memory.
 //
 // What the design does about it:
-//  * The word table is first transposed to (n_c, B), so one token's B words
-//    are contiguous: at B = 32 a token costs one 128-byte line.
+//  * The word table is first transposed to (n_c, B) (emvb::transpose_words,
+//    which the fused prefilter's dense form also reads), so one token's B
+//    words are contiguous: at B = 32 a token costs one 128-byte line.
 //  * The codes are streamed once for all B queries: a warp takes one doc,
 //    its lanes split into (token group, query) pairs, and each token's code
-//    is read once and used by every query (emvb::doc_word_or, the function
-//    the fused prefilter's score pass runs).
+//    is read once and used by every query (emvb::doc_word_or, the dense
+//    form of the OR; the fused prefilter runs it on docs with many
+//    candidate queries and the sparse one, emvb::chunk_word_or, on the
+//    rest).
 //  * A block scores a tile of TILE docs into shared memory and writes F out
 //    row by row, so the stores of F are coalesced.
 #include "common.cuh"
@@ -31,13 +34,11 @@ namespace {
 constexpr int TILE = 256;      // docs per block
 constexpr int THREADS = 256;   // 8 warps, TILE / 8 docs each
 
-// bits (B, n_c) -> bitsT (n_c, B). grid ceil(n_c / THREADS).
+// bits (B, n_c) -> bitsT (n_c, B). grid ceil(n_c / 32), THREADS threads.
 __global__ void bitfilter_transpose_kernel(const uint32_t* __restrict__ bits,
                                            int B, int n_c,
                                            uint32_t* __restrict__ bitsT) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= n_c) return;
-  for (int b = 0; b < B; ++b) bitsT[(size_t)c * B + b] = bits[(size_t)b * n_c + c];
+  emvb::transpose_words(bits, B, n_c, bitsT);
 }
 
 // F for every (query, doc) of one tile. Shared: sF[B][TILE].
@@ -82,8 +83,8 @@ int bitfilter_batched(const uint32_t* bits, const int32_t* codes,
                       int cap, uint32_t* bitsT, int32_t* F, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  bitfilter_transpose_kernel<<<(n_c + THREADS - 1) / THREADS, THREADS, 0,
-                               st>>>(bits, B, n_c, bitsT);
+  bitfilter_transpose_kernel<<<(n_c + 31) / 32, THREADS, 0, st>>>(
+      bits, B, n_c, bitsT);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   const size_t smem = (size_t)B * TILE * sizeof(int32_t);   // <= 32 KiB
   bitfilter_kernel<<<(n_docs + TILE - 1) / TILE, THREADS, smem, st>>>(

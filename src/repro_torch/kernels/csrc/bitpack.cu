@@ -10,11 +10,11 @@
 // (32 MiB): about 0.33 ms at 3.35 TB/s. Its B x n_q x n_c compares are far
 // below the card's rate.
 //
-// What the design does about it: one thread per (centroid column, query),
-// as the fused prefilter's pack pass. A warp's 32 threads read 32
-// neighbouring columns of one CS row (one 128-byte line per term) and write
-// 32 neighbouring words. The column pack is emvb::pack_column, the function
-// the fused prefilter runs.
+// What the design does about it: one thread per (centroid column, query).
+// A warp's 32 threads read 32 neighbouring columns of one CS row (one
+// 128-byte line per term) and write 32 neighbouring words. The column pack
+// is emvb::pack_column, which the fused prefilter's pack pass also runs
+// (four columns at a time, emvb::pack_columns4, where n_c allows).
 #include "common.cuh"
 #include "doc_math.cuh"
 
@@ -30,15 +30,16 @@ __global__ void bitpack_kernel(const float* __restrict__ cs, float th,
   const int b = blockIdx.y;
   if (c >= n_c) return;
   bits[(size_t)b * n_c + c] = emvb::pack_column(
-      cs + (size_t)b * n_q * n_c + c, n_c, th, qmask + (size_t)b * n_q, n_q);
+      cs + (size_t)b * n_q * n_c + c, n_c, th,
+      emvb::live_terms(emvb::mask_row(qmask, b, n_q), n_q), n_q);
 }
 
 }  // namespace
 
 extern "C" {
 
-// All pointers are device pointers. cs (B, n_q, n_c) f32; qmask (B, n_q) u8;
-// bits (B, n_c) u32 out.
+// All pointers are device pointers; qmask may be null (every term live).
+// cs (B, n_q, n_c) f32; qmask (B, n_q) u8; bits (B, n_c) u32 out.
 int bitpack_batched(const float* cs, float th, const uint8_t* qmask, int B,
                     int n_q, int n_c, uint32_t* bits, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);

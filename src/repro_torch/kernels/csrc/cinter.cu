@@ -12,10 +12,11 @@
 // dependent gather of a CS^T row.
 //
 // What the design does about it: one warp per document and one lane per
-// query term (n_q <= 32), as the fused pqinter's S̄ pass. A row of CS^T is
-// n_q contiguous floats, so each token's gather is one coalesced 128-byte
-// load at n_q = 32. The per-document math is emvb::sbar_doc, the function
-// the fused pqinter runs, so the two lanes agree to the bit.
+// query term (n_q <= 32), its tokens in series. A row of CS^T is n_q
+// contiguous floats, so each token's gather is one coalesced 128-byte load
+// at n_q = 32. The per-document math is emvb::sbar_doc, a serial loop over
+// the pieces (sbar_token, sbar_finish) that the fused pqinter's
+// token-split S̄ pass merges, so the two lanes agree to the bit.
 #include "common.cuh"
 #include "doc_math.cuh"
 
@@ -37,7 +38,8 @@ __global__ void cinter_kernel(const float* __restrict__ cs_t,
   const size_t row = (size_t)b * nd + p;
   const float s = emvb::sbar_doc(cs_t + (size_t)b * n_c * n_q,
                                  codes + row * cap, lens[row],
-                                 qmask + (size_t)b * n_q, cap, n_c, n_q, lane);
+                                 emvb::mask_row(qmask, b, n_q), cap, n_c, n_q,
+                                 lane);
   if (lane == 0) sbar[row] = s;
 }
 
@@ -45,9 +47,9 @@ __global__ void cinter_kernel(const float* __restrict__ cs_t,
 
 extern "C" {
 
-// All pointers are device pointers. cs_t (B, n_c, n_q) f32; codes
-// (B, nd, cap) i32; lens (B, nd) i32; qmask (B, n_q) u8. Output: sbar
-// (B, nd) f32.
+// All pointers are device pointers; qmask may be null (every term live).
+// cs_t (B, n_c, n_q) f32; codes (B, nd, cap) i32; lens (B, nd) i32; qmask
+// (B, n_q) u8. Output: sbar (B, nd) f32.
 int cinter_batched(const float* cs_t, const int32_t* codes,
                    const int32_t* lens, const uint8_t* qmask, int B, int nd,
                    int cap, int n_c, int n_q, float* sbar, void* stream) {

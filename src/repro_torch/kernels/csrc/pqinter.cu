@@ -10,149 +10,232 @@
 // What bounds it on the H100: the bytes it must move are small — the
 // survivors' codes, residual codes and lengths, the LUT (512 KiB per query
 // at n_q = 32, m = 16, K = 256) and the rows of CS^T the survivors' tokens
-// touch. What costs time is latency: per (doc, token) a dependent chain of
-// m LUT reads, and two selections per query.
+// touch. What costs time is latency: per (doc, token) a chain of m LUT
+// reads addressed by the token's residual codes, and two cuts per query.
 //
 // What the design does about it:
-//  * One warp per document, one lane per query term (n_q <= 32). A row of
-//    CS^T and a row of the flattened (m*K, n_q) LUT are n_q contiguous
-//    floats, so every gather is one coalesced 128-byte load at n_q = 32.
-//    The LUT is read through L2, not narrowed (narrowing changes bits).
-//  * Bit-exact arithmetic: the residual is the reference's chain
-//    lut[s=0] + lut[s=1] + ... + lut[s=m-1], added to the centroid score;
-//    the per-term max keeps the reference's -1e9 floor for invalid tokens
-//    and Eq. 6's full-max fallback; term_sum is lane 0 + lane 1 + ... in
-//    that order through serial shuffles (a shuffle tree would change bits).
+//  * One lane per query term (n_q <= 32): a row of CS^T and a row of the
+//    flattened (m*K, n_q) LUT are n_q contiguous floats, so every gather is
+//    one coalesced 128-byte load at n_q = 32. The LUT is read through L2,
+//    not narrowed (narrowing changes bits).
+//  * A doc's tokens are split over warps, each over tokens w, w + split,
+//    ...: in the S̄ pass as many warps a doc (up to S_SPLIT_MAX) as it takes
+//    to fill the card with the batch's survivors, in the Eq. 5/6 pass
+//    always E_SPLIT.
+//    The per-term max, Eq. 6's kept max and its kept count are order-free,
+//    so the warps' partial states merge exactly through shared memory; the
+//    -1e9 floor, Eq. 6's fallback, the masked terms and term_sum (lane 0 +
+//    lane 1 + ... in serial shuffles) run once per doc after the merge. At
+//    B = 1 that puts 2,048 warps on the 256 winners, not 256. At B = 32 the
+//    Eq. 5/6 pass reads ~1.1 GB of 128-byte LUT rows through L2 (each token
+//    reads m rows): L2's rate, not the card's memory, bounds it there.
+//  * For emvb-msmarco's m = 16, m is a compile-time constant: a token's 16
+//    residual codes arrive in one vector load and its 16 LUT reads are all
+//    issued before the first add, which keeps the reference's order
+//    s = 0, 1, ..., m-1. Any other m (emvb-smoke's 8 among them) runs the
+//    serial form.
 //  * Both cuts pack (score, position) into unique 64-bit keys —
 //    (S̄ desc, survivor position asc) for phase 3 and (score desc, phase-3
 //    rank asc) for phase 4, the order the reference's running merges give —
-//    and sort them in shared memory, one block per query.
-//  * The per-document math (emvb::sbar_doc, emvb::eq56_doc in doc_math.cuh)
-//    is the one the unfused cinter.cu and pqscore.cu run, so the two lanes
-//    agree to the bit by construction.
+//    and write each kept key to its rank among the keys (common.cuh's
+//    cut_keys): counted over lanes and several blocks a query while B x n
+//    is small, so at B = 1 a cut runs on many SMs; sorted in one block a
+//    query above that.
+//  * The per-(token, term) value, the merge and the per-doc finish are the
+//    functions of doc_math.cuh that the unfused cinter.cu and pqscore.cu
+//    build their serial loops from, so the two lanes agree to the bit.
 #include "common.cuh"
 #include "doc_math.cuh"
 
 namespace {
 
-constexpr int WARPS = 8;
+constexpr int WARPS = 8;       // 256 threads a block in the per-doc passes
+constexpr int S_SPLIT_MAX = 8; // warps per doc in the S̄ pass, at most
+constexpr int E_SPLIT = 8;     // warps per doc in the Eq. 5/6 pass
+static_assert(WARPS % S_SPLIT_MAX == 0 && WARPS % E_SPLIT == 0,
+              "whole docs a block");
 
-// Pass 1: S̄ of every survivor row. grid (ceil(nf / WARPS), B).
-__global__ void sbar_kernel(const float* __restrict__ cs_t,
-                            const int32_t* __restrict__ codes,
-                            const int32_t* __restrict__ lens,
-                            const uint8_t* __restrict__ qmask, int nf, int cap,
-                            int n_c, int n_q, float* __restrict__ sbar_all) {
-  const int lane = threadIdx.x & 31;
-  const int p = blockIdx.x * WARPS + (threadIdx.x >> 5);
+// Pass 1: S̄ of every survivor row, `split` warps a doc (a power of two up
+// to S_SPLIT_MAX). grid (ceil(nf / (WARPS / split)), B).
+__global__ void __launch_bounds__(WARPS * 32)
+sbar_kernel(const float* __restrict__ cs_t, const int32_t* __restrict__ codes,
+            const int32_t* __restrict__ lens,
+            const uint8_t* __restrict__ qmask, int nf, int cap, int n_c,
+            int n_q, int split, float* __restrict__ sbar_all) {
+  __shared__ float part[WARPS][32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int piece = warp % split;
+  const int p = blockIdx.x * (WARPS / split) + warp / split;
   const int b = blockIdx.y;
-  if (p >= nf) return;                                   // warp-uniform
+  const bool ok = p < nf;                              // warp-uniform
   const size_t row = (size_t)b * nf + p;
-  const float s = emvb::sbar_doc(cs_t + (size_t)b * n_c * n_q,
-                                 codes + row * cap, lens[row],
-                                 qmask + (size_t)b * n_q, cap, n_c, n_q, lane);
+  float acc = -INFINITY;
+  int len = 0;
+  if (ok) {
+    len = min(max(lens[row], 0), cap);
+    const int32_t* cd = codes + row * cap;
+    const float* cb = cs_t + (size_t)b * n_c * n_q + lane;
+    if (lane < n_q) {
+#pragma unroll 4
+      for (int t = piece; t < len; t += split) {
+        const int c = min(max(cd[t], 0), n_c - 1);
+        acc = emvb::sbar_token(acc, cb[(size_t)c * n_q]);
+      }
+    }
+  }
+  if (split > 1) {                                     // block-uniform
+    part[warp][lane] = acc;
+    __syncthreads();
+    if (piece != 0) return;
+    for (int k = 1; k < split; ++k)
+      acc = emvb::sbar_token(acc, part[warp + k][lane]);
+  }
+  if (!ok) return;
+  const uint8_t* qm = emvb::mask_row(qmask, b, n_q);
+  const bool live = lane < n_q && (qm == nullptr || qm[lane]);
+  const float s =
+      emvb::term_sum_lanes(emvb::sbar_finish(acc, len, cap, live), n_q);
   if (lane == 0) sbar_all[row] = s;
 }
 
-// Pass 1 cut: top-n_docs by (S̄ desc, position asc). One block per query.
-__global__ void select1_kernel(const float* __restrict__ sbar_all, int nf,
-                               int n_docs, int P, int32_t* __restrict__ sel2,
-                               float* __restrict__ sbar) {
+// Pass 1 cut: top-n_docs by (S̄ desc, position asc); a cut_launch grid.
+__global__ void __launch_bounds__(1024)
+select1_kernel(const float* __restrict__ sbar_all, int nf, int P, bool sort,
+               int n_docs, int32_t* __restrict__ sel2,
+               float* __restrict__ sbar) {
   extern __shared__ unsigned long long k1[];
-  const int b = blockIdx.x;
+  const int b = blockIdx.y;
   const float* sb = sbar_all + (size_t)b * nf;
   for (int i = threadIdx.x; i < P; i += blockDim.x)
     k1[i] = i < nf ? ((unsigned long long)ordered_bits(sb[i]) << 32) |
                          (0xffffffffu - (unsigned)i)
                    : 0ull;
   __syncthreads();
-  bitonic_sort_desc<unsigned long long>(k1, P);
-  for (int r = threadIdx.x; r < n_docs; r += blockDim.x) {
-    const int i = (int)(0xffffffffu - (unsigned)(k1[r] & 0xffffffffull));
+  cut_keys(k1, nf, P, sort, [&](unsigned long long key, int r) {
+    if (r >= n_docs) return;
+    const int i = (int)(0xffffffffu - (unsigned)key);
     sel2[(size_t)b * n_docs + r] = i;
     sbar[(size_t)b * n_docs + r] = sb[i];
-  }
+  });
 }
 
-// Pass 2: Eq. 5/6 score of each phase-3 winner, in rank order.
-// grid (ceil(n_docs / WARPS), B).
-__global__ void eq56_kernel(const float* __restrict__ cs_t,
-                            const float* __restrict__ lut2,
-                            const int32_t* __restrict__ codes,
-                            const uint8_t* __restrict__ res,
-                            const int32_t* __restrict__ lens,
-                            const uint8_t* __restrict__ qmask,
-                            const int32_t* __restrict__ sel2, int nf, int cap,
-                            int n_c, int n_q, int m, int ksub, float th_r,
-                            int use_filter, int n_docs,
-                            float* __restrict__ score2) {
-  const int lane = threadIdx.x & 31;
-  const int r = blockIdx.x * WARPS + (threadIdx.x >> 5);
-  const int b = blockIdx.y;
-  if (r >= n_docs) return;                               // warp-uniform
-  const int p = sel2[(size_t)b * n_docs + r];
-  const size_t row = (size_t)b * nf + p;
-  const float s = emvb::eq56_doc(
-      cs_t + (size_t)b * n_c * n_q, lut2 + (size_t)b * m * ksub * n_q,
-      codes + row * cap, res + row * cap * m, lens[row],
-      qmask + (size_t)b * n_q, cap, n_c, n_q, m, ksub, th_r, use_filter, lane);
+// Pass 2: Eq. 5/6 score of each phase-3 winner, in rank order; M is m when
+// known at compile time, else 0. grid (n_docs, B), one doc a block.
+template <int M>
+__global__ void __launch_bounds__(WARPS * 32)
+eq56_kernel(const float* __restrict__ cs_t, const float* __restrict__ lut2,
+            const int32_t* __restrict__ codes,
+            const uint8_t* __restrict__ res, const int32_t* __restrict__ lens,
+            const uint8_t* __restrict__ qmask,
+            const int32_t* __restrict__ sel2, int nf, int cap, int n_c,
+            int n_q, int m, int ksub, float th_r, int use_filter, int n_docs,
+            float* __restrict__ score2) {
+  static_assert(WARPS == E_SPLIT, "one doc a block");
+  __shared__ emvb::Eq56Part part[E_SPLIT][32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int r = blockIdx.x, b = blockIdx.y;
+  const size_t row = (size_t)b * nf + sel2[(size_t)b * n_docs + r];
+  const int len = min(max(lens[row], 0), cap);
+  emvb::Eq56Part acc = emvb::eq56_start();
+  if (lane < n_q) {
+    const int32_t* cd = codes + row * cap;
+    const uint8_t* rs = res + row * cap * m;
+    const float* cb = cs_t + (size_t)b * n_c * n_q + lane;
+    const float* lb = lut2 + (size_t)b * m * ksub * n_q + lane;
+#pragma unroll 2
+    for (int t = warp; t < len; t += E_SPLIT) {
+      const int c = min(max(cd[t], 0), n_c - 1);
+      const float cen = cb[(size_t)c * n_q];
+      emvb::eq56_token(acc, cen,
+                       emvb::eq56_full<M>(cen, lb, rs + (size_t)t * m, m,
+                                          ksub, n_q),
+                       th_r, use_filter);
+    }
+  }
+  part[warp][lane] = acc;
+  __syncthreads();
+  if (warp != 0) return;
+  for (int k = 1; k < E_SPLIT; ++k) emvb::eq56_merge(acc, part[k][lane]);
+  const uint8_t* qm = emvb::mask_row(qmask, b, n_q);
+  const bool live = lane < n_q && (qm == nullptr || qm[lane]);
+  const float s = emvb::term_sum_lanes(
+      emvb::eq56_finish(acc, len, cap, use_filter, live), n_q);
   if (lane == 0) score2[(size_t)b * n_docs + r] = s;
 }
 
-// Pass 2 cut: top-k by (score desc, phase-3 rank asc). One block per query.
-__global__ void select2_kernel(const float* __restrict__ score2,
-                               const int32_t* __restrict__ sel2, int n_docs,
-                               int k, int P, float* __restrict__ scores,
-                               int32_t* __restrict__ pos) {
+// Pass 2 cut: top-k by (score desc, phase-3 rank asc); a cut_launch grid.
+__global__ void __launch_bounds__(1024)
+select2_kernel(const float* __restrict__ score2,
+               const int32_t* __restrict__ sel2, int n_docs, int P, bool sort,
+               int k, float* __restrict__ scores, int32_t* __restrict__ pos) {
   extern __shared__ unsigned long long k2[];
-  const int b = blockIdx.x;
+  const int b = blockIdx.y;
   const float* sc = score2 + (size_t)b * n_docs;
   for (int i = threadIdx.x; i < P; i += blockDim.x)
     k2[i] = i < n_docs ? ((unsigned long long)ordered_bits(sc[i]) << 32) |
                              (0xffffffffu - (unsigned)i)
                        : 0ull;
   __syncthreads();
-  bitonic_sort_desc<unsigned long long>(k2, P);
-  for (int j = threadIdx.x; j < k; j += blockDim.x) {
-    const int r = (int)(0xffffffffu - (unsigned)(k2[j] & 0xffffffffull));
-    scores[(size_t)b * k + j] = sc[r];
-    pos[(size_t)b * k + j] = sel2[(size_t)b * n_docs + r];
-  }
+  cut_keys(k2, n_docs, P, sort, [&](unsigned long long key, int j) {
+    if (j >= k) return;
+    const int i = (int)(0xffffffffu - (unsigned)key);
+    scores[(size_t)b * k + j] = sc[i];
+    pos[(size_t)b * k + j] = sel2[(size_t)b * n_docs + i];
+  });
 }
 
 }  // namespace
 
 extern "C" {
 
-// All pointers are device pointers. cs_t (B, n_c, n_q) f32; lut2
-// (B, m*ksub, n_q) f32; codes (B, nf, cap) i32; res (B, nf, cap, m) u8;
-// lens (B, nf) i32; qmask (B, n_q) u8. Scratch: sbar_all (B, nf) f32,
-// score2 (B, n_docs) f32. Outputs: scores/pos (B, k), sel2/sbar
-// (B, n_docs).
+// Bytes of device scratch pqinter_batched needs.
+size_t pqinter_scratch_bytes(int B, int nf, int n_docs) {
+  return (((size_t)B * nf * 4 + 255) & ~size_t(255)) + (size_t)B * n_docs * 4;
+}
+
+// All pointers are device pointers; qmask may be null (every term live).
+// cs_t (B, n_c, n_q) f32; lut2 (B, m*ksub, n_q) f32; codes (B, nf, cap)
+// i32; res (B, nf, cap, m) u8; lens (B, nf) i32; qmask (B, n_q) u8.
+// Outputs: scores/pos (B, k), sel2/sbar (B, n_docs). scratch: the bytes
+// pqinter_scratch_bytes gives, 256-byte aligned.
 int pqinter_batched(const float* cs_t, const float* lut2, const int32_t* codes,
                     const uint8_t* res, const int32_t* lens,
                     const uint8_t* qmask, int B, int nf, int cap, int n_c,
                     int n_q, int m, int ksub, float th_r, int use_filter,
-                    int n_docs, int k, float* sbar_all, float* score2,
-                    float* scores, int32_t* pos, int32_t* sel2, float* sbar,
-                    void* stream) {
+                    int n_docs, int k, float* scores, int32_t* pos,
+                    int32_t* sel2, float* sbar, void* scratch, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* sbar_all = static_cast<float*>(scratch);
+  float* score2 = reinterpret_cast<float*>(
+      static_cast<char*>(scratch) +
+      (((size_t)B * nf * 4 + 255) & ~size_t(255)));
   cudaError_t err;
-  const int threads = WARPS * 32;
-  sbar_kernel<<<dim3((nf + WARPS - 1) / WARPS, B), threads, 0, st>>>(
-      cs_t, codes, lens, qmask, nf, cap, n_c, n_q, sbar_all);
+  // Split a doc's tokens only as far as it takes to give the card 32 warps
+  // an SM: at B = 32 the 32K survivors do that one warp each, and a split
+  // would add merges; at B = 1 the 1,024 survivors need several warps each.
+  const int fill = 32 * sm_count();
+  const int split = min(S_SPLIT_MAX, next_pow2((fill + B * nf - 1) / (B * nf)));
+  const int s_docs = WARPS / split;
+  sbar_kernel<<<dim3((nf + s_docs - 1) / s_docs, B), WARPS * 32, 0, st>>>(
+      cs_t, codes, lens, qmask, nf, cap, n_c, n_q, split, sbar_all);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  const int P1 = next_pow2(nf);
-  select1_kernel<<<B, 1024, P1 * sizeof(unsigned long long), st>>>(
-      sbar_all, nf, n_docs, P1, sel2, sbar);
+  const CutLaunch c1 = cut_launch(B, nf);
+  select1_kernel<<<c1.grid, c1.threads, c1.P * sizeof(unsigned long long),
+                   st>>>(sbar_all, nf, c1.P, c1.sort, n_docs, sel2, sbar);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  eq56_kernel<<<dim3((n_docs + WARPS - 1) / WARPS, B), threads, 0, st>>>(
-      cs_t, lut2, codes, res, lens, qmask, sel2, nf, cap, n_c, n_q, m, ksub,
-      th_r, use_filter, n_docs, score2);
+  const dim3 grid(n_docs, B);
+  if (m == 16 && reinterpret_cast<uintptr_t>(res) % 16 == 0)
+    eq56_kernel<16><<<grid, WARPS * 32, 0, st>>>(
+        cs_t, lut2, codes, res, lens, qmask, sel2, nf, cap, n_c, n_q, m, ksub,
+        th_r, use_filter, n_docs, score2);
+  else
+    eq56_kernel<0><<<grid, WARPS * 32, 0, st>>>(
+        cs_t, lut2, codes, res, lens, qmask, sel2, nf, cap, n_c, n_q, m, ksub,
+        th_r, use_filter, n_docs, score2);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  const int P2 = next_pow2(n_docs);
-  select2_kernel<<<B, 1024, P2 * sizeof(unsigned long long), st>>>(
-      score2, sel2, n_docs, k, P2, scores, pos);
+  const CutLaunch c2 = cut_launch(B, n_docs);
+  select2_kernel<<<c2.grid, c2.threads, c2.P * sizeof(unsigned long long),
+                   st>>>(score2, sel2, n_docs, c2.P, c2.sort, k, scores, pos);
   return cudaGetLastError();
 }
 

@@ -13,12 +13,13 @@
 // dependent chain of m LUT reads.
 //
 // What the design does about it: one warp per document and one lane per
-// query term, as the fused pqinter's Eq. 5/6 pass. A row of CS^T and a row
-// of the flattened (m*K, n_q) LUT are n_q contiguous floats, so every gather
-// is one coalesced 128-byte load at n_q = 32; the LUT is read through L2,
-// not narrowed (narrowing changes bits). The per-document math, Eq. 6's
-// corner cases included, is emvb::eq56_doc, the function the fused pqinter
-// runs.
+// query term, its tokens in series. A row of CS^T and a row of the flattened
+// (m*K, n_q) LUT are n_q contiguous floats, so every gather is one
+// coalesced 128-byte load at n_q = 32; the LUT is read through L2, not
+// narrowed (narrowing changes bits). The per-document math, Eq. 6's corner
+// cases included, is emvb::eq56_doc, a serial loop over the pieces
+// (eq56_full, eq56_token, eq56_finish) that the fused pqinter's token-split
+// Eq. 5/6 pass merges.
 #include "common.cuh"
 #include "doc_math.cuh"
 
@@ -44,7 +45,8 @@ __global__ void pqscore_kernel(const float* __restrict__ cs_t,
   const float s = emvb::eq56_doc(
       cs_t + (size_t)b * n_c * n_q, lut2 + (size_t)b * m * ksub * n_q,
       codes + row * cap, res + row * cap * m, lens[row],
-      qmask + (size_t)b * n_q, cap, n_c, n_q, m, ksub, th_r, use_filter, lane);
+      emvb::mask_row(qmask, b, n_q), cap, n_c, n_q, m, ksub, th_r, use_filter,
+      lane);
   if (lane == 0) score[row] = s;
 }
 
@@ -52,9 +54,10 @@ __global__ void pqscore_kernel(const float* __restrict__ cs_t,
 
 extern "C" {
 
-// All pointers are device pointers. cs_t (B, n_c, n_q) f32; lut2
-// (B, m*ksub, n_q) f32; codes (B, nd, cap) i32; res (B, nd, cap, m) u8;
-// lens (B, nd) i32; qmask (B, n_q) u8. Output: score (B, nd) f32.
+// All pointers are device pointers; qmask may be null (every term live).
+// cs_t (B, n_c, n_q) f32; lut2 (B, m*ksub, n_q) f32; codes (B, nd, cap)
+// i32; res (B, nd, cap, m) u8; lens (B, nd) i32; qmask (B, n_q) u8.
+// Output: score (B, nd) f32.
 int pqscore_batched(const float* cs_t, const float* lut2, const int32_t* codes,
                     const uint8_t* res, const int32_t* lens,
                     const uint8_t* qmask, int B, int nd, int cap, int n_c,

@@ -6,36 +6,65 @@
 // _prefilter_batched_kernel, prefilter.py:106) and, at B = 1,
 // prefilter.py::prefilter (_prefilter_kernel, :62).
 //
-// What bounds it on the H100: bytes. It must read the CS (B x n_q x n_c
-// fp32, 1.07 GB at B = 32 and n_c = 2^18), the candidate bitmap (B x n_docs
-// bytes, 0.28 GB), the doc lengths and the codes of every doc that is some
-// query's candidate (at most n_docs x cap int32 = 2.83 GB at MS MARCO
-// width), and write the bit table. That is at most about 4.2 GB, 1.3 ms at
-// 3.35 TB/s at B = 32 (spec arithmetic; chip_smoke.py computes the bound
-// from the run's own candidates). Beyond bytes, Eq. 4 gathers one bit word
-// per (valid token, query) pair of each candidate: random 4-byte reads.
+// What bounds it on the H100: bytes, and then the latency of Eq. 4's
+// gathers. It must read the CS (B x n_q x n_c fp32, 1.07 GB at B = 32 and
+// n_c = 2^18), the candidate bitmap (B x n_docs bytes, 0.28 GB), and the
+// lengths and codes of every doc that is some query's candidate, and write
+// the bit table: about 2.3 GB, 0.7 ms at 3.35 TB/s at B = 32 on the
+// emvb-msmarco funnel (chip_smoke.py computes the bound from the run's own
+// candidates). Beyond bytes, Eq. 4 gathers one 4-byte word per (valid
+// token, candidate query) pair: random reads of the 1 MiB-per-query word
+// table, which only L2 (50 MB) holds, so each costs a 32-byte sector and an
+// L2 round trip.
 //
 // What the design does about it:
-//  * The codes are streamed ONCE for all B queries: a warp takes one doc,
-//    its lanes split into (token group, query) pairs, and each token's code
-//    is read once and used by every query. A doc that is no query's
-//    candidate is skipped without reading its codes, and a lane gathers
-//    words only for the docs that are its own query's candidates.
-//  * The bit table is written transposed, (n_c, B), so one token's B words
-//    are contiguous: at B = 32 a token costs one 128-byte line. At
-//    n_c = 2^18 the table is 1 MiB per query, too large for shared memory
-//    (227 KB), so it is read through L2 (32 MiB at B = 32 fits its 50 MB).
-//  * Token validity is t < doc_lens[d] (what token_mask() computes), so no
-//    (n_docs, cap) mask is read.
+//  * Pass `pack` reads the CS with 16-byte loads, four columns a thread, and
+//    stores `bits` (B, n_c) in 16-byte stores. When B >= DENSE_MIN, pass
+//    `transpose` copies it to bitsT (n_c, B), one token's words in one row
+//    (emvb::transpose_words, as bitfilter.cu; ~64 MB moved at B = 32).
+//  * Pass `score` takes a tile of TILE docs per block. It builds each doc's
+//    mask of candidate queries from the bitmap, lists the tile's docs that
+//    are some query's candidate, and reads only their codes. A warp takes
+//    one listed doc at a time, in one of two forms chosen by the doc's
+//    count of candidate queries:
+//    - sparse, fewer than DENSE_MIN: 32 tokens across the lanes (one
+//      coalesced 128-byte read a round), and for each query in the doc's
+//      mask every lane gathers its token's word from `bits` and the warp
+//      ORs them (emvb::chunk_word_or, two queries at once): work in
+//      proportion to the (candidate doc, candidate query) pairs, with all
+//      32 lanes busy. The next doc's codes are copied into shared memory
+//      with cp.async while this doc's gathers are in flight. Lane b keeps
+//      query b's word across a doc's chunks, so a doc longer than CHUNK
+//      tokens adds chunks, not state.
+//    - dense, DENSE_MIN or more: bitfilter.cu's form (emvb::doc_word_or),
+//      lane b walking the doc's tokens for query b over the rows of bitsT,
+//      a warp reading one 128-byte row a token at B = 32: a fixed cost a
+//      token whatever the doc's candidate queries. The dense docs run after
+//      the sparse ones, in a loop of their own, so the sparse loop carries
+//      no branch for them.
+//    On the emvb-msmarco funnel almost every doc takes the sparse form; on
+//    a batch of near-duplicate queries most take the dense one. DENSE_MIN
+//    is where the dense form overtook the sparse one on the planted
+//    emvb-msmarco index at B = 32, in a sweep of the constant on the card;
+//    chip_smoke.py's limits phase times docs on both sides of it (16 and
+//    24 candidate queries).
 //  * Selection needs no running merge: the keys are unique, so any exact
-//    selection equals lax.top_k's. F takes 34 values (-1..32): a histogram
-//    per (query, tile) gives the threshold f*, per-tile prefix counts give
-//    every selected doc its slot (docs with f > f*, then the lowest ids with
-//    f == f*), and one block per query sorts its n_filter keys. Only F
-//    (B x n_docs int8) goes through device memory between the passes.
-//  * The column pack and a doc's word OR (emvb::pack_column,
-//    emvb::doc_word_or in doc_math.cuh) are the ones the unfused bitpack.cu
-//    and bitfilter.cu run.
+//    selection equals lax.top_k's. F takes 34 values (-1..32). The score
+//    pass adds each tile's histogram to corpus totals per (query, bin),
+//    which give the threshold f*, and stores per (query, bin, tile) the
+//    tile's docs at bin >= x, so pass `threshold` reads two numbers a tile
+//    to give each tile, in ascending tile order, its prefix counts: the
+//    slots of every selected doc (docs with f > f*, then the lowest ids with
+//    f == f*). Pass `collect` gives a warp a few tiles of one query and
+//    walks the tiles that hold a selected doc, its lanes over ascending
+//    32-doc runs, so the slots of tied docs follow ascending ids. Pass
+//    `sort` writes each key to its rank among the n_filter keys
+//    (common.cuh's cut_keys: counted over lanes and blocks while B x
+//    n_filter is small, sorted in one block a query above).
+//    Only F (B x n_docs int8, rows padded to whole tiles) goes through
+//    device memory between the passes.
+//  * The column pack and a doc's word OR are the functions of doc_math.cuh
+//    that the unfused bitpack.cu and bitfilter.cu also build on.
 #include "common.cuh"
 #include "doc_math.cuh"
 
@@ -43,259 +72,491 @@ namespace {
 
 constexpr int ID_BITS = 25;
 constexpr int MAX_ID = (1 << ID_BITS) - 1;
-constexpr int NBINS = 34;      // f + 1 in [0, 33]
-constexpr int TILE = 1024;     // docs per tile
-constexpr int THREADS = 256;   // 8 warps; 4 docs per thread in collect
-constexpr int KEY_PAD = -2147483647 - 1;   // below every real key
+constexpr int NBINS = 34;             // f + 1 in [0, 33]
+constexpr int TILE = 1024;            // docs per score block and per tile
+constexpr int SCORE_THREADS = 256;    // 8 warps; 4 docs a thread in the list
+constexpr int CHUNK = 128;            // tokens a warp stages per step
+constexpr int ROUNDS = CHUNK / 32;
+constexpr int PACK_THREADS = 256;
+constexpr int COLLECT_WARPS = 8;
+constexpr int COLLECT_TILES = 8;      // tiles a collect warp checks, at most
+constexpr int SCAN_THREADS = 1024;    // threshold: a block per query
+constexpr int DENSE_MIN = 20;         // candidate queries for the dense form
+constexpr int KEY_PAD = -1;           // below every key: f + 1 >= 0
+static_assert(TILE == 4 * SCORE_THREADS, "score lists 4 docs a thread");
+static_assert(TILE == 32 * 32, "collect gives each lane 32 docs of a tile");
 
-// Pass 1: bit words. bits (B, n_c) is the API output; bitsT (n_c, B) is
-// the gather-friendly copy the score pass reads.
+constexpr size_t align256(size_t n) { return (n + 255) & ~size_t(255); }
+
+// The scratch the passes share, carved from one allocation.
+struct Scratch {
+  int8_t* F;          // (B, n_tiles * TILE): F, -1 off the bitmap, -2 pads
+  int32_t* tot;       // (B, NBINS) docs per bin over the corpus
+  int32_t* cum;       // (B, NBINS, n_tiles) a tile's docs at bin >= x
+  int32_t* off_hi;    // (B, n_tiles + 1) slots before each tile, f > f*
+  int32_t* off_eq;    // (B, n_tiles + 1) docs before each tile at f*
+  int32_t* params;    // (B, 4): f* + 1, docs above f*, slots left at f*
+  int32_t* keys;      // (B, n_filter) the selected keys, in slot order
+  uint32_t* bitsT;    // (n_c, B) the transposed words; null below DENSE_MIN
+};
+
+size_t carve(void* base, int B, int n_c, int n_docs, int n_filter,
+             Scratch* s) {
+  const size_t n_tiles = (n_docs + TILE - 1) / TILE;
+  const size_t sizes[8] = {
+      (size_t)B * n_tiles * TILE, (size_t)B * NBINS * 4,
+      (size_t)B * NBINS * n_tiles * 4, (size_t)B * (n_tiles + 1) * 4,
+      (size_t)B * (n_tiles + 1) * 4, (size_t)B * 4 * 4,
+      (size_t)B * n_filter * 4,
+      B >= DENSE_MIN ? (size_t)n_c * B * 4 : 0};
+  char* p = static_cast<char*>(base);
+  size_t off[8], total = 0;
+  for (int i = 0; i < 8; ++i) {
+    off[i] = total;
+    total += align256(sizes[i]);
+  }
+  if (s != nullptr) {
+    s->F = reinterpret_cast<int8_t*>(p + off[0]);
+    s->tot = reinterpret_cast<int32_t*>(p + off[1]);
+    s->cum = reinterpret_cast<int32_t*>(p + off[2]);
+    s->off_hi = reinterpret_cast<int32_t*>(p + off[3]);
+    s->off_eq = reinterpret_cast<int32_t*>(p + off[4]);
+    s->params = reinterpret_cast<int32_t*>(p + off[5]);
+    s->keys = reinterpret_cast<int32_t*>(p + off[6]);
+    s->bitsT = sizes[7] ? reinterpret_cast<uint32_t*>(p + off[7]) : nullptr;
+  }
+  return total;
+}
+
+// Pass 1: bits (B, n_c), and zeros in the bin totals the score pass adds
+// to. grid (ceil(n_c / (4 * PACK_THREADS)), B); thread = four neighbouring
+// columns (16-byte loads and store when `vec`).
 __global__ void pack_kernel(const float* __restrict__ cs, float th,
-                            const uint8_t* __restrict__ qmask, int B, int n_q,
-                            int n_c, uint32_t* __restrict__ bits,
-                            uint32_t* __restrict__ bitsT) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= n_c) return;
-  for (int b = 0; b < B; ++b) {
-    const uint32_t w = emvb::pack_column(cs + (size_t)b * n_q * n_c + c, n_c,
-                                         th, qmask + (size_t)b * n_q, n_q);
-    bits[(size_t)b * n_c + c] = w;
-    bitsT[(size_t)c * B + b] = w;
+                            const uint8_t* __restrict__ qmask, int n_q,
+                            int n_c, int vec, uint32_t* __restrict__ bits,
+                            int32_t* __restrict__ tot) {
+  const int b = blockIdx.y;
+  if (blockIdx.x == 0 && threadIdx.x < NBINS) tot[b * NBINS + threadIdx.x] = 0;
+  const int c0 = 4 * (blockIdx.x * blockDim.x + threadIdx.x);
+  if (c0 >= n_c) return;
+  const uint32_t live = emvb::live_terms(emvb::mask_row(qmask, b, n_q), n_q);
+  const float* col = cs + (size_t)b * n_q * n_c + c0;
+  uint32_t* out = bits + (size_t)b * n_c + c0;
+  if (vec) {
+    *reinterpret_cast<uint4*>(out) =
+        emvb::pack_columns4(col, n_c, th, live, n_q);
+  } else {
+    for (int j = 0; j < 4 && c0 + j < n_c; ++j)
+      out[j] = emvb::pack_column(col + j, n_c, th, live, n_q);
   }
 }
 
-// Pass 2: F for every (query, doc) of one tile, plus its histogram.
-// Shared: sF[B][TILE] (bitmap in, F out) and sh[B][NBINS].
-__global__ void score_kernel(const int32_t* __restrict__ codes,
-                             const int32_t* __restrict__ doc_lens,
-                             const uint8_t* __restrict__ bitmap,
-                             const uint32_t* __restrict__ bitsT, int B,
-                             int n_c, int n_docs, int cap, int n_tiles,
-                             int8_t* __restrict__ F, int32_t* __restrict__ hist) {
-  extern __shared__ unsigned char smem[];
+// Pass 1b, B >= DENSE_MIN only: bitsT (n_c, B) from bits. grid
+// ceil(n_c / 32), 256 threads.
+__global__ void transpose_kernel(const uint32_t* __restrict__ bits, int B,
+                                 int n_c, uint32_t* __restrict__ bitsT) {
+  emvb::transpose_words(bits, B, n_c, bitsT);
+}
+
+// Pass 2: F for every (query, doc) of one tile, and its histogram.
+// grid n_tiles. Shared: sF[B][TILE] i8, smask[TILE] u32 (bit b: the doc is
+// query b's candidate), slist[TILE] u16 (the docs with a mask: the sparse
+// form's from the front, the dense form's from the back), sh[B][NBINS], and
+// two CHUNK-token code buffers per warp.
+__global__ void __launch_bounds__(SCORE_THREADS)
+score_kernel(const int32_t* __restrict__ codes,
+             const int32_t* __restrict__ doc_lens,
+             const uint8_t* __restrict__ bitmap,
+             const uint32_t* __restrict__ bits,
+             const uint32_t* __restrict__ bitsT, int B, int n_c,
+             int n_docs, int cap, int n_tiles, int8_t* __restrict__ F,
+             int32_t* __restrict__ tot, int32_t* __restrict__ cum) {
+  extern __shared__ __align__(16) unsigned char smem[];
   int8_t* sF = reinterpret_cast<int8_t*>(smem);
-  int* sh = reinterpret_cast<int*>(smem + ((B * TILE + 15) & ~15));
+  uint32_t* smask = reinterpret_cast<uint32_t*>(smem + B * TILE);
+  int* sh = reinterpret_cast<int*>(smask + TILE);
+  int* sbuf = sh + ((B * NBINS + 3) & ~3);
+  uint16_t* slist = reinterpret_cast<uint16_t*>(
+      sbuf + (blockDim.x >> 5) * 2 * CHUNK);
+  __shared__ int sw[32];
+  __shared__ int s_nsparse, s_ndense;
+
+  const int tid = threadIdx.x;
   const int tile = blockIdx.x;
   const size_t d0 = (size_t)tile * TILE;
-  for (int j = threadIdx.x; j < B * TILE; j += blockDim.x) {
-    const int b = j / TILE, t = j % TILE;
-    const size_t d = d0 + t;
-    sF[j] = d < (size_t)n_docs ? (int8_t)(bitmap[(size_t)b * n_docs + d] != 0)
-                               : 0;
+  const int n_valid = min(TILE, n_docs - tile * TILE);
+
+  // F starts at -1 (no query's candidate) and -2 past the corpus' end.
+  for (int j = tid; j < B * TILE / 4; j += blockDim.x)
+    reinterpret_cast<uint32_t*>(sF)[j] = 0xffffffffu;
+  for (int j = tid; j < B * NBINS; j += blockDim.x) sh[j] = 0;
+  {
+    // docs tid + k * SCORE_THREADS: each (query, k) read is a warp's 32
+    // neighbouring bytes, and all of a thread's reads are in flight at once
+    uint32_t m[TILE / SCORE_THREADS] = {};
+#pragma unroll 4
+    for (int b = 0; b < B; ++b) {
+      const uint8_t* row = bitmap + (size_t)b * n_docs + d0;
+#pragma unroll
+      for (int k = 0; k < TILE / SCORE_THREADS; ++k) {
+        const int t = tid + k * SCORE_THREADS;
+        if (t < n_valid) m[k] |= (uint32_t)(row[t] != 0) << b;
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < TILE / SCORE_THREADS; ++k)
+      smask[tid + k * SCORE_THREADS] = m[k];
   }
-  for (int j = threadIdx.x; j < B * NBINS; j += blockDim.x) sh[j] = 0;
+  __syncthreads();
+  if (n_valid < TILE)
+    for (int j = tid; j < B * TILE; j += blockDim.x)
+      if (j % TILE >= n_valid) sF[j] = -2;
+
+  // The lists of candidate docs: thread i owns docs 4i..4i+3, and one scan
+  // counts both lists (sparse in the low 16 bits, dense in the high).
+  auto dense = [&](uint32_t m) {
+    return bitsT != nullptr && __popc(m) >= DENSE_MIN;
+  };
+  {
+    int own = 0;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const uint32_t m = smask[4 * tid + k];
+      if (m) own += dense(m) ? 1 << 16 : 1;
+    }
+    int total;
+    const int at = block_excl_scan(own, sw, &total);
+    int as = at & 0xffff, ad = at >> 16;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const uint32_t m = smask[4 * tid + k];
+      if (m == 0) continue;
+      if (dense(m))
+        slist[TILE - 1 - ad++] = (uint16_t)(4 * tid + k);
+      else
+        slist[as++] = (uint16_t)(4 * tid + k);
+    }
+    if (tid == 0) {
+      s_nsparse = total & 0xffff;
+      s_ndense = total >> 16;
+    }
+  }
   __syncthreads();
 
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-  const int Q = next_pow2(B);          // lanes per token group
-  const int G = 32 / Q;                // token groups per warp
-  const int bq = lane % Q, g = lane / Q;
-  int n_neg = 0;                       // this lane's non-candidates (F = -1)
-  for (int t = warp; t < TILE; t += nwarps) {
-    const size_t d = d0 + t;
-    if (d >= (size_t)n_docs) break;    // warp-uniform
-    // A doc that is no query's candidate scores -1 everywhere: its codes
-    // are not read. A lane gathers bit words only for its own candidates.
-    const bool cand = bq < B && sF[bq * TILE + t] != 0;
-    if (!__any_sync(0xffffffffu, cand)) {
-      if (g == 0 && bq < B) {
-        sF[bq * TILE + t] = -1;
-        ++n_neg;
+  // Sparse form: each warp walks its docs of the list in (doc, chunk)
+  // steps; step i + 1's codes are copied while step i gathers.
+  const int lane = tid & 31, warp = tid >> 5, nwarps = blockDim.x >> 5;
+  const int nsparse = s_nsparse;
+  const int n_ch = (cap + CHUNK - 1) / CHUNK;
+  const int n_steps =
+      nsparse > warp ? (nsparse - warp + nwarps - 1) / nwarps * n_ch : 0;
+  int* buf = sbuf + warp * 2 * CHUNK;
+  auto copy_step = [&](int i) {
+    const int t = slist[warp + (i / n_ch) * nwarps];
+    const int lo = (i % n_ch) * CHUNK, hi = min(cap, lo + CHUNK);
+    const int32_t* src = codes + (d0 + t) * cap;
+    int* dst = buf + (i & 1) * CHUNK;
+    for (int tok = lo + lane; tok < hi; tok += 32)
+      cp_async4(dst + (tok - lo), src + tok);
+    cp_async_commit();
+  };
+  if (n_steps > 0) copy_step(0);
+  int len_next = n_steps > 0 ? doc_lens[d0 + slist[warp]] : 0;
+  int len = 0;
+  uint32_t word = 0;          // lane b: query b's OR over the doc so far
+  for (int i = 0; i < n_steps; ++i) {
+    const int k = warp + (i / n_ch) * nwarps;
+    const int ch = i % n_ch;
+    const int t = slist[k];
+    if (ch == 0) {
+      len = min(max(len_next, 0), cap);
+      if (k + nwarps < nsparse) len_next = doc_lens[d0 + slist[k + nwarps]];
+    }
+    if (i + 1 < n_steps) copy_step(i + 1);
+    else cp_async_commit();
+    cp_async_wait<1>();
+    __syncwarp();
+    const int* cur = buf + (i & 1) * CHUNK;
+    const int lo = ch * CHUNK;
+    int c[ROUNDS];
+#pragma unroll
+    for (int r = 0; r < ROUNDS; ++r) {
+      const int tok = lo + r * 32 + lane;
+      c[r] = tok < len ? min(max(cur[r * 32 + lane], 0), n_c - 1) : -1;
+    }
+    const uint32_t mask = smask[t];
+    uint32_t mq = mask;
+    while (mq) {                       // warp-uniform
+      const int b1 = __ffs(mq) - 1;
+      mq &= mq - 1;
+      int b2 = -1;
+      if (mq) {
+        b2 = __ffs(mq) - 1;
+        mq &= mq - 1;
       }
-      continue;
+      uint32_t a1, a2;
+      emvb::chunk_word_or<ROUNDS>(
+          bits + (size_t)b1 * n_c,
+          b2 >= 0 ? bits + (size_t)b2 * n_c : nullptr, c, &a1, &a2);
+      if (lane == b1) word |= a1;
+      if (lane == b2) word |= a2;
     }
-    const int len = min(max(doc_lens[d], 0), cap);
-    const uint32_t acc = emvb::doc_word_or(codes + d * cap, len, n_c, bitsT, B,
-                                           bq, g, G, Q, cand);
-    if (g == 0 && bq < B) {
-      const int f = cand ? __popc(acc) : -1;
+    if (ch == n_ch - 1) {
+      if ((mask >> lane) & 1u) {
+        const int f = __popc(word);
+        sF[lane * TILE + t] = (int8_t)f;
+        atomicAdd(&sh[lane * NBINS + f + 1], 1);
+      }
+      word = 0;
+    }
+    __syncwarp();
+  }
+  cp_async_wait<0>();
+
+  // Dense form: each warp takes its docs of the list's back, lanes split
+  // into (token group g, query bq) pairs as in bitfilter.cu.
+  const int Q = next_pow2(B), G = 32 / Q, bq = lane % Q, g = lane / Q;
+  for (int k = warp; k < s_ndense; k += nwarps) {
+    const int t = slist[TILE - 1 - k];
+    const int len = min(max(doc_lens[d0 + t], 0), cap);
+    word = emvb::doc_word_or(codes + (d0 + t) * cap, len, n_c, bitsT, B, bq,
+                             g, G, Q, bq < B);
+    if (g == 0 && ((smask[t] >> bq) & 1u)) {
+      const int f = __popc(word);
       sF[bq * TILE + t] = (int8_t)f;
-      if (cand) atomicAdd(&sh[bq * NBINS + f + 1], 1);
-      else ++n_neg;
+      atomicAdd(&sh[bq * NBINS + f + 1], 1);
     }
   }
-  if (g == 0 && bq < B && n_neg) atomicAdd(&sh[bq * NBINS], n_neg);
   __syncthreads();
-  for (int j = threadIdx.x; j < B * TILE; j += blockDim.x) {
-    const int b = j / TILE, t = j % TILE;
-    const size_t d = d0 + t;
-    if (d < (size_t)n_docs) F[(size_t)b * n_docs + d] = sF[j];
+
+  // Bin 0 counts the valid docs that are not the query's candidate. Thread
+  // b adds query b's counts to the corpus totals and turns them into the
+  // tile's counts at bin >= x, which is what the threshold pass reads.
+  if (tid < B) {
+    int* hb = sh + tid * NBINS;
+    int cand = 0;
+    for (int bin = 1; bin < NBINS; ++bin) cand += hb[bin];
+    hb[0] = n_valid - cand;
+    int at_or_above = 0;
+    for (int bin = NBINS - 1; bin >= 0; --bin) {
+      if (hb[bin]) atomicAdd(&tot[tid * NBINS + bin], hb[bin]);
+      at_or_above += hb[bin];
+      hb[bin] = at_or_above;
+    }
   }
-  for (int j = threadIdx.x; j < B * NBINS; j += blockDim.x) {
-    const int b = j / NBINS, bin = j % NBINS;
-    hist[((size_t)b * n_tiles + tile) * NBINS + bin] = sh[j];
+  __syncthreads();
+  const size_t stride = (size_t)n_tiles * TILE;
+  for (int j = tid; j < B * TILE / 4; j += blockDim.x) {
+    const int b = j / (TILE / 4), w = j % (TILE / 4);
+    reinterpret_cast<uint32_t*>(F + (size_t)b * stride + d0)[w] =
+        reinterpret_cast<const uint32_t*>(sF)[j];
   }
+  for (int j = tid; j < B * NBINS; j += blockDim.x)
+    cum[(size_t)j * n_tiles + tile] = sh[j];
 }
 
-// Pass 3, one block per query: the threshold bin, and per tile the
-// exclusive prefix counts of docs above it (hi) and on it (eq).
+// Pass 3, one block per query: the threshold bin from the corpus totals,
+// and per tile the exclusive prefix counts, in ascending tile order, of docs
+// above it (hi) and on it (eq). Thread i takes a run of neighbouring tiles.
 // params[b] = {f* + 1, c_hi, need}.
-__global__ void threshold_kernel(const int32_t* __restrict__ hist, int n_tiles,
-                                 int n_filter, int32_t* __restrict__ off_hi,
-                                 int32_t* __restrict__ off_eq,
-                                 int32_t* __restrict__ params) {
-  __shared__ int tot[NBINS];
+__global__ void __launch_bounds__(SCAN_THREADS)
+threshold_kernel(const int32_t* __restrict__ tot,
+                 const int32_t* __restrict__ cum, int n_tiles, int n_filter,
+                 int32_t* __restrict__ off_hi, int32_t* __restrict__ off_eq,
+                 int32_t* __restrict__ params) {
   __shared__ int sw[32];
-  __shared__ int sp[3];
+  __shared__ int tb[NBINS];
+  __shared__ int s_fbin;
   const int b = blockIdx.x;
-  const int32_t* hb = hist + (size_t)b * n_tiles * NBINS;
-  for (int j = threadIdx.x; j < NBINS; j += blockDim.x) tot[j] = 0;
-  __syncthreads();
-  for (int tl = threadIdx.x; tl < n_tiles; tl += blockDim.x) {
-    for (int bin = 0; bin < NBINS; ++bin) {
-      const int v = hb[(size_t)tl * NBINS + bin];
-      if (v) atomicAdd(&tot[bin], v);
-    }
-  }
+  if (threadIdx.x < NBINS) tb[threadIdx.x] = tot[b * NBINS + threadIdx.x];
   __syncthreads();
   if (threadIdx.x == 0) {
-    int cum = 0, bin = NBINS - 1;
+    int cum_hi = 0, bin = NBINS - 1;
     for (; bin > 0; --bin) {
-      if (cum + tot[bin] >= n_filter) break;
-      cum += tot[bin];
+      if (cum_hi + tb[bin] >= n_filter) break;
+      cum_hi += tb[bin];
     }
-    sp[0] = bin;
-    sp[1] = cum;
-    sp[2] = n_filter - cum;
+    s_fbin = bin;
     params[b * 4 + 0] = bin;
-    params[b * 4 + 1] = cum;
-    params[b * 4 + 2] = n_filter - cum;
+    params[b * 4 + 1] = cum_hi;
+    params[b * 4 + 2] = n_filter - cum_hi;
   }
   __syncthreads();
-  const int fbin = sp[0];
-  int carry_hi = 0, carry_eq = 0;
+  const int fbin = s_fbin;
+  const int32_t* at_f = cum + ((size_t)b * NBINS + fbin) * n_tiles;
+  const int32_t* above_f = fbin + 1 < NBINS ? at_f + n_tiles : nullptr;
+  const int per = (n_tiles + blockDim.x - 1) / blockDim.x;
+  const int t0 = min(n_tiles, (int)threadIdx.x * per);
+  const int t1 = min(n_tiles, t0 + per);
+  int hi = 0, eq = 0;
+#pragma unroll 8
+  for (int tl = t0; tl < t1; ++tl) {
+    const int h = above_f ? above_f[tl] : 0;
+    hi += h;
+    eq += at_f[tl] - h;
+  }
+  int tot_hi, tot_eq;
+  int ph = block_excl_scan(hi, sw, &tot_hi);
+  int pe = block_excl_scan(eq, sw, &tot_eq);
   int32_t* oh = off_hi + (size_t)b * (n_tiles + 1);
   int32_t* oe = off_eq + (size_t)b * (n_tiles + 1);
-  for (int start = 0; start < n_tiles; start += blockDim.x) {
-    const int tl = start + threadIdx.x;
-    int hi = 0, eq = 0;
-    if (tl < n_tiles) {
-      const int32_t* row = hb + (size_t)tl * NBINS;
-      for (int bin = fbin + 1; bin < NBINS; ++bin) hi += row[bin];
-      eq = row[fbin];
-    }
-    int tot_hi, tot_eq;
-    const int ph = block_excl_scan(hi, sw, &tot_hi);
-    const int pe = block_excl_scan(eq, sw, &tot_eq);
-    if (tl < n_tiles) {
-      oh[tl] = carry_hi + ph;
-      oe[tl] = carry_eq + pe;
-    }
-    carry_hi += tot_hi;
-    carry_eq += tot_eq;
+  for (int tl = t0; tl < t1; ++tl) {
+    const int h = above_f ? above_f[tl] : 0;
+    oh[tl] = ph;
+    oe[tl] = pe;
+    ph += h;
+    pe += at_f[tl] - h;
   }
   if (threadIdx.x == 0) {
-    oh[n_tiles] = carry_hi;
-    oe[n_tiles] = carry_eq;
+    oh[n_tiles] = tot_hi;
+    oe[n_tiles] = tot_eq;
   }
 }
 
-// Pass 4, grid (n_tiles, B): write every selected doc's key into its slot.
-__global__ void collect_kernel(const int8_t* __restrict__ F, int n_docs,
-                               int n_tiles, int n_filter,
-                               const int32_t* __restrict__ off_hi,
-                               const int32_t* __restrict__ off_eq,
-                               const int32_t* __restrict__ params,
-                               int32_t* __restrict__ keys) {
-  __shared__ int sw[32];
-  const int tile = blockIdx.x, b = blockIdx.y;
+// Pass 4: write every selected doc's key into its slot. A warp takes
+// `per_warp` (at most 32) neighbouring tiles of one query, finds with one
+// read per lane which of them hold a selected doc, and walks those; grid
+// (ceil(n_tiles / (COLLECT_WARPS * per_warp)), B). In a tile lane l reads
+// docs 32l..32l+31, so a warp scan orders the tile's docs by id.
+__global__ void __launch_bounds__(COLLECT_WARPS * 32)
+collect_kernel(const int8_t* __restrict__ F, int n_tiles, int n_filter,
+               int per_warp, const int32_t* __restrict__ off_hi,
+               const int32_t* __restrict__ off_eq,
+               const int32_t* __restrict__ params,
+               int32_t* __restrict__ keys) {
+  const int lane = threadIdx.x & 31;
+  const int first = (blockIdx.x * COLLECT_WARPS + (threadIdx.x >> 5)) *
+                    per_warp;
+  const int b = blockIdx.y;
+  if (first >= n_tiles) return;                       // warp-uniform
   const int fstar = params[b * 4 + 0] - 1;
   const int c_hi = params[b * 4 + 1], need = params[b * 4 + 2];
   const int32_t* oh = off_hi + (size_t)b * (n_tiles + 1);
   const int32_t* oe = off_eq + (size_t)b * (n_tiles + 1);
-  const int h0 = oh[tile], h1 = oh[tile + 1];
-  const int e0 = oe[tile], e1 = oe[tile + 1];
-  if (h1 == h0 && (e1 == e0 || e0 >= need)) return;   // block-uniform
-  constexpr int PER = TILE / THREADS;
-  const size_t dbase = (size_t)tile * TILE + threadIdx.x * PER;
-  int f[PER];
-  int nh = 0, ne = 0;
-#pragma unroll
-  for (int j = 0; j < PER; ++j) {
-    const size_t d = dbase + j;
-    f[j] = d < (size_t)n_docs ? (int)F[(size_t)b * n_docs + d] : -2;
-    nh += f[j] > fstar;
-    ne += f[j] == fstar;
+  int h0 = 0, e0 = 0;
+  bool busy = false;
+  if (lane < per_warp && first + lane < n_tiles) {
+    const int tile = first + lane;
+    h0 = oh[tile];
+    e0 = oe[tile];
+    busy = oh[tile + 1] != h0 || (oe[tile + 1] != e0 && e0 < need);
   }
-  int tot;
-  int ph = block_excl_scan(nh, sw, &tot);
-  int pe = block_excl_scan(ne, sw, &tot);
   int32_t* kb = keys + (size_t)b * n_filter;
+  for (uint32_t todo = __ballot_sync(FULL_MASK, busy); todo;
+       todo &= todo - 1) {
+    const int j = __ffs(todo) - 1;
+    const int tile = first + j;
+    union {
+      uint4 u[2];
+      int8_t f[32];
+    } run;
+    const uint4* src = reinterpret_cast<const uint4*>(
+        F + (size_t)b * n_tiles * TILE + (size_t)tile * TILE + lane * 32);
+    run.u[0] = src[0];
+    run.u[1] = src[1];
+    int nh = 0, ne = 0;
 #pragma unroll
-  for (int j = 0; j < PER; ++j) {
-    const int d = (int)(dbase + j);
-    const int key = ((f[j] + 1) << ID_BITS) + (MAX_ID - d);
-    if (f[j] > fstar) {
-      kb[h0 + ph++] = key;
-    } else if (f[j] == fstar) {
-      const int r = e0 + pe++;
-      if (r < need) kb[c_hi + r] = key;
+    for (int k = 0; k < 32; ++k) {
+      nh += run.f[k] > fstar;
+      ne += run.f[k] == fstar;
+    }
+    int ph = __shfl_sync(FULL_MASK, h0, j) + warp_excl_scan(nh);
+    int pe = __shfl_sync(FULL_MASK, e0, j) + warp_excl_scan(ne);
+    const int dbase = tile * TILE + lane * 32;
+#pragma unroll
+    for (int k = 0; k < 32; ++k) {
+      const int f = run.f[k];
+      if (f > fstar) {
+        kb[ph++] = ((f + 1) << ID_BITS) + (MAX_ID - (dbase + k));
+      } else if (f == fstar) {
+        if (pe < need)
+          kb[c_hi + pe] = ((f + 1) << ID_BITS) + (MAX_ID - (dbase + k));
+        ++pe;
+      }
     }
   }
 }
 
-// Pass 5, one block per query: sort the n_filter keys, decode (f, id).
-__global__ void sort_kernel(const int32_t* __restrict__ keys, int n_filter,
-                            int P, int32_t* __restrict__ scores,
-                            int32_t* __restrict__ ids) {
+// Pass 5: each key to its rank, decoded to (f, id); a cut_launch grid.
+__global__ void __launch_bounds__(1024)
+sort_kernel(const int32_t* __restrict__ keys, int n_filter, int P, bool sort,
+            int32_t* __restrict__ scores, int32_t* __restrict__ ids) {
   extern __shared__ int skeys[];
-  const int b = blockIdx.x;
+  const int b = blockIdx.y;
   for (int i = threadIdx.x; i < P; i += blockDim.x)
     skeys[i] = i < n_filter ? keys[(size_t)b * n_filter + i] : KEY_PAD;
   __syncthreads();
-  bitonic_sort_desc<int>(skeys, P);
-  for (int i = threadIdx.x; i < n_filter; i += blockDim.x) {
-    const int key = skeys[i];
-    scores[(size_t)b * n_filter + i] = (key >> ID_BITS) - 1;
-    ids[(size_t)b * n_filter + i] = MAX_ID - (key & MAX_ID);
-  }
+  cut_keys(skeys, n_filter, P, sort, [&](int key, int r) {
+    scores[(size_t)b * n_filter + r] = (key >> ID_BITS) - 1;
+    ids[(size_t)b * n_filter + r] = MAX_ID - (key & MAX_ID);
+  });
 }
 
 }  // namespace
 
 extern "C" {
 
-int prefilter_tile() { return TILE; }
-int prefilter_nbins() { return NBINS; }
+// Bytes of device scratch prefilter_batched needs.
+size_t prefilter_scratch_bytes(int B, int n_c, int n_docs, int n_filter) {
+  return carve(nullptr, B, n_c, n_docs, n_filter, nullptr);
+}
 
-// All pointers are device pointers; scratch is allocated by the caller:
-// bitsT (n_c*B u32), F (B*n_docs i8), hist (B*n_tiles*NBINS i32),
-// off_hi/off_eq (B*(n_tiles+1) i32), params (B*4 i32), keys (B*n_filter).
+// All pointers are device pointers; qmask may be null (every term live).
+// cs (B, n_q, n_c) f32; qmask (B, n_q) u8; codes (n_docs, cap) i32;
+// doc_lens (n_docs,) i32; bitmap (B, n_docs) u8; B <= 32. Outputs: bits
+// (B, n_c) u32, scores/ids (B, n_filter) i32. scratch: the bytes
+// prefilter_scratch_bytes gives, 256-byte aligned.
 int prefilter_batched(const float* cs, float th, const uint8_t* qmask,
                       const int32_t* codes, const int32_t* doc_lens,
                       const uint8_t* bitmap, int B, int n_q, int n_c,
                       int n_docs, int cap, int n_filter, uint32_t* bits,
-                      uint32_t* bitsT, int8_t* F, int32_t* hist,
-                      int32_t* off_hi, int32_t* off_eq, int32_t* params,
-                      int32_t* keys, int32_t* scores, int32_t* ids,
+                      int32_t* scores, int32_t* ids, void* scratch,
                       void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int n_tiles = (n_docs + TILE - 1) / TILE;
+  Scratch s;
+  carve(scratch, B, n_c, n_docs, n_filter, &s);
   cudaError_t err;
-  pack_kernel<<<(n_c + 255) / 256, 256, 0, st>>>(cs, th, qmask, B, n_q, n_c,
-                                                 bits, bitsT);
+  const int vec = (n_c % 4 == 0) && (reinterpret_cast<uintptr_t>(cs) % 16 == 0);
+  const int n_quads = (n_c + 3) / 4;
+  pack_kernel<<<dim3((n_quads + PACK_THREADS - 1) / PACK_THREADS, B),
+                PACK_THREADS, 0, st>>>(cs, th, qmask, n_q, n_c, vec, bits,
+                                       s.tot);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  const size_t smem = ((B * TILE + 15) & ~15) + B * NBINS * sizeof(int);
+  if (s.bitsT != nullptr) {
+    transpose_kernel<<<(n_c + 31) / 32, 256, 0, st>>>(bits, B, n_c, s.bitsT);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
+  const size_t smem = (size_t)B * TILE + TILE * 4 +
+                      ((B * NBINS + 3) & ~3) * 4 +
+                      (SCORE_THREADS / 32) * 2 * CHUNK * 4 + TILE * 2;
   if (smem > 48 * 1024) {
     err = cudaFuncSetAttribute(score_kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)smem);
     if (err != cudaSuccess) return err;
   }
-  score_kernel<<<n_tiles, THREADS, smem, st>>>(codes, doc_lens, bitmap, bitsT,
-                                               B, n_c, n_docs, cap, n_tiles, F,
-                                               hist);
+  score_kernel<<<n_tiles, SCORE_THREADS, smem, st>>>(
+      codes, doc_lens, bitmap, bits, s.bitsT, B, n_c, n_docs, cap, n_tiles,
+      s.F, s.tot, s.cum);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  threshold_kernel<<<B, 1024, 0, st>>>(hist, n_tiles, n_filter, off_hi, off_eq,
-                                       params);
+  threshold_kernel<<<B, SCAN_THREADS, 0, st>>>(
+      s.tot, s.cum, n_tiles, n_filter, s.off_hi, s.off_eq, s.params);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  collect_kernel<<<dim3(n_tiles, B), THREADS, 0, st>>>(
-      F, n_docs, n_tiles, n_filter, off_hi, off_eq, params, keys);
+  // Several tiles a warp only where the (tile, query) pairs are many enough
+  // to fill the card (64 warps an SM) twice over: 8 at B = 32, 1 at B = 1
+  // on emvb-msmarco.
+  const int per_warp = max(1, min(COLLECT_TILES, (int)((size_t)B * n_tiles /
+                                                       (128 * sm_count()))));
+  const int per_block = COLLECT_WARPS * per_warp;
+  collect_kernel<<<dim3((n_tiles + per_block - 1) / per_block, B),
+                   COLLECT_WARPS * 32, 0, st>>>(s.F, n_tiles, n_filter,
+                                                per_warp, s.off_hi, s.off_eq,
+                                                s.params, s.keys);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  const int P = next_pow2(n_filter);
-  sort_kernel<<<B, 1024, P * sizeof(int), st>>>(keys, n_filter, P, scores,
-                                                ids);
+  const CutLaunch c = cut_launch(B, n_filter);
+  sort_kernel<<<c.grid, c.threads, c.P * sizeof(int), st>>>(
+      s.keys, n_filter, c.P, c.sort, scores, ids);
   return cudaGetLastError();
 }
 

@@ -27,7 +27,7 @@ from ..core.topk import topk
 from . import _build
 from .prefilter import lengths_of
 
-MAX_SORT = 4096   # n_filter and n_docs: each cut sorts in shared memory
+MAX_SORT = 4096   # n_filter and n_docs: a cut keeps its keys in shared memory
 
 launches = 0      # kernel launches since the last reset
 
@@ -64,33 +64,43 @@ def flat_lut(lut: torch.Tensor) -> torch.Tensor:
     return lut.permute(0, 2, 3, 1).reshape(nb, m * ksub, n_q).contiguous()
 
 
+_VP, _CI = ctypes.c_void_p, ctypes.c_int
+_SIGNATURES = {
+    "pqinter_scratch_bytes": (ctypes.c_size_t, [_CI, _CI, _CI]),
+    "pqinter_batched": (_CI, [_VP, _VP, _VP, _VP, _VP, _VP, _CI, _CI, _CI,
+                              _CI, _CI, _CI, _CI, ctypes.c_float, _CI, _CI,
+                              _CI, _VP, _VP, _VP, _VP, _VP, _VP]),
+}
+
+
+def _fn(name: str):
+    return _build.function("pqinter", name, *_SIGNATURES[name])
+
+
 def _launch(cs_t, lut2, codes, res_codes, lens, qm, th_r, n_docs, k, m,
             ksub):
-    """One launch of ``csrc/pqinter.cu``."""
+    """One launch of ``csrc/pqinter.cu``; qm None means every term is
+    live."""
     global launches
-    fn = _build.load("pqinter").pqinter_batched
-    fn.restype = ctypes.c_int
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci,
-                   ctypes.c_float, ci, ci, ci, vp, vp, vp, vp, vp, vp, vp]
     nb, nf, cap = codes.shape
     n_c, n_q = cs_t.shape[1:]
     dev = cs_t.device
-
-    def f32(*shape):
-        return torch.empty(shape, dtype=torch.float32, device=dev)
-
-    def i32(*shape):
-        return torch.empty(shape, dtype=torch.int32, device=dev)
-
-    sbar_all, score2 = f32(nb, nf), f32(nb, n_docs)
-    scores, pos = f32(nb, k), i32(nb, k)
-    sel2, sbar = i32(nb, n_docs), f32(nb, n_docs)
-    p = _build.ptr
-    err = fn(p(cs_t), p(lut2), p(codes), p(res_codes), p(lens), p(qm), nb,
-             nf, cap, n_c, n_q, m, ksub, 0.0 if th_r is None else float(th_r),
-             int(th_r is not None), n_docs, k, p(sbar_all), p(score2),
-             p(scores), p(pos), p(sel2), p(sbar), _build.stream())
+    # scores | pos | sel2 | sbar, each contiguous, in one int32 allocation
+    out = torch.empty(nb * (2 * k + 2 * n_docs), dtype=torch.int32,
+                      device=dev)
+    scores, pos, sel2, sbar = (x.view(nb, -1) for x in out.split(
+        (nb * k, nb * k, nb * n_docs, nb * n_docs)))
+    scores, sbar = scores.view(torch.float32), sbar.view(torch.float32)
+    scratch = torch.empty(_fn("pqinter_scratch_bytes")(nb, nf, n_docs),
+                          dtype=torch.uint8, device=dev)
+    err = _fn("pqinter_batched")(
+        cs_t.data_ptr(), lut2.data_ptr(), codes.data_ptr(),
+        res_codes.data_ptr(), lens.data_ptr(),
+        None if qm is None else qm.data_ptr(), nb, nf, cap, n_c, n_q, m,
+        ksub, 0.0 if th_r is None else float(th_r), int(th_r is not None),
+        n_docs, k, scores.data_ptr(), pos.data_ptr(), sel2.data_ptr(),
+        sbar.data_ptr(), scratch.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "pqinter_batched")
     launches += 1
     return scores, pos, sel2, sbar
@@ -129,17 +139,16 @@ def pqinter_batched(cs_t: torch.Tensor, lut: torch.Tensor,
         raise ValueError(f"pqinter: unsupported device {cs_t.device}")
     if nf > MAX_SORT:
         raise ValueError(f"n_filter={nf} > {MAX_SORT}: the kernel's cuts "
-                         "sort in shared memory")
-    qm = (torch.ones((nb, n_q), dtype=torch.bool, device=cs_t.device)
-          if q_masks is None else q_masks)
+                         "hold their keys in shared memory")
     lut2 = flat_lut(lut)
     n_c = cs_t.shape[1]
-    _build.check_operands("pqinter", cs_t.device, (
-        ("cs_t", cs_t, torch.float32, (nb, n_c, n_q)),
-        ("lut", lut2, torch.float32, (nb, m * ksub, n_q)),
-        ("codes", codes, torch.int32, (nb, nf, cap)),
-        ("res_codes", res_codes, torch.uint8, (nb, nf, cap, m)),
-        ("token lengths", lens, torch.int32, (nb, nf)),
-        ("q_masks", qm, torch.bool, (nb, n_q))))
-    return _launch(cs_t, lut2, codes, res_codes, lens, qm, th_r, n_docs, k,
-                   m, ksub)
+    operands = [("cs_t", cs_t, torch.float32, (nb, n_c, n_q)),
+                ("lut", lut2, torch.float32, (nb, m * ksub, n_q)),
+                ("codes", codes, torch.int32, (nb, nf, cap)),
+                ("res_codes", res_codes, torch.uint8, (nb, nf, cap, m)),
+                ("token lengths", lens, torch.int32, (nb, nf))]
+    if q_masks is not None:
+        operands.append(("q_masks", q_masks, torch.bool, (nb, n_q)))
+    _build.check_operands("pqinter", cs_t.device, operands)
+    return _launch(cs_t, lut2, codes, res_codes, lens, q_masks, th_r, n_docs,
+                   k, m, ksub)

@@ -38,13 +38,13 @@ def pqscore_batched_ref(cs_t: torch.Tensor, lut: torch.Tensor,
 
 
 def _launch(cs_t, lut2, codes, res_codes, lens, qm, th_r, m, ksub):
-    """One launch of ``csrc/pqscore.cu``."""
+    """One launch of ``csrc/pqscore.cu``; qm None means every term is
+    live."""
     global launches
-    fn = _build.load("pqscore").pqscore_batched
-    fn.restype = ctypes.c_int
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci,
-                   ctypes.c_float, ci, vp, vp]
+    fn = _build.function("pqscore", "pqscore_batched", ctypes.c_int,
+                         [vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci,
+                          ci, ctypes.c_float, ci, vp, vp])
     nb, nd, cap = codes.shape
     n_c, n_q = cs_t.shape[1:]
     score = torch.empty((nb, nd), dtype=torch.float32, device=cs_t.device)
@@ -83,15 +83,15 @@ def pqscore_batched(cs_t: torch.Tensor, lut: torch.Tensor,
                                    q_masks)
     if cs_t.device.type != "cuda":
         raise ValueError(f"pqscore: unsupported device {cs_t.device}")
-    qm = (torch.ones((nb, n_q), dtype=torch.bool, device=cs_t.device)
-          if q_masks is None else q_masks)
     lut2 = flat_lut(lut)
     n_c = cs_t.shape[1]
-    _build.check_operands("pqscore", cs_t.device, (
-        ("cs_t", cs_t, torch.float32, (nb, n_c, n_q)),
-        ("lut", lut2, torch.float32, (nb, m * ksub, n_q)),
-        ("codes", codes, torch.int32, (nb, nd, cap)),
-        ("res_codes", res_codes, torch.uint8, (nb, nd, cap, m)),
-        ("token lengths", lens, torch.int32, (nb, nd)),
-        ("q_masks", qm, torch.bool, (nb, n_q))))
-    return _launch(cs_t, lut2, codes, res_codes, lens, qm, th_r, m, ksub)
+    operands = [("cs_t", cs_t, torch.float32, (nb, n_c, n_q)),
+                ("lut", lut2, torch.float32, (nb, m * ksub, n_q)),
+                ("codes", codes, torch.int32, (nb, nd, cap)),
+                ("res_codes", res_codes, torch.uint8, (nb, nd, cap, m)),
+                ("token lengths", lens, torch.int32, (nb, nd))]
+    if q_masks is not None:
+        operands.append(("q_masks", q_masks, torch.bool, (nb, n_q)))
+    _build.check_operands("pqscore", cs_t.device, operands)
+    return _launch(cs_t, lut2, codes, res_codes, lens, q_masks, th_r, m,
+                   ksub)

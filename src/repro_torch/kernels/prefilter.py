@@ -28,7 +28,7 @@ from . import _build
 ID_BITS = 25
 MAX_ID = (1 << ID_BITS) - 1
 MAX_BATCH = 32          # queries per launch: one lane group per query
-MAX_N_FILTER = 8192     # the final per-query sort runs in shared memory
+MAX_N_FILTER = 8192     # the final ranking holds its keys in shared memory
 REF_BLOCK_D = 1 << 17   # docs per step of the plain version
 
 launches = 0            # kernel launches since the last reset
@@ -92,41 +92,40 @@ def prefilter_batched_ref(cs: torch.Tensor, th: float, codes: torch.Tensor,
         (MAX_ID - (top & MAX_ID)).to(torch.int32), bits
 
 
+_VP, _CI = ctypes.c_void_p, ctypes.c_int
+_SIGNATURES = {
+    "prefilter_scratch_bytes": (ctypes.c_size_t, [_CI, _CI, _CI, _CI]),
+    "prefilter_batched": (_CI, [_VP, ctypes.c_float, _VP, _VP, _VP, _VP,
+                                _CI, _CI, _CI, _CI, _CI, _CI, _VP, _VP, _VP,
+                                _VP, _VP]),
+}
+
+
+def _fn(name: str):
+    return _build.function("prefilter", name, *_SIGNATURES[name])
+
+
 def _launch(cs, th, codes, doc_lens, bitmap, n_filter, qm):
-    """One launch of ``csrc/prefilter.cu`` for B <= MAX_BATCH queries."""
+    """One launch of ``csrc/prefilter.cu`` for B <= MAX_BATCH queries; qm
+    None means every term is live."""
     global launches
-    lib = _build.load("prefilter")
-    fn = lib.prefilter_batched
-    fn.restype = ctypes.c_int
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [vp, ctypes.c_float, vp, vp, vp, vp, ci, ci, ci, ci, ci,
-                   ci, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp]
-    for const in (lib.prefilter_tile, lib.prefilter_nbins):
-        const.restype, const.argtypes = ctypes.c_int, []
     nb, n_q, n_c = cs.shape
     n_docs, cap = codes.shape
-    tile = lib.prefilter_tile()
-    nbins = lib.prefilter_nbins()
-    n_tiles = -(-n_docs // tile)
     dev = cs.device
-
-    def i32(*shape):
-        return torch.empty(shape, dtype=torch.int32, device=dev)
-
-    bits, bits_t = i32(nb, n_c), i32(n_c, nb)
-    f = torch.empty((nb, n_docs), dtype=torch.int8, device=dev)
-    hist = i32(nb, n_tiles, nbins)
-    off_hi, off_eq = i32(nb, n_tiles + 1), i32(nb, n_tiles + 1)
-    params, keys = i32(nb, 4), i32(nb, n_filter)
-    scores, ids = i32(nb, n_filter), i32(nb, n_filter)
-    p = _build.ptr
-    err = fn(p(cs), float(th), p(qm), p(codes), p(doc_lens), p(bitmap), nb,
-             n_q, n_c, n_docs, cap, n_filter, p(bits), p(bits_t), p(f),
-             p(hist), p(off_hi), p(off_eq), p(params), p(keys), p(scores),
-             p(ids), _build.stream())
+    bits = torch.empty((nb, n_c), dtype=torch.int32, device=dev)
+    out = torch.empty((2, nb, n_filter), dtype=torch.int32, device=dev)
+    scratch = torch.empty(_fn("prefilter_scratch_bytes")(nb, n_c, n_docs,
+                                                          n_filter),
+                          dtype=torch.uint8, device=dev)
+    err = _fn("prefilter_batched")(
+        cs.data_ptr(), float(th), None if qm is None else qm.data_ptr(),
+        codes.data_ptr(), doc_lens.data_ptr(), bitmap.data_ptr(), nb, n_q,
+        n_c, n_docs, cap, n_filter, bits.data_ptr(), out[0].data_ptr(),
+        out[1].data_ptr(), scratch.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "prefilter_batched")
     launches += 1
-    return scores, ids, bits
+    return out[0], out[1], bits
 
 
 def prefilter_batched(cs: torch.Tensor, th: float, codes: torch.Tensor,
@@ -162,17 +161,18 @@ def prefilter_batched(cs: torch.Tensor, th: float, codes: torch.Tensor,
         raise ValueError(f"prefilter: unsupported device {cs.device}")
     if n_filter > MAX_N_FILTER:
         raise ValueError(f"n_filter={n_filter} > {MAX_N_FILTER}: the "
-                         "kernel's final sort runs in shared memory")
-    qm = (torch.ones((nb, n_q), dtype=torch.bool, device=cs.device)
-          if q_masks is None else q_masks)
-    _build.check_operands("prefilter", cs.device, (
-        ("cs", cs, torch.float32, (nb, n_q, n_c)),
-        ("codes", codes, torch.int32, (n_docs, cap)),
-        ("token lengths", doc_lens, torch.int32, (n_docs,)),
-        ("bitmap", bitmap, torch.bool, (nb, n_docs)),
-        ("q_masks", qm, torch.bool, (nb, n_q))))
+                         "kernel's final ranking holds its keys in shared "
+                         "memory")
+    operands = [("cs", cs, torch.float32, (nb, n_q, n_c)),
+                ("codes", codes, torch.int32, (n_docs, cap)),
+                ("token lengths", doc_lens, torch.int32, (n_docs,)),
+                ("bitmap", bitmap, torch.bool, (nb, n_docs))]
+    if q_masks is not None:
+        operands.append(("q_masks", q_masks, torch.bool, (nb, n_q)))
+    _build.check_operands("prefilter", cs.device, operands)
     parts = [_launch(cs[s:s + MAX_BATCH], th, codes, doc_lens,
-                     bitmap[s:s + MAX_BATCH], n_filter, qm[s:s + MAX_BATCH])
+                     bitmap[s:s + MAX_BATCH], n_filter,
+                     None if q_masks is None else q_masks[s:s + MAX_BATCH])
              for s in range(0, nb, MAX_BATCH)]
     if len(parts) == 1:
         return parts[0]

@@ -72,6 +72,74 @@ def test_pqinter_kernel_equals_plain(card, nb, th_r):
                                        10, qm))
 
 
+EDGE_LENS = (0, 1, 31, 32, 33, 80)   # a round's edges at cap 80
+CHUNK_LENS = (0, 127, 128, 129, 200)  # the prefilter's 128-token chunks
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [
+    # B, n_c, n_docs, cap, n_filter, density, lens, kind
+    (32, 300, 5003, 12, 200, 0.02, None, ""),          # sparse candidacy
+    (32, 300, 3001, 12, 200, 0.9, None, ""),           # dense candidacy
+    (21, 300, 3001, 12, 200, 0.97, None, ""),          # dense, odd batch
+    (32, 300, 3001, 12, 200, 0.3, None, "shared"),     # one candidate set
+    (3, 300, 2100, 80, 200, 0.3, EDGE_LENS, ""),       # cap 80
+    (3, 64, 4100, 12, 2500, 0.9, None, "flat"),        # ties across tiles
+    (32, 64, 4100, 12, 2500, 0.9, None, "flat"),       # ties, sorted cut
+    (1, 300, 1025, 12, 1025, 0.3, None, ""),           # a tile plus one doc
+    (32, 300, 2100, 200, 200, 0.6, CHUNK_LENS, ""),    # docs over 2 chunks
+], ids=["sparse", "dense", "dense_odd_batch", "shared", "cap80", "ties",
+        "ties_sorted_cut", "tile_plus_one", "cap200"])
+@pytest.mark.parametrize("masked", [False, True])
+def test_prefilter_kernel_stress(card, case, masked):
+    nb, n_c, n_docs, cap, n_filter, density, lens, kind = case
+    cs, codes, mask, bitmap, qm = prefilter_inputs(
+        n_docs, nb, 32, n_c, n_docs, cap, density=density, lens=lens)
+    if kind == "flat":          # one word per query: F ties in every tile
+        cs = np.repeat(cs[:, :, :1], n_c, axis=2)
+    if kind == "shared":
+        bitmap[:] = bitmap[:1]
+    cs, codes, mask, bitmap, qm = _on(card, cs, codes, mask, bitmap, qm)
+    lens = mask.sum(-1, dtype=torch.int32)
+    qm = qm if masked else None
+    got = ops.prefilter_batched(cs, 0.25, codes, lens, bitmap, n_filter, qm)
+    torch.cuda.synchronize()
+    _same(got, kpf.prefilter_batched_ref(cs, 0.25, codes, lens, bitmap,
+                                         n_filter, qm))
+    _same((ops.bitpack_batched(cs, 0.25, qm),),
+          (kbp.bitpack_batched_ref(cs, 0.25, qm),))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [
+    # B, nf, cap, m, K, n_docs, k, lens, th_r
+    (3, 300, 80, 16, 256, 60, 20, EDGE_LENS, 0.25),    # cap 80, m = 16
+    (3, 300, 17, 5, 7, 60, 20, None, 0.25),            # odd m and K
+    (2, 200, 33, 8, 16, 50, 10, None, None),           # m = 8, serial form
+    (2, 200, 12, 4, 16, 50, 10, None, 0.25),           # m = 4, serial form
+    (2, 200, 12, 32, 16, 50, 10, None, 0.25),          # m = 32, serial form
+    (3, 300, 17, 16, 256, 60, 20, None, 100.0),        # Eq. 6 keeps no token
+    (32, 2100, 12, 4, 16, 2100, 50, None, 0.25),       # both cuts sorted
+], ids=["cap80_m16", "odd_m_K", "m8", "m4", "m32", "eq6_none_kept",
+        "sorted_cuts"])
+@pytest.mark.parametrize("masked", [False, True])
+def test_pqinter_kernel_stress(card, case, masked):
+    nb, nf, cap, m, ksub, n_docs, k, lens, th_r = case
+    cs_t, lut, codes, res, mask, qm = _on(card, *pqinter_inputs(
+        nf + m, nb, 32, 200, nf, cap, m, ksub, lens=lens))
+    lens = mask.sum(-1, dtype=torch.int32)
+    qm = qm if masked else None
+    got = ops.pqinter_batched(cs_t, lut, codes, res, lens, th_r, n_docs, k,
+                              qm)
+    torch.cuda.synchronize()
+    _same(got, kpq.pqinter_batched_ref(cs_t, lut, codes, res, lens, th_r,
+                                       n_docs, k, qm))
+    _same((ops.pqscore_batched(cs_t, lut, codes, res, lens, th_r, qm),),
+          (kps.pqscore_batched_ref(cs_t, lut, codes, res, lens, th_r, qm),))
+    _same((ops.cinter_batched(cs_t, codes, lens, qm),),
+          (kci.cinter_batched_ref(cs_t, codes, lens, qm),))
+
+
 @pytest.mark.cuda
 def test_wrappers_refuse_bad_card_operands(card):
     cs, codes, mask, bitmap, qm = _on(card, *prefilter_inputs(

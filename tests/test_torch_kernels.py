@@ -13,6 +13,10 @@ with dead query terms, and with ``th_r`` both None and set.
 tests/test_torch_cuda.py holds the CUDA kernels against the same plain
 versions on the card.
 """
+import importlib.util
+import pathlib
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -68,6 +72,29 @@ def test_prefilter_batched_matches_pallas(nb, n_q, n_c, n_docs, cap,
     _eq(port, ref)
 
 
+EDGE_LENS = (0, 1, 31, 32, 33, 80)   # a round's and a chunk's edges at cap 80
+
+
+@pytest.mark.parametrize("nb,n_c,n_docs,cap,n_filter,density,lens", [
+    (3, 200, 600, 12, 64, 0.02, None),     # most docs no query's candidate
+    (2, 130, 300, 33, 64, 0.6, None),      # a second round of tokens
+    (2, 200, 300, 80, 100, 0.3, EDGE_LENS),
+])
+@pytest.mark.parametrize("masked", [False, True])
+def test_prefilter_stress_matches_pallas(nb, n_c, n_docs, cap, n_filter,
+                                         density, lens, masked):
+    cs, codes, mask, bitmap, qm = _prefilter_inputs(
+        n_docs + cap, nb, 32, n_c, n_docs, cap, density=density, lens=lens)
+    qm = qm if masked else None
+    ref = rops.prefilter_batched(*_j(cs), 0.25, *_j(codes, mask, bitmap),
+                                 n_filter, None if qm is None
+                                 else jnp.asarray(qm), interpret=True)
+    port = tops.prefilter_batched(*_t(cs), 0.25, *_t(codes, mask, bitmap),
+                                  n_filter, None if qm is None
+                                  else torch.from_numpy(qm))
+    _eq(port, ref)
+
+
 def test_prefilter_single_query_matches_pallas():
     cs, codes, mask, bitmap, qm = _prefilter_inputs(5, 1, 32, 160, 270, 10)
     ref = rops.prefilter(*_j(cs[0]), 0.5, *_j(codes, mask, bitmap[0]), 50,
@@ -96,6 +123,22 @@ def test_pqinter_batched_matches_pallas(nb, n_q, n_c, nf, cap, m, ksub,
                                 n_docs, k, None if qm is None
                                 else torch.from_numpy(qm))
     assert tpqinter.launches == before
+    _eq(port, ref)
+
+
+@pytest.mark.parametrize("nb,nf,cap,m,ksub,n_docs,k,lens", [
+    (2, 30, 33, 8, 16, 12, 5, None),
+    (2, 24, 80, 16, 16, 10, 4, EDGE_LENS),
+])
+@pytest.mark.parametrize("th_r", [None, 0.25])
+def test_pqinter_long_docs_match_pallas(nb, nf, cap, m, ksub, n_docs, k,
+                                        lens, th_r):
+    cs_t, lut, codes, res, mask, qm = _pqinter_inputs(
+        nf + cap, nb, 32, 100, nf, cap, m, ksub, lens=lens)
+    ref = rops.pqinter_batched(*_j(cs_t, lut, codes, res, mask), th_r,
+                               n_docs, k, jnp.asarray(qm), interpret=True)
+    port = tops.pqinter_batched(*_t(cs_t, lut, codes, res, mask), th_r,
+                                n_docs, k, torch.from_numpy(qm))
     _eq(port, ref)
 
 
@@ -257,3 +300,27 @@ def test_unfused_wrappers_refuse_out_of_slice_operands():
         tops.cinter_batched(cs_t, codes, mask[:1])
     with pytest.raises(ValueError, match="one query term per bit"):
         tops.bitpack_batched(torch.zeros(1, 33, 8), 0.1)
+
+
+GLOBAL_FN = (r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?"
+             r"(\w+)\s*\(")
+
+
+def test_chip_smoke_names_every_global_function():
+    """chip_smoke.py reads each kernel's per-pass device time by the names
+    in KERNEL_FUNCTIONS; they must be exactly the __global__ functions each
+    csrc/*.cu declares, so a renamed pass cannot drop out of the profile."""
+    root = pathlib.Path(__file__).resolve().parents[1]
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  root / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    csrc = root / "src" / "repro_torch" / "kernels" / "csrc"
+    declared = {}
+    for cu in sorted(csrc.glob("*.cu")):
+        declared[cu.stem] = set(re.findall(GLOBAL_FN, cu.read_text()))
+        assert declared[cu.stem], cu
+    assert {k: set(v) for k, v in smoke.KERNEL_FUNCTIONS.items()} == declared
+    assert sorted(smoke.KERNELS) == sorted(declared)
+    for name, info in smoke.KERNELS.items():
+        assert info["source"] == f"src/repro_torch/kernels/csrc/{name}.cu"

@@ -13,29 +13,41 @@ def quant(x, levels):
     return np.asarray(np.round(x * levels) / levels + 0.0, np.float32)
 
 
-def prefilter_inputs(seed, nb, n_q, n_c, n_docs, cap, levels=4):
+def _lengths(rng, shape, cap, lens):
+    """Token counts uniform in [0, cap], or drawn from the values ``lens``."""
+    if lens is None:
+        return rng.integers(0, cap + 1, size=shape).astype(np.int32)
+    return rng.choice(np.asarray(lens, np.int32), size=shape)
+
+
+def prefilter_inputs(seed, nb, n_q, n_c, n_docs, cap, levels=4, density=0.6,
+                     lens=None):
     """-> cs (B, n_q, n_c), codes (n_docs, cap), mask (n_docs, cap),
-    bitmap (B, n_docs), q_mask (B, n_q)."""
+    bitmap (B, n_docs) with each bit set with probability ``density``,
+    q_mask (B, n_q). ``lens``: the token counts to draw from (default any
+    in [0, cap])."""
     rng = np.random.default_rng(seed)
     cs = quant(rng.normal(size=(nb, n_q, n_c)) * 0.5, levels)
     codes = rng.integers(0, n_c, size=(n_docs, cap)).astype(np.int32)
-    lens = rng.integers(0, cap + 1, size=n_docs).astype(np.int32)
+    lens = _lengths(rng, n_docs, cap, lens)
     mask = np.arange(cap)[None, :] < lens[:, None]
     codes[~mask] = n_c
-    bitmap = rng.random((nb, n_docs)) < 0.6
+    bitmap = rng.random((nb, n_docs)) < density
     qm = rng.random((nb, n_q)) < 0.75
     qm[:, 0] = True
     return cs, codes, mask, bitmap, qm
 
 
-def pqinter_inputs(seed, nb, n_q, n_c, nf, cap, m, ksub, levels=2):
+def pqinter_inputs(seed, nb, n_q, n_c, nf, cap, m, ksub, levels=2,
+                   lens=None):
     """-> cs_t (B, n_c, n_q), lut (B, n_q, m, K), codes (B, nf, cap),
-    res_codes (B, nf, cap, m) uint8, mask (B, nf, cap), q_mask (B, n_q)."""
+    res_codes (B, nf, cap, m) uint8, mask (B, nf, cap), q_mask (B, n_q).
+    ``lens``: the token counts to draw from (default any in [0, cap])."""
     rng = np.random.default_rng(seed)
     cs_t = quant(rng.normal(size=(nb, n_c, n_q)) * 0.5, levels)
     lut = quant(rng.normal(size=(nb, n_q, m, ksub)) * 0.3, levels)
     codes = rng.integers(0, n_c, size=(nb, nf, cap)).astype(np.int32)
-    lens = rng.integers(0, cap + 1, size=(nb, nf))
+    lens = _lengths(rng, (nb, nf), cap, lens)
     mask = np.arange(cap) < lens[..., None]
     codes[~mask] = n_c
     res = rng.integers(0, ksub, size=(nb, nf, cap, m)).astype(np.uint8)
