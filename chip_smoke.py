@@ -28,19 +28,32 @@ Phases:
                and 200 with edge lengths, ties across tiles, a tile plus
                one doc, cuts ranked and sorted, m in {4, 5, 8, 16, 32}
                (all but 16 on the serial path), odd K, Eq. 6 with no kept
-               token; each with and without a term mask)
+               token; each with and without a term mask;
+               BITFILTER_STRESS: word tables whose rows are lit at 2 %,
+               none or all, at B in {1, 3, 17, 32, 40}, n_c no multiple
+               of 32, cap 80 with edge lengths, cap 200 with lengths at
+               the edges of 128-code rounds, and n_c above the occupancy
+               bitmap's shared-memory limit; PQSCORE_STRESS: lengths at
+               the edges of the 8-warp token split, one query over 4096
+               docs, cap 200, m = 16 and the serial m = 5 and 8, Eq. 6
+               with no kept token)
   4. full    — the planted index on the card at MS MARCO width; retrieve at
                B = 32 and B = 1 on each lane (launch counts read around those
                runs only); each kernel held against its plain version on the
                same operands; unfused == fused ids and score bits on the same
-               CS and LUT; the candidate funnel; the planted docs'
-               Success@100 and MRR@10 on both lanes
+               CS and LUT; the candidate funnel, with the word table's lit
+               rows (rho: the share of the corpus' valid tokens whose
+               centroid's row has a bit set) at B = 32 and B = 1; the planted
+               docs' Success@100 and MRR@10 on both lanes
   5. timing  — CUDA-event medians of every step of both lanes, end to end,
                each kernel beside its plain version and its bound
-  6. limits  — the prefilter and pqinter megakernels, each held against
-               its plain version and timed by pass, on a B = 32 batch
-               whose queries share candidates and at the largest cuts
-               their wrappers take (n_filter 4096 and 8192)
+  6. limits  — kernels off the default config, each held against its plain
+               version and timed by pass: the prefilter and pqinter
+               megakernels on a B = 32 batch whose queries share candidates
+               and at the largest cuts their wrappers take (n_filter 4096
+               and 8192); bitfilter on dense word tables (th lowered until
+               rho is about 50 % and 100 %, B = 32 and B = 1); pqscore over
+               4096 winners a query
   7. profile — torch.profiler over retrieve on both lanes at B = 32 and
                B = 1: the device's busy share, device time and launches by
                CUDA kernel, and each hand-written kernel's __global__
@@ -183,6 +196,41 @@ PQINTER_STRESS = (
     ("eq6_no_kept_token", 3, 700, 300, 17, 16, 256, 60, 20, (100.0,)),
     ("sorted_cuts", 32, 300, 2100, 12, 4, 16, 2100, 50, (0.25,)),
 )
+# bitfilter's score pass gathers only the word rows with a bit set (its
+# occupancy bitmap: in shared memory up to n_c = 319,488 at B = 32 and
+# 1,368,064 at B = 1, else in global memory), streaming a group of 32 docs'
+# codes 128 at a time. Lengths: a round's edges.
+ROUND_LENS = (0, 1, 31, 32, 33, 127, 128, 129, 192, 193, 200)
+BITFILTER_STRESS = (
+    # name, B, n_c, n_docs, cap, share of lit rows, lengths
+    ("lit_rows_2pct_b1", 1, 1001, 3001, 80, 0.02, STRESS_LENS[80]),
+    ("lit_rows_2pct_b3", 3, 1001, 3001, 80, 0.02, STRESS_LENS[80]),
+    ("lit_rows_2pct_b17", 17, 1001, 3001, 80, 0.02, STRESS_LENS[80]),
+    ("lit_rows_2pct_b32", 32, 1001, 3001, 80, 0.02, STRESS_LENS[80]),
+    ("lit_rows_2pct_b40", 40, 1001, 3001, 80, 0.02, STRESS_LENS[80]),
+    ("no_lit_row_b1", 1, 1001, 3001, 80, 0.0, None),
+    ("no_lit_row_b32", 32, 1001, 3001, 80, 0.0, None),
+    ("every_row_lit_b1", 1, 1001, 3001, 80, 1.0, None),
+    ("every_row_lit_b3", 3, 1001, 3001, 80, 1.0, None),
+    ("every_row_lit_b32", 32, 1001, 3001, 80, 1.0, None),
+    ("cap200_rounds", 32, 1001, 2100, 200, 0.3, ROUND_LENS),
+    ("cap200_rounds_b1", 1, 1001, 2100, 200, 0.3, ROUND_LENS),
+    ("occupancy_in_global_b1", 1, 1_500_001, 3001, 80, 0.02, None),
+    ("occupancy_in_global_b32", 32, 600_001, 3001, 80, 0.02, None),
+)
+# pqscore splits a doc's tokens over 8 warps: lengths at that split's edges.
+SPLIT_LENS = (0, 1, 7, 8, 9, 79, 80)
+PQSCORE_STRESS = (
+    # name, B, n_c, docs, cap, m, K, lengths, th_r values
+    ("m16_split_edges_b32", 32, 700, 300, 80, 16, 256, SPLIT_LENS,
+     (None, 0.25)),
+    ("m16_b1_4096_docs", 1, 700, 4096, 80, 16, 256, None, (0.25,)),
+    ("m16_cap200", 3, 700, 200, 200, 16, 256, None, (None, 0.25)),
+    ("m5_serial", 3, 700, 300, 80, 5, 256, SPLIT_LENS, (None, 0.25)),
+    ("m8_serial", 3, 700, 300, 80, 8, 16, SPLIT_LENS, (0.25,)),
+    ("m16_eq6_no_kept_token", 3, 700, 300, 80, 16, 256, SPLIT_LENS,
+     (100.0,)),
+)
 
 
 def _stress_lens(rng, shape, cap: int):
@@ -192,6 +240,20 @@ def _stress_lens(rng, shape, cap: int):
     if cap in STRESS_LENS:
         return rng.choice(np.asarray(STRESS_LENS[cap], np.int32), size=shape)
     return rng.integers(0, cap + 1, size=shape).astype(np.int32)
+
+
+def lit_row_words(rng, nb: int, n_c: int, share: float):
+    """(B, n_c) int32 word table whose rows (a centroid's B words) are all
+    zero except a ``share`` of them, each lit row with at least one bit set
+    and bit 31 in use (int32-negative words)."""
+    import numpy as np
+    w = rng.integers(0, 1 << 32, size=(nb, n_c), dtype=np.uint64)
+    w &= rng.integers(0, 1 << 32, size=(nb, n_c), dtype=np.uint64)
+    lit = rng.random(n_c) < share
+    cols = np.flatnonzero(lit)
+    w[cols % nb, cols] |= np.uint64(1) << (cols % 32).astype(np.uint64)
+    w[:, ~lit] = 0
+    return w.astype(np.uint32).view(np.int32)
 
 
 def small_phase(dev) -> dict:
@@ -306,9 +368,39 @@ def small_phase(dev) -> dict:
             args = (t(cs_t), t(pcodes), t(plens), q)
             hold("cinter", (ops.cinter_batched(*args),),
                  (kci.cinter_batched_ref(*args),))
+    for name, nb, n_c, n_docs, cap, share, lens in BITFILTER_STRESS:
+        rng = np.random.default_rng(len(name) * 1000 + nb)
+        codes = rng.integers(0, n_c, size=(n_docs, cap)).astype(np.int32)
+        lens = (rng.choice(np.asarray(lens, np.int32), size=n_docs)
+                if lens else rng.integers(0, cap + 1, size=n_docs)
+                ).astype(np.int32)
+        codes[np.arange(cap)[None, :] >= lens[:, None]] = n_c
+        args = (t(lit_row_words(rng, nb, n_c, share)), t(codes), t(lens))
+        hold("bitfilter", (ops.bitfilter_batched(*args),),
+             (kbf.bitfilter_batched_ref(*args),))
+    for name, nb, n_c, nd, cap, m, ksub, lens, th_rs in PQSCORE_STRESS:
+        rng = np.random.default_rng(len(name) * 1000 + m)
+        n_q = 32
+        cs_t = _quant(rng, (nb, n_c, n_q), 0.5, 2)
+        lut = _quant(rng, (nb, n_q, m, ksub), 0.1, 8)
+        pcodes = rng.integers(0, n_c, size=(nb, nd, cap)).astype(np.int32)
+        plens = (rng.choice(np.asarray(lens, np.int32), size=(nb, nd))
+                 if lens else rng.integers(0, cap + 1, size=(nb, nd))
+                 ).astype(np.int32)
+        pcodes[np.arange(cap) >= plens[..., None]] = n_c
+        res = rng.integers(0, ksub, size=(nb, nd, cap, m)).astype(np.uint8)
+        qm = rng.random((nb, n_q)) < 0.8
+        qm[:, 0] = True
+        for th_r in th_rs:
+            for q in (t(qm), None):
+                args = (t(cs_t), t(lut), t(pcodes), t(res), t(plens), th_r,
+                        q)
+                hold("pqscore", (ops.pqscore_batched(*args),),
+                     (kps.pqscore_batched_ref(*args),))
     torch.cuda.synchronize()
     emit("small", cases=cases, exact=True, max_abs_err=err,
-         stress=[c[0] for c in PREFILTER_STRESS + PQINTER_STRESS])
+         stress=[c[0] for c in PREFILTER_STRESS + PQINTER_STRESS
+                 + BITFILTER_STRESS + PQSCORE_STRESS])
     return err
 
 
@@ -368,15 +460,23 @@ def bitpack_bound(cs) -> dict:
     return _bound(cs.numel() * 4 + nb * n_q + nb * n_c * 4, nb * n_q * n_c)
 
 
-def bitfilter_bound(nb: int, index) -> dict:
+def _sectors(nbytes: int) -> int:
+    """Bytes of the 32-byte L2 sectors a contiguous read of nbytes takes."""
+    return -(-nbytes // 32) * 32
+
+
+def bitfilter_bound(nb: int, index, lit_tokens: int) -> dict:
     """Least bytes bitfilter must move: every doc's length and valid-token
     codes, the B words of every centroid, and F out; one OR per (valid
-    token, query)."""
+    token, query). Beside it, the L2 bytes its score pass gathers: one row
+    of the transposed word table (B words) per lit token."""
     n_docs = index.codes.shape[0]
     n_c = index.centroids.shape[0]
     tokens = int(index.doc_lens.sum())
-    return _bound(n_docs * 4 + tokens * 4 + nb * n_c * 4 + nb * n_docs * 4,
-                  nb * tokens)
+    out = _bound(n_docs * 4 + tokens * 4 + nb * n_c * 4 + nb * n_docs * 4,
+                 nb * tokens)
+    out["l2_gather_bytes"] = lit_tokens * _sectors(nb * 4)
+    return out
 
 
 def cinter_bound(cs_t, codes, lens) -> dict:
@@ -402,7 +502,11 @@ def pqscore_bound(cs_t, lut, codes, lens) -> dict:
     tokens = int(lens.sum())
     nbytes = (nb * nd * 4 + tokens * (4 + m) + _rows_touched(codes, lens, n_c)
               * n_q * 4 + lut.numel() * 4 + nb * n_q + nb * nd * 4)
-    return _bound(nbytes, tokens * n_q * (m + 1))
+    out = _bound(nbytes, tokens * n_q * (m + 1))
+    # the L2 bytes its gathers take: per valid token a CS^T row and m LUT
+    # rows of n_q floats
+    out["l2_gather_bytes"] = tokens * (m + 1) * _sectors(n_q * 4)
+    return out
 
 
 def _bound(nbytes: int, n_ops: int) -> dict:
@@ -477,6 +581,33 @@ def hold_unfused(index, q, cfg, h) -> dict:
     return dict(bits=bits, f=f, sel1=sel1, ci_args=ci_args, sbar=sbar,
                 sel2=sel2, ps_args=ps_args, score=score, err=err,
                 scores=top, ids=torch.gather(sel2, 1, local).to(torch.int32))
+
+
+def token_hist(index):
+    """Valid tokens per centroid over the corpus: (n_c,) int64, counted a
+    block of docs at a time."""
+    import torch
+    n_docs, cap = index.codes.shape
+    n_c = index.centroids.shape[0]
+    hist = torch.zeros(n_c, dtype=torch.int64, device=index.codes.device)
+    tok = torch.arange(cap, device=index.codes.device)
+    step = 1 << 20
+    for s in range(0, n_docs, step):
+        valid = tok < index.doc_lens[s:s + step, None]
+        hist += torch.bincount(
+            index.codes[s:s + step].clamp(0, n_c - 1)[valid].long(),
+            minlength=n_c)
+    return hist
+
+
+def lit_shares(bits, hist) -> dict:
+    """How much of the word table bits (B, n_c) bitfilter's score pass
+    gathers: the share of rows with a bit set, and rho, the share of the
+    corpus' valid tokens (hist: per centroid) whose row is lit."""
+    lit = (bits != 0).any(0)
+    lit_tokens = int(hist[lit].sum())
+    return {"lit_row_share": float(lit.float().mean()),
+            "rho": lit_tokens / int(hist.sum()), "lit_tokens": lit_tokens}
 
 
 def funnel(index, h, cfg) -> dict:
@@ -602,6 +733,9 @@ def full_phase(dev) -> dict:
         lanes_equal[name] = True
         held[name], held_u[name] = h, u
     fun = funnel(index, held["b32"], cfg)
+    hist = token_hist(index)
+    fun["lit_rows"] = {b: lit_shares(held_u[b]["bits"], hist)
+                       for b in ("b32", "b1")}
     emit("full", launches=launches, phases_exact=True,
          unfused_equals_fused=lanes_equal, funnel=fun, quality=quality,
          max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9)
@@ -610,7 +744,7 @@ def full_phase(dev) -> dict:
             raise AssertionError(f"{lane} lane: planted Success@100 "
                                  f"{qual['success_at_100']} < {SUCCESS_FLOOR}")
     return dict(index=index, cfg=cfg, ucfg=ucfg, queries=queries, held=held,
-                held_u=held_u, launches=launches)
+                held_u=held_u, launches=launches, token_hist=hist)
 
 
 # --- 5. timing -----------------------------------------------------------------
@@ -760,7 +894,8 @@ def timing_phase(full: dict) -> dict:
                                      h["operands"][2], h["operands"][4],
                                      h["pq"][2], cfg.n_docs, cfg.k),
             "bitpack": bitpack_bound(cs),
-            "bitfilter": bitfilter_bound(q.shape[0], index),
+            "bitfilter": bitfilter_bound(q.shape[0], index, lit_shares(
+                u["bits"], full["token_hist"])["lit_tokens"]),
             "cinter": cinter_bound(ci_cs_t, ci_codes, ci_lens),
             "pqscore": pqscore_bound(ps_cs_t, ps_lut, ps_codes, ps_lens),
         }
@@ -775,7 +910,7 @@ def timing_phase(full: dict) -> dict:
     return out
 
 
-# --- 6. the megakernels away from the default config ----------------------------
+# --- 6. kernels away from the default config -------------------------------------
 
 def _passes_ms(fn, kern: str, calls: int = 3) -> dict:
     """Device ms per call of each __global__ function of ``kern`` over
@@ -793,20 +928,41 @@ def _passes_ms(fn, kern: str, calls: int = 3) -> dict:
             for f, es in _pass_events(_device_events(prof), kern).items()}
 
 
+def th_for_rho(cs, hist, rho: float) -> float:
+    """A threshold at which the word table of cs (B, n_q, n_c) lights rows
+    holding about a share rho of the corpus' valid tokens (hist: per
+    centroid): the rows whose largest term score beats it, taken from the
+    largest down. rho >= 1 lights every row."""
+    import torch
+    rowmax = cs.amax(dim=(0, 1))
+    if rho >= 1.0:
+        return float(rowmax.min()) - 1.0
+    order = torch.argsort(rowmax, descending=True)
+    cum = hist[order].cumsum(0).double() / hist.sum()
+    k = min(int((cum < rho).sum()), rowmax.numel() - 2)
+    return float((rowmax[order[k]] + rowmax[order[k + 1]]) / 2)
+
+
 def limits_phase(full: dict) -> dict:
-    """Phase 6: the two megakernels at full width on inputs the default
-    config does not give them, each held exactly against its plain version:
-    the prefilter at B = 32 on batches whose queries share candidates (every
-    query with query 0's candidates; each doc of the batch's union a
-    candidate of queries 0..k-1, k in {8, 16, 24, 32}),
+    """Phase 6: kernels at full width on inputs the default config does not
+    give them, each held exactly against its plain version. The two
+    megakernels: the prefilter at B = 32 on batches whose queries share
+    candidates (every query with query 0's candidates; each doc of the
+    batch's union a candidate of queries 0..k-1, k in {8, 16, 24, 32}),
     and the largest cuts the wrappers take (n_filter 4096 and 8192; pqinter
-    over 4096 survivors, keeping 256 and 4096), at B = 32 and B = 1. Per
-    case: the wrapper's median ms (as in the timing phase) and its per-pass
-    device ms."""
+    over 4096 survivors, keeping 256 and 4096), at B = 32 and B = 1.
+    bitfilter on dense word tables: the batch's CS packed at a th low enough
+    that the lit rows hold about 50 % and 100 % of the corpus' valid tokens
+    (a real index lights far more rows than the planted one), at B = 32 and
+    B = 1. pqscore over those 4096 survivors as winners. Per case: the
+    wrapper's median ms (as in the timing phase) and its per-pass device
+    ms."""
     import torch
     from repro_torch.core import engine as teng
+    from repro_torch.kernels import bitfilter as kbf
     from repro_torch.kernels import ops
     from repro_torch.kernels import pqinter as kpq
+    from repro_torch.kernels import pqscore as kps
     from repro_torch.kernels import prefilter as kpf
     index, cfg = full["index"], full["cfg"]
     flush = torch.empty(64 << 20, dtype=torch.int32, device=index.device)
@@ -858,6 +1014,26 @@ def limits_phase(full: dict) -> dict:
             case(f"pqinter_nf{kpq.MAX_SORT}_n_docs{n_docs}_{b}", "pqinter",
                  lambda: ops.pqinter_batched(*operands, cfg.th_r, n_docs,
                                              cfg.k), ref)
+
+        def ps_ref():
+            return (torch.cat([kps.pqscore_batched_ref(
+                *(x[s:s + 4] for x in operands), cfg.th_r)
+                for s in range(0, sel1.shape[0], 4)]),)
+        name = f"pqscore_winners{kpq.MAX_SORT}_{b}"
+        case(name, "pqscore",
+             lambda: (ops.pqscore_batched(*operands, cfg.th_r),), ps_ref)
+        out[name]["bound"] = pqscore_bound(operands[0], operands[1],
+                                           operands[2], operands[4])
+        for rho in (0.5, 1.0):
+            th = th_for_rho(h["cs"], full["token_hist"], rho)
+            args = (ops.bitpack_batched(h["cs"], th), index.codes,
+                    index.doc_lens)
+            name = f"bitfilter_rho{round(rho * 100)}_{b}"
+            case(name, "bitfilter", lambda: (ops.bitfilter_batched(*args),),
+                 lambda: (kbf.bitfilter_batched_ref(*args),))
+            lit = lit_shares(args[0], full["token_hist"])
+            out[name].update(th=th, **lit, bound=bitfilter_bound(
+                args[0].shape[0], index, lit["lit_tokens"]))
     emit("limits", **out)
     return out
 
@@ -871,7 +1047,7 @@ KERNEL_FUNCTIONS = {
     "pqinter": ("sbar_kernel", "select1_kernel", "eq56_kernel",
                 "select2_kernel"),
     "bitpack": ("bitpack_kernel",),
-    "bitfilter": ("bitfilter_transpose_kernel", "bitfilter_kernel"),
+    "bitfilter": ("bitfilter_rows_kernel", "bitfilter_score_kernel"),
     "cinter": ("cinter_kernel",),
     "pqscore": ("pqscore_kernel",),
 }

@@ -4,10 +4,17 @@ micro-batch of queries sharing one corpus.
 Replaces ``repro/kernels/bitfilter.py::bitfilter`` (Pallas body
 ``_bitfilter_kernel``, :33), batched: row b equals the reference kernel on
 query b's words. The CUDA kernel is ``csrc/bitfilter.cu``; its source note
-says what bounds it on the H100 and how the design answers.
-:func:`bitfilter_batched_ref` is its plain PyTorch version: the blocked
-Eq. 4 the prefilter's plain version runs (``prefilter.filter_scores_ref``),
-without the bitmap.
+says what bounds it on the H100 and how the design answers: a pass that
+transposes the word table and marks its lit rows (those with a bit set) in
+an occupancy bitmap, a zero fill of F, then a persistent score pass that
+reads every doc's codes, gathers only the rows of its lit tokens and
+writes a query's F for a group of 32 docs only where one is nonzero. The
+bitmap (n_c bits) sits in each score block's shared memory while it fits
+beside the warps' buffers (on the H100: n_c <= 319,488 at B = 32,
+1,368,064 at B = 1); above that the same test reads it from global memory.
+Either way F is the same. :func:`bitfilter_batched_ref` is its plain
+PyTorch version: the blocked Eq. 4 the prefilter's plain version runs
+(``prefilter.filter_scores_ref``), without the bitmap.
 
 Unlike the prefilter, nothing is masked: every doc is scored, and the
 engine applies the candidate bitmap after (``where(bitmap, F, -1)``), as the
@@ -43,13 +50,16 @@ def _launch(bits, codes, doc_lens):
     vp, ci = ctypes.c_void_p, ctypes.c_int
     fn = _build.function("bitfilter", "bitfilter_batched", ctypes.c_int,
                          [vp, vp, vp, ci, ci, ci, ci, vp, vp, vp])
+    scratch_bytes = _build.function("bitfilter", "bitfilter_scratch_bytes",
+                                    ctypes.c_size_t, [ci, ci])
     nb, n_c = bits.shape
     n_docs, cap = codes.shape
     dev = bits.device
-    bits_t = torch.empty((n_c, nb), dtype=torch.int32, device=dev)
+    scratch = torch.empty(scratch_bytes(nb, n_c), dtype=torch.uint8,
+                          device=dev)
     f = torch.empty((nb, n_docs), dtype=torch.int32, device=dev)
     p = _build.ptr
-    err = fn(p(bits), p(codes), p(doc_lens), nb, n_c, n_docs, cap, p(bits_t),
+    err = fn(p(bits), p(codes), p(doc_lens), nb, n_c, n_docs, cap, p(scratch),
              p(f), _build.stream())
     _build.check(err, "bitfilter_batched")
     launches += 1

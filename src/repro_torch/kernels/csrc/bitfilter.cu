@@ -9,87 +9,275 @@
 // What bounds it on the H100: bytes. It must read every doc's valid-token
 // codes (at most n_docs x cap int32 = 2.83 GB at MS MARCO width) and
 // lengths, read the word table (B x n_c x 4 B) and write F (B x n_docs
-// int32, 1.13 GB at B = 32): about 1.2 ms at 3.35 TB/s at B = 32. Beyond
-// bytes, it gathers one word per (valid token, query): random reads that
-// the word table's size (1 MiB per query at n_c = 2^18) keeps in L2, not
-// shared memory.
+// int32, 1.13 GB at B = 32): about 1.1 ms at 3.35 TB/s at B = 32, 0.73 ms at
+// B = 1. Beyond bytes, Eq. 4 gathers the B words of each valid token's
+// centroid: a 128-byte row of the transposed word table at B = 32, which
+// only L2 holds (32 MiB). Gathering every token's row is ~76 GB of L2 reads
+// at MS MARCO width, ~15 ms. But a row whose B words are all zero (no live
+// term of any query in the launch beats th at that centroid) adds nothing
+// to an OR, and a query lights few centroids.
 //
 // What the design does about it:
-//  * The word table is first transposed to (n_c, B) (emvb::transpose_words,
-//    which the fused prefilter's dense form also reads), so one token's B
-//    words are contiguous: at B = 32 a token costs one 128-byte line.
-//  * The codes are streamed once for all B queries: a warp takes one doc,
-//    its lanes split into (token group, query) pairs, and each token's code
-//    is read once and used by every query (emvb::doc_word_or, the dense
-//    form of the OR; the fused prefilter runs it on docs with many
-//    candidate queries and the sparse one, emvb::chunk_word_or, on the
-//    rest).
-//  * A block scores a tile of TILE docs into shared memory and writes F out
-//    row by row, so the stores of F are coalesced.
+//  * Pass `rows` transposes the word table to (n_c, B), so one token's B
+//    words are contiguous, and marks in an occupancy bitmap (n_c bits) the
+//    rows with a bit set (emvb::transpose_words, which the fused
+//    prefilter's dense form also runs, without the bitmap).
+//  * Pass `score` is persistent: one block of SCORE_WARPS warps an SM,
+//    loading the bitmap into shared memory once (where it does not fit
+//    beside the warps' buffers, n_c > 319,488 at B = 32, the same test
+//    reads it from global memory). Each warp scores groups of 32
+//    neighbouring docs, whose codes are one contiguous run: it streams the
+//    run into a ring of NBUF rounds in shared memory with cp.async (16
+//    bytes a lane, VEC = 4 codes of one doc, when cap is a multiple of 4),
+//    reading nothing past a doc's length, and tests each code's bit in the
+//    bitmap. A round with no lit code costs its copy and these tests; the
+//    lit ones gather their rows (emvb::lit_rows_or, several in flight a
+//    lane) into the group's words in shared memory.
+//  * F is zero-filled first (a memset: sequential writes). At the group's
+//    end the warp writes its F one query row at a time, as coalesced
+//    128-byte lines, and only the rows where some doc of the group has a
+//    nonzero F: at B = 32 the 1.13 GB of F written as scattered 128-byte
+//    lines beside the reads took more time than the reads themselves, and
+//    a batch that lights few rows leaves most of F zero.
 #include "common.cuh"
 #include "doc_math.cuh"
 
 namespace {
 
-constexpr int TILE = 256;      // docs per block
-constexpr int THREADS = 256;   // 8 warps, TILE / 8 docs each
+constexpr int ROWS_THREADS = 256;
+constexpr int SCORE_WARPS = 32;        // 1024 threads, one block an SM
+constexpr int GROUP = 32;              // docs a warp scores and stores at once
+constexpr int NBUF = 2;                // rounds in a warp's ring of codes
 
-// bits (B, n_c) -> bitsT (n_c, B). grid ceil(n_c / 32), THREADS threads.
-__global__ void bitfilter_transpose_kernel(const uint32_t* __restrict__ bits,
-                                           int B, int n_c,
-                                           uint32_t* __restrict__ bitsT) {
-  emvb::transpose_words(bits, B, n_c, bitsT);
+// Row pitch of a warp's group words sW (GROUP x P u32): odd, so the lanes
+// of one doc's B queries, and the lanes of 32 docs' query b, hit 32 banks.
+__host__ __device__ inline int words_pitch(int B) { return B | 1; }
+
+// Shared bytes of one warp: its ring of codes (NBUF rounds of 32 VEC),
+// each round's (doc, valid count) per lane, its list of lit codes and its
+// group's words.
+template <int VEC>
+__host__ __device__ inline size_t warp_bytes(int B) {
+  return ((size_t)(NBUF * 32 * VEC + NBUF * 32 + 32 * VEC +
+                   GROUP * words_pitch(B)) * 4 + 15) & ~size_t(15);
 }
 
-// F for every (query, doc) of one tile. Shared: sF[B][TILE].
-// grid ceil(n_docs / TILE).
-__global__ void bitfilter_kernel(const int32_t* __restrict__ codes,
-                                 const int32_t* __restrict__ doc_lens,
-                                 const uint32_t* __restrict__ bitsT, int B,
-                                 int n_c, int n_docs, int cap,
-                                 int32_t* __restrict__ F) {
-  extern __shared__ int32_t sF[];
-  const size_t d0 = (size_t)blockIdx.x * TILE;
+__host__ __device__ inline size_t occ_bytes(int n_c, bool smem_occ) {
+  return smem_occ ? ((size_t)(n_c + 31) / 32 * 4 + 15) & ~size_t(15) : 0;
+}
+
+// Pass 1: bits (B, n_c) -> bitsT (n_c, B) and occ (ceil(n_c / 32)): bit
+// c % 32 of occ[c / 32] is set when row c of bitsT has a bit set. grid
+// ceil(n_c / 32), ROWS_THREADS threads.
+__global__ void bitfilter_rows_kernel(const uint32_t* __restrict__ bits, int B,
+                                      int n_c, uint32_t* __restrict__ bitsT,
+                                      uint32_t* __restrict__ occ) {
+  emvb::transpose_words(bits, B, n_c, bitsT, occ);
+}
+
+// Pass 2: F of every (query, doc). A persistent grid: warp w of the grid
+// scores groups w, w + (warps in the grid), ... of GROUP docs, cap / VEC
+// rounds a group (round r: lane l takes the group's codes (32 r + l) VEC
+// ... + VEC - 1). SMEM_OCC: the bitmap is read from shared memory, else
+// from global memory.
+template <bool SMEM_OCC, int VEC>
+__global__ void __launch_bounds__(SCORE_WARPS * 32, 1)
+bitfilter_score_kernel(const int32_t* __restrict__ codes,
+                       const int32_t* __restrict__ doc_lens,
+                       const uint32_t* __restrict__ bitsT,
+                       const uint32_t* __restrict__ occ_g, int B, int n_c,
+                       int n_docs, int cap, int32_t* __restrict__ F) {
+  extern __shared__ __align__(16) unsigned char smem[];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-  const int Q = next_pow2(B);          // lanes per token group
-  const int G = 32 / Q;                // token groups per warp
-  const int bq = lane % Q, g = lane / Q;
-  for (int t = warp; t < TILE; t += nwarps) {
-    const size_t d = d0 + t;
-    if (d >= (size_t)n_docs) break;    // warp-uniform
-    const int len = min(max(doc_lens[d], 0), cap);
-    const uint32_t acc = emvb::doc_word_or(codes + d * cap, len, n_c, bitsT, B,
-                                           bq, g, G, Q, bq < B);
-    if (g == 0 && bq < B) sF[bq * TILE + t] = __popc(acc);
+  const int P = words_pitch(B);
+  uint32_t* s_occ = reinterpret_cast<uint32_t*>(smem);
+  int* ring = reinterpret_cast<int*>(smem + occ_bytes(n_c, SMEM_OCC) +
+                                     warp * warp_bytes<VEC>(B));
+  int* meta = ring + NBUF * 32 * VEC;  // (doc << 8) | valid codes, per lane
+  int* list = meta + NBUF * 32;
+  uint32_t* sW = reinterpret_cast<uint32_t*>(list + 32 * VEC);
+  if (SMEM_OCC)
+    for (int i = threadIdx.x; i < (n_c + 31) / 32; i += blockDim.x)
+      s_occ[i] = occ_g[i];
+  for (int i = lane; i < GROUP * P; i += 32) sW[i] = 0;
+  __syncthreads();                     // the kernel's only block barrier
+
+  const int n_groups = (n_docs + GROUP - 1) / GROUP;
+  const int stride = gridDim.x * SCORE_WARPS;
+  const int n_rounds = cap / VEC;                  // rounds a group
+  int grp = blockIdx.x * SCORE_WARPS + warp;
+  if (grp >= n_groups) return;                     // warp-uniform
+  auto group_lens = [&](int gi) {
+    const size_t d = (size_t)gi * GROUP + lane;
+    return gi < n_groups && d < (size_t)n_docs ? __ldcs(doc_lens + d) : 0;
+  };
+
+  // The copy cursor runs NBUF - 1 rounds ahead of the scoring one: its
+  // group, round, and the doc t and token tok of this lane's first code. A
+  // round moves a lane 32 VEC codes on: dq docs and dr tokens.
+  const int t0 = lane * VEC / cap, tok0 = lane * VEC % cap;
+  const int dq = 32 * VEC / cap, dr = 32 * VEC % cap;
+  int f_grp = grp, f_r = 0, f_t = t0, f_tok = tok0;
+  int f_lens = group_lens(grp);                    // lane l: doc l's length
+  int f_lens_next = group_lens(grp + stride);
+  auto copy = [&](int slot) {
+    const int len = min(max(__shfl_sync(FULL_MASK, f_lens, f_t), 0), cap);
+    const int nv = min(max(len - f_tok, 0), VEC);
+    const int32_t* src = nv > 0 ? codes + (size_t)f_grp * GROUP * cap +
+                                      (size_t)(f_r * 32 + lane) * VEC
+                                : codes;
+    int* dst = ring + (slot * 32 + lane) * VEC;
+    if constexpr (VEC == 4)
+      cp_async16_zfill(dst, src, nv > 0 ? 16 : 0);
+    else
+      cp_async4_zfill(dst, src, nv > 0 ? 4 : 0);
+    cp_async_commit();
+    meta[slot * 32 + lane] = (f_t << 8) | nv;
+    f_tok += dr;
+    f_t += dq;
+    if (f_tok >= cap) {
+      f_tok -= cap;
+      ++f_t;
+    }
+    if (++f_r == n_rounds) {
+      f_r = 0;
+      f_t = t0;
+      f_tok = tok0;
+      f_grp += stride;
+      f_lens = f_lens_next;
+      f_lens_next = group_lens(f_grp + stride);
+    }
+  };
+
+  const int Q = next_pow2(B), G = 32 / Q, bq = lane % Q, g = lane / Q;
+  for (int s = 0; s < NBUF - 1; ++s) copy(s);
+  int slot = 0, r = 0;
+  while (true) {
+    copy(slot == 0 ? NBUF - 1 : slot - 1);         // the slot scored last
+    cp_async_wait<NBUF - 1>();                     // this slot's copy done
+    int v[VEC];
+    if constexpr (VEC == 4) {
+      const int4 q = reinterpret_cast<const int4*>(ring)[slot * 32 + lane];
+      v[0] = q.x;
+      v[1] = q.y;
+      v[2] = q.z;
+      v[3] = q.w;
+    } else {
+      v[0] = ring[slot * 32 + lane];
+    }
+    const int mt = meta[slot * 32 + lane];
+    const int t = mt >> 8, nv = mt & 0xff;
+    int c[VEC];
+    bool lit[VEC];
+    bool any = false;
+#pragma unroll
+    for (int k = 0; k < VEC; ++k) {
+      c[k] = min(max(v[k], 0), n_c - 1);
+      const uint32_t w =
+          SMEM_OCC ? s_occ[c[k] >> 5] : occ_g[c[k] >> 5];
+      lit[k] = k < nv && ((w >> (c[k] & 31)) & 1u);
+      any |= lit[k];
+    }
+    if (__any_sync(FULL_MASK, any))
+      emvb::lit_rows_or<VEC>(c, lit, t, bitsT, B, P, bq, g, G, list, sW);
+    slot = slot == NBUF - 1 ? 0 : slot + 1;
+    if (++r < n_rounds) continue;
+    r = 0;                                         // the group is scored
+    __syncwarp();
+    const size_t d = (size_t)grp * GROUP + lane;
+    for (int b = 0; b < B; ++b) {
+      const uint32_t w = sW[lane * P + b];
+      sW[lane * P + b] = 0;
+      if (__any_sync(FULL_MASK, w != 0) && d < (size_t)n_docs)
+        __stcs(F + (size_t)b * n_docs + d, __popc(w));
+    }
+    __syncwarp();
+    grp += stride;
+    if (grp >= n_groups) break;
   }
-  __syncthreads();
-  for (int j = threadIdx.x; j < B * TILE; j += blockDim.x) {
-    const int b = j / TILE, t = j % TILE;
-    const size_t d = d0 + t;
-    if (d < (size_t)n_docs) F[(size_t)b * n_docs + d] = sF[j];
-  }
+  cp_async_wait<0>();
+}
+
+template <bool SMEM_OCC, int VEC>
+int launch_score(const int32_t* codes, const int32_t* doc_lens,
+                 const uint32_t* bitsT, const uint32_t* occ, int B, int n_c,
+                 int n_docs, int cap, int32_t* F, cudaStream_t st) {
+  auto kernel = bitfilter_score_kernel<SMEM_OCC, VEC>;
+  const size_t smem =
+      occ_bytes(n_c, SMEM_OCC) + SCORE_WARPS * warp_bytes<VEC>(B);
+  cudaError_t err;
+  if (smem > 48 * 1024 &&
+      (err = cudaFuncSetAttribute(kernel,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  (int)smem)) != cudaSuccess)
+    return err;
+  int per_sm = 0;
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, kernel, SCORE_WARPS * 32, smem)) != cudaSuccess)
+    return err;
+  const int n_groups = (n_docs + GROUP - 1) / GROUP;
+  const int grid = max(1, min(max(per_sm, 1) * sm_count(),
+                              (n_groups + SCORE_WARPS - 1) / SCORE_WARPS));
+  kernel<<<grid, SCORE_WARPS * 32, smem, st>>>(codes, doc_lens, bitsT, occ, B,
+                                               n_c, n_docs, cap, F);
+  return cudaGetLastError();
+}
+
+// The bitmap goes to shared memory while it fits beside the warps' buffers
+// (on the H100, n_c <= 319,488 at B = 32 and 1,368,064 at B = 1); above
+// that the same test reads it from global memory.
+template <int VEC>
+int launch_score_vec(const int32_t* codes, const int32_t* doc_lens,
+                     const uint32_t* bitsT, const uint32_t* occ, int B,
+                     int n_c, int n_docs, int cap, int32_t* F,
+                     cudaStream_t st) {
+  int dev = 0, max_smem = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                         dev);
+  if (occ_bytes(n_c, true) + SCORE_WARPS * warp_bytes<VEC>(B) <=
+      (size_t)max_smem)
+    return launch_score<true, VEC>(codes, doc_lens, bitsT, occ, B, n_c,
+                                   n_docs, cap, F, st);
+  return launch_score<false, VEC>(codes, doc_lens, bitsT, occ, B, n_c, n_docs,
+                                  cap, F, st);
 }
 
 }  // namespace
 
 extern "C" {
 
+// Bytes of device scratch bitfilter_batched needs: bitsT (n_c, B) u32, then
+// the occupancy bitmap (ceil(n_c / 32)) u32.
+size_t bitfilter_scratch_bytes(int B, int n_c) {
+  return ((size_t)n_c * B + (n_c + 31) / 32) * 4;
+}
+
 // All pointers are device pointers; B <= 32. bits (B, n_c) u32; codes
-// (n_docs, cap) i32; doc_lens (n_docs,) i32. Scratch: bitsT (n_c, B) u32.
-// Output: F (B, n_docs) i32.
+// (n_docs, cap) i32; doc_lens (n_docs,) i32. scratch: the bytes
+// bitfilter_scratch_bytes gives. Output: F (B, n_docs) i32.
 int bitfilter_batched(const uint32_t* bits, const int32_t* codes,
                       const int32_t* doc_lens, int B, int n_c, int n_docs,
-                      int cap, uint32_t* bitsT, int32_t* F, void* stream) {
+                      int cap, void* scratch, int32_t* F, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  uint32_t* bitsT = static_cast<uint32_t*>(scratch);
+  uint32_t* occ = bitsT + (size_t)n_c * B;
+  bitfilter_rows_kernel<<<(n_c + 31) / 32, ROWS_THREADS, 0, st>>>(
+      bits, B, n_c, bitsT, occ);
   cudaError_t err;
-  bitfilter_transpose_kernel<<<(n_c + 31) / 32, THREADS, 0, st>>>(
-      bits, B, n_c, bitsT);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  const size_t smem = (size_t)B * TILE * sizeof(int32_t);   // <= 32 KiB
-  bitfilter_kernel<<<(n_docs + TILE - 1) / TILE, THREADS, smem, st>>>(
-      codes, doc_lens, bitsT, B, n_c, n_docs, cap, F);
-  return cudaGetLastError();
+  // F starts at 0; the score pass writes only a group's rows holding a
+  // nonzero F
+  if ((err = cudaMemsetAsync(F, 0, (size_t)B * n_docs * sizeof(int32_t),
+                             st)) != cudaSuccess)
+    return err;
+  if (cap == 0) return cudaSuccess;
+  // 16-byte copies when every lane's four codes are one doc's and aligned
+  if (cap % 4 == 0 && reinterpret_cast<uintptr_t>(codes) % 16 == 0)
+    return launch_score_vec<4>(codes, doc_lens, bitsT, occ, B, n_c, n_docs,
+                               cap, F, st);
+  return launch_score_vec<1>(codes, doc_lens, bitsT, occ, B, n_c, n_docs, cap,
+                             F, st);
 }
 
 }  // extern "C"

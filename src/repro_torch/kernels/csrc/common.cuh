@@ -1,6 +1,6 @@
 // Device helpers shared by the kernels: block-wide exclusive scan, a warp
 // exclusive scan, the cuts (each of n unique keys to its rank), order-
-// preserving float bits and cp.async.
+// preserving float bits and cp.async (plain and zero-filling).
 #pragma once
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -158,6 +158,20 @@ __device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
                "l"(gmem));
+}
+// cp.async of 16 (4) bytes with zero fill: src_bytes 0 writes zeros and
+// reads nothing. The 16-byte form caches in L2 only (.cg), for streams.
+__device__ __forceinline__ void cp_async16_zfill(void* smem, const void* gmem,
+                                                 int src_bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async4_zfill(void* smem, const void* gmem,
+                                                int src_bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(src_bytes));
 }
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);

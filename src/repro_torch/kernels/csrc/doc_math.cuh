@@ -83,10 +83,12 @@ __device__ __forceinline__ uint4 pack_columns4(const float* __restrict__ col,
 // The transposed word table the dense form reads: bits (B, n_c) -> bitsT
 // (n_c, B). One block of 256 threads per 32 columns, through shared
 // memory, so the reads of bits are whole 128-byte lines and the writes of
-// bitsT whole rows.
-__device__ __forceinline__ void transpose_words(const uint32_t* __restrict__ bits,
-                                                int B, int n_c,
-                                                uint32_t* __restrict__ bitsT) {
+// bitsT whole rows. When occ is not null (bitfilter.cu), bit c % 32 of
+// occ[c / 32] is also set when row c has a bit set: the block's 32 columns
+// give one word.
+__device__ __forceinline__ void transpose_words(
+    const uint32_t* __restrict__ bits, int B, int n_c,
+    uint32_t* __restrict__ bitsT, uint32_t* __restrict__ occ = nullptr) {
   __shared__ uint32_t t[32][33];
   const int c0 = blockIdx.x * 32, x = threadIdx.x & 31, y = threadIdx.x >> 5;
   for (int b = y; b < B; b += blockDim.x >> 5)
@@ -94,12 +96,19 @@ __device__ __forceinline__ void transpose_words(const uint32_t* __restrict__ bit
   __syncthreads();
   for (int j = y; j < 32; j += blockDim.x >> 5)
     if (c0 + j < n_c && x < B) bitsT[(size_t)(c0 + j) * B + x] = t[x][j];
+  if (occ != nullptr && y == 0) {
+    uint32_t row = 0;
+    if (c0 + x < n_c)
+      for (int b = 0; b < B; ++b) row |= t[b][x];
+    const uint32_t w = __ballot_sync(FULL_MASK, row != 0);
+    if (x == 0) occ[blockIdx.x] = w;
+  }
 }
 
-// Dense form, every query at once (bitfilter.cu, and the fused prefilter's
-// docs with many candidate queries): a warp's lanes split into (token group
-// g, query bq) pairs, Q lanes per group (Q >= B, a power of two) and G =
-// 32 / Q groups: lane (g, bq) ORs query bq's words of tokens g, g + G, ...
+// Dense form, every query at once (the fused prefilter's docs with many
+// candidate queries): a warp's lanes split into (token group g, query bq)
+// pairs, Q lanes per group (Q >= B, a power of two) and G = 32 / Q
+// groups: lane (g, bq) ORs query bq's words of tokens g, g + G, ...
 // from the transposed (n_c, B) word table, and the shuffles fold the
 // groups, so each lane of query bq ends with the doc's word. Lanes with
 // `active` false gather nothing but join the shuffles; all 32 lanes must
@@ -141,6 +150,77 @@ __device__ __forceinline__ void chunk_word_or(const uint32_t* __restrict__ w1,
   }
   *a1 = __reduce_or_sync(FULL_MASK, x1);
   *a2 = w2 != nullptr ? __reduce_or_sync(FULL_MASK, x2) : 0u;
+}
+
+// Lit-rows form, every query at once (bitfilter.cu). A warp walks a group
+// of 32 docs' codes as one flat run, VEC neighbouring codes a lane, all of
+// one doc t (so t does not fall from lane to lane), and ORs into sW[t * P
+// + b] (the group's words in shared memory, P >= B) query b's words of the
+// codes whose row of the transposed (n_c, B) word table is lit. c = the
+// lane's clamped codes; lit = which of them are valid tokens with a lit
+// row; the caller skips a round with no lit code. A round's docs are runs
+// of lanes.
+//  * B = 1: each lane ORs the words of its own lit codes, all in flight
+//    together, and one warp reduction per run gives the run's word.
+//  * B > 1: the lit codes go, in flat order, to the warp's `list` (32 *
+//    VEC ints), and the lanes split into (token group g, query bq) pairs as
+//    in the dense form: lane (g, bq) ORs query bq's words of a run's
+//    entries g, g + G, ..., the loads unrolled so that several rows are in
+//    flight, and adds its OR to sW.
+// All 32 lanes must call it.
+template <int VEC>
+__device__ __forceinline__ void lit_rows_or(
+    const int (&c)[VEC], const bool (&lit)[VEC], int t,
+    const uint32_t* __restrict__ bitsT, int B, int P, int bq, int g, int G,
+    int* list, uint32_t* sW) {
+  const int lane = threadIdx.x & 31;
+  const int t_up = __shfl_up_sync(FULL_MASK, t, 1);
+  uint32_t runs = __ballot_sync(FULL_MASK, lane == 0 || t != t_up);
+  if (B == 1) {
+    uint32_t w = 0;
+#pragma unroll
+    for (int k = 0; k < VEC; ++k)
+      if (lit[k]) w |= bitsT[c[k]];
+    while (runs) {                                 // warp-uniform
+      const int h = __ffs(runs) - 1;
+      runs &= runs - 1;
+      const int end = runs ? __ffs(runs) - 1 : 32;
+      const uint32_t x =
+          __reduce_or_sync(FULL_MASK, lane >= h && lane < end ? w : 0u);
+      const int td = __shfl_sync(FULL_MASK, t, h);
+      if (lane == 0 && x) sW[td * P] |= x;
+    }
+    __syncwarp();
+    return;
+  }
+  const uint32_t below = (1u << lane) - 1u;
+  int at = 0, n = 0;
+#pragma unroll
+  for (int k = 0; k < VEC; ++k) {
+    const uint32_t mk = __ballot_sync(FULL_MASK, lit[k]);
+    at += __popc(mk & below);
+    n += __popc(mk);
+  }
+  const int first = at;                 // the lane's first entry
+#pragma unroll
+  for (int k = 0; k < VEC; ++k)
+    if (lit[k]) list[at++] = c[k];
+  __syncwarp();
+  while (runs) {                                   // warp-uniform
+    const int h = __ffs(runs) - 1;
+    runs &= runs - 1;
+    const int s = __shfl_sync(FULL_MASK, first, h);
+    const int e = runs ? __shfl_sync(FULL_MASK, first, __ffs(runs) - 1) : n;
+    const int td = __shfl_sync(FULL_MASK, t, h);
+    if (bq < B && s < e) {
+      uint32_t acc = 0;
+#pragma unroll 8
+      for (int j = s + g; j < e; j += G)
+        acc |= bitsT[(size_t)list[j] * B + bq];
+      if (acc) atomicOr(sW + td * P + bq, acc);
+    }
+  }
+  __syncwarp();
 }
 
 // --- term_sum -------------------------------------------------------------------
@@ -283,28 +363,59 @@ __device__ __forceinline__ float eq56_finish(const Eq56Part& p, int len,
   return live ? colmax : 0.0f;
 }
 
-// Eq. 5/6 score of one document in one warp, lane i = query term i, tokens
-// in series (pqscore.cu). cb = this query's (n_c, n_q) CS^T; lb = its
-// (m*ksub, n_q) flattened LUT; rs = the doc's (cap, m) residual codes; qm =
-// the query's term mask or null. All 32 lanes must call it.
-__device__ __forceinline__ float eq56_doc(
-    const float* __restrict__ cb, const float* __restrict__ lb,
-    const int32_t* __restrict__ cd, const uint8_t* __restrict__ rs, int len,
-    const uint8_t* __restrict__ qm, int cap, int n_c, int n_q, int m,
-    int ksub, float th_r, int use_filter, int lane) {
-  len = min(max(len, 0), cap);
-  Eq56Part p = eq56_start();
+// Eq. 5/6 score of one document by a block of SPLIT warps: the body of
+// pqinter.cu's Eq. 5/6 pass and of pqscore.cu, which differ only in how a
+// block finds its row. Block (r, b) scores row b * nf + sel2[b * n_docs +
+// r] of codes (B, nf, cap) when sel2 is not null (pqinter: the phase-3
+// winners), else row b * nf + r, and writes out[b * n_docs + r]. Warp w
+// takes tokens w, w + SPLIT, ..., lane i = query term i; the warps' states
+// merge through shared memory, and warp 0 finishes and term-sums. cs_t
+// (B, n_c, n_q); lut2 (B, m*ksub, n_q); res (B, nf, cap, m); qmask (B, n_q)
+// or null; M as in eq56_full. Every thread of the block must call it.
+template <int M, int SPLIT>
+__device__ __forceinline__ void eq56_block(
+    const float* __restrict__ cs_t, const float* __restrict__ lut2,
+    const int32_t* __restrict__ codes, const uint8_t* __restrict__ res,
+    const int32_t* __restrict__ lens, const uint8_t* __restrict__ qmask,
+    const int32_t* __restrict__ sel2, int nf, int n_docs, int cap, int n_c,
+    int n_q, int m, int ksub, float th_r, int use_filter,
+    float* __restrict__ out) {
+  __shared__ Eq56Part part[SPLIT][32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int r = blockIdx.x, b = blockIdx.y;
+  const size_t row =
+      (size_t)b * nf + (sel2 != nullptr ? sel2[(size_t)b * n_docs + r] : r);
+  const int len = min(max(lens[row], 0), cap);
+  Eq56Part acc = eq56_start();
   if (lane < n_q) {
-    for (int t = 0; t < len; ++t) {
+    const int32_t* cd = codes + row * cap;
+    const uint8_t* rs = res + row * cap * m;
+    const float* cb = cs_t + (size_t)b * n_c * n_q + lane;
+    const float* lb = lut2 + (size_t)b * m * ksub * n_q + lane;
+#pragma unroll 2
+    for (int t = warp; t < len; t += SPLIT) {
       const int c = min(max(cd[t], 0), n_c - 1);
-      const float cen = cb[(size_t)c * n_q + lane];
-      eq56_token(p, cen, eq56_full<0>(cen, lb + lane, rs + (size_t)t * m, m,
-                                      ksub, n_q),
+      const float cen = cb[(size_t)c * n_q];
+      eq56_token(acc, cen,
+                 eq56_full<M>(cen, lb, rs + (size_t)t * m, m, ksub, n_q),
                  th_r, use_filter);
     }
   }
+  part[warp][lane] = acc;
+  __syncthreads();
+  if (warp != 0) return;
+  for (int k = 1; k < SPLIT; ++k) eq56_merge(acc, part[k][lane]);
+  const uint8_t* qm = mask_row(qmask, b, n_q);
   const bool live = lane < n_q && (qm == nullptr || qm[lane]);
-  return term_sum_lanes(eq56_finish(p, len, cap, use_filter, live), n_q);
+  const float s =
+      term_sum_lanes(eq56_finish(acc, len, cap, use_filter, live), n_q);
+  if (lane == 0) out[(size_t)b * n_docs + r] = s;
+}
+
+// Whether eq56_block<16> may run: m = 16 and the residual codes 16-byte
+// aligned (each token's 16 codes are one vector load).
+inline bool eq56_vector_m16(int m, const uint8_t* res) {
+  return m == 16 && reinterpret_cast<uintptr_t>(res) % 16 == 0;
 }
 
 }  // namespace emvb

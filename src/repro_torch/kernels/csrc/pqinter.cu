@@ -42,8 +42,9 @@
 //    is small, so at B = 1 a cut runs on many SMs; sorted in one block a
 //    query above that.
 //  * The per-(token, term) value, the merge and the per-doc finish are the
-//    functions of doc_math.cuh that the unfused cinter.cu and pqscore.cu
-//    build their serial loops from, so the two lanes agree to the bit.
+//    functions of doc_math.cuh that the unfused cinter.cu builds its serial
+//    loop from; the Eq. 5/6 pass is emvb::eq56_block, which the unfused
+//    pqscore.cu runs too. So the two lanes agree to the bit.
 #include "common.cuh"
 #include "doc_math.cuh"
 
@@ -120,9 +121,11 @@ select1_kernel(const float* __restrict__ sbar_all, int nf, int P, bool sort,
 }
 
 // Pass 2: Eq. 5/6 score of each phase-3 winner, in rank order; M is m when
-// known at compile time, else 0. grid (n_docs, B), one doc a block.
+// known at compile time, else 0. grid (n_docs, B), one doc a block
+// (emvb::eq56_block, which pqscore.cu runs on its rows too, with the same
+// bound of three blocks an SM).
 template <int M>
-__global__ void __launch_bounds__(WARPS * 32)
+__global__ void __launch_bounds__(WARPS * 32, 3)
 eq56_kernel(const float* __restrict__ cs_t, const float* __restrict__ lut2,
             const int32_t* __restrict__ codes,
             const uint8_t* __restrict__ res, const int32_t* __restrict__ lens,
@@ -131,36 +134,9 @@ eq56_kernel(const float* __restrict__ cs_t, const float* __restrict__ lut2,
             int n_q, int m, int ksub, float th_r, int use_filter, int n_docs,
             float* __restrict__ score2) {
   static_assert(WARPS == E_SPLIT, "one doc a block");
-  __shared__ emvb::Eq56Part part[E_SPLIT][32];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int r = blockIdx.x, b = blockIdx.y;
-  const size_t row = (size_t)b * nf + sel2[(size_t)b * n_docs + r];
-  const int len = min(max(lens[row], 0), cap);
-  emvb::Eq56Part acc = emvb::eq56_start();
-  if (lane < n_q) {
-    const int32_t* cd = codes + row * cap;
-    const uint8_t* rs = res + row * cap * m;
-    const float* cb = cs_t + (size_t)b * n_c * n_q + lane;
-    const float* lb = lut2 + (size_t)b * m * ksub * n_q + lane;
-#pragma unroll 2
-    for (int t = warp; t < len; t += E_SPLIT) {
-      const int c = min(max(cd[t], 0), n_c - 1);
-      const float cen = cb[(size_t)c * n_q];
-      emvb::eq56_token(acc, cen,
-                       emvb::eq56_full<M>(cen, lb, rs + (size_t)t * m, m,
-                                          ksub, n_q),
-                       th_r, use_filter);
-    }
-  }
-  part[warp][lane] = acc;
-  __syncthreads();
-  if (warp != 0) return;
-  for (int k = 1; k < E_SPLIT; ++k) emvb::eq56_merge(acc, part[k][lane]);
-  const uint8_t* qm = emvb::mask_row(qmask, b, n_q);
-  const bool live = lane < n_q && (qm == nullptr || qm[lane]);
-  const float s = emvb::term_sum_lanes(
-      emvb::eq56_finish(acc, len, cap, use_filter, live), n_q);
-  if (lane == 0) score2[(size_t)b * n_docs + r] = s;
+  emvb::eq56_block<M, E_SPLIT>(cs_t, lut2, codes, res, lens, qmask, sel2, nf,
+                               n_docs, cap, n_c, n_q, m, ksub, th_r,
+                               use_filter, score2);
 }
 
 // Pass 2 cut: top-k by (score desc, phase-3 rank asc); a cut_launch grid.
@@ -224,7 +200,7 @@ int pqinter_batched(const float* cs_t, const float* lut2, const int32_t* codes,
                    st>>>(sbar_all, nf, c1.P, c1.sort, n_docs, sel2, sbar);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   const dim3 grid(n_docs, B);
-  if (m == 16 && reinterpret_cast<uintptr_t>(res) % 16 == 0)
+  if (emvb::eq56_vector_m16(m, res))
     eq56_kernel<16><<<grid, WARPS * 32, 0, st>>>(
         cs_t, lut2, codes, res, lens, qmask, sel2, nf, cap, n_c, n_q, m, ksub,
         th_r, use_filter, n_docs, score2);

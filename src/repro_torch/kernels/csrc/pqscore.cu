@@ -9,45 +9,44 @@
 // What bounds it on the H100: the bytes are small — the winners' codes,
 // residual codes (m bytes a token) and lengths, the CS^T rows their tokens
 // touch, the LUT (512 KiB per query at n_q = 32, m = 16, K = 256) and
-// B x docs floats out. What costs time is latency: per (doc, token) a
-// dependent chain of m LUT reads.
+// B x docs floats out. What costs time is latency: per (doc, token) a chain
+// of m LUT reads addressed by the token's residual codes, and at B = 32 the
+// L2 reads of those 128-byte LUT rows (~1.1 GB for 8,192 winners of ~67
+// tokens).
 //
-// What the design does about it: one warp per document and one lane per
-// query term, its tokens in series. A row of CS^T and a row of the flattened
-// (m*K, n_q) LUT are n_q contiguous floats, so every gather is one
-// coalesced 128-byte load at n_q = 32; the LUT is read through L2, not
-// narrowed (narrowing changes bits). The per-document math, Eq. 6's corner
-// cases included, is emvb::eq56_doc, a serial loop over the pieces
-// (eq56_full, eq56_token, eq56_finish) that the fused pqinter's token-split
-// Eq. 5/6 pass merges.
+// What the design does about it: it is the fused pqinter's Eq. 5/6 pass
+// (emvb::eq56_block) on rows read directly instead of through sel2. One
+// block a doc, its tokens split over E_SPLIT warps, one lane per query
+// term: a row of CS^T and a row of the flattened (m*K, n_q) LUT are n_q
+// contiguous floats, so every gather is one coalesced 128-byte load at
+// n_q = 32; the LUT is read through L2, not narrowed (narrowing changes
+// bits). For m = 16 (emvb-msmarco) m is a compile-time constant, so a
+// token's 16 residual codes arrive in one vector load and its 16 LUT reads
+// are all in flight before the first add; any other m runs the serial
+// form. The warps' per-term states merge exactly (order-free maxima and
+// counts), and Eq. 6's corner cases and term_sum run once per doc.
 #include "common.cuh"
 #include "doc_math.cuh"
 
 namespace {
 
-constexpr int WARPS = 8;
+constexpr int E_SPLIT = 8;     // warps a doc
 
-// grid (ceil(nd / WARPS), B).
-__global__ void pqscore_kernel(const float* __restrict__ cs_t,
-                               const float* __restrict__ lut2,
-                               const int32_t* __restrict__ codes,
-                               const uint8_t* __restrict__ res,
-                               const int32_t* __restrict__ lens,
-                               const uint8_t* __restrict__ qmask, int nd,
-                               int cap, int n_c, int n_q, int m, int ksub,
-                               float th_r, int use_filter,
-                               float* __restrict__ score) {
-  const int lane = threadIdx.x & 31;
-  const int p = blockIdx.x * WARPS + (threadIdx.x >> 5);
-  const int b = blockIdx.y;
-  if (p >= nd) return;                                   // warp-uniform
-  const size_t row = (size_t)b * nd + p;
-  const float s = emvb::eq56_doc(
-      cs_t + (size_t)b * n_c * n_q, lut2 + (size_t)b * m * ksub * n_q,
-      codes + row * cap, res + row * cap * m, lens[row],
-      emvb::mask_row(qmask, b, n_q), cap, n_c, n_q, m, ksub, th_r, use_filter,
-      lane);
-  if (lane == 0) score[row] = s;
+// grid (nd, B), one doc a block; M is m when known at compile time, else 0.
+// Three blocks an SM: without the bound the compiler gives the m = 16 form
+// more registers and two blocks an SM, fewer warps to hide the LUT reads.
+template <int M>
+__global__ void __launch_bounds__(E_SPLIT * 32, 3)
+pqscore_kernel(const float* __restrict__ cs_t, const float* __restrict__ lut2,
+               const int32_t* __restrict__ codes,
+               const uint8_t* __restrict__ res,
+               const int32_t* __restrict__ lens,
+               const uint8_t* __restrict__ qmask, int nd, int cap, int n_c,
+               int n_q, int m, int ksub, float th_r, int use_filter,
+               float* __restrict__ score) {
+  emvb::eq56_block<M, E_SPLIT>(cs_t, lut2, codes, res, lens, qmask, nullptr,
+                               nd, nd, cap, n_c, n_q, m, ksub, th_r,
+                               use_filter, score);
 }
 
 }  // namespace
@@ -64,9 +63,15 @@ int pqscore_batched(const float* cs_t, const float* lut2, const int32_t* codes,
                     int n_q, int m, int ksub, float th_r, int use_filter,
                     float* score, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  pqscore_kernel<<<dim3((nd + WARPS - 1) / WARPS, B), WARPS * 32, 0, st>>>(
-      cs_t, lut2, codes, res, lens, qmask, nd, cap, n_c, n_q, m, ksub, th_r,
-      use_filter, score);
+  const dim3 grid(nd, B);
+  if (emvb::eq56_vector_m16(m, res))
+    pqscore_kernel<16><<<grid, E_SPLIT * 32, 0, st>>>(
+        cs_t, lut2, codes, res, lens, qmask, nd, cap, n_c, n_q, m, ksub, th_r,
+        use_filter, score);
+  else
+    pqscore_kernel<0><<<grid, E_SPLIT * 32, 0, st>>>(
+        cs_t, lut2, codes, res, lens, qmask, nd, cap, n_c, n_q, m, ksub, th_r,
+        use_filter, score);
   return cudaGetLastError();
 }
 

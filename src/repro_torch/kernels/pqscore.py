@@ -4,8 +4,10 @@ dynamic term filter) of each query's phase-3 winners.
 Replaces ``repro/kernels/pqscore.py::pqscore`` (Pallas body
 ``_pqscore_kernel``, :116, calling ``eq56_block``, :33), batched: row b
 equals the reference kernel on query b. The CUDA kernel is
-``csrc/pqscore.cu``; its per-document math is the fused pqinter's Eq. 5/6
-pass (``csrc/doc_math.cuh``). :func:`pqscore_batched_ref` is its plain
+``csrc/pqscore.cu``: the fused pqinter's Eq. 5/6 pass
+(``emvb::eq56_block`` in ``csrc/doc_math.cuh``) on the rows it is given,
+one block of 8 warps a doc, m = 16 compiled in and any other m serial.
+:func:`pqscore_batched_ref` is its plain
 PyTorch version (``core.interaction.late_interaction_pq``). The residual
 codes stay uint8 in memory (the reference widens them to int32, :139).
 

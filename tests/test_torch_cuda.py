@@ -19,7 +19,7 @@ from repro_torch.kernels import ops
 from repro_torch.kernels import pqinter as kpq
 from repro_torch.kernels import pqscore as kps
 from repro_torch.kernels import prefilter as kpf
-from torch_inputs import pqinter_inputs, prefilter_inputs
+from torch_inputs import lit_row_words, pqinter_inputs, prefilter_inputs
 
 
 @pytest.fixture
@@ -74,6 +74,8 @@ def test_pqinter_kernel_equals_plain(card, nb, th_r):
 
 EDGE_LENS = (0, 1, 31, 32, 33, 80)   # a round's edges at cap 80
 CHUNK_LENS = (0, 127, 128, 129, 200)  # the prefilter's 128-token chunks
+ROUND_LENS = (0, 127, 128, 129, 192, 193, 200)  # bitfilter's rounds
+SPLIT_LENS = (0, 1, 7, 8, 9, 79, 80)  # pqscore's 8-warp token split
 
 
 @pytest.mark.cuda
@@ -164,30 +166,71 @@ def test_wrappers_refuse_bad_card_operands(card):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("nb", [1, 3, 32, 40])
-def test_bitpack_and_bitfilter_kernels_equal_plain(card, nb):
+@pytest.mark.parametrize("nb", [1, 3, 17, 32, 40])
+@pytest.mark.parametrize("lit_share", [None, 0.02, 0.0, 1.0])
+def test_bitpack_and_bitfilter_kernels_equal_plain(card, nb, lit_share):
+    """bitpack's words (lit_share None), then word tables whose rows are lit
+    at 2 %, none or all: bitfilter gathers only lit rows. n_c = 300 is no
+    multiple of 32."""
     cs, codes, mask, _, qm = _on(card, *prefilter_inputs(
         nb, nb, 32, 300, 2100, 12))
     lens = mask.sum(-1, dtype=torch.int32)
     before = (kbp.launches, kbf.launches)
     bits = ops.bitpack_batched(cs, 0.25, qm)
+    if lit_share is not None:
+        bits, = _on(card, lit_row_words(nb, nb, 300, lit_share).view(
+            np.int32))
     f = ops.bitfilter_batched(bits, codes, lens)
     torch.cuda.synchronize()
     assert (kbp.launches, kbf.launches) == (
         before[0] + 1, before[1] + -(-nb // kbf.MAX_BATCH))
     want_bits = kbp.bitpack_batched_ref(cs, 0.25, qm)
-    _same((bits, f), (want_bits, kbf.bitfilter_batched_ref(want_bits, codes,
-                                                           lens)))
-    assert (bits < 0).any()        # bit 31 set: the words are unsigned
+    if lit_share is None:
+        _same((bits,), (want_bits,))
+    _same((f,), (kbf.bitfilter_batched_ref(bits, codes, lens),))
+    if lit_share != 0.0:
+        assert (bits < 0).any()    # bit 31 set: the words are unsigned
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [
+    # B, n_c, n_docs, cap, lit-row share, lens
+    (1, 1_500_001, 3001, 80, 0.02, EDGE_LENS),  # bitmap above the shared-
+    (32, 600_001, 3001, 80, 0.02, EDGE_LENS),   # memory limit: read from
+    (3, 1001, 2100, 200, 0.3, ROUND_LENS),      # global memory; cap 200
+    (32, 1001, 2100, 200, 0.3, ROUND_LENS),     # over 128-code rounds
+    (17, 1001, 3001, 80, 1.0, EDGE_LENS),       # every row lit
+], ids=["global_bitmap_b1", "global_bitmap_b32", "cap200_b3", "cap200_b32",
+        "every_row_lit_b17"])
+def test_bitfilter_kernel_stress(card, case):
+    nb, n_c, n_docs, cap, share, lens = case
+    _, codes, mask, _, _ = prefilter_inputs(n_docs, 1, 1, n_c, n_docs, cap,
+                                            lens=lens)
+    bits, codes, mask = _on(card, lit_row_words(n_docs, nb, n_c, share).view(
+        np.int32), codes, mask)
+    lens = mask.sum(-1, dtype=torch.int32)
+    f = ops.bitfilter_batched(bits, codes, lens)
+    torch.cuda.synchronize()
+    _same((f,), (kbf.bitfilter_batched_ref(bits, codes, lens),))
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("nb", [1, 3, 32])
 @pytest.mark.parametrize("th_r", [None, 0.25])
-def test_cinter_and_pqscore_kernels_equal_plain(card, nb, th_r):
+@pytest.mark.parametrize("shape", [
+    # cap, m, K, lens: m = 16 compiled in, m = 5 and 8 the serial form;
+    # lengths at the edges of the 8-warp token split
+    (10, 16, 256, None), (80, 16, 256, SPLIT_LENS), (80, 5, 256, SPLIT_LENS),
+    (80, 8, 16, SPLIT_LENS)], ids=["cap10_m16", "cap80_m16", "cap80_m5",
+                                   "cap80_m8"])
+@pytest.mark.parametrize("masked", [True, False])
+def test_cinter_and_pqscore_kernels_equal_plain(card, nb, th_r, shape,
+                                                masked):
+    cap, m, ksub, lens = shape
     cs_t, lut, codes, res, mask, qm = _on(card, *pqinter_inputs(
-        nb, nb, 32, 200, 150, 10, 16, 256))
+        nb, nb, 32, 200, 150, cap, m, ksub, lens=lens))
     lens = mask.sum(-1, dtype=torch.int32)
+    qm = qm if masked else None
     before = (kci.launches, kps.launches)
     sbar = ops.cinter_batched(cs_t, codes, lens, qm)
     score = ops.pqscore_batched(cs_t, lut, codes, res, lens, th_r, qm)

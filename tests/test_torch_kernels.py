@@ -26,6 +26,7 @@ from repro.kernels import ops as rops
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import pqinter as tpqinter
 from repro_torch.kernels import prefilter as tprefilter
+from torch_inputs import lit_row_words
 from torch_inputs import pqinter_inputs as _pqinter_inputs
 from torch_inputs import prefilter_inputs as _prefilter_inputs
 
@@ -217,15 +218,33 @@ def test_bitpack_matches_pallas(nb, n_q, n_c, masked):
     assert torch.equal(single, port[0])
 
 
-@pytest.mark.parametrize("nb,n_c,n_docs,cap", [
-    (3, 200, 300, 12),     # 300 docs: ragged against block 256
-    (2, 130, 517, 9),
-    (1, 64, 256, 5),       # one whole block
+# Word tables whose rows are lit (some bit set) at a share: the kernel
+# gathers only lit rows. n_c = 200 and 130 are no multiple of 32.
+LIT_ROWS = [pytest.param(nb, n_c, 300, 12, share,
+                         id=f"{nb}-{n_c}-300-12-lit{share}")
+            for nb in (1, 3, 32) for n_c, share in ((200, 0.02), (130, 0.0),
+                                                     (200, 1.0))]
+
+
+@pytest.mark.parametrize("nb,n_c,n_docs,cap,lit_share", [
+    pytest.param(3, 200, 300, 12, None, id="3-200-300-12"),  # 300 docs:
+    pytest.param(2, 130, 517, 9, None, id="2-130-517-9"),    # ragged against
+    pytest.param(1, 64, 256, 5, None, id="1-64-256-5"),      # block 256
+    *LIT_ROWS,
 ])
 @pytest.mark.parametrize("as_lengths", [False, True])
-def test_bitfilter_matches_pallas(nb, n_c, n_docs, cap, as_lengths):
+def test_bitfilter_matches_pallas(nb, n_c, n_docs, cap, lit_share,
+                                  as_lengths):
     _, codes, mask, _, _ = _prefilter_inputs(n_docs, 1, 1, n_c, n_docs, cap)
-    bits = _bit_words(n_docs + cap, nb, n_c)
+    bits = (_bit_words(n_docs + cap, nb, n_c) if lit_share is None
+            else lit_row_words(n_docs + nb, nb, n_c, lit_share))
+    lit = (bits != 0).any(0)
+    if lit_share == 0.0:
+        assert not lit.any()
+    elif lit_share == 1.0:
+        assert lit.all()
+    elif lit_share is not None:
+        assert 0 < lit.mean() < 0.1
     validity = mask.sum(-1).astype(np.int32) if as_lengths else mask
     port = _no_launch(lambda: tops.bitfilter_batched(
         *_t(bits.view(np.int32), codes, validity)))
@@ -258,16 +277,26 @@ def test_cinter_matches_pallas(nb, n_q, n_c, nd, cap, masked):
     assert torch.equal(single.view(torch.int32), port[0].view(torch.int32))
 
 
-@pytest.mark.parametrize("nb,n_q,n_c,nd,cap,m,ksub", [
-    (3, 32, 100, 45, 10, 8, 16),     # 45 docs: ragged against block 32
-    (2, 16, 64, 70, 7, 4, 256),
+# Lengths at the edges of the kernel's 8-warp token split, 0, 1 and cap.
+SPLIT_LENS = (0, 1, 7, 8, 9, 79, 80)
+
+
+@pytest.mark.parametrize("nb,n_q,n_c,nd,cap,m,ksub,lens", [
+    pytest.param(3, 32, 100, 45, 10, 8, 16, None,      # 45 docs: ragged
+                 id="3-32-100-45-10-8-16"),            # against block 32
+    pytest.param(2, 16, 64, 70, 7, 4, 256, None, id="2-16-64-70-7-4-256"),
+    # emvb-msmarco's shape: n_q 32, m 16, K 256, cap 80
+    pytest.param(2, 32, 100, 24, 80, 16, 256, SPLIT_LENS,
+                 id="2-32-100-24-80-16-256-split_lens"),
 ])
 @pytest.mark.parametrize("th_r", [None, 0.25])
 @pytest.mark.parametrize("masked", [False, True])
-def test_pqscore_matches_pallas(nb, n_q, n_c, nd, cap, m, ksub, th_r,
+def test_pqscore_matches_pallas(nb, n_q, n_c, nd, cap, m, ksub, lens, th_r,
                                 masked):
     cs_t, lut, codes, res, mask, qm = _pqinter_inputs(
-        nd + m, nb, n_q, n_c, nd, cap, m, ksub)
+        nd + m, nb, n_q, n_c, nd, cap, m, ksub, lens=lens)
+    if lens is not None:
+        assert set(mask.sum(-1).ravel()) == set(lens)
     qm = qm if masked else None
     tqm = None if qm is None else torch.from_numpy(qm)
     port = _no_launch(lambda: tops.pqscore_batched(

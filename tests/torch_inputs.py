@@ -54,3 +54,17 @@ def pqinter_inputs(seed, nb, n_q, n_c, nf, cap, m, ksub, levels=2,
     qm = rng.random((nb, n_q)) < 0.75
     qm[:, 0] = True
     return cs_t, lut, codes, res, mask, qm
+
+
+def lit_row_words(seed, nb, n_c, share):
+    """(B, n_c) uint32 word table whose rows (a centroid's B words) are all
+    zero except a ``share`` of them; each lit row has a bit set, and bit 31
+    is in use (int32-negative words)."""
+    rng = np.random.default_rng(seed)
+    w = rng.integers(0, 1 << 32, size=(nb, n_c), dtype=np.uint64)
+    w &= rng.integers(0, 1 << 32, size=(nb, n_c), dtype=np.uint64)
+    lit = rng.random(n_c) < share
+    cols = np.flatnonzero(lit)
+    w[cols % nb, cols] |= np.uint64(1) << (cols % 32).astype(np.uint64)
+    w[:, ~lit] = 0
+    return w.astype(np.uint32)
