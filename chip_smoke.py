@@ -16,6 +16,10 @@ Two lanes of ``retrieve`` run: the fused one (the default kernel config:
 the prefilter and pqinter megakernels) and the unfused one
 (``fused_prefilter=False, fused_late_interaction=False``: bitpack,
 bitfilter, cinter and pqscore, with the selections between them in torch).
+Each lane also serves filtered retrieval (a predicate plane on the index, a
+compiled ``doc_filter``) and compact candidate mode (``cand_cap`` 4096),
+which give the prefilter its plan and per-query codes, pqinter its
+``doc_pass`` and bitfilter its per-query codes.
 
 Phases:
   1. device  — the card's name and power limit (nvidia-smi), torch, TF32 off
@@ -36,7 +40,12 @@ Phases:
                bitmap's shared-memory limit; PQSCORE_STRESS: lengths at
                the edges of the 8-warp token split, one query over 4096
                docs, cap 200, m = 16 and the serial m = 5 and 8, Eq. 6
-               with no kept token)
+               with no kept token); the filtered and compact forms
+               (FILTER_CASES: plans passing 0, 1, 50 and 100 % of docs and
+               one with forbidden bits and bit 31; per-query codes at B in
+               {1, 3, 32, 40}, cand_cap 4100 (no multiple of the 1024-doc
+               tile), holes in the valid slots; doc_pass with every, no,
+               fewer than n_docs and fewer than k survivors passing)
   4. full    — the planted index on the card at MS MARCO width; retrieve at
                B = 32 and B = 1 on each lane (launch counts read around those
                runs only); each kernel held against its plain version on the
@@ -45,21 +54,32 @@ Phases:
                rows (rho: the share of the corpus' valid tokens whose
                centroid's row has a bit set) at B = 32 and B = 1; the planted
                docs' Success@100 and MRR@10 on both lanes
-  5. timing  — CUDA-event medians of every step of both lanes, end to end,
-               each kernel beside its plain version and its bound
-  6. limits  — kernels off the default config, each held against its plain
+  5. filter  — the same index with a predicate plane built on the card
+               from a seed (four predicates passing 50, 10, 1 and 0.01 % of
+               docs); retrieve at B = 32 and B = 1 on both lanes with the
+               1 % filter, the 0.01 % one (fewer than k passing candidates:
+               fillers), in compact mode (cand_cap 4096) and compact with
+               the 1 % filter, launch counts read around each; each kernel
+               held against its plain version on the same operands; every
+               finite-scored result passes the filter; unfused == fused on
+               the finite entries with the same CS and LUT
+  6. timing  — CUDA-event medians of every step of both lanes, end to end,
+               each kernel beside its plain version and its bound; the
+               filtered and compact kernel forms and retrieve end to end
+  7. limits  — kernels off the default config, each held against its plain
                version and timed by pass: the prefilter and pqinter
                megakernels on a B = 32 batch whose queries share candidates
                and at the largest cuts their wrappers take (n_filter 4096
                and 8192); bitfilter on dense word tables (th lowered until
                rho is about 50 % and 100 %, B = 32 and B = 1); pqscore over
                4096 winners a query
-  7. profile — torch.profiler over retrieve on both lanes at B = 32 and
+  8. profile — torch.profiler over retrieve on both lanes at B = 32 and
                B = 1: the device's busy share, device time and launches by
                CUDA kernel, and each hand-written kernel's __global__
                launches per wrapper call (tables in OUT_DIR, one
                profile_<lane>_b<B>.txt each)
-  8. kernels — one JSON line describing the six kernels
+  9. kernels — one JSON line describing the six kernels, each with its
+               operand forms
 and last ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -141,7 +161,7 @@ def build_phase() -> None:
          flags=_build.NVCC_FLAGS)
 
 
-# --- 3. kernel == plain at small shapes ---------------------------------------
+# --- 3. kernel == plain at small shapes --------------------------------------
 
 def _exact(got, want) -> float:
     """Max |kernel - plain| over the outputs; raises unless every output is
@@ -231,6 +251,35 @@ PQSCORE_STRESS = (
     ("m16_eq6_no_kept_token", 3, 700, 300, 80, 16, 256, SPLIT_LENS,
      (100.0,)),
 )
+
+# Filtered and compact retrieval's operand forms. Plans over predicate words
+# drawn with the bit rates SMALL_RATES (bit 31 in use): none, ~1 %, ~50 % and
+# all of the docs pass, and one with forbidden bits.
+SMALL_RATES = {0: 0.5, 1: 0.1, 2: 0.01, 3: 0.0001, 31: 0.5}
+SMALL_PLANS = {"pass0": (), "pass1pct": ((1 << 2, 0),),
+               "pass50pct": ((1 << 0, 0),), "pass100": ((0, 0),),
+               "forbidden": ((1 << 0, 1 << 1), (1 << 31, 1 << 2))}
+# per-query codes: cand_cap 4100 is no multiple of the prefilter's tile
+COMPACT_CASE = dict(n_c=700, cand_cap=4100, cap=80, n_filter=1024)
+# doc_pass: survivors passing, of nf = 700 with n_docs = 90 and k = 25
+DOC_PASS = {"all": 700, "none": 0, "under_n_docs": 45, "under_k": 12}
+FILTER_CASES = ([f"plan_{p}" for p in SMALL_PLANS]
+                + ["per_query_codes_b1_3_32_40"]
+                + [f"doc_pass_{p}" for p in DOC_PASS])
+
+
+def predicate_words(n: int, rates: dict, seed: int, device):
+    """(n,) uint32 predicate plane made on ``device`` from a seed: bit i of
+    a doc's word is set with probability rates[i], each bit drawn on its
+    own."""
+    import torch
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    words = torch.zeros(n, dtype=torch.int32, device=device)
+    for bit, rate in rates.items():
+        hit = torch.rand(n, generator=g, device=device) < rate
+        words |= hit.to(torch.int32) << bit
+    return words.view(torch.uint32)
 
 
 def _stress_lens(rng, shape, cap: int):
@@ -397,33 +446,108 @@ def small_phase(dev) -> dict:
                         q)
                 hold("pqscore", (ops.pqscore_batched(*args),),
                      (kps.pqscore_batched_ref(*args),))
+    for nb in (1, 3, 32):                      # plans, shared codes
+        rng = np.random.default_rng(200 + nb)
+        n_c, n_docs, cap = 700, 5003, 17
+        cs = _quant(rng, (nb, 32, n_c), 0.5, 4)
+        codes = rng.integers(0, n_c, size=(n_docs, cap)).astype(np.int32)
+        lens = rng.integers(0, cap + 1, size=n_docs).astype(np.int32)
+        codes[np.arange(cap)[None, :] >= lens[:, None]] = n_c
+        bitmap = rng.random((nb, n_docs)) < 0.3
+        qm = rng.random((nb, 32)) < 0.8
+        qm[:, 0] = True
+        words = predicate_words(n_docs, SMALL_RATES, nb, dev)
+        for clauses in SMALL_PLANS.values():
+            args = (t(cs), 0.25, t(codes), t(lens), t(bitmap), 300, t(qm))
+            kw = dict(pred_words=words, plan=clauses)
+            hold("prefilter", ops.prefilter_batched(*args, **kw),
+                 kpf.prefilter_batched_ref(*args, **kw))
+    for nb in (1, 3, 32, 40):                  # per-query codes
+        rng = np.random.default_rng(300 + nb)
+        n_c, cc, cap = (COMPACT_CASE[k] for k in ("n_c", "cand_cap", "cap"))
+        cs = _quant(rng, (nb, 32, n_c), 0.5, 4)
+        codes = rng.integers(0, n_c, size=(nb, cc, cap)).astype(np.int32)
+        lens = _stress_lens(rng, (nb, cc), cap)
+        codes[np.arange(cap) >= lens[..., None]] = n_c
+        valid = rng.random((nb, cc)) < 0.65
+        valid[-1, :7] = False
+        qm = rng.random((nb, 32)) < 0.8
+        qm[:, 0] = True
+        args = (t(cs), 0.25, t(codes), t(lens), t(valid),
+                COMPACT_CASE["n_filter"], t(qm))
+        hold("prefilter", ops.prefilter_batched(*args),
+             kpf.prefilter_batched_ref(*args))
+        args = (kbp.bitpack_batched_ref(t(cs), 0.25, t(qm)), t(codes),
+                t(np.where(valid, lens, 0).astype(np.int32)))
+        hold("bitfilter", (ops.bitfilter_batched(*args),),
+             (kbf.bitfilter_batched_ref(*args),))
+    for nb in (3, 32):                         # doc_pass
+        rng = np.random.default_rng(400 + nb)
+        n_c, nf, cap, m, ksub, n_docs2, k = 700, 700, 80, 16, 256, 90, 25
+        cs_t = _quant(rng, (nb, n_c, 32), 0.5, 2)
+        lut = _quant(rng, (nb, 32, m, ksub), 0.1, 8)
+        pcodes = rng.integers(0, n_c, size=(nb, nf, cap)).astype(np.int32)
+        plens = _stress_lens(rng, (nb, nf), cap)
+        pcodes[np.arange(cap) >= plens[..., None]] = n_c
+        res = rng.integers(0, ksub, size=(nb, nf, cap, m)).astype(np.uint8)
+        qm = rng.random((nb, 32)) < 0.8
+        qm[:, 0] = True
+        for n_pass in DOC_PASS.values():
+            dp = np.zeros((nb, nf), bool)
+            for b in range(nb):
+                dp[b, rng.choice(nf, size=n_pass, replace=False)] = True
+            for th_r in (None, 0.25):
+                args = (t(cs_t), t(lut), t(pcodes), t(res), t(plens), th_r,
+                        n_docs2, k, t(qm))
+                hold("pqinter", ops.pqinter_batched(*args, doc_pass=t(dp)),
+                     kpq.pqinter_batched_ref(*args, t(dp)))
     torch.cuda.synchronize()
     emit("small", cases=cases, exact=True, max_abs_err=err,
          stress=[c[0] for c in PREFILTER_STRESS + PQINTER_STRESS
-                 + BITFILTER_STRESS + PQSCORE_STRESS])
+                 + BITFILTER_STRESS + PQSCORE_STRESS],
+         filter_cases=FILTER_CASES)
     return err
 
 
-# --- 4. the main path at full width -------------------------------------------
+# --- 4. the main path at full width ------------------------------------------
 
 def _field_bytes(index) -> dict:
     return {f: getattr(index, f).numel() * getattr(index, f).element_size()
             for f in index._fields}
 
 
-def prefilter_bound(cs, index, bitmap, n_filter) -> dict:
+def prefilter_bound(cs, index, bitmap, n_filter, doc_pass=None) -> dict:
     """Least bytes the prefilter must move on these inputs: the CS, the
     bitmap, the term mask, the lengths and valid-token codes of every doc
-    that is some query's candidate, and its outputs."""
+    that is some query's candidate, and its outputs. With a plan
+    (``doc_pass``, its verdict per doc): the predicate word of every doc
+    that is some query's candidate, and codes only of those that pass."""
     nb, n_q, n_c = cs.shape
     any_cand = bitmap.any(0)
+    words = 0
+    if doc_pass is not None:
+        words = int(any_cand.sum()) * 4
+        bitmap = bitmap & doc_pass
+        any_cand = bitmap.any(0)
     n_cand_docs = int(any_cand.sum())
     tokens = int(index.doc_lens[any_cand].sum())
-    nbytes = (cs.numel() * 4 + bitmap.numel() + nb * n_q
+    nbytes = (cs.numel() * 4 + bitmap.numel() + nb * n_q + words
               + n_cand_docs * 4 + tokens * 4
               + nb * n_filter * 8 + nb * n_c * 4)
     ops_ = nb * n_q * n_c + nb * tokens          # compares + word ORs
     return _bound(nbytes, ops_)
+
+
+def prefilter_query_bound(cs, lens, valid, n_filter) -> dict:
+    """Least bytes the prefilter's compact form must move: the CS, the
+    buffer's valid bits, the term mask, the lengths and valid-token codes of
+    its valid slots, and its outputs."""
+    nb, n_q, n_c = cs.shape
+    tokens = int(lens[valid].sum())
+    nbytes = (cs.numel() * 4 + valid.numel() + nb * n_q
+              + int(valid.sum()) * 4 + tokens * 4
+              + nb * n_filter * 8 + nb * n_c * 4)
+    return _bound(nbytes, nb * n_q * n_c + tokens)
 
 
 def _rows_touched(codes, lens, n_c: int) -> int:
@@ -437,19 +561,28 @@ def _rows_touched(codes, lens, n_c: int) -> int:
     return int(torch.unique(rows).numel())
 
 
-def pqinter_bound(cs_t, lut, codes, lens, sel2, n_docs, k) -> dict:
+def pqinter_bound(cs_t, lut, codes, lens, sel2, n_docs, k,
+                  doc_pass=None) -> dict:
     """Least bytes the pqinter must move on these inputs: the survivors'
     valid-token codes and lengths, the CS^T rows those tokens touch, the
-    LUT, the phase-3 winners' residual codes, the term mask, the outputs."""
+    LUT, the phase-3 winners' residual codes, the term mask, the outputs.
+    With ``doc_pass``: the verdicts, and tokens only of passing survivors
+    (a phase-3 slot at position -1 is a filler and reads nothing)."""
     import torch
     nb, nf, cap = codes.shape
     n_c, n_q = cs_t.shape[1:]
     m = lut.shape[2]
+    verdicts = 0
+    if doc_pass is not None:
+        lens = torch.where(doc_pass, lens, 0)
+        verdicts = nb * nf
     n_rows = _rows_touched(codes, lens, n_c)
-    win_tokens = int(torch.gather(lens, 1, sel2.long()).sum())
+    win_tokens = int(torch.gather(lens, 1, sel2.long().clamp(min=0))[
+        sel2 >= 0].sum())
     tokens = int(lens.sum())
     nbytes = (tokens * 4 + nb * nf * 4 + n_rows * n_q * 4 + lut.numel() * 4
-              + win_tokens * m + nb * n_q + nb * k * 8 + nb * n_docs * 8)
+              + win_tokens * m + nb * n_q + nb * k * 8 + nb * n_docs * 8
+              + verdicts)
     ops_ = tokens * n_q + win_tokens * n_q * (m + 1)   # maxes + LUT adds
     return _bound(nbytes, ops_)
 
@@ -477,6 +610,17 @@ def bitfilter_bound(nb: int, index, lit_tokens: int) -> dict:
                  nb * tokens)
     out["l2_gather_bytes"] = lit_tokens * _sectors(nb * 4)
     return out
+
+
+def bitfilter_query_bound(bits, codes, lens) -> dict:
+    """Least bytes bitfilter's compact form must move: the buffer's lengths
+    and valid-token codes, the words of the distinct (query, centroid) rows
+    those tokens touch, and F out; one OR per valid token."""
+    nb, cc, _ = codes.shape
+    tokens = int(lens.sum())
+    nbytes = (nb * cc * 4 + tokens * 4
+              + _rows_touched(codes, lens, bits.shape[1]) * 4 + nb * cc * 4)
+    return _bound(nbytes, tokens)
 
 
 def cinter_bound(cs_t, codes, lens) -> dict:
@@ -518,9 +662,11 @@ def _bound(nbytes: int, n_ops: int) -> dict:
 
 
 def hold_phases(index, q, cfg) -> dict:
-    """One batch through the engine's own steps: each kernel against its
-    plain version on the SAME CS, bitmap, LUT and survivor operands, and the
-    composed result against ``retrieve``. Returns the intermediates."""
+    """One batch through the fused lane's own steps (as ``engine``'s
+    ``_phase12_batch`` and ``_phase34_batch`` run them, filter and candidate
+    mode included): each kernel against its plain version on the SAME CS,
+    bitmap, LUT and survivor operands. Returns the intermediates and the
+    composed ids."""
     import torch
     from repro_torch.core import engine as teng
     from repro_torch.kernels import ops
@@ -528,26 +674,43 @@ def hold_phases(index, q, cfg) -> dict:
     from repro_torch.kernels import prefilter as kpf
     cs = teng.centroid_scores(q, index.centroids)
     bitmap = teng._candidates(index, cs, cfg)
-    pf_args = (cs, cfg.th, index.codes, index.doc_lens, bitmap, cfg.n_filter)
-    pf = ops.prefilter_batched(*pf_args)
-    err_pf = _exact(pf, kpf.prefilter_batched_ref(*pf_args))
+    doc_pass = teng._doc_pass(index, cfg)
+    cand_ids = None
+    if cfg.candidate_mode == "compact":
+        cbitmap = bitmap if doc_pass is None else bitmap & doc_pass
+        cand_ids, cand_valid = teng._compact_candidates(cbitmap, cfg)
+        pf_args = (cs, cfg.th, index.codes[cand_ids],
+                   index.doc_lens[cand_ids], cand_valid, cfg.n_filter)
+        pf_kw = {}
+    else:
+        pf_args = (cs, cfg.th, index.codes, index.doc_lens, bitmap,
+                   cfg.n_filter)
+        pf_kw = ({} if doc_pass is None else dict(
+            pred_words=index.pred_words, plan=cfg.doc_filter.clauses))
+    pf = ops.prefilter_batched(*pf_args, **pf_kw)
+    err_pf = _exact(pf, kpf.prefilter_batched_ref(*pf_args, **pf_kw))
     sel1 = pf[1].long()
+    if cand_ids is not None:
+        sel1 = torch.gather(cand_ids, 1, sel1)
     lut = teng._query_lut(index, q)
     operands = teng._survivor_operands(index, cs, lut, sel1)
     pq_args = (*operands, cfg.th_r, cfg.n_docs, cfg.k)
-    pq = ops.pqinter_batched(*pq_args)
-    err_pq = _exact(pq, kpq.pqinter_batched_ref(*pq_args))
-    return dict(cs=cs, bitmap=bitmap, pf=pf, sel1=sel1, lut=lut,
-                operands=operands, pq=pq,
+    s1_pass = None if doc_pass is None else doc_pass[sel1]
+    pq = ops.pqinter_batched(*pq_args, doc_pass=s1_pass)
+    err_pq = _exact(pq, kpq.pqinter_batched_ref(*pq_args, None, s1_pass))
+    return dict(cs=cs, bitmap=bitmap, doc_pass=doc_pass, pf_args=pf_args,
+                pf_kw=pf_kw, pf=pf, sel1=sel1, lut=lut,
+                operands=operands, s1_pass=s1_pass, pq=pq,
                 err={"prefilter": err_pf, "pqinter": err_pq},
                 ids=torch.gather(sel1, 1, pq[1].long()).to(torch.int32))
 
 
 def hold_unfused(index, q, cfg, h) -> dict:
-    """One batch through the unfused lane's own steps on the fused lane's
-    CS, bitmap and LUT (``h``): each kernel against its plain version on
-    the same operands, the phase-2 cut against the prefilter's. Returns the
-    intermediates and the composed result."""
+    """One batch through the unfused lane's own steps (as ``engine``'s
+    ``_phase1`` to ``_phase4`` run them, filter and candidate mode
+    included) on the fused lane's CS, bitmap and LUT (``h``): each kernel
+    against its plain version on the same operands, the phase-2 cut against
+    the prefilter's. Returns the intermediates and the composed result."""
     import torch
     from repro_torch.core import engine as teng
     from repro_torch.core.topk import topk
@@ -560,11 +723,21 @@ def hold_unfused(index, q, cfg, h) -> dict:
     bp_args = (h["cs"], cfg.th)
     bits = ops.bitpack_batched(*bp_args)
     err["bitpack"] = _exact((bits,), (kbp.bitpack_batched_ref(*bp_args),))
-    bf_args = (bits, index.codes, index.doc_lens)
+    doc_pass = h["doc_pass"]
+    bitmap = h["bitmap"] if doc_pass is None else h["bitmap"] & doc_pass
+    cand_ids = None
+    if cfg.candidate_mode == "compact":
+        cand_ids, bitmap = teng._compact_candidates(bitmap, cfg)
+        bf_args = (bits, index.codes[cand_ids], torch.where(
+            bitmap, index.doc_lens[cand_ids], 0))
+    else:
+        bf_args = (bits, index.codes, index.doc_lens)
     f = ops.bitfilter_batched(*bf_args)
     err["bitfilter"] = _exact((f,), (kbf.bitfilter_batched_ref(*bf_args),))
-    sel1 = topk(torch.where(h["bitmap"], f, torch.full_like(f, -1)),
+    sel1 = topk(torch.where(bitmap, f, torch.full_like(f, -1)),
                 cfg.n_filter)[1]
+    if cand_ids is not None:
+        sel1 = torch.gather(cand_ids, 1, sel1)
     if not torch.equal(sel1, h["sel1"]):
         raise AssertionError("the unfused phase-2 cut differs from the "
                              "prefilter megakernel's")
@@ -572,15 +745,20 @@ def hold_unfused(index, q, cfg, h) -> dict:
     ci_args = (cs_t, index.codes[sel1], index.doc_lens[sel1])
     sbar = ops.cinter_batched(*ci_args)
     err["cinter"] = _exact((sbar,), (kci.cinter_batched_ref(*ci_args),))
+    if doc_pass is not None:
+        sbar = torch.where(doc_pass[sel1], sbar, -torch.inf)
     sel2 = torch.gather(sel1, 1, topk(sbar, cfg.n_docs)[1])
     ps_args = (cs_t, h["lut"], index.codes[sel2], index.res_codes[sel2],
                index.doc_lens[sel2], cfg.th_r)
     score = ops.pqscore_batched(*ps_args)
     err["pqscore"] = _exact((score,), (kps.pqscore_batched_ref(*ps_args),))
+    if doc_pass is not None:
+        score = torch.where(doc_pass[sel2], score, -torch.inf)
     top, local = topk(score, cfg.k)
-    return dict(bits=bits, f=f, sel1=sel1, ci_args=ci_args, sbar=sbar,
-                sel2=sel2, ps_args=ps_args, score=score, err=err,
-                scores=top, ids=torch.gather(sel2, 1, local).to(torch.int32))
+    return dict(bits=bits, bf_args=bf_args, f=f, sel1=sel1,
+                ci_args=ci_args, sbar=sbar, sel2=sel2, ps_args=ps_args,
+                score=score, err=err, scores=top,
+                ids=torch.gather(sel2, 1, local).to(torch.int32))
 
 
 def token_hist(index):
@@ -672,7 +850,7 @@ def full_phase(dev) -> dict:
                                fused_late_interaction=False)
     batches = [queries[s:s + 32] for s in range(0, N_QUERIES, 32)]
     gt_np = gt.cpu().numpy()
-    launches, results, quality = {}, {}, {}
+    launches, results, quality, digests = {}, {}, {}, {}
     for lane, c in (("fused", cfg), ("unfused", ucfg)):
         # the main path of the lane, B = 32 then B = 1: counts read just
         # around these calls
@@ -711,6 +889,7 @@ def full_phase(dev) -> dict:
                 for i in range(N_SINGLE))),
         }
         results[lane] = {"b32": res[0], "b1": res1[0]}
+        digests[lane] = {"b32": result_digest(res), "b1": result_digest(res1)}
 
     held, held_u, lanes_equal = {}, {}, {}
     for name, q in (("b32", batches[0]), ("b1", queries[:1])):
@@ -738,6 +917,7 @@ def full_phase(dev) -> dict:
                        for b in ("b32", "b1")}
     emit("full", launches=launches, phases_exact=True,
          unfused_equals_fused=lanes_equal, funnel=fun, quality=quality,
+         result_sha256=digests,
          max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9)
     for lane, qual in quality.items():
         if qual["success_at_100"] < SUCCESS_FLOOR:
@@ -747,7 +927,155 @@ def full_phase(dev) -> dict:
                 held_u=held_u, launches=launches, token_hist=hist)
 
 
-# --- 5. timing -----------------------------------------------------------------
+def result_digest(results) -> str:
+    """sha256 of the doc ids and float32 score bits of a list of
+    RetrievalResults: equal digests, equal results."""
+    import hashlib
+    h = hashlib.sha256()
+    for r in results:
+        h.update(r.doc_ids.cpu().numpy().tobytes())
+        h.update(r.scores.cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+# --- 5. filtered and compact retrieval ---------------------------------------
+
+# The predicate plane: bit i of a doc's word is predicate FILTER_PREDICATES[i]
+# and holds with the rate beside it. 0.01 % leaves a few dozen of a query's
+# ~137K candidates passing, fewer than k.
+FILTER_PREDICATES = {"p50": 0.5, "p10": 0.1, "p1": 0.01, "p001": 0.0001}
+CAND_CAP = 4096
+FILTER_CONFIGS = {
+    # name: (predicate of the filter or None, candidate mode)
+    "filter1pct": ("p1", "score_all"),
+    "filter001pct": ("p001", "score_all"),
+    "compact": (None, "compact"),
+    "compact_filter1pct": ("p1", "compact"),
+}
+# The kernel forms these configs give, timed on a config's own operands:
+# kernel -> form -> (config, lane).
+FORMS = {"prefilter": {"plan": ("filter1pct", "fused"),
+                       "per_query": ("compact", "fused")},
+         "pqinter": {"doc_pass": ("filter1pct", "fused")},
+         "bitfilter": {"per_query": ("compact", "unfused")}}
+
+
+def check_filtered(ids, scores, passing) -> int:
+    """Results (N, k) well formed: scores descending, no NaN, ids in the
+    corpus, every finite-scored id passing the filter (``passing`` (n_docs,)
+    bool, None when unfiltered). -> the count of -inf fillers."""
+    import torch
+    finite = torch.isfinite(scores)
+    ordered = (scores[:, :-1] >= scores[:, 1:]).all()
+    if torch.isnan(scores).any() or not ordered \
+            or not ((ids >= 0) & (ids < WIDTHS["n_docs"])).all() \
+            or not (finite | torch.isneginf(scores)).all():
+        raise AssertionError("filtered retrieve returned malformed results")
+    if passing is not None and not passing[ids[finite].long()].all():
+        raise AssertionError("a finite-scored result fails the filter")
+    if passing is None and not finite.all():
+        raise AssertionError("an unfiltered result scored -inf")
+    return int((~finite).sum())
+
+
+def filter_phase(full: dict) -> dict:
+    """Phase 5: the planted index with a predicate plane made on the card;
+    per config of FILTER_CONFIGS and lane, retrieve at B = 32 and B = 1 with
+    the launch counts read around those calls, the results checked against
+    the filter, and one batch of each size held step by step (each kernel
+    against its plain version) and composed to retrieve's result; unfused ==
+    fused on the finite entries with the same CS and LUT."""
+    import torch
+    from repro_torch.core import bitvector
+    from repro_torch.core import engine as teng
+    from repro_torch.kernels import ops
+    index = full["index"]
+    t0 = time.perf_counter()
+    index = index._replace(pred_words=predicate_words(
+        index.codes.shape[0], dict(enumerate(FILTER_PREDICATES.values())),
+        1, index.device))
+    names = tuple(FILTER_PREDICATES)
+    plans = {p: bitvector.compile_filter(bitvector.Pred(p), names)
+             for p in names}
+    passing = {p: bitvector.apply_filter_plan(plan, index.pred_words)
+               for p, plan in plans.items()}
+    torch.cuda.synchronize()
+    emit("filter_plane", seconds=time.perf_counter() - t0,
+         pass_share={p: float(x.float().mean()) for p, x in passing.items()},
+         plane_bytes=index.pred_words.numel() * 4)
+    queries = full["queries"]
+    batches = [queries[s:s + 32] for s in range(0, N_QUERIES, 32)]
+    out = {}
+    for name, (pred, mode) in FILTER_CONFIGS.items():
+        over = dict(candidate_mode=mode, cand_cap=CAND_CAP,
+                    doc_filter=None if pred is None else plans[pred])
+        cfgs = {"fused": dataclasses.replace(full["cfg"], **over),
+                "unfused": dataclasses.replace(full["ucfg"], **over)}
+        ok = None if pred is None else passing[pred]
+        launches, results, fillers = {}, {}, {}
+        for lane, c in cfgs.items():
+            ops.reset_launches()
+            res = [teng.retrieve(index, q, c) for q in batches]
+            torch.cuda.synchronize()
+            launches[lane] = {"b32": ops.launch_counts()}
+            ops.reset_launches()
+            res1 = [teng.retrieve(index, queries[i:i + 1], c)
+                    for i in range(N_SINGLE)]
+            torch.cuda.synchronize()
+            launches[lane]["b1"] = ops.launch_counts()
+            for kname, kern in KERNELS.items():
+                want = ((len(batches), N_SINGLE) if kern["lane"] == lane
+                        else (0, 0))
+                got = tuple(launches[lane][b][kname] for b in ("b32", "b1"))
+                if got != want:
+                    raise AssertionError(
+                        f"{name} {lane}: {kname} launched {got}, expected "
+                        f"{want}")
+            fillers[lane] = {
+                "b32": check_filtered(torch.cat([r.doc_ids for r in res]),
+                                      torch.cat([r.scores for r in res]), ok),
+                "b1": check_filtered(torch.cat([r.doc_ids for r in res1]),
+                                     torch.cat([r.scores for r in res1]), ok)}
+            results[lane] = {"b32": res[0], "b1": res1[0]}
+        if pred == "p001" and not fillers["fused"]["b32"]:
+            raise AssertionError("the 0.01 % filter left k passing docs")
+        held, passing_cands = {}, {}
+        for b, q in (("b32", batches[0]), ("b1", queries[:1])):
+            h = hold_phases(index, q, cfgs["fused"])
+            u = hold_unfused(index, q, cfgs["unfused"], h)
+            for lane, got in (("fused", (h["ids"], h["pq"][0])),
+                              ("unfused", (u["ids"], u["scores"]))):
+                ref = results[lane][b]
+                if not (torch.equal(got[0], ref.doc_ids) and torch.equal(
+                        got[1].view(torch.int32),
+                        ref.scores.view(torch.int32))):
+                    raise AssertionError(f"{name} {lane} {b}: the held "
+                                         "phases do not compose to retrieve")
+            a = teng._retrieve_batch(index, q, cfgs["fused"], cs=h["cs"],
+                                     lut=h["lut"])
+            z = teng._retrieve_batch(index, q, cfgs["unfused"], cs=h["cs"],
+                                     lut=h["lut"])
+            fin = torch.isfinite(a.scores)
+            if not (torch.equal(fin, torch.isfinite(z.scores))
+                    and torch.equal(a.doc_ids[fin], z.doc_ids[fin])
+                    and torch.equal(a.scores[fin].view(torch.int32),
+                                    z.scores[fin].view(torch.int32))):
+                raise AssertionError(f"{name} {b}: unfused != fused on the "
+                                     "finite entries")
+            cand = h["bitmap"] if ok is None else h["bitmap"] & ok
+            passing_cands[b] = cand.sum(1).tolist()[:8]
+            held[b] = {"h": h, "u": u, "q": q}
+        out[name] = dict(cfgs=cfgs, held=held, launches=launches)
+        emit(f"filter_{name}", predicate=pred, candidate_mode=mode,
+             cand_cap=CAND_CAP, launches=launches, phases_exact=True,
+             unfused_equals_fused_where_finite=True, fillers=fillers,
+             passing_candidates_first_queries=passing_cands,
+             max_abs_err={b: {**v["h"]["err"], **v["u"]["err"]}
+                          for b, v in held.items()})
+    return dict(index=index, configs=out)
+
+
+# --- 6. timing ---------------------------------------------------------------
 
 def time_samples(fn, n: int = 10, warmup: int = 2, flush=None) -> list:
     """CUDA-event times (ms) of ``n`` runs of ``fn`` after ``warmup``;
@@ -910,7 +1238,97 @@ def timing_phase(full: dict) -> dict:
     return out
 
 
-# --- 6. kernels away from the default config -------------------------------------
+def filter_timing_phase(filt: dict) -> dict:
+    """Phase 6, continued: each filtered or compact kernel form (FORMS) on its
+    config's own operands at B = 32 and B = 1 — its median ms, its plain
+    version's, its bound and its per-pass device ms —, the two steps the
+    configs add (the pass mask, the candidate buffer), and retrieve end to
+    end per config and lane."""
+    import torch
+    from repro_torch.core import engine as teng
+    from repro_torch.kernels import bitfilter as kbf
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import pqinter as kpq
+    from repro_torch.kernels import prefilter as kpf
+    index = filt["index"]
+    flush = torch.empty(64 << 20, dtype=torch.int32, device=index.device)
+    forms, e2e = {}, {}
+    for name, conf in filt["configs"].items():
+        for lane, c in conf["cfgs"].items():
+            for b, n in (("b32", 20), ("b1", 50)):
+                q = conf["held"][b]["q"]
+                e2e.setdefault(name, {}).setdefault(lane, {})[b] = \
+                    latency_stats(time_samples(
+                        lambda: teng.retrieve(index, q, c), n=n,
+                        flush=flush))
+    # the two steps the configs add to retrieve: the pass mask over the
+    # predicate plane, and the candidate buffer
+    steps = {}
+    for b in ("b32", "b1"):
+        c = filt["configs"]["compact"]["cfgs"]["fused"]
+        bitmap = filt["configs"]["compact"]["held"][b]["h"]["bitmap"]
+        fc = filt["configs"]["filter1pct"]["cfgs"]["fused"]
+        steps[b] = {
+            "doc_pass": time_ms(lambda: teng._doc_pass(index, fc),
+                                flush=flush),
+            "compact_candidates": time_ms(
+                lambda: teng._compact_candidates(bitmap, c), flush=flush)}
+    for kern, kforms in FORMS.items():
+        for form, (name, lane) in kforms.items():
+            conf = filt["configs"][name]
+            c = conf["cfgs"][lane]
+            rec = {"config": name, "lane": lane,
+                   "launches": conf["launches"][lane]["b32"][kern],
+                   "launches_b1": conf["launches"][lane]["b1"][kern]}
+            for b in ("b32", "b1"):
+                h, u = conf["held"][b]["h"], conf["held"][b]["u"]
+                if kern == "prefilter":
+                    args, kw = h["pf_args"], h["pf_kw"]
+
+                    def fn():
+                        return ops.prefilter_batched(*args, **kw)
+
+                    def plain():
+                        return kpf.prefilter_batched_ref(*args, **kw)
+                    bound = (prefilter_bound(h["cs"], index, h["bitmap"],
+                                             c.n_filter, h["doc_pass"])
+                             if form == "plan" else prefilter_query_bound(
+                                 h["cs"], args[3], args[4], c.n_filter))
+                elif kern == "pqinter":
+                    args = (*h["operands"], c.th_r, c.n_docs, c.k)
+                    dp = h["s1_pass"]
+
+                    def fn():
+                        return ops.pqinter_batched(*args, doc_pass=dp)
+
+                    def plain():
+                        return kpq.pqinter_batched_ref(*args, None, dp)
+                    ops_ = h["operands"]
+                    bound = pqinter_bound(ops_[0], ops_[1], ops_[2], ops_[4],
+                                          h["pq"][2], c.n_docs, c.k, dp)
+                else:
+                    args = u["bf_args"]
+
+                    def fn():
+                        return (ops.bitfilter_batched(*args),)
+
+                    def plain():
+                        return (kbf.bitfilter_batched_ref(*args),)
+                    bound = bitfilter_query_bound(*args)
+                sfx = "" if b == "b32" else "_b1"
+                rec["max_abs_err" + sfx] = _exact(fn(), plain())
+                rec["ms" + sfx] = time_ms(fn, flush=flush)
+                rec["plain_ms" + sfx] = time_ms(plain, n=3, warmup=1,
+                                                flush=flush)
+                rec["bound" + sfx] = bound
+                rec["pass_ms" + sfx] = _passes_ms(fn, kern)
+            forms.setdefault(kern, {})[form] = rec
+    out = {"forms": forms, "end_to_end": e2e, "step_ms": steps}
+    emit("timing_filter", **out)
+    return out
+
+
+# --- 7. kernels away from the default config ---------------------------------
 
 def _passes_ms(fn, kern: str, calls: int = 3) -> dict:
     """Device ms per call of each __global__ function of ``kern`` over
@@ -1038,16 +1456,18 @@ def limits_phase(full: dict) -> dict:
     return out
 
 
-# --- 7. device time by kernel ---------------------------------------------------
+# --- 8. device time by kernel ------------------------------------------------
 
 # The __global__ functions each wrapper launches, in launch order.
 KERNEL_FUNCTIONS = {
     "prefilter": ("pack_kernel", "transpose_kernel", "score_kernel",
-                  "threshold_kernel", "collect_kernel", "sort_kernel"),
+                  "score_query_kernel", "threshold_kernel", "collect_kernel",
+                  "sort_kernel"),
     "pqinter": ("sbar_kernel", "select1_kernel", "eq56_kernel",
                 "select2_kernel"),
     "bitpack": ("bitpack_kernel",),
-    "bitfilter": ("bitfilter_rows_kernel", "bitfilter_score_kernel"),
+    "bitfilter": ("bitfilter_rows_kernel", "bitfilter_score_kernel",
+                  "bitfilter_query_kernel"),
     "cinter": ("cinter_kernel",),
     "pqscore": ("pqscore_kernel",),
 }
@@ -1148,7 +1568,7 @@ def profile_phase(full: dict, calls: int = 5) -> dict:
     return out
 
 
-# --- 8. the kernels line ---------------------------------------------------------
+# --- 9. the kernels line -----------------------------------------------------
 
 KERNELS = {
     "prefilter": dict(
@@ -1181,9 +1601,11 @@ KERNELS = {
 
 
 def kernels_line(small_err: dict, full: dict, timing: dict,
-                 prof: dict) -> dict:
-    """Phase 8: one record per kernel, from this run's measurements. Each
-    kernel's launches, time and profile come from the lane that runs it."""
+                 prof: dict, ftiming: dict) -> dict:
+    """Phase 9: one record per kernel, from this run's measurements. Each
+    kernel's launches, time and profile come from the lane that runs it on
+    the main path; ``forms`` holds its filtered and compact operand forms,
+    each from its own config's run."""
     rows = []
     for name, info in KERNELS.items():
         lane = info["lane"]
@@ -1213,6 +1635,17 @@ def kernels_line(small_err: dict, full: dict, timing: dict,
                 "pass_device_ms_per_wrapper_call"][name],
             "pass_ms_b1": prof[f"{lane}_b1"][
                 "pass_device_ms_per_wrapper_call"][name],
+            "forms": {form: {
+                "config": f["config"], "launches": f["launches"],
+                "launches_b1": f["launches_b1"],
+                "max_abs_err": max(f["max_abs_err"], f["max_abs_err_b1"]),
+                "ms": f["ms"], "plain_ms": f["plain_ms"],
+                "bound_ms": f["bound"]["bound_ms"],
+                "bound_by": f["bound"]["bound_by"],
+                "bound_bytes": f["bound"]["bytes"], "library_ms": None,
+                "ms_b1": f["ms_b1"], "plain_ms_b1": f["plain_ms_b1"],
+                "bound_ms_b1": f["bound_b1"]["bound_ms"]}
+                for form, f in ftiming["forms"].get(name, {}).items()},
             "ok": True,
         })
     return {"kernels": rows}
@@ -1227,10 +1660,12 @@ def main() -> None:
     build_phase()
     small_err = small_phase(dev)
     full = full_phase(dev)
+    filt = filter_phase(full)
     timing = timing_phase(full)
+    ftiming = filter_timing_phase(filt)
     limits_phase(full)
     prof = profile_phase(full)
-    line = kernels_line(small_err, full, timing, prof)
+    line = kernels_line(small_err, full, timing, prof, ftiming)
     RECORD["kernels"] = line["kernels"]
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:

@@ -7,11 +7,20 @@ passage's filter score is ``F(P, q) = popcount(OR_{j in P} word[code_j])``
 max on ``uint32``, so words live in int32 tensors holding the same 32 bits
 (a word with bit 31 set reads as negative) and :func:`popcount` is written
 out.
+
+The same word layout holds per-document metadata: :class:`PredicateSet`
+packs up to 32 named predicates into one uint32 word per document, and a
+:class:`FilterExpr` compiles through :func:`compile_filter` into a
+:class:`FilterPlan` of ``(required, forbidden)`` clause pairs that
+:func:`apply_filter_plan` and the prefilter kernel evaluate the same way
+(docs/FILTERING.md).
 """
 from __future__ import annotations
 
-from typing import Optional
+import dataclasses
+from typing import Mapping, Optional, Union
 
+import numpy as np
 import torch
 
 from .topk import topk
@@ -87,3 +96,205 @@ def masked_topk_centroids(cs: torch.Tensor, th: float, nprobe: int,
         idx = torch.where(q_mask[..., :, None], idx,
                           torch.full_like(idx, cs.shape[-1]))
     return idx
+
+
+# ---------------------------------------------------------------------------
+# Predicate planes (ref ``:125-330``): the same word layout, one uint32 word
+# per document, bit i = "predicate names[i] holds". Compiled filters are
+# static DNF clauses of (required, forbidden) masks over that word.
+# ---------------------------------------------------------------------------
+
+MAX_PREDICATES = 32  # one uint32 word per document
+
+
+def _signed(mask: int) -> int:
+    """A uint32 mask as the int32 with the same bits."""
+    return mask - (1 << 32) if mask >= 1 << 31 else mask
+
+
+def _as_int32_words(words: torch.Tensor) -> torch.Tensor:
+    """uint32 (or int32) words as int32 holding the same bits: torch has no
+    ``&`` or ``==`` for uint32 on the CPU."""
+    if words.dtype == torch.uint32:
+        return words.view(torch.int32)
+    return words.to(torch.int32)
+
+
+@dataclasses.dataclass(frozen=True)
+class PredicateSet:
+    """Named boolean per-document predicates packed one bit per name (ref
+    ``:133``): ``words[d]`` (uint32) has bit ``i`` set iff ``names[i]``
+    holds for document ``d``."""
+
+    names: tuple[str, ...]
+    words: torch.Tensor  # (n_docs,) uint32
+
+    @classmethod
+    def pack(cls, predicates: Mapping[str, np.ndarray]) -> "PredicateSet":
+        """Pack ``{name: (n_docs,) bool array}`` into one word per doc; the
+        mapping's order fixes the bit positions."""
+        names = tuple(predicates)
+        if not names:
+            raise ValueError(
+                "PredicateSet.pack got an empty mapping: pass at least one "
+                "named predicate, or use predicates=None for no plane")
+        if len(names) > MAX_PREDICATES:
+            raise ValueError(
+                f"{len(names)} predicates > {MAX_PREDICATES}: the plane "
+                "packs one bit per predicate into a uint32 word")
+        if len(set(names)) != len(names):
+            raise ValueError(f"duplicate predicate names in {names}")
+        words = None
+        for i, name in enumerate(names):
+            col = np.asarray(predicates[name])
+            if col.ndim != 1:
+                raise ValueError(
+                    f"predicate {name!r} has shape {col.shape}: expected a "
+                    "1-D (n_docs,) boolean array")
+            if words is None:
+                words = np.zeros(col.shape[0], np.uint32)
+            elif col.shape[0] != words.shape[0]:
+                raise ValueError(
+                    f"predicate {name!r} has {col.shape[0]} docs but "
+                    f"{names[0]!r} has {words.shape[0]}: all predicates "
+                    "must cover the same corpus")
+            words |= col.astype(bool).astype(np.uint32) << np.uint32(i)
+        return cls(names, torch.from_numpy(words))
+
+    def mask(self, name: str) -> torch.Tensor:
+        """Unpack one named predicate back to a (n_docs,) bool tensor."""
+        try:
+            i = self.names.index(name)
+        except ValueError:
+            raise ValueError(
+                f"unknown predicate {name!r}: this set has {self.names}"
+            ) from None
+        return ((_as_int32_words(self.words) >> i) & 1) != 0
+
+
+class FilterExpr:
+    """Base of the AND/OR/NOT expression tree over predicate names (ref
+    ``:185``): compose with ``&``, ``|`` and ``~``, then compile against an
+    index's ``meta.pred_names`` with :func:`compile_filter`. Frozen and
+    hashable."""
+
+    def __and__(self, other: "FilterExpr") -> "And":
+        return And(self, other)
+
+    def __or__(self, other: "FilterExpr") -> "Or":
+        return Or(self, other)
+
+    def __invert__(self) -> "Not":
+        return Not(self)
+
+
+@dataclasses.dataclass(frozen=True)
+class Pred(FilterExpr):
+    """Leaf: the named predicate must hold."""
+
+    name: str
+
+
+@dataclasses.dataclass(frozen=True)
+class And(FilterExpr):
+    """Both sub-expressions must hold."""
+
+    lhs: FilterExpr
+    rhs: FilterExpr
+
+
+@dataclasses.dataclass(frozen=True)
+class Or(FilterExpr):
+    """At least one sub-expression must hold."""
+
+    lhs: FilterExpr
+    rhs: FilterExpr
+
+
+@dataclasses.dataclass(frozen=True)
+class Not(FilterExpr):
+    """The sub-expression must NOT hold."""
+
+    operand: FilterExpr
+
+
+@dataclasses.dataclass(frozen=True)
+class FilterPlan:
+    """A compiled filter (ref ``:242``): ``clauses`` is a tuple of
+    ``(required, forbidden)`` uint32 mask pairs; a document with word ``w``
+    passes iff ANY clause has ``(w & required) == required and (w &
+    forbidden) == 0``. An empty tuple passes nothing, the clause ``(0, 0)``
+    everything. ``names`` is the pred_names order it was compiled
+    against."""
+
+    names: tuple[str, ...]
+    clauses: tuple[tuple[int, int], ...]
+
+
+def _dnf(expr: FilterExpr, bit_of: dict, negate: bool
+         ) -> list[tuple[int, int]]:
+    """Push negations to the leaves and expand to (required, forbidden)
+    clause pairs; a clause that requires and forbids one bit is dropped."""
+    if isinstance(expr, Pred):
+        if expr.name not in bit_of:
+            raise ValueError(
+                f"filter references unknown predicate {expr.name!r}: this "
+                f"index has {tuple(bit_of) or '(no predicate plane)'}")
+        bit = 1 << bit_of[expr.name]
+        return [(0, bit)] if negate else [(bit, 0)]
+    if isinstance(expr, Not):
+        return _dnf(expr.operand, bit_of, not negate)
+    if not isinstance(expr, (And, Or)):
+        raise TypeError(
+            f"expected a FilterExpr (Pred/And/Or/Not), got "
+            f"{type(expr).__name__}")
+    lhs = _dnf(expr.lhs, bit_of, negate)
+    rhs = _dnf(expr.rhs, bit_of, negate)
+    conjunction = isinstance(expr, And) != negate  # De Morgan under negate
+    if not conjunction:
+        return lhs + rhs
+    out = []
+    for p1, n1 in lhs:
+        for p2, n2 in rhs:
+            pos, neg = p1 | p2, n1 | n2
+            if pos & neg:
+                continue
+            out.append((pos, neg))
+    return out
+
+
+def compile_filter(expr: FilterExpr,
+                   names: tuple[str, ...]) -> FilterPlan:
+    """Compile a :class:`FilterExpr` against the index's predicate order
+    ``names`` (``meta.pred_names``) into a :class:`FilterPlan` (ref
+    ``:295``): DNF clauses in the reference's order, duplicates dropped."""
+    names = tuple(names)
+    if len(names) > MAX_PREDICATES:
+        raise ValueError(f"{len(names)} predicate names > {MAX_PREDICATES}")
+    bit_of = {n: i for i, n in enumerate(names)}
+    if len(bit_of) != len(names):
+        raise ValueError(f"duplicate predicate names in {names}")
+    clauses, seen = [], set()
+    for c in _dnf(expr, bit_of, False):
+        if c not in seen:
+            seen.add(c)
+            clauses.append(c)
+    return FilterPlan(names=names, clauses=tuple(clauses))
+
+
+def apply_filter_plan(plan: Union[FilterPlan, tuple],
+                      words: torch.Tensor) -> torch.Tensor:
+    """Evaluate a compiled plan (or its raw ``clauses``) on predicate words
+    (...,) uint32 or int32 -> (...,) bool, True where the document passes
+    (ref ``:315``). The words are compared as int32 holding the same bits."""
+    clauses = plan.clauses if isinstance(plan, FilterPlan) else tuple(plan)
+    w = _as_int32_words(words)
+    ok = torch.zeros(w.shape, dtype=torch.bool, device=w.device)
+    for pos, neg in clauses:
+        c = torch.ones(w.shape, dtype=torch.bool, device=w.device)
+        if pos:
+            c = c & ((w & _signed(pos)) == _signed(pos))
+        if neg:
+            c = c & ((w & _signed(neg)) == 0)
+        ok = ok | c
+    return ok

@@ -13,12 +13,18 @@ CUDA on the card, their plain PyTorch versions on the CPU. With the default
 two fused megakernels; with either flag False that half runs the unfused
 kernels of the reference's second kernel lane (bitpack + bitfilter, cinter +
 pqscore) with the selections between them in torch. ``use_kernels=False``
-runs the reference math of ``core`` (the reference's unfused score_all
-path). All lanes give the same ids and score bits.
+runs the reference math of ``core`` (the reference's unfused path). All
+lanes give the same ids and score bits.
 
-This slice covers score_all candidates, float32 CS and no document filter.
-The other configurations raise ``NotImplementedError`` naming the ROADMAP
-item that ports them.
+Both candidate modes run: ``score_all`` (Eq. 4 over the whole corpus under
+the candidate bitmap) and ``compact`` (each query's candidates gathered
+into a ``cand_cap`` buffer first, the paper's loop). A predicate filter
+(``doc_filter``, a compiled ``bitvector.FilterPlan``) is enforced at every
+selection, as in the reference (docs/FILTERING.md): phase 2 ANDs the pass
+mask into the candidate bitmap (inside the prefilter kernel in score_all
+mode, before compaction in compact mode), phases 3-4 mask failing
+survivors to -inf (inside pqinter on the fused lane). bf16 CS raises
+``NotImplementedError`` naming the ROADMAP item that ports it.
 
 The batch dimension is written out: there is no vmap. At B = 1 the batched
 kernels run with B = 1 (row b of the batched kernels equals the
@@ -47,8 +53,9 @@ class EngineConfig:
     """Static retrieval configuration — the reference's fields and defaults
     (``repro/core/engine.py:57``) minus ``kernel_interpret``, whose job the
     tensors' device does here. ``__post_init__`` raises the reference's
-    errors, then ``NotImplementedError`` for configurations this slice does
-    not port."""
+    errors, then ``NotImplementedError`` for bf16 CS, which is not ported
+    yet. ``compact_cap`` acts only with ``use_kernels=False``, as in the
+    reference."""
 
     n_q: int = 32
     nprobe: int = 4
@@ -67,7 +74,7 @@ class EngineConfig:
     cand_cap: int = 4096
     compact_cap: Optional[int] = None
     cs_dtype: str = "float32"
-    doc_filter: Optional[object] = None
+    doc_filter: Optional[bitvector.FilterPlan] = None
 
     def __post_init__(self):
         """Reject inconsistent and not-yet-ported configurations."""
@@ -107,17 +114,17 @@ class EngineConfig:
             raise ValueError(
                 f"unknown cs_dtype={self.cs_dtype!r}: expected 'float32' or "
                 "'bfloat16'")
-        todo = {
-            "candidate_mode='compact'": self.candidate_mode == "compact",
-            "compact_cap": self.compact_cap is not None,
-            "cs_dtype='bfloat16'": self.cs_dtype == "bfloat16",
-            "doc_filter": self.doc_filter is not None,
-        }
-        for what, hit in todo.items():
-            if hit:
-                raise NotImplementedError(
-                    f"{what} is not ported yet (ROADMAP Queue 1, item 4: "
-                    "engine remainder)")
+        if self.doc_filter is not None and \
+                not isinstance(self.doc_filter, bitvector.FilterPlan):
+            raise ValueError(
+                f"doc_filter is a {type(self.doc_filter).__name__}: expected "
+                "a compiled FilterPlan (or None) — compile your FilterExpr "
+                "against the index's predicate names first with "
+                "bitvector.compile_filter(expr, meta.pred_names)")
+        if self.cs_dtype == "bfloat16":
+            raise NotImplementedError(
+                "cs_dtype='bfloat16' is not ported yet (ROADMAP Queue 1, "
+                "item 4: engine remainder)")
 
 
 class RetrievalResult(NamedTuple):
@@ -133,6 +140,14 @@ class QueryBatch(NamedTuple):
 
     q: torch.Tensor
     q_mask: Optional[torch.Tensor] = None
+
+
+def _with_filter(cfg: EngineConfig, doc_filter) -> EngineConfig:
+    """``cfg`` with a per-call ``doc_filter`` folded in (it wins over the
+    config's own, ref ``engine.py:216``)."""
+    if doc_filter is None:
+        return cfg
+    return dataclasses.replace(cfg, doc_filter=doc_filter)
 
 
 def _as_query_batch(queries, q_masks=None) -> QueryBatch:
@@ -184,6 +199,55 @@ def candidate_bitmap(ivf: torch.Tensor, ivf_lens: torch.Tensor,
     return bitmap.reshape(*lead, n_docs)
 
 
+def _doc_pass(index: PackedIndex, cfg: EngineConfig
+              ) -> Optional[torch.Tensor]:
+    """(n_docs,) bool, the docs passing ``cfg.doc_filter`` on the index's
+    predicate plane, or None when unfiltered (ref ``engine.py:255``)."""
+    if cfg.doc_filter is None:
+        return None
+    return bitvector.apply_filter_plan(cfg.doc_filter, index.pred_words)
+
+
+_RUN = 256   # docs a run of the candidate-buffer search
+
+
+def _compact_candidates(bitmap: torch.Tensor, cfg: EngineConfig):
+    """Each query's fixed-size candidate buffer (ref ``engine.py:290``,
+    ``lax.top_k(bitmap, cand_cap)``): its candidate doc ids ascending, then
+    non-candidates ascending to fill ``cand_cap`` slots — a stable
+    partition, with no sort over the corpus and no wait on the device.
+    Slot p holds the (p + 1)-th candidate: a binary search over the running
+    count of candidates per run of ``_RUN`` docs finds its run, and a count
+    within that run its doc. The fills come likewise from the non-candidates
+    among the first ``cand_cap`` docs, which hold every fill a row needs.
+    bitmap (B, n_docs) -> (cand_ids (B, cand_cap) int64, cand_valid
+    (B, cand_cap) bool)."""
+    nb, n_docs = bitmap.shape
+    cap = cfg.cand_cap
+    if cap > n_docs:
+        raise ValueError(f"cand_cap={cap} > the index's {n_docs} docs: the "
+                         "candidate buffer selects cand_cap of them")
+    dev = bitmap.device
+    runs = torch.nn.functional.pad(bitmap, (0, -n_docs % _RUN)).view(
+        nb, -1, _RUN)
+    per_run = runs.sum(2, dtype=torch.int32)                   # (B, R)
+    ends = torch.cumsum(per_run, 1, dtype=torch.int32)
+    rank = torch.arange(1, cap + 1, dtype=torch.int32,
+                        device=dev).expand(nb, cap).contiguous()
+    run = torch.searchsorted(ends, rank).clamp(max=runs.shape[1] - 1)
+    within = rank - torch.gather(ends, 1, run) + torch.gather(per_run, 1, run)
+    rows = torch.arange(nb, device=dev)[:, None]
+    local = torch.cumsum(runs[rows, run], 2, dtype=torch.int32)
+    set_ids = run * _RUN + torch.searchsorted(
+        local, within.clamp(min=1)[..., None])[..., 0]
+    n_set = ends[:, -1:]
+    fill = torch.cumsum(~bitmap[:, :cap], 1, dtype=torch.int32)
+    valid = rank <= n_set
+    ids = torch.where(valid, set_ids,
+                      torch.searchsorted(fill, (rank - n_set).clamp(min=1)))
+    return ids, valid
+
+
 # ---------------------------------------------------------------------------
 # Single-phase helpers (ref ``engine.py:269-452``): each has a kernel branch
 # through ``ops`` and the reference math of ``core``. ``retrieve`` and the
@@ -202,20 +266,39 @@ def _candidates(index: PackedIndex, cs: torch.Tensor, cfg: EngineConfig,
 def _phase1(index: PackedIndex, queries: torch.Tensor, cfg: EngineConfig,
             q_masks=None, *, cs=None):
     """Phase 1 -> (cs (B, n_q, n_c), bits (B, n_c) int32 words, bitmap
-    (B, n_docs) bool). Masked terms pack a 0 bit and probe no IVF list."""
+    (B, n_docs) bool). Masked terms pack a 0 bit and probe no IVF list;
+    docs failing ``cfg.doc_filter`` are never candidates."""
     if cs is None:
         cs = centroid_scores(queries, index.centroids, cfg.cs_dtype)
     if cfg.use_kernels:
         bits = ops.bitpack_batched(cs, cfg.th, q_masks)
     else:
         bits = bitvector.build_bitvectors(cs, cfg.th, q_masks)
-    return cs, bits, _candidates(index, cs, cfg, q_masks)
+    bitmap = _candidates(index, cs, cfg, q_masks)
+    doc_pass = _doc_pass(index, cfg)
+    if doc_pass is not None:
+        bitmap = bitmap & doc_pass
+    return cs, bits, bitmap
 
 
 def _phase2(index: PackedIndex, bits: torch.Tensor, bitmap: torch.Tensor,
             cfg: EngineConfig) -> torch.Tensor:
-    """Unfused pre-filter: Eq. 4 on every doc, -1 outside the bitmap,
+    """Unfused pre-filter: Eq. 4 on every doc (score_all) or on each
+    query's candidate buffer (compact), -1 outside the candidates,
     top-n_filter -> sel1 (B, n_filter) int64."""
+    if cfg.candidate_mode == "compact":
+        cand_ids, cand_valid = _compact_candidates(bitmap, cfg)
+        c_codes = index.codes[cand_ids]
+        c_lens = torch.where(cand_valid, index.doc_lens[cand_ids], 0)
+        if cfg.use_kernels:
+            f = ops.bitfilter_batched(bits, c_codes, c_lens)
+        else:
+            c_mask = (torch.arange(c_codes.shape[-1], device=bits.device)
+                      < c_lens[..., None])
+            f = torch.stack([bitvector.filter_score(*x)
+                             for x in zip(bits, c_codes, c_mask)])
+        f = torch.where(cand_valid, f, torch.full_like(f, -1))
+        return torch.gather(cand_ids, 1, topk(f, cfg.n_filter)[1])
     if cfg.use_kernels:
         f = ops.bitfilter_batched(bits, index.codes, index.doc_lens)
     else:
@@ -229,28 +312,44 @@ def _phase2(index: PackedIndex, bits: torch.Tensor, bitmap: torch.Tensor,
 def _phase3(index: PackedIndex, cs_t: torch.Tensor, sel1: torch.Tensor,
             cfg: EngineConfig, q_masks=None) -> torch.Tensor:
     """Centroid interaction on the survivors -> sel2 (B, n_docs) int64.
-    cs_t is the (B, n_c, n_q) transposed CS."""
+    cs_t is the (B, n_c, n_q) transposed CS. Survivors failing
+    ``cfg.doc_filter`` are -inf before the cut."""
     codes = index.codes[sel1]
     if cfg.use_kernels:
         sbar = ops.cinter_batched(cs_t, codes, index.doc_lens[sel1], q_masks)
     else:
         sbar = interaction.centroid_interaction(
             cs_t, codes, index.token_mask()[sel1], q_masks)
+    doc_pass = _doc_pass(index, cfg)
+    if doc_pass is not None:
+        sbar = torch.where(doc_pass[sel1], sbar,
+                           torch.full_like(sbar, -torch.inf))
     _, local = topk(sbar, cfg.n_docs)
     return torch.gather(sel1, 1, local)
 
 
 def _phase4(index: PackedIndex, cs_t: torch.Tensor, lut: torch.Tensor,
             sel2: torch.Tensor, cfg: EngineConfig, q_masks=None):
-    """PQ late interaction (+ Eq. 6) -> (scores (B, k), ids (B, k))."""
+    """PQ late interaction (+ Eq. 6) -> (scores (B, k), ids (B, k)).
+    ``cfg.compact_cap`` compacts tokens first on the reference math only
+    (the kernels ignore it, as the reference's do); survivors failing
+    ``cfg.doc_filter`` are -inf before the cut."""
     codes, res = index.codes[sel2], index.res_codes[sel2]
     if cfg.use_kernels:
         scores = ops.pqscore_batched(cs_t, lut, codes, res,
                                      index.doc_lens[sel2], cfg.th_r, q_masks)
+    elif cfg.compact_cap is not None:
+        scores = interaction.late_interaction_pq_compact(
+            cs_t, lut, codes, res, index.token_mask()[sel2], cfg.th_r,
+            cfg.compact_cap, q_masks)
     else:
         scores = interaction.late_interaction_pq(
             cs_t, lut, codes, res, index.token_mask()[sel2], cfg.th_r,
             q_masks)
+    doc_pass = _doc_pass(index, cfg)
+    if doc_pass is not None:
+        scores = torch.where(doc_pass[sel2], scores,
+                             torch.full_like(scores, -torch.inf))
     top, local = topk(scores, cfg.k)
     return top, torch.gather(sel2, 1, local)
 
@@ -269,9 +368,25 @@ def _phase12_batch(index: PackedIndex, queries: torch.Tensor,
     if cs is None:
         cs = centroid_scores(queries, index.centroids, cfg.cs_dtype)
     bitmap = _candidates(index, cs, cfg, q_masks)
+    if cfg.candidate_mode == "compact":
+        # the filter goes in before compaction: failing docs never take a
+        # slot of the buffer; the buffer's lengths are not masked by
+        # cand_valid, which goes in as the bitmap (ref engine.py:339-352)
+        doc_pass = _doc_pass(index, cfg)
+        if doc_pass is not None:
+            bitmap = bitmap & doc_pass
+        cand_ids, cand_valid = _compact_candidates(bitmap, cfg)
+        _, local, _ = ops.prefilter_batched(
+            cs, cfg.th, index.codes[cand_ids], index.doc_lens[cand_ids],
+            cand_valid, cfg.n_filter, q_masks)
+        return cs, torch.gather(cand_ids, 1, local.long())
+    # score_all: the plan's verdict on each doc's predicate word is ANDed
+    # into the bitmap inside the kernel
+    plan = None if cfg.doc_filter is None else cfg.doc_filter.clauses
     _, sel1, _ = ops.prefilter_batched(cs, cfg.th, index.codes,
                                        index.doc_lens, bitmap, cfg.n_filter,
-                                       q_masks)
+                                       q_masks, pred_words=index.pred_words,
+                                       plan=plan)
     return cs, sel1.long()
 
 
@@ -303,9 +418,11 @@ def _phase34_batch(index: PackedIndex, queries: torch.Tensor,
         lut = _query_lut(index, queries)
     sel1 = sel1.long()
     if cfg.use_kernels and cfg.fused_late_interaction:
+        doc_pass = _doc_pass(index, cfg)
         scores, pos, _, _ = ops.pqinter_batched(
             *_survivor_operands(index, cs, lut, sel1), cfg.th_r, cfg.n_docs,
-            cfg.k, q_masks)
+            cfg.k, q_masks,
+            doc_pass=None if doc_pass is None else doc_pass[sel1])
         ids = torch.gather(sel1, 1, pos.long())
     else:
         cs_t = _transposed(cs)
@@ -347,19 +464,20 @@ def retrieve(index: PackedIndex, queries, cfg: EngineConfig, q_masks=None,
     Runs on CUDA unless ``device="cpu"``: with no GPU and no device given
     it raises rather than running on the CPU. ``q_masks`` (B, n_q) bool
     marks live query terms; masked terms are excluded from every phase.
-    ``doc_filter`` is not ported yet and raises ``NotImplementedError``.
+    ``doc_filter``, a compiled ``bitvector.FilterPlan``, restricts results
+    to the docs that pass it and overrides ``cfg.doc_filter`` for this
+    call; under lossless budgets filtered retrieval equals
+    retrieve-then-post-filter bit for bit.
     """
-    if doc_filter is not None:
-        raise NotImplementedError("doc_filter is not ported yet (ROADMAP "
-                                  "Queue 1, item 4: engine remainder)")
     q, qm = _inputs(index, queries, q_masks, device)
-    return _retrieve_batch(index, q, cfg, qm)
+    return _retrieve_batch(index, q, _with_filter(cfg, doc_filter), qm)
 
 
 # ---------------------------------------------------------------------------
 # Phase-split entry points (ref ``engine.py:697-841``), batched signatures
 # only: ``phaseN(index, queries, cfg, *, q_mask=None, ...)`` with the
-# intermediates as keyword arguments with a leading batch axis. They compose
+# intermediates as keyword arguments with a leading batch axis, and
+# ``doc_filter=`` folded into the config as ``retrieve`` does. They compose
 # the same helpers ``retrieve`` runs; the single-phase ones run the unfused
 # helpers whatever the fused flags say, as the reference's do.
 # ---------------------------------------------------------------------------
@@ -370,21 +488,24 @@ def _on(index: PackedIndex, x, dtype=None) -> torch.Tensor:
 
 
 def phase1_candidates(index: PackedIndex, queries, cfg: EngineConfig, *,
-                      q_mask=None, device=None):
+                      q_mask=None, doc_filter=None, device=None):
     """Phase 1 (ref ``engine.py:697``) -> (cs (B, n_q, n_c), bits (B, n_c)
     int32 holding the reference's uint32 words, bitmap (B, n_docs) bool):
     centroid scores, the stacked Eq. 4 bit vectors and the IVF candidate
     bitmap."""
+    cfg = _with_filter(cfg, doc_filter)
     q, qm = _inputs(index, queries, q_mask, device)
     return _phase1(index, q, cfg, qm)
 
 
 def phase2_prefilter(index: PackedIndex, queries, cfg: EngineConfig, *,
-                     q_mask=None, bits=None, bitmap=None, device=None):
+                     q_mask=None, bits=None, bitmap=None, doc_filter=None,
+                     device=None):
     """Phase 2 (ref ``engine.py:714``) -> sel1 (B, n_filter) int32: Eq. 4
     for every doc, the top-n_filter candidates. ``bits``/``bitmap`` are
     phase 1's outputs; omitted, phase 1 runs here (the only use of
     ``q_mask``: masked terms are already 0 bits in ``bits``)."""
+    cfg = _with_filter(cfg, doc_filter)
     q, qm = _inputs(index, queries, q_mask, device)
     if bits is None or bitmap is None:
         _, bits, bitmap = _phase1(index, q, cfg, qm)
@@ -394,10 +515,11 @@ def phase2_prefilter(index: PackedIndex, queries, cfg: EngineConfig, *,
 
 
 def phase12_prefilter(index: PackedIndex, queries, cfg: EngineConfig, *,
-                      q_mask=None, device=None):
+                      q_mask=None, doc_filter=None, device=None):
     """Fused phases 1-2 (ref ``engine.py:738``), batched signature only:
     ``(index, queries, cfg, *, q_mask=None)`` -> (cs (B, n_q, n_c),
     sel1 (B, n_filter) int32)."""
+    cfg = _with_filter(cfg, doc_filter)
     q, qm = _inputs(index, queries, q_mask, device)
     cs, sel1 = _phase12_batch(index, q, cfg, qm)
     return cs, sel1.to(torch.int32)
@@ -405,10 +527,12 @@ def phase12_prefilter(index: PackedIndex, queries, cfg: EngineConfig, *,
 
 def phase3_centroid_interaction(index: PackedIndex, queries,
                                 cfg: EngineConfig, *, q_mask=None, cs=None,
-                                sel1=None, device=None) -> torch.Tensor:
+                                sel1=None, doc_filter=None,
+                                device=None) -> torch.Tensor:
     """Phase 3 (ref ``engine.py:757``) -> sel2 (B, n_docs) int32: S̄ on the
     phase-2 survivors, the top-n_docs. ``cs``/``sel1`` are phase 1-2's
     outputs; omitted, phases 1-2 run here."""
+    cfg = _with_filter(cfg, doc_filter)
     q, qm = _inputs(index, queries, q_mask, device)
     if cs is None or sel1 is None:
         cs_c, sel1_c = _phase12_batch(index, q, cfg, qm)
@@ -421,11 +545,12 @@ def phase3_centroid_interaction(index: PackedIndex, queries,
 
 def phase4_late_interaction(index: PackedIndex, queries, cfg: EngineConfig,
                             *, q_mask=None, cs=None, sel2=None,
-                            device=None) -> RetrievalResult:
+                            doc_filter=None, device=None) -> RetrievalResult:
     """Phase 4 (ref ``engine.py:782``) -> RetrievalResult ((B, k) scores
     and doc ids): Eq. 5, or Eq. 6 when ``cfg.th_r`` is set, on the phase-3
     survivors, then the top-k. ``cs``/``sel2`` are phase 1-3's outputs;
     omitted, phases 1-3 run here."""
+    cfg = _with_filter(cfg, doc_filter)
     q, qm = _inputs(index, queries, q_mask, device)
     if cs is None or sel2 is None:
         cs_c, sel1 = _phase12_batch(index, q, cfg, qm)
@@ -440,11 +565,12 @@ def phase4_late_interaction(index: PackedIndex, queries, cfg: EngineConfig,
 
 def phase34_late_interaction(index: PackedIndex, queries, cfg: EngineConfig,
                              *, q_mask=None, cs=None, sel1=None,
-                             device=None) -> RetrievalResult:
+                             doc_filter=None, device=None) -> RetrievalResult:
     """Fused phases 3-4 (ref ``engine.py:809``), batched signature only:
     ``(index, queries, cfg, *, q_mask=None, cs, sel1)`` -> RetrievalResult.
     ``cs``/``sel1`` are phase 1-2's outputs; omitted, phases 1-2 run
     here."""
+    cfg = _with_filter(cfg, doc_filter)
     q, qm = _inputs(index, queries, q_mask, device)
     if cs is None or sel1 is None:
         cs_c, sel1_c = _phase12_batch(index, q, cfg, qm)

@@ -13,7 +13,10 @@ from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
+
+from .topk import topk
 
 NEG = -1e9
 
@@ -106,6 +109,95 @@ def late_interaction_pq(cs_t: torch.Tensor, lut: torch.Tensor,
         masked_max = torch.amax(torch.where(keep, full, neg), dim=-2)
         full_max = torch.amax(full, dim=-2)
         colmax = torch.where(keep.any(dim=-2), masked_max, full_max)
+    if q_mask is not None:
+        colmax = torch.where(_live(q_mask, colmax.dim()), colmax,
+                             torch.zeros_like(colmax))
+    return term_sum(colmax)
+
+
+def _f32(v: float) -> float:
+    """A constant rounded to float32."""
+    return float(np.float32(v))
+
+
+def _fma(a: torch.Tensor, b, c) -> torch.Tensor:
+    """float32 a * b + c rounded once, as a fused multiply-add (the float64
+    product of two floats is exact); b and c are float32 values."""
+    return (a.double() * b + c).float()
+
+
+_F32_TINY = _f32(1.1754943508222875e-38)   # the smallest normal float32
+_EXP_POLY = tuple(_f32(v) for v in (
+    1.9875691500e-4, 1.3981999507e-3, 8.3334519073e-3, 4.1665795894e-2,
+    1.6666665459e-1, 5.0000001201e-1))
+
+
+def _flush(x: torch.Tensor) -> torch.Tensor:
+    """Subnormal float32 results to zero."""
+    return torch.where(x.abs() < _F32_TINY, torch.zeros_like(x), x)
+
+
+def reference_sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """float32 logistic with the reference's bits: ``jax.nn.sigmoid`` lowers
+    to ``1 / (1 + exp(-x))`` on XLA's CPU, whose exp is the Cephes
+    polynomial with fused multiply-adds, and XLA flushes subnormal results
+    to zero. ``torch.sigmoid`` differs from it in the last bit on some
+    inputs, which changes ties in the ranking of
+    :func:`late_interaction_pq_compact`."""
+    t = torch.clamp(-x, _f32(-88.8), _f32(88.8))
+    fx = torch.floor(t * _f32(1.44269504088896341) + 0.5)
+    r = _fma(-fx, _f32(-2.12194440e-4), _fma(-fx, 0.693359375, t))
+    y = _fma(r, _EXP_POLY[0], _EXP_POLY[1])
+    for p in _EXP_POLY[2:]:
+        y = _fma(y, r, p)
+    y = _fma(y, (r * r).double(), r) + 1.0
+    e = _flush(y * torch.pow(2.0, fx))
+    return _flush(1.0 / (1.0 + e))
+
+
+def late_interaction_pq_compact(cs_t: torch.Tensor, lut: torch.Tensor,
+                                codes: torch.Tensor, res_codes: torch.Tensor,
+                                token_mask: torch.Tensor, th_r: float,
+                                cap_c: int,
+                                q_mask: Optional[torch.Tensor] = None
+                                ) -> torch.Tensor:
+    """Eq. 6 over a per-token compaction (ref ``:164``): a token is kept
+    when its centroid's largest live term score beats ``th_r`` (keymax);
+    each doc's ``cap_c`` buffer holds its kept tokens first, then the rest
+    by keymax (a lax-order selection on ``2 * keep + sigmoid(keymax)``),
+    and Eq. 6 runs on the buffer, a term with no kept token falling back to
+    the max over it. Batched with a leading B on every operand."""
+    n_c = cs_t.shape[-2]
+    if q_mask is not None:
+        live = q_mask[..., None, :]
+        cs_live = torch.where(live, cs_t, torch.full_like(cs_t, NEG))
+    else:
+        cs_live = cs_t
+    row_max = torch.amax(cs_live, dim=-1)                   # (..., n_c)
+    idx = torch.clamp(codes, 0, n_c - 1).long()
+    if row_max.dim() == 1:
+        keymax = row_max[idx]
+    else:
+        keymax = torch.gather(row_max, 1, idx.reshape(idx.shape[0], -1)
+                              ).reshape(idx.shape)
+    keep = (keymax > th_r) & token_mask
+    rank = torch.where(token_mask,
+                       keep.to(torch.float32) * 2.0
+                       + reference_sigmoid(keymax),
+                       torch.full_like(keymax, -1.0))
+    sel = topk(rank, cap_c)[1]                         # (..., docs, cap_c)
+    codes_c = torch.gather(codes, -1, sel)
+    mask_c = torch.gather(token_mask, -1, sel)
+    res_c = torch.gather(res_codes, -2, sel[..., None].expand(
+        *sel.shape, res_codes.shape[-1]))
+    centroid = gather_centroid_scores(cs_t, codes_c)
+    full = centroid + _lut_gather(lut, res_c)
+    neg = torch.full_like(full, NEG)
+    full = torch.where(mask_c[..., None], full, neg)
+    keep_t = (centroid > th_r) & mask_c[..., None]
+    masked_max = torch.amax(torch.where(keep_t, full, neg), dim=-2)
+    comp_max = torch.amax(full, dim=-2)
+    colmax = torch.where(keep_t.any(dim=-2), masked_max, comp_max)
     if q_mask is not None:
         colmax = torch.where(_live(q_mask, colmax.dim()), colmax,
                              torch.zeros_like(colmax))

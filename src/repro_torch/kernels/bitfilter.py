@@ -20,6 +20,11 @@ Unlike the prefilter, nothing is masked: every doc is scored, and the
 engine applies the candidate bitmap after (``where(bitmap, F, -1)``), as the
 reference's unfused phase 2 does.
 
+Compact mode hands it per-query candidate codes (B, cand_cap, cap) with
+lengths (B, cand_cap): row b of F is the reference kernel on query b's words
+and query b's buffer, computed by the pass ``bitfilter_query_kernel`` (a
+warp per (query, slot)).
+
 :func:`bitfilter_batched` dispatches on the tensors' device: on the CPU it
 runs the plain version; on CUDA it launches the kernel (and counts the launch
 in ``launches``) or raises — it never falls back.
@@ -40,8 +45,25 @@ launches = 0      # kernel launches since the last reset
 
 def bitfilter_batched_ref(bits: torch.Tensor, codes: torch.Tensor,
                           doc_lens: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version of the kernel: F (B, n_docs) int32."""
+    """Plain PyTorch version of the kernel, both forms: F (B, n_docs)
+    int32."""
     return filter_scores_ref(bits, codes, doc_lens)
+
+
+def _launch_query(bits, codes, lens):
+    """One launch of the compact-mode pass of ``csrc/bitfilter.cu``."""
+    global launches
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    fn = _build.function("bitfilter", "bitfilter_query", ctypes.c_int,
+                         [vp, vp, vp, ci, ci, ci, ci, vp, vp])
+    nb, n_docs, cap = codes.shape
+    f = torch.empty((nb, n_docs), dtype=torch.int32, device=bits.device)
+    p = _build.ptr
+    err = fn(p(bits), p(codes), p(lens), nb, bits.shape[1], n_docs, cap,
+             p(f), _build.stream())
+    _build.check(err, "bitfilter_query")
+    launches += 1
+    return f
 
 
 def _launch(bits, codes, doc_lens):
@@ -68,26 +90,33 @@ def _launch(bits, codes, doc_lens):
 
 def bitfilter_batched(bits: torch.Tensor, codes: torch.Tensor,
                       token_mask: torch.Tensor) -> torch.Tensor:
-    """Batch-native Eq. 4 over shared corpus codes.
+    """Batch-native Eq. 4 over shared corpus codes or per-query buffers.
 
     bits (B, n_c) int32 words (masked terms already 0 bits); codes
-    (n_docs, cap) int32; token_mask (n_docs, cap) bool prefix mask or
-    (n_docs,) int32 lengths. -> F (B, n_docs) int32.
+    (n_docs, cap) int32 shared by the batch or (B, n_docs, cap) per query;
+    token_mask the codes' shape in bool (a prefix mask) or their leading
+    shape in int32 lengths. -> F (B, n_docs) int32.
     """
     nb, n_c = bits.shape
-    n_docs, cap = codes.shape
+    n_docs, cap = codes.shape[-2:]
+    lead = (n_docs,) if codes.dim() == 2 else (nb, n_docs)
+    if codes.dim() not in (2, 3) or tuple(codes.shape[:-1]) != lead:
+        raise ValueError(f"codes is {tuple(codes.shape)}: expected (n_docs, "
+                         f"cap) or ({nb}, n_docs, cap)")
     doc_lens = lengths_of(token_mask)
-    if tuple(doc_lens.shape) != (n_docs,):
+    if tuple(doc_lens.shape) != lead:
         raise ValueError(f"token validity covers {tuple(doc_lens.shape)}, "
-                         f"expected ({n_docs},)")
+                         f"expected {lead}")
     if bits.device.type == "cpu":
         return bitfilter_batched_ref(bits, codes, doc_lens)
     if bits.device.type != "cuda":
         raise ValueError(f"bitfilter: unsupported device {bits.device}")
     _build.check_operands("bitfilter", bits.device, (
         ("bits", bits, torch.int32, (nb, n_c)),
-        ("codes", codes, torch.int32, (n_docs, cap)),
-        ("token lengths", doc_lens, torch.int32, (n_docs,))))
+        ("codes", codes, torch.int32, (*lead, cap)),
+        ("token lengths", doc_lens, torch.int32, lead)))
+    if codes.dim() == 3:
+        return _launch_query(bits, codes, doc_lens)
     parts = [_launch(bits[s:s + MAX_BATCH], codes, doc_lens)
              for s in range(0, nb, MAX_BATCH)]
     return parts[0] if len(parts) == 1 else torch.cat(parts)

@@ -39,6 +39,14 @@
 //    nonzero F: at B = 32 the 1.13 GB of F written as scattered 128-byte
 //    lines beside the reads took more time than the reads themselves, and
 //    a batch that lights few rows leaves most of F zero.
+//
+// Compact mode (per-query candidate codes (B, cand_cap, cap), the
+// reference's engine.py:302-311 running bitfilter per query on its own
+// buffer): entry point bitfilter_query, one pass `query`, a warp per
+// (query, buffer slot) ORing query b's words of the slot's tokens, 128
+// tokens a round with a lane's four gathers in flight. Word row b meets
+// only query b's codes, so there is no transposed table and no bitmap; the
+// buffer holds a few thousand slots a query.
 #include "common.cuh"
 #include "doc_math.cuh"
 
@@ -198,6 +206,38 @@ bitfilter_score_kernel(const int32_t* __restrict__ codes,
   cp_async_wait<0>();
 }
 
+// Compact mode: F[b, d] for every (query, buffer slot). grid
+// (ceil(n_docs / SCORE_WARPS), B), SCORE_WARPS warps, a warp a slot.
+__global__ void __launch_bounds__(SCORE_WARPS * 32)
+bitfilter_query_kernel(const uint32_t* __restrict__ bits,
+                       const int32_t* __restrict__ codes,
+                       const int32_t* __restrict__ lens, int n_c, int n_docs,
+                       int cap, int32_t* __restrict__ F) {
+  constexpr int R = 4;                               // rounds of 32 tokens
+  const int lane = threadIdx.x & 31;
+  const int d = blockIdx.x * SCORE_WARPS + (threadIdx.x >> 5);
+  const int b = blockIdx.y;
+  if (d >= n_docs) return;                           // warp-uniform
+  const size_t row = (size_t)b * n_docs + d;
+  const int len = min(max(lens[row], 0), cap);
+  const int32_t* cd = codes + row * cap;
+  const uint32_t* wb = bits + (size_t)b * n_c;
+  uint32_t w = 0;
+  for (int base = 0; base < len; base += R * 32) {
+    int c[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int tok = base + r * 32 + lane;
+      c[r] = tok < len ? min(max(cd[tok], 0), n_c - 1) : -1;
+    }
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+      if (c[r] >= 0) w |= wb[c[r]];
+  }
+  w = __reduce_or_sync(FULL_MASK, w);
+  if (lane == 0) F[row] = __popc(w);
+}
+
 template <bool SMEM_OCC, int VEC>
 int launch_score(const int32_t* codes, const int32_t* doc_lens,
                  const uint32_t* bitsT, const uint32_t* occ, int B, int n_c,
@@ -278,6 +318,19 @@ int bitfilter_batched(const uint32_t* bits, const int32_t* codes,
                                cap, F, st);
   return launch_score_vec<1>(codes, doc_lens, bitsT, occ, B, n_c, n_docs, cap,
                              F, st);
+}
+
+// Compact mode. All pointers are device pointers. bits (B, n_c) u32;
+// codes (B, n_docs, cap) i32 and lens (B, n_docs) i32, query b's candidate
+// buffer. Output: F (B, n_docs) i32.
+int bitfilter_query(const uint32_t* bits, const int32_t* codes,
+                    const int32_t* lens, int B, int n_c, int n_docs, int cap,
+                    int32_t* F, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  bitfilter_query_kernel<<<dim3((n_docs + SCORE_WARPS - 1) / SCORE_WARPS, B),
+                           SCORE_WARPS * 32, 0, st>>>(bits, codes, lens, n_c,
+                                                      n_docs, cap, F);
+  return cudaGetLastError();
 }
 
 }  // extern "C"

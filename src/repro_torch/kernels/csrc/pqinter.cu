@@ -45,6 +45,18 @@
 //    functions of doc_math.cuh that the unfused cinter.cu builds its serial
 //    loop from; the Eq. 5/6 pass is emvb::eq56_block, which the unfused
 //    pqscore.cu runs too. So the two lanes agree to the bit.
+//
+// Filtered retrieval (doc_pass (B, nf), the predicate verdict per survivor,
+// the reference's pqinter.py:265-279 and :309): a survivor that fails is
+// -inf in both cuts. The reference's running merges keep their buffer's
+// entries first on ties, so when fewer than n_docs survivors pass, the
+// phase-3 cut ends in (-inf, position -1) fillers, never in a failing
+// survivor, and when fewer than k pass the final cut ends in (-inf,
+// position 0). Here select1 ranks a failing survivor below every passing
+// one and writes each of its slots as (position -1, S̄ -inf); the Eq. 5/6
+// pass scores a position -1 slot as -inf without reading a row; select2
+// writes each -inf slot as (score -inf, position 0). Without doc_pass no
+// step reads it, and the cuts are the unfiltered ones.
 #include "common.cuh"
 #include "doc_math.cuh"
 
@@ -101,29 +113,34 @@ sbar_kernel(const float* __restrict__ cs_t, const int32_t* __restrict__ codes,
 
 // Pass 1 cut: top-n_docs by (S̄ desc, position asc); a cut_launch grid.
 __global__ void __launch_bounds__(1024)
-select1_kernel(const float* __restrict__ sbar_all, int nf, int P, bool sort,
+select1_kernel(const float* __restrict__ sbar_all,
+               const uint8_t* __restrict__ doc_pass, int nf, int P, bool sort,
                int n_docs, int32_t* __restrict__ sel2,
                float* __restrict__ sbar) {
   extern __shared__ unsigned long long k1[];
   const int b = blockIdx.y;
   const float* sb = sbar_all + (size_t)b * nf;
+  const uint8_t* ok = doc_pass == nullptr ? nullptr : doc_pass + (size_t)b * nf;
   for (int i = threadIdx.x; i < P; i += blockDim.x)
-    k1[i] = i < nf ? ((unsigned long long)ordered_bits(sb[i]) << 32) |
+    k1[i] = i < nf ? ((unsigned long long)ordered_bits(
+                          ok == nullptr || ok[i] ? sb[i] : -INFINITY) << 32) |
                          (0xffffffffu - (unsigned)i)
                    : 0ull;
   __syncthreads();
   cut_keys(k1, nf, P, sort, [&](unsigned long long key, int r) {
     if (r >= n_docs) return;
     const int i = (int)(0xffffffffu - (unsigned)key);
-    sel2[(size_t)b * n_docs + r] = i;
-    sbar[(size_t)b * n_docs + r] = sb[i];
+    const bool filler = ok != nullptr && !ok[i];
+    sel2[(size_t)b * n_docs + r] = filler ? -1 : i;
+    sbar[(size_t)b * n_docs + r] = filler ? -INFINITY : sb[i];
   });
 }
 
 // Pass 2: Eq. 5/6 score of each phase-3 winner, in rank order; M is m when
 // known at compile time, else 0. grid (n_docs, B), one doc a block
 // (emvb::eq56_block, which pqscore.cu runs on its rows too, with the same
-// bound of three blocks an SM).
+// bound of three blocks an SM). Filtered (`filtered`), a filler slot
+// (position -1) scores -inf.
 template <int M>
 __global__ void __launch_bounds__(WARPS * 32, 3)
 eq56_kernel(const float* __restrict__ cs_t, const float* __restrict__ lut2,
@@ -132,8 +149,13 @@ eq56_kernel(const float* __restrict__ cs_t, const float* __restrict__ lut2,
             const uint8_t* __restrict__ qmask,
             const int32_t* __restrict__ sel2, int nf, int cap, int n_c,
             int n_q, int m, int ksub, float th_r, int use_filter, int n_docs,
-            float* __restrict__ score2) {
+            int filtered, float* __restrict__ score2) {
   static_assert(WARPS == E_SPLIT, "one doc a block");
+  const size_t slot = (size_t)blockIdx.y * n_docs + blockIdx.x;
+  if (filtered && sel2[slot] < 0) {                  // block-uniform
+    if (threadIdx.x == 0) score2[slot] = -INFINITY;
+    return;
+  }
   emvb::eq56_block<M, E_SPLIT>(cs_t, lut2, codes, res, lens, qmask, sel2, nf,
                                n_docs, cap, n_c, n_q, m, ksub, th_r,
                                use_filter, score2);
@@ -143,7 +165,8 @@ eq56_kernel(const float* __restrict__ cs_t, const float* __restrict__ lut2,
 __global__ void __launch_bounds__(1024)
 select2_kernel(const float* __restrict__ score2,
                const int32_t* __restrict__ sel2, int n_docs, int P, bool sort,
-               int k, float* __restrict__ scores, int32_t* __restrict__ pos) {
+               int k, int filtered, float* __restrict__ scores,
+               int32_t* __restrict__ pos) {
   extern __shared__ unsigned long long k2[];
   const int b = blockIdx.y;
   const float* sc = score2 + (size_t)b * n_docs;
@@ -155,8 +178,9 @@ select2_kernel(const float* __restrict__ score2,
   cut_keys(k2, n_docs, P, sort, [&](unsigned long long key, int j) {
     if (j >= k) return;
     const int i = (int)(0xffffffffu - (unsigned)key);
+    const int p = sel2[(size_t)b * n_docs + i];
     scores[(size_t)b * k + j] = sc[i];
-    pos[(size_t)b * k + j] = sel2[(size_t)b * n_docs + i];
+    pos[(size_t)b * k + j] = filtered && sc[i] == -INFINITY ? 0 : p;
   });
 }
 
@@ -169,16 +193,18 @@ size_t pqinter_scratch_bytes(int B, int nf, int n_docs) {
   return (((size_t)B * nf * 4 + 255) & ~size_t(255)) + (size_t)B * n_docs * 4;
 }
 
-// All pointers are device pointers; qmask may be null (every term live).
-// cs_t (B, n_c, n_q) f32; lut2 (B, m*ksub, n_q) f32; codes (B, nf, cap)
-// i32; res (B, nf, cap, m) u8; lens (B, nf) i32; qmask (B, n_q) u8.
+// All pointers are device pointers; qmask may be null (every term live),
+// doc_pass too (every survivor passes). cs_t (B, n_c, n_q) f32; lut2
+// (B, m*ksub, n_q) f32; codes (B, nf, cap) i32; res (B, nf, cap, m) u8;
+// lens (B, nf) i32; qmask (B, n_q) u8; doc_pass (B, nf) u8.
 // Outputs: scores/pos (B, k), sel2/sbar (B, n_docs). scratch: the bytes
 // pqinter_scratch_bytes gives, 256-byte aligned.
 int pqinter_batched(const float* cs_t, const float* lut2, const int32_t* codes,
                     const uint8_t* res, const int32_t* lens,
-                    const uint8_t* qmask, int B, int nf, int cap, int n_c,
-                    int n_q, int m, int ksub, float th_r, int use_filter,
-                    int n_docs, int k, float* scores, int32_t* pos,
+                    const uint8_t* qmask, const uint8_t* doc_pass, int B,
+                    int nf, int cap, int n_c, int n_q, int m, int ksub,
+                    float th_r, int use_filter, int n_docs, int k,
+                    float* scores, int32_t* pos,
                     int32_t* sel2, float* sbar, void* scratch, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* sbar_all = static_cast<float*>(scratch);
@@ -197,21 +223,24 @@ int pqinter_batched(const float* cs_t, const float* lut2, const int32_t* codes,
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   const CutLaunch c1 = cut_launch(B, nf);
   select1_kernel<<<c1.grid, c1.threads, c1.P * sizeof(unsigned long long),
-                   st>>>(sbar_all, nf, c1.P, c1.sort, n_docs, sel2, sbar);
+                   st>>>(sbar_all, doc_pass, nf, c1.P, c1.sort, n_docs, sel2,
+                         sbar);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   const dim3 grid(n_docs, B);
+  const int filtered = doc_pass != nullptr;
   if (emvb::eq56_vector_m16(m, res))
     eq56_kernel<16><<<grid, WARPS * 32, 0, st>>>(
         cs_t, lut2, codes, res, lens, qmask, sel2, nf, cap, n_c, n_q, m, ksub,
-        th_r, use_filter, n_docs, score2);
+        th_r, use_filter, n_docs, filtered, score2);
   else
     eq56_kernel<0><<<grid, WARPS * 32, 0, st>>>(
         cs_t, lut2, codes, res, lens, qmask, sel2, nf, cap, n_c, n_q, m, ksub,
-        th_r, use_filter, n_docs, score2);
+        th_r, use_filter, n_docs, filtered, score2);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   const CutLaunch c2 = cut_launch(B, n_docs);
   select2_kernel<<<c2.grid, c2.threads, c2.P * sizeof(unsigned long long),
-                   st>>>(score2, sel2, n_docs, c2.P, c2.sort, k, scores, pos);
+                   st>>>(score2, sel2, n_docs, c2.P, c2.sort, k, filtered,
+                         scores, pos);
   return cudaGetLastError();
 }
 

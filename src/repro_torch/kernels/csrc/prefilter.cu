@@ -65,6 +65,24 @@
 //    device memory between the passes.
 //  * The column pack and a doc's word OR are the functions of doc_math.cuh
 //    that the unfused bitpack.cu and bitfilter.cu also build on.
+//
+// Filtered retrieval (score_all mode with a plan): the reference ANDs a
+// static DNF plan's verdict on each doc's predicate word into the bitmap
+// inside the kernel (prefilter.py:129-132). Here `score` reads a doc's
+// word only when the plan is given, while it builds the doc's mask of
+// candidate queries, and clears the mask when no clause (required,
+// forbidden) holds: a filtered doc costs one 4-byte read and is never
+// scored. The clauses are a small device array read through the cache; an
+// empty plan passes nothing and the clause (0, 0) everything.
+//
+// Compact mode (per-query candidate codes (B, cand_cap, cap), the
+// reference's prefilter.py:141-145): ids are buffer positions, and only
+// pass `score_query` differs, a warp per (query, buffer slot) walking the
+// slot's tokens over query b's row of `bits`, 128 tokens a round with all
+// four gathers of a lane in flight. The cut passes run unchanged on its F,
+// so ties break on buffer position as in score_all mode. The buffer holds
+// a few thousand docs a query (4096 in chip_smoke.py), so this simple form
+// is not where the time goes.
 #include "common.cuh"
 #include "doc_math.cuh"
 
@@ -81,6 +99,7 @@ constexpr int PACK_THREADS = 256;
 constexpr int COLLECT_WARPS = 8;
 constexpr int COLLECT_TILES = 8;      // tiles a collect warp checks, at most
 constexpr int SCAN_THREADS = 1024;    // threshold: a block per query
+constexpr int QSCORE_THREADS = 1024;  // score_query: 32 warps, 32 slots each
 constexpr int DENSE_MIN = 20;         // candidate queries for the dense form
 constexpr int KEY_PAD = -1;           // below every key: f + 1 >= 0
 static_assert(TILE == 4 * SCORE_THREADS, "score lists 4 docs a thread");
@@ -101,14 +120,14 @@ struct Scratch {
 };
 
 size_t carve(void* base, int B, int n_c, int n_docs, int n_filter,
-             Scratch* s) {
+             int per_query, Scratch* s) {
   const size_t n_tiles = (n_docs + TILE - 1) / TILE;
   const size_t sizes[8] = {
       (size_t)B * n_tiles * TILE, (size_t)B * NBINS * 4,
       (size_t)B * NBINS * n_tiles * 4, (size_t)B * (n_tiles + 1) * 4,
       (size_t)B * (n_tiles + 1) * 4, (size_t)B * 4 * 4,
       (size_t)B * n_filter * 4,
-      B >= DENSE_MIN ? (size_t)n_c * B * 4 : 0};
+      B >= DENSE_MIN && !per_query ? (size_t)n_c * B * 4 : 0};
   char* p = static_cast<char*>(base);
   size_t off[8], total = 0;
   for (int i = 0; i < 8; ++i) {
@@ -126,6 +145,19 @@ size_t carve(void* base, int B, int n_c, int n_docs, int n_filter,
     s->bitsT = sizes[7] ? reinterpret_cast<uint32_t*>(p + off[7]) : nullptr;
   }
   return total;
+}
+
+// Whether a predicate word passes a plan: some clause (required, forbidden)
+// has (w & required) == required and (w & forbidden) == 0.
+__device__ __forceinline__ bool plan_pass(uint32_t w,
+                                          const uint32_t* __restrict__ clauses,
+                                          int n_clauses) {
+  for (int i = 0; i < n_clauses; ++i) {
+    const uint32_t req = __ldg(clauses + 2 * i);
+    const uint32_t forb = __ldg(clauses + 2 * i + 1);
+    if ((w & req) == req && (w & forb) == 0u) return true;
+  }
+  return false;
 }
 
 // Pass 1: bits (B, n_c), and zeros in the bin totals the score pass adds
@@ -158,8 +190,9 @@ __global__ void transpose_kernel(const uint32_t* __restrict__ bits, int B,
   emvb::transpose_words(bits, B, n_c, bitsT);
 }
 
-// Pass 2: F for every (query, doc) of one tile, and its histogram.
-// grid n_tiles. Shared: sF[B][TILE] i8, smask[TILE] u32 (bit b: the doc is
+// Pass 2: F for every (query, doc) of one tile, and its histogram. With a
+// plan (pred not null), a doc whose predicate word fails it is no query's
+// candidate. grid n_tiles. Shared: sF[B][TILE] i8, smask[TILE] u32 (bit b: the doc is
 // query b's candidate), slist[TILE] u16 (the docs with a mask: the sparse
 // form's from the front, the dense form's from the back), sh[B][NBINS], and
 // two CHUNK-token code buffers per warp.
@@ -167,6 +200,8 @@ __global__ void __launch_bounds__(SCORE_THREADS)
 score_kernel(const int32_t* __restrict__ codes,
              const int32_t* __restrict__ doc_lens,
              const uint8_t* __restrict__ bitmap,
+             const uint32_t* __restrict__ pred,
+             const uint32_t* __restrict__ clauses, int n_clauses,
              const uint32_t* __restrict__ bits,
              const uint32_t* __restrict__ bitsT, int B, int n_c,
              int n_docs, int cap, int n_tiles, int8_t* __restrict__ F,
@@ -201,6 +236,13 @@ score_kernel(const int32_t* __restrict__ codes,
       for (int k = 0; k < TILE / SCORE_THREADS; ++k) {
         const int t = tid + k * SCORE_THREADS;
         if (t < n_valid) m[k] |= (uint32_t)(row[t] != 0) << b;
+      }
+    }
+    if (pred != nullptr) {
+#pragma unroll
+      for (int k = 0; k < TILE / SCORE_THREADS; ++k) {
+        const int t = tid + k * SCORE_THREADS;
+        if (m[k] && !plan_pass(pred[d0 + t], clauses, n_clauses)) m[k] = 0;
       }
     }
 #pragma unroll
@@ -355,6 +397,77 @@ score_kernel(const int32_t* __restrict__ codes,
     cum[(size_t)j * n_tiles + tile] = sh[j];
 }
 
+// Pass 2, compact mode: F of every (query, buffer slot) of one tile of
+// query b's buffer, and its histogram, as `score` leaves them. grid
+// (n_tiles, B), QSCORE_THREADS threads; a warp per slot whose bitmap bit is
+// set (and whose predicate word passes the plan, when one is given).
+__global__ void __launch_bounds__(QSCORE_THREADS)
+score_query_kernel(const int32_t* __restrict__ codes,
+                   const int32_t* __restrict__ lens,
+                   const uint8_t* __restrict__ bitmap,
+                   const uint32_t* __restrict__ pred,
+                   const uint32_t* __restrict__ clauses, int n_clauses,
+                   const uint32_t* __restrict__ bits, int n_c, int n_docs,
+                   int cap, int n_tiles, int8_t* __restrict__ F,
+                   int32_t* __restrict__ tot, int32_t* __restrict__ cum) {
+  __shared__ __align__(16) int8_t sF[TILE];
+  __shared__ int sh[NBINS];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nwarps = blockDim.x >> 5;
+  const int tile = blockIdx.x, b = blockIdx.y;
+  const size_t d0 = (size_t)tile * TILE;
+  const int n_valid = min(TILE, n_docs - tile * TILE);
+  for (int j = tid; j < TILE; j += blockDim.x) sF[j] = j < n_valid ? -1 : -2;
+  if (tid < NBINS) sh[tid] = 0;
+  __syncthreads();
+  const uint32_t* wb = bits + (size_t)b * n_c;
+  const size_t row0 = (size_t)b * n_docs + d0;
+  for (int t = warp; t < n_valid; t += nwarps) {
+    bool cand = bitmap[row0 + t] != 0;
+    if (cand && pred != nullptr)
+      cand = plan_pass(pred[d0 + t], clauses, n_clauses);
+    if (!cand) continue;                             // warp-uniform
+    const int len = min(max(lens[row0 + t], 0), cap);
+    const int32_t* cd = codes + (row0 + t) * cap;
+    uint32_t w = 0;
+    for (int base = 0; base < len; base += ROUNDS * 32) {
+      int c[ROUNDS];
+#pragma unroll
+      for (int r = 0; r < ROUNDS; ++r) {
+        const int tok = base + r * 32 + lane;
+        c[r] = tok < len ? min(max(cd[tok], 0), n_c - 1) : -1;
+      }
+#pragma unroll
+      for (int r = 0; r < ROUNDS; ++r)
+        if (c[r] >= 0) w |= wb[c[r]];
+    }
+    w = __reduce_or_sync(FULL_MASK, w);
+    if (lane == 0) {
+      const int f = __popc(w);
+      sF[t] = (int8_t)f;
+      atomicAdd(&sh[f + 1], 1);
+    }
+  }
+  __syncthreads();
+  if (tid == 0) {
+    int cand = 0;
+    for (int bin = 1; bin < NBINS; ++bin) cand += sh[bin];
+    sh[0] = n_valid - cand;
+    int at_or_above = 0;
+    for (int bin = NBINS - 1; bin >= 0; --bin) {
+      if (sh[bin]) atomicAdd(&tot[b * NBINS + bin], sh[bin]);
+      at_or_above += sh[bin];
+      sh[bin] = at_or_above;
+    }
+  }
+  __syncthreads();
+  uint32_t* Fb = reinterpret_cast<uint32_t*>(F + (size_t)b * n_tiles * TILE +
+                                             d0);
+  for (int j = tid; j < TILE / 4; j += blockDim.x)
+    Fb[j] = reinterpret_cast<const uint32_t*>(sF)[j];
+  if (tid < NBINS) cum[((size_t)b * NBINS + tid) * n_tiles + tile] = sh[tid];
+}
+
 // Pass 3, one block per query: the threshold bin from the corpus totals,
 // and per tile the exclusive prefix counts, in ascending tile order, of docs
 // above it (hi) and on it (eq). Thread i takes a run of neighbouring tiles.
@@ -492,54 +605,11 @@ sort_kernel(const int32_t* __restrict__ keys, int n_filter, int P, bool sort,
   });
 }
 
-}  // namespace
-
-extern "C" {
-
-// Bytes of device scratch prefilter_batched needs.
-size_t prefilter_scratch_bytes(int B, int n_c, int n_docs, int n_filter) {
-  return carve(nullptr, B, n_c, n_docs, n_filter, nullptr);
-}
-
-// All pointers are device pointers; qmask may be null (every term live).
-// cs (B, n_q, n_c) f32; qmask (B, n_q) u8; codes (n_docs, cap) i32;
-// doc_lens (n_docs,) i32; bitmap (B, n_docs) u8; B <= 32. Outputs: bits
-// (B, n_c) u32, scores/ids (B, n_filter) i32. scratch: the bytes
-// prefilter_scratch_bytes gives, 256-byte aligned.
-int prefilter_batched(const float* cs, float th, const uint8_t* qmask,
-                      const int32_t* codes, const int32_t* doc_lens,
-                      const uint8_t* bitmap, int B, int n_q, int n_c,
-                      int n_docs, int cap, int n_filter, uint32_t* bits,
-                      int32_t* scores, int32_t* ids, void* scratch,
-                      void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int n_tiles = (n_docs + TILE - 1) / TILE;
-  Scratch s;
-  carve(scratch, B, n_c, n_docs, n_filter, &s);
+// Passes 3-5 on the score pass's F, histogram and tile counts: the
+// threshold, the collect of the selected keys and their ranking.
+int select_keys(const Scratch& s, int B, int n_tiles, int n_filter,
+                int32_t* scores, int32_t* ids, cudaStream_t st) {
   cudaError_t err;
-  const int vec = (n_c % 4 == 0) && (reinterpret_cast<uintptr_t>(cs) % 16 == 0);
-  const int n_quads = (n_c + 3) / 4;
-  pack_kernel<<<dim3((n_quads + PACK_THREADS - 1) / PACK_THREADS, B),
-                PACK_THREADS, 0, st>>>(cs, th, qmask, n_q, n_c, vec, bits,
-                                       s.tot);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  if (s.bitsT != nullptr) {
-    transpose_kernel<<<(n_c + 31) / 32, 256, 0, st>>>(bits, B, n_c, s.bitsT);
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  }
-  const size_t smem = (size_t)B * TILE + TILE * 4 +
-                      ((B * NBINS + 3) & ~3) * 4 +
-                      (SCORE_THREADS / 32) * 2 * CHUNK * 4 + TILE * 2;
-  if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(score_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-    if (err != cudaSuccess) return err;
-  }
-  score_kernel<<<n_tiles, SCORE_THREADS, smem, st>>>(
-      codes, doc_lens, bitmap, bits, s.bitsT, B, n_c, n_docs, cap, n_tiles,
-      s.F, s.tot, s.cum);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
   threshold_kernel<<<B, SCAN_THREADS, 0, st>>>(
       s.tot, s.cum, n_tiles, n_filter, s.off_hi, s.off_eq, s.params);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
@@ -560,4 +630,67 @@ int prefilter_batched(const float* cs, float th, const uint8_t* qmask,
   return cudaGetLastError();
 }
 
+}  // namespace
+
+extern "C" {
+
+// Bytes of device scratch prefilter_batched needs.
+size_t prefilter_scratch_bytes(int B, int n_c, int n_docs, int n_filter,
+                               int per_query) {
+  return carve(nullptr, B, n_c, n_docs, n_filter, per_query, nullptr);
+}
+
+// All pointers are device pointers; qmask may be null (every term live).
+// cs (B, n_q, n_c) f32; qmask (B, n_q) u8; codes (n_docs, cap) i32 and
+// doc_lens (n_docs,) i32, or per_query: codes (B, n_docs, cap) and doc_lens
+// (B, n_docs); bitmap (B, n_docs) u8; B <= 32. pred (n_docs,) u32 predicate
+// words, or null for no plan; clauses (n_clauses, 2) u32 (required,
+// forbidden). Outputs: bits (B, n_c) u32, scores/ids (B, n_filter) i32.
+// scratch: the bytes prefilter_scratch_bytes gives, 256-byte aligned.
+int prefilter_batched(const float* cs, float th, const uint8_t* qmask,
+                      const int32_t* codes, const int32_t* doc_lens,
+                      const uint8_t* bitmap, int B, int n_q, int n_c,
+                      int n_docs, int cap, int n_filter, int per_query,
+                      const uint32_t* pred, const uint32_t* clauses,
+                      int n_clauses, uint32_t* bits, int32_t* scores,
+                      int32_t* ids, void* scratch, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int n_tiles = (n_docs + TILE - 1) / TILE;
+  Scratch s;
+  carve(scratch, B, n_c, n_docs, n_filter, per_query, &s);
+  cudaError_t err;
+  const int vec = (n_c % 4 == 0) && (reinterpret_cast<uintptr_t>(cs) % 16 == 0);
+  const int n_quads = (n_c + 3) / 4;
+  pack_kernel<<<dim3((n_quads + PACK_THREADS - 1) / PACK_THREADS, B),
+                PACK_THREADS, 0, st>>>(cs, th, qmask, n_q, n_c, vec, bits,
+                                       s.tot);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  if (per_query) {
+    score_query_kernel<<<dim3(n_tiles, B), QSCORE_THREADS, 0, st>>>(
+        codes, doc_lens, bitmap, pred, clauses, n_clauses, bits, n_c, n_docs,
+        cap, n_tiles, s.F, s.tot, s.cum);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    return select_keys(s, B, n_tiles, n_filter, scores, ids, st);
+  }
+  if (s.bitsT != nullptr) {
+    transpose_kernel<<<(n_c + 31) / 32, 256, 0, st>>>(bits, B, n_c, s.bitsT);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
+  const size_t smem = (size_t)B * TILE + TILE * 4 +
+                      ((B * NBINS + 3) & ~3) * 4 +
+                      (SCORE_THREADS / 32) * 2 * CHUNK * 4 + TILE * 2;
+  if (smem > 48 * 1024) {
+    err = cudaFuncSetAttribute(score_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  score_kernel<<<n_tiles, SCORE_THREADS, smem, st>>>(
+      codes, doc_lens, bitmap, pred, clauses, n_clauses, bits, s.bitsT, B,
+      n_c, n_docs, cap, n_tiles, s.F, s.tot, s.cum);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  return select_keys(s, B, n_tiles, n_filter, scores, ids, st);
+}
+
 }  // extern "C"
+

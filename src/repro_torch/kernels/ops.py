@@ -7,9 +7,9 @@ The B = 1 forms run the batched kernel with B = 1: row b of the batched
 kernel is bit-identical to the single-query kernel by the reference's own
 tested contract.
 
-Out of this slice (they raise ``NotImplementedError``): the predicate
-filter operands (``pred_words``/``plan``, ``doc_pass``) and per-query
-(compact-mode) candidate codes.
+Every operand form of the reference is taken: the predicate filter
+(``pred_words``/``plan`` in the prefilter, ``doc_pass`` in pqinter) and
+per-query (compact-mode) candidate codes in the prefilter and bitfilter.
 """
 from __future__ import annotations
 
@@ -38,21 +38,15 @@ def reset_launches() -> None:
         mod.launches = 0
 
 
-def _shared_codes(codes: torch.Tensor) -> None:
-    if codes.dim() != 2:
-        raise NotImplementedError(
-            "per-query (compact-mode) candidate codes are not ported yet "
-            "(ROADMAP Queue 1, engine remainder: candidate_mode='compact')")
-
-
 def _row(q_mask):
     return None if q_mask is None else q_mask[None]
 
 
-# batch-native forms with nothing to refuse beyond their own checks
 bitpack_batched = _bitpack.bitpack_batched
+bitfilter_batched = _bitfilter.bitfilter_batched
 cinter_batched = _cinter.cinter_batched
 pqscore_batched = _pqscore.pqscore_batched
+prefilter_batched = _prefilter.prefilter_batched
 
 
 def bitpack(cs: torch.Tensor, th, q_mask=None) -> torch.Tensor:
@@ -61,17 +55,10 @@ def bitpack(cs: torch.Tensor, th, q_mask=None) -> torch.Tensor:
     return bitpack_batched(cs[None], th, _row(q_mask))[0]
 
 
-def bitfilter_batched(bits: torch.Tensor, codes: torch.Tensor,
-                      token_mask: torch.Tensor) -> torch.Tensor:
-    """Batch-native Eq. 4 over every doc: bits (B, n_c), shared codes
-    (n_docs, cap) -> F (B, n_docs) int32."""
-    _shared_codes(codes)
-    return _bitfilter.bitfilter_batched(bits, codes, token_mask)
-
-
 def bitfilter(bits: torch.Tensor, codes: torch.Tensor,
               token_mask: torch.Tensor) -> torch.Tensor:
-    """Eq. 4 for one query: bits (n_c,) -> F (n_docs,) int32."""
+    """Eq. 4 for one query: bits (n_c,), codes (docs, cap) -> F (docs,)
+    int32."""
     return bitfilter_batched(bits[None], codes, token_mask)[0]
 
 
@@ -92,32 +79,12 @@ def pqscore(cs_t: torch.Tensor, lut: torch.Tensor, codes: torch.Tensor,
                            _row(q_mask))[0]
 
 
-def _no_filter(**operands) -> None:
-    given = sorted(k for k, v in operands.items() if v is not None)
-    if given:
-        raise NotImplementedError(
-            f"{given}: predicate filtering is not ported yet (ROADMAP "
-            "Queue 1, engine remainder: doc_filter)")
-
-
-def prefilter_batched(cs: torch.Tensor, th, codes: torch.Tensor,
-                      token_mask: torch.Tensor, bitmap: torch.Tensor,
-                      n_filter: int, q_masks=None, *, pred_words=None,
-                      plan=None):
-    """Batch-native phases 1b-2 megakernel -> (scores, doc_ids, bits), each
-    with a leading batch axis. ``codes``/``token_mask`` are the shared
-    (n_docs, cap) corpus (or (n_docs,) lengths for the mask)."""
-    _no_filter(pred_words=pred_words, plan=plan)
-    _shared_codes(codes)
-    return _prefilter.prefilter_batched(cs, th, codes, token_mask, bitmap,
-                                        n_filter, q_masks)
-
-
 def prefilter(cs: torch.Tensor, th, codes: torch.Tensor,
               token_mask: torch.Tensor, bitmap: torch.Tensor, n_filter: int,
               q_mask=None, *, pred_words=None, plan=None):
     """Fused phases 1b-2 for one query -> (scores (n_filter,),
-    doc_ids (n_filter,), bits (n_c,))."""
+    doc_ids (n_filter,), bits (n_c,)); codes (n_docs, cap), the plan as in
+    the batched form."""
     out = prefilter_batched(cs[None], th, codes, token_mask, bitmap[None],
                             n_filter, _row(q_mask),
                             pred_words=pred_words, plan=plan)
@@ -129,10 +96,9 @@ def pqinter_batched(cs_t: torch.Tensor, lut: torch.Tensor,
                     token_mask: torch.Tensor, th_r, n_docs: int, k: int,
                     q_masks=None, *, doc_pass=None):
     """Batch-native phases 3-4 megakernel -> (scores, pos, sel2, sbar),
-    each with a leading batch axis."""
-    _no_filter(doc_pass=doc_pass)
+    each with a leading batch axis; ``doc_pass`` (B, n_filter) bool."""
     return _pqinter.pqinter_batched(cs_t, lut, codes, res_codes, token_mask,
-                                    th_r, n_docs, k, q_masks)
+                                    th_r, n_docs, k, q_masks, doc_pass)
 
 
 def pqinter(cs_t: torch.Tensor, lut: torch.Tensor, codes: torch.Tensor,
@@ -142,5 +108,5 @@ def pqinter(cs_t: torch.Tensor, lut: torch.Tensor, codes: torch.Tensor,
     sel2 (n_docs,), sbar (n_docs,))."""
     out = pqinter_batched(cs_t[None], lut[None], codes[None], res_codes[None],
                           token_mask[None], th_r, n_docs, k, _row(q_mask),
-                          doc_pass=doc_pass)
+                          doc_pass=_row(doc_pass))
     return tuple(x[0] for x in out)

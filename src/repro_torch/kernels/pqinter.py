@@ -12,6 +12,12 @@ Both cuts match the reference's running merges exactly: phase 3 keeps the
 top ``n_docs`` survivors by (S̄ desc, survivor position asc), phase 4 the
 top ``k`` of those by (score desc, phase-3 rank asc).
 
+With ``doc_pass`` (B, n_filter), the predicate verdict per survivor, a
+failing survivor is -inf in both cuts, and the fillers are the reference's:
+when fewer than ``n_docs`` survivors pass, the phase-3 cut ends in
+(position -1, S̄ -inf) slots; when fewer than ``k`` pass, the final cut ends
+in (score -inf, position 0) slots.
+
 :func:`pqinter_batched` dispatches on the tensors' device: on the CPU it
 runs the plain version; on CUDA it launches the kernel (and counts the launch
 in ``launches``) or raises — it never falls back.
@@ -41,19 +47,31 @@ def _rows(x: torch.Tensor, sel: torch.Tensor) -> torch.Tensor:
 def pqinter_batched_ref(cs_t: torch.Tensor, lut: torch.Tensor,
                         codes: torch.Tensor, res_codes: torch.Tensor,
                         lens: torch.Tensor, th_r, n_docs: int, k: int,
-                        q_masks=None):
+                        q_masks=None, doc_pass=None):
     """Plain PyTorch version of the kernel, built on ``core``.
     -> (scores (B, k) f32, pos (B, k) i32, sel2 (B, n_docs) i32,
         sbar (B, n_docs) f32)"""
     cap = codes.shape[-1]
     valid = torch.arange(cap, device=codes.device) < lens[..., None]
     sbar_all = centroid_interaction(cs_t, codes, valid, q_masks)  # (B, nf)
+    if doc_pass is not None:
+        sbar_all = torch.where(doc_pass, sbar_all,
+                               torch.full_like(sbar_all, -torch.inf))
     sbar, sel2 = topk(sbar_all, n_docs)
-    score = late_interaction_pq(cs_t, lut, _rows(codes, sel2),
-                                _rows(res_codes, sel2), _rows(valid, sel2),
+    if doc_pass is not None:
+        filler = ~torch.gather(doc_pass, 1, sel2)
+        sel2 = torch.where(filler, -1, sel2)
+        sbar = torch.where(filler, -torch.inf, sbar)
+    rows = torch.clamp(sel2, min=0)
+    score = late_interaction_pq(cs_t, lut, _rows(codes, rows),
+                                _rows(res_codes, rows), _rows(valid, rows),
                                 th_r, q_masks)                     # (B, nd)
+    if doc_pass is not None:
+        score = torch.where(filler, -torch.inf, score)
     scores, rank = topk(score, k)
     pos = torch.gather(sel2, 1, rank)
+    if doc_pass is not None:
+        pos = torch.where(scores == -torch.inf, 0, pos)
     return scores, pos.to(torch.int32), sel2.to(torch.int32), sbar
 
 
@@ -67,9 +85,9 @@ def flat_lut(lut: torch.Tensor) -> torch.Tensor:
 _VP, _CI = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "pqinter_scratch_bytes": (ctypes.c_size_t, [_CI, _CI, _CI]),
-    "pqinter_batched": (_CI, [_VP, _VP, _VP, _VP, _VP, _VP, _CI, _CI, _CI,
-                              _CI, _CI, _CI, _CI, ctypes.c_float, _CI, _CI,
-                              _CI, _VP, _VP, _VP, _VP, _VP, _VP]),
+    "pqinter_batched": (_CI, [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _CI, _CI,
+                              _CI, _CI, _CI, _CI, _CI, ctypes.c_float, _CI,
+                              _CI, _CI, _VP, _VP, _VP, _VP, _VP, _VP]),
 }
 
 
@@ -77,10 +95,10 @@ def _fn(name: str):
     return _build.function("pqinter", name, *_SIGNATURES[name])
 
 
-def _launch(cs_t, lut2, codes, res_codes, lens, qm, th_r, n_docs, k, m,
-            ksub):
-    """One launch of ``csrc/pqinter.cu``; qm None means every term is
-    live."""
+def _launch(cs_t, lut2, codes, res_codes, lens, qm, doc_pass, th_r, n_docs,
+            k, m, ksub):
+    """One launch of ``csrc/pqinter.cu``; qm None means every term is live,
+    doc_pass None that every survivor passes."""
     global launches
     nb, nf, cap = codes.shape
     n_c, n_q = cs_t.shape[1:]
@@ -93,14 +111,12 @@ def _launch(cs_t, lut2, codes, res_codes, lens, qm, th_r, n_docs, k, m,
     scores, sbar = scores.view(torch.float32), sbar.view(torch.float32)
     scratch = torch.empty(_fn("pqinter_scratch_bytes")(nb, nf, n_docs),
                           dtype=torch.uint8, device=dev)
+    p = _build.ptr
     err = _fn("pqinter_batched")(
-        cs_t.data_ptr(), lut2.data_ptr(), codes.data_ptr(),
-        res_codes.data_ptr(), lens.data_ptr(),
-        None if qm is None else qm.data_ptr(), nb, nf, cap, n_c, n_q, m,
-        ksub, 0.0 if th_r is None else float(th_r), int(th_r is not None),
-        n_docs, k, scores.data_ptr(), pos.data_ptr(), sel2.data_ptr(),
-        sbar.data_ptr(), scratch.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
+        p(cs_t), p(lut2), p(codes), p(res_codes), p(lens), p(qm), p(doc_pass),
+        nb, nf, cap, n_c, n_q, m, ksub, 0.0 if th_r is None else float(th_r),
+        int(th_r is not None), n_docs, k, p(scores), p(pos), p(sel2),
+        p(sbar), p(scratch), torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "pqinter_batched")
     launches += 1
     return scores, pos, sel2, sbar
@@ -109,14 +125,14 @@ def _launch(cs_t, lut2, codes, res_codes, lens, qm, th_r, n_docs, k, m,
 def pqinter_batched(cs_t: torch.Tensor, lut: torch.Tensor,
                     codes: torch.Tensor, res_codes: torch.Tensor,
                     token_mask: torch.Tensor, th_r, n_docs: int, k: int,
-                    q_masks=None):
+                    q_masks=None, doc_pass=None):
     """Batch-native fused phases 3-4.
 
     cs_t (B, n_c, n_q <= 32) float32; lut (B, n_q, m, K) float32; codes
     (B, n_filter, cap) int32; res_codes (B, n_filter, cap, m) uint8;
     token_mask (B, n_filter, cap) bool prefix mask or (B, n_filter) int32
     lengths; th_r None (Eq. 5) or a float (Eq. 6); q_masks optional
-    (B, n_q) bool.
+    (B, n_q) bool; doc_pass optional (B, n_filter) bool.
     -> (scores (B, k) f32, pos (B, k) i32, sel2 (B, n_docs) i32,
         sbar (B, n_docs) f32); ``pos``/``sel2`` index the survivor axis.
     """
@@ -132,9 +148,12 @@ def pqinter_batched(cs_t: torch.Tensor, lut: torch.Tensor,
     if tuple(lens.shape) != (nb, nf):
         raise ValueError(f"token validity covers {tuple(lens.shape)}, "
                          f"expected {(nb, nf)}")
+    if doc_pass is not None and tuple(doc_pass.shape) != (nb, nf):
+        raise ValueError(f"doc_pass is {tuple(doc_pass.shape)}, expected "
+                         f"{(nb, nf)}")
     if cs_t.device.type == "cpu":
         return pqinter_batched_ref(cs_t, lut, codes, res_codes, lens, th_r,
-                                   n_docs, k, q_masks)
+                                   n_docs, k, q_masks, doc_pass)
     if cs_t.device.type != "cuda":
         raise ValueError(f"pqinter: unsupported device {cs_t.device}")
     if nf > MAX_SORT:
@@ -149,6 +168,8 @@ def pqinter_batched(cs_t: torch.Tensor, lut: torch.Tensor,
                 ("token lengths", lens, torch.int32, (nb, nf))]
     if q_masks is not None:
         operands.append(("q_masks", q_masks, torch.bool, (nb, n_q)))
+    if doc_pass is not None:
+        operands.append(("doc_pass", doc_pass, torch.bool, (nb, nf)))
     _build.check_operands("pqinter", cs_t.device, operands)
-    return _launch(cs_t, lut2, codes, res_codes, lens, q_masks, th_r, n_docs,
-                   k, m, ksub)
+    return _launch(cs_t, lut2, codes, res_codes, lens, q_masks, doc_pass,
+                   th_r, n_docs, k, m, ksub)

@@ -11,6 +11,12 @@ and doc ids pack into the unique int32 key ``(f + 1) << 25 | (2^25 - 1 -
 id)``, so "higher f, then lower id" is integer order and any exact
 selection over the keys is the reference's, tie order included.
 
+Two operand forms, as in the reference: the corpus' codes shared by the
+batch (score_all mode), with an optional predicate filter (``pred_words``
+and the clauses of a compiled ``plan``, whose verdict is ANDed into the
+bitmap inside the kernel), and per-query candidate codes (compact mode:
+codes (B, cand_cap, cap), ids are buffer positions).
+
 :func:`prefilter_batched` dispatches on the tensors' device: on the CPU it
 runs the plain version; on CUDA it launches the kernel (and counts the launch
 in ``launches``) or raises — it never falls back.
@@ -18,10 +24,12 @@ in ``launches``) or raises — it never falls back.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
-from ..core.bitvector import build_bitvectors, or_reduce, popcount
+from ..core.bitvector import (apply_filter_plan, build_bitvectors,
+                               or_reduce, popcount)
 from ..core.topk import topk
 from . import _build
 
@@ -54,21 +62,25 @@ def filter_scores_ref(bits: torch.Tensor, codes: torch.Tensor,
                       doc_lens: torch.Tensor,
                       bitmap: torch.Tensor | None = None) -> torch.Tensor:
     """Eq. 4 for every (query, doc), -1 where the bitmap is False: bits
-    (B, n_c) int32 words, codes (n_docs, cap), doc_lens (n_docs,), bitmap
-    (B, n_docs) or None (every doc scored: the unfused ``bitfilter``'s plain
-    version) -> F (B, n_docs) int32. Walks the documents in blocks of
-    ``REF_BLOCK_D``, so no (B, n_docs, cap) tensor is made."""
-    n_docs, cap = codes.shape
-    n_c = bits.shape[-1]
-    f = torch.empty((bits.shape[0], n_docs), dtype=torch.int32,
-                    device=bits.device)
+    (B, n_c) int32 words, shared codes (n_docs, cap) and doc_lens
+    (n_docs,), or per-query codes (B, n_docs, cap) and doc_lens
+    (B, n_docs); bitmap (B, n_docs) or None (every doc scored: the unfused
+    ``bitfilter``'s plain version) -> F (B, n_docs) int32. Walks the
+    documents in blocks of ``REF_BLOCK_D``, so no (B, n_docs, cap) tensor
+    of words is made."""
+    n_docs, cap = codes.shape[-2:]
+    nb, n_c = bits.shape
+    f = torch.empty((nb, n_docs), dtype=torch.int32, device=bits.device)
     tok = torch.arange(cap, device=bits.device)
+    rows = torch.arange(nb, device=bits.device)[:, None, None]
     for s in range(0, n_docs, REF_BLOCK_D):
         e = min(s + REF_BLOCK_D, n_docs)
-        idx = torch.clamp(codes[s:e], 0, n_c - 1).long()
-        words = bits[:, idx]                                # (B, blk, cap)
-        valid = tok[None, :] < doc_lens[s:e, None]
-        words = torch.where(valid[None], words, torch.zeros_like(words))
+        idx = torch.clamp(codes[..., s:e, :], 0, n_c - 1).long()
+        words = bits[rows, idx] if codes.dim() == 3 else bits[:, idx]
+        valid = tok < doc_lens[..., s:e, None]
+        if valid.dim() == 2:
+            valid = valid[None]
+        words = torch.where(valid, words, torch.zeros_like(words))
         f[:, s:e] = popcount(or_reduce(words, -1))
     if bitmap is None:
         return f
@@ -77,15 +89,19 @@ def filter_scores_ref(bits: torch.Tensor, codes: torch.Tensor,
 
 def prefilter_batched_ref(cs: torch.Tensor, th: float, codes: torch.Tensor,
                           doc_lens: torch.Tensor, bitmap: torch.Tensor,
-                          n_filter: int, q_masks=None):
+                          n_filter: int, q_masks=None, *, pred_words=None,
+                          plan=None):
     """Plain PyTorch version of the kernel, built on ``core``: the bit
-    words, Eq. 4 block by block (:func:`filter_scores_ref`), then one exact
-    top-n_filter over the packed keys.
+    words, the plan's verdict ANDed into the bitmap, Eq. 4 block by block
+    (:func:`filter_scores_ref`), then one exact top-n_filter over the packed
+    keys.
     -> (scores (B, n_filter) int32, doc_ids (B, n_filter) int32,
         bits (B, n_c) int32 words)"""
     bits = build_bitvectors(cs, th, q_masks)                # (B, n_c)
+    if plan is not None:
+        bitmap = bitmap & apply_filter_plan(plan, pred_words)
     f = filter_scores_ref(bits, codes, doc_lens, bitmap)
-    ids = torch.arange(codes.shape[0], device=cs.device, dtype=torch.int32)
+    ids = torch.arange(codes.shape[-2], device=cs.device, dtype=torch.int32)
     keys = ((f + 1) << ID_BITS) + (MAX_ID - ids)
     top, _ = topk(keys, n_filter)
     return ((top >> ID_BITS) - 1).to(torch.int32), \
@@ -94,10 +110,10 @@ def prefilter_batched_ref(cs: torch.Tensor, th: float, codes: torch.Tensor,
 
 _VP, _CI = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "prefilter_scratch_bytes": (ctypes.c_size_t, [_CI, _CI, _CI, _CI]),
+    "prefilter_scratch_bytes": (ctypes.c_size_t, [_CI, _CI, _CI, _CI, _CI]),
     "prefilter_batched": (_CI, [_VP, ctypes.c_float, _VP, _VP, _VP, _VP,
-                                _CI, _CI, _CI, _CI, _CI, _CI, _VP, _VP, _VP,
-                                _VP, _VP]),
+                                _CI, _CI, _CI, _CI, _CI, _CI, _CI, _VP, _VP,
+                                _CI, _VP, _VP, _VP, _VP, _VP]),
 }
 
 
@@ -105,24 +121,35 @@ def _fn(name: str):
     return _build.function("prefilter", name, *_SIGNATURES[name])
 
 
-def _launch(cs, th, codes, doc_lens, bitmap, n_filter, qm):
+@functools.lru_cache(maxsize=64)
+def clause_words(plan: tuple, device: torch.device) -> torch.Tensor:
+    """A plan's clauses as the (n_clauses, 2) int32 tensor of (required,
+    forbidden) words the kernel reads, on ``device``; made once per plan and
+    device, so a call copies nothing to the card."""
+    flat = [x - (1 << 32) if x >= 1 << 31 else x
+            for clause in plan for x in clause]
+    return torch.tensor(flat, dtype=torch.int32,
+                        device=device).reshape(-1, 2)
+
+
+def _launch(cs, th, codes, doc_lens, bitmap, n_filter, qm, pred, clauses):
     """One launch of ``csrc/prefilter.cu`` for B <= MAX_BATCH queries; qm
-    None means every term is live."""
+    None means every term is live, pred None that no plan is applied."""
     global launches
     nb, n_q, n_c = cs.shape
-    n_docs, cap = codes.shape
+    n_docs, cap = codes.shape[-2:]
+    per_query = int(codes.dim() == 3)
     dev = cs.device
     bits = torch.empty((nb, n_c), dtype=torch.int32, device=dev)
     out = torch.empty((2, nb, n_filter), dtype=torch.int32, device=dev)
-    scratch = torch.empty(_fn("prefilter_scratch_bytes")(nb, n_c, n_docs,
-                                                          n_filter),
-                          dtype=torch.uint8, device=dev)
+    scratch = torch.empty(_fn("prefilter_scratch_bytes")(
+        nb, n_c, n_docs, n_filter, per_query), dtype=torch.uint8, device=dev)
+    p = _build.ptr
     err = _fn("prefilter_batched")(
-        cs.data_ptr(), float(th), None if qm is None else qm.data_ptr(),
-        codes.data_ptr(), doc_lens.data_ptr(), bitmap.data_ptr(), nb, n_q,
-        n_c, n_docs, cap, n_filter, bits.data_ptr(), out[0].data_ptr(),
-        out[1].data_ptr(), scratch.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
+        p(cs), float(th), p(qm), p(codes), p(doc_lens), p(bitmap), nb, n_q,
+        n_c, n_docs, cap, n_filter, per_query, p(pred), p(clauses),
+        0 if clauses is None else clauses.shape[0], p(bits), p(out[0]),
+        p(out[1]), p(scratch), _build.stream())
     _build.check(err, "prefilter_batched")
     launches += 1
     return out[0], out[1], bits
@@ -130,19 +157,27 @@ def _launch(cs, th, codes, doc_lens, bitmap, n_filter, qm):
 
 def prefilter_batched(cs: torch.Tensor, th: float, codes: torch.Tensor,
                       token_mask: torch.Tensor, bitmap: torch.Tensor,
-                      n_filter: int, q_masks=None):
-    """Batch-native fused phases 1b-2 for shared corpus codes.
+                      n_filter: int, q_masks=None, *, pred_words=None,
+                      plan=None):
+    """Batch-native fused phases 1b-2.
 
-    cs (B, n_q <= 32, n_c) float32; codes (n_docs, cap) int32; token_mask
-    (n_docs, cap) bool prefix mask or (n_docs,) int32 lengths; bitmap
-    (B, n_docs) bool; q_masks optional (B, n_q) bool.
+    cs (B, n_q <= 32, n_c) float32; codes (n_docs, cap) int32 shared by the
+    batch or (B, n_docs, cap) per query; token_mask the codes' shape in
+    bool (a prefix mask) or their leading shape in int32 lengths; bitmap
+    (B, n_docs) bool; q_masks optional (B, n_q) bool; plan optional
+    ``FilterPlan.clauses`` (None reads no predicate word) over pred_words
+    (n_docs,) uint32 or int32.
     -> (scores (B, n_filter) int32, doc_ids (B, n_filter) int32,
         bits (B, n_c) int32 holding the reference's uint32 words)
     """
     nb, n_q, n_c = cs.shape
-    n_docs, cap = codes.shape
+    n_docs, cap = codes.shape[-2:]
+    lead = (n_docs,) if codes.dim() == 2 else (nb, n_docs)
     if n_q > 32:
         raise ValueError("stacked bitvector packs one query term per bit")
+    if codes.dim() not in (2, 3) or tuple(codes.shape[:-1]) != lead:
+        raise ValueError(f"codes is {tuple(codes.shape)}: expected (n_docs, "
+                         f"cap) or ({nb}, n_docs, cap)")
     if not 1 <= n_filter <= n_docs:
         raise ValueError(f"n_filter={n_filter} must be in [1, {n_docs}]")
     if n_docs > MAX_ID:
@@ -151,12 +186,17 @@ def prefilter_batched(cs: torch.Tensor, th: float, codes: torch.Tensor,
         raise ValueError(f"bitmap is {tuple(bitmap.shape)}, expected "
                          f"{(nb, n_docs)}")
     doc_lens = lengths_of(token_mask)
-    if tuple(doc_lens.shape) != (n_docs,):
+    if tuple(doc_lens.shape) != lead:
         raise ValueError(f"token validity covers {tuple(doc_lens.shape)}, "
-                         f"expected ({n_docs},)")
+                         f"expected {lead}")
+    if plan is not None:
+        if pred_words is None or tuple(pred_words.shape) != (n_docs,):
+            raise ValueError(f"a plan needs pred_words of shape ({n_docs},)")
+        pred_words = pred_words.view(torch.int32)
     if cs.device.type == "cpu":
         return prefilter_batched_ref(cs, th, codes, doc_lens, bitmap,
-                                     n_filter, q_masks)
+                                     n_filter, q_masks,
+                                     pred_words=pred_words, plan=plan)
     if cs.device.type != "cuda":
         raise ValueError(f"prefilter: unsupported device {cs.device}")
     if n_filter > MAX_N_FILTER:
@@ -164,16 +204,26 @@ def prefilter_batched(cs: torch.Tensor, th: float, codes: torch.Tensor,
                          "kernel's final ranking holds its keys in shared "
                          "memory")
     operands = [("cs", cs, torch.float32, (nb, n_q, n_c)),
-                ("codes", codes, torch.int32, (n_docs, cap)),
-                ("token lengths", doc_lens, torch.int32, (n_docs,)),
+                ("codes", codes, torch.int32, (*lead, cap)),
+                ("token lengths", doc_lens, torch.int32, lead),
                 ("bitmap", bitmap, torch.bool, (nb, n_docs))]
     if q_masks is not None:
         operands.append(("q_masks", q_masks, torch.bool, (nb, n_q)))
+    clauses = None
+    if plan is not None:
+        clauses = clause_words(tuple(plan), cs.device)
+        operands.append(("pred_words", pred_words, torch.int32, (n_docs,)))
     _build.check_operands("prefilter", cs.device, operands)
-    parts = [_launch(cs[s:s + MAX_BATCH], th, codes, doc_lens,
-                     bitmap[s:s + MAX_BATCH], n_filter,
-                     None if q_masks is None else q_masks[s:s + MAX_BATCH])
-             for s in range(0, nb, MAX_BATCH)]
+    per_q = codes.dim() == 3
+    parts = []
+    for s in range(0, nb, MAX_BATCH):
+        parts.append(_launch(
+            cs[s:s + MAX_BATCH], th,
+            codes[s:s + MAX_BATCH] if per_q else codes,
+            doc_lens[s:s + MAX_BATCH] if per_q else doc_lens,
+            bitmap[s:s + MAX_BATCH], n_filter,
+            None if q_masks is None else q_masks[s:s + MAX_BATCH],
+            pred_words if plan is not None else None, clauses))
     if len(parts) == 1:
         return parts[0]
     return tuple(torch.cat(x) for x in zip(*parts))

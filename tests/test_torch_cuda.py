@@ -19,7 +19,8 @@ from repro_torch.kernels import ops
 from repro_torch.kernels import pqinter as kpq
 from repro_torch.kernels import pqscore as kps
 from repro_torch.kernels import prefilter as kpf
-from torch_inputs import lit_row_words, pqinter_inputs, prefilter_inputs
+from torch_inputs import (compact_inputs, doc_pass_rows, lit_row_words,
+                          plan_words, pqinter_inputs, prefilter_inputs)
 
 
 @pytest.fixture
@@ -268,3 +269,80 @@ def test_unfused_wrappers_refuse_bad_card_operands(card):
     with pytest.raises(ValueError, match="contiguous"):
         ops.pqscore_batched(cs_t, lut, pcodes.transpose(1, 2).contiguous()
                             .transpose(1, 2), res, plens, 0.1, pqm)
+
+
+# Filtered and compact retrieval's operand forms. Plans by pass rate on
+# plan_words' random words: none, about 1 % (six bits required), about half
+# (one bit), all; with forbidden bits and bit 31.
+CARD_PLANS = {"pass0": (), "pass1pct": ((0b111111 << 8, 1 << 31),),
+              "pass50pct": ((1 << 3, 0),), "pass100": ((0, 0),),
+              "forbidden": ((1 << 0, 1 << 1), (1 << 31, 0b110))}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nb", [1, 3, 32, 40])
+@pytest.mark.parametrize("plan", sorted(CARD_PLANS))
+def test_prefilter_plan_kernel_equals_plain(card, nb, plan):
+    cs, codes, mask, bitmap, qm = _on(card, *prefilter_inputs(
+        nb + 100, nb, 32, 300, 5003, 12, density=0.3))
+    words, = _on(card, plan_words(nb, 5003))
+    lens = mask.sum(-1, dtype=torch.int32)
+    clauses = CARD_PLANS[plan]
+    before = kpf.launches
+    got = ops.prefilter_batched(cs, 0.25, codes, lens, bitmap, 200, qm,
+                                pred_words=words, plan=clauses)
+    torch.cuda.synchronize()
+    assert kpf.launches == before + -(-nb // kpf.MAX_BATCH)
+    _same(got, kpf.prefilter_batched_ref(cs, 0.25, codes, lens, bitmap, 200,
+                                         qm, pred_words=words.view(
+                                             torch.int32), plan=clauses))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nb", [1, 3, 32, 40])
+@pytest.mark.parametrize("cand_cap,cap", [(1500, 12), (4100, 80)])
+@pytest.mark.parametrize("masked", [False, True])
+def test_prefilter_per_query_kernel_equals_plain(card, nb, cand_cap, cap,
+                                                 masked):
+    """Compact mode's per-query buffers, with holes in the valid slots and
+    a buffer size that is no multiple of the 1024-doc tile."""
+    cs, codes, mask, valid, qm = _on(card, *compact_inputs(
+        nb, nb, 32, 300, cand_cap, cap))
+    lens = mask.sum(-1, dtype=torch.int32)
+    qm = qm if masked else None
+    got = ops.prefilter_batched(cs, 0.25, codes, lens, valid, 1024, qm)
+    torch.cuda.synchronize()
+    _same(got, kpf.prefilter_batched_ref(cs, 0.25, codes, lens, valid, 1024,
+                                         qm))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nb", [1, 3, 32])
+@pytest.mark.parametrize("passing", ["all", "none", "sparse", "few"])
+@pytest.mark.parametrize("th_r", [None, 0.25])
+def test_pqinter_doc_pass_kernel_equals_plain(card, nb, passing, th_r):
+    """doc_pass with every, no, fewer than n_docs and fewer than k
+    survivors passing: the fillers of both cuts."""
+    cs_t, lut, codes, res, mask, qm = _on(card, *pqinter_inputs(
+        nb, nb, 32, 200, 300, 80, 16, 256))
+    dp, = _on(card, doc_pass_rows(nb, nb, 300, passing, 60, 20))
+    lens = mask.sum(-1, dtype=torch.int32)
+    got = ops.pqinter_batched(cs_t, lut, codes, res, lens, th_r, 60, 20, qm,
+                              doc_pass=dp)
+    torch.cuda.synchronize()
+    _same(got, kpq.pqinter_batched_ref(cs_t, lut, codes, res, lens, th_r, 60,
+                                       20, qm, dp))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nb", [1, 3, 32, 40])
+def test_bitfilter_per_query_kernel_equals_plain(card, nb):
+    _, codes, mask, valid, _ = compact_inputs(nb, nb, 1, 300, 4100, 80)
+    lens = (mask & valid[..., None]).sum(-1).astype(np.int32)
+    bits, codes, lens = _on(card, lit_row_words(nb, nb, 300, 0.3).view(
+        np.int32), codes, lens)
+    before = kbf.launches
+    f = ops.bitfilter_batched(bits, codes, lens)
+    torch.cuda.synchronize()
+    assert kbf.launches == before + 1
+    _same((f,), (kbf.bitfilter_batched_ref(bits, codes, lens),))

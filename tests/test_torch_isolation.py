@@ -49,6 +49,43 @@ def test_port_imports_without_jax_or_repro():
     assert out.stdout.startswith("ok")
 
 
+def _port_sources() -> list:
+    """Every Python source of the port: the package, chip_smoke.py and the
+    card scripts beside it."""
+    files = [os.path.join(ROOT, "chip_smoke.py")]
+    for base, _, names in os.walk(os.path.join(ROOT, "src", "repro_torch")):
+        files += [os.path.join(base, n) for n in names if n.endswith(".py")]
+    scripts = os.path.join(ROOT, "scripts")
+    files += [os.path.join(scripts, n) for n in os.listdir(scripts)
+              if n.startswith("chip_") and n.endswith(".py")]
+    return sorted(files)
+
+
+def test_port_sources_import_no_jax_or_repro():
+    """No import statement anywhere in the port's sources, inside functions
+    too (which importing the modules does not run), names jax or the JAX
+    package."""
+    import ast
+    files = _port_sources()
+    assert any(f.endswith(os.path.join("core", "bitvector.py"))
+               for f in files)
+    bad = []
+    for path in files:
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            bad += [f"{os.path.relpath(path, ROOT)}:{node.lineno} {n}"
+                    for n in names
+                    if n.split(".")[0] in ("jax", "jaxlib", "repro")]
+    assert not bad, bad
+
+
 def test_entry_points_refuse_the_cpu_unless_asked(monkeypatch, small_index,
                                                   tmp_path):
     ref, _ = small_index

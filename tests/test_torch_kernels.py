@@ -154,21 +154,29 @@ def test_pqinter_single_query_matches_pallas():
 
 
 def test_wrappers_refuse_out_of_slice_operands():
+    """Every operand form of the reference is taken (filter plans, per-query
+    codes, doc_pass); what is refused is a malformed one. pred_words without
+    a plan is not read, as in the reference."""
     cs, codes, mask, bitmap, _ = _prefilter_inputs(0, 2, 8, 32, 40, 4)
     cs, codes, mask, bitmap = _t(cs, codes, mask, bitmap)
-    with pytest.raises(NotImplementedError, match="predicate"):
-        tops.prefilter_batched(cs, 0.2, codes, mask, bitmap, 8,
-                               pred_words=torch.zeros(40, dtype=torch.int32))
-    with pytest.raises(NotImplementedError, match="predicate"):
+    tops.prefilter_batched(cs, 0.2, codes, mask, bitmap, 8,
+                           pred_words=torch.zeros(40, dtype=torch.int32))
+    with pytest.raises(ValueError, match="pred_words"):
         tops.prefilter(cs[0], 0.2, codes, mask, bitmap[0], 8, plan=())
-    with pytest.raises(NotImplementedError, match="compact"):
+    with pytest.raises(ValueError, match="pred_words"):
+        tops.prefilter_batched(cs, 0.2, codes, mask, bitmap, 8, plan=(),
+                               pred_words=torch.zeros(39, dtype=torch.int32))
+    with pytest.raises(ValueError, match="expected"):
+        tops.prefilter_batched(cs, 0.2, codes[None].expand(3, -1, -1),
+                               mask[None].expand(3, -1, -1), bitmap, 8)
+    with pytest.raises(ValueError, match="expected"):
         tops.prefilter_batched(cs, 0.2, codes[None].expand(2, -1, -1),
-                               mask[None].expand(2, -1, -1), bitmap, 8)
+                               mask, bitmap, 8)
     cs_t, lut, pcodes, res, pmask, _ = _t(*_pqinter_inputs(
         0, 2, 8, 32, 12, 4, 4, 16))
-    with pytest.raises(NotImplementedError, match="predicate"):
+    with pytest.raises(ValueError, match="doc_pass"):
         tops.pqinter_batched(cs_t, lut, pcodes, res, pmask, None, 8, 4,
-                             doc_pass=torch.ones(2, 12, dtype=torch.bool))
+                             doc_pass=torch.ones(2, 11, dtype=torch.bool))
 
 
 def test_token_mask_must_be_a_prefix():
@@ -314,9 +322,12 @@ def test_pqscore_matches_pallas(nb, n_q, n_c, nd, cap, m, ksub, lens, th_r,
 def test_unfused_wrappers_refuse_out_of_slice_operands():
     cs_t, lut, codes, res, mask, _ = _t(*_pqinter_inputs(
         0, 2, 8, 32, 12, 4, 4, 16))
-    with pytest.raises(NotImplementedError, match="compact"):
-        tops.bitfilter_batched(torch.zeros(2, 32, dtype=torch.int32), codes,
+    with pytest.raises(ValueError, match="expected"):
+        tops.bitfilter_batched(torch.zeros(3, 32, dtype=torch.int32), codes,
                                mask)
+    with pytest.raises(ValueError, match="expected"):
+        tops.bitfilter_batched(torch.zeros(2, 32, dtype=torch.int32), codes,
+                               mask[0])
     holey = mask.clone()
     holey[0, 0, 0], holey[0, 0, -1] = False, True
     with pytest.raises(ValueError, match="prefix"):

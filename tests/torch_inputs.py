@@ -68,3 +68,44 @@ def lit_row_words(seed, nb, n_c, share):
     w[cols % nb, cols] |= np.uint64(1) << (cols % 32).astype(np.uint64)
     w[:, ~lit] = 0
     return w.astype(np.uint32)
+
+
+def plan_words(seed, n):
+    """(n,) uint32 predicate words, bit 31 in use, a few fixed words
+    first."""
+    rng = np.random.default_rng(seed)
+    w = rng.integers(0, 1 << 32, size=n, dtype=np.uint64).astype(np.uint32)
+    w[:6] = [0, 0xFFFFFFFF, 1 << 31, 0b1101, 0b0101, 0x80000041][:n]
+    return w
+
+
+def compact_inputs(seed, nb, n_q, n_c, cand_cap, cap, levels=4):
+    """Compact mode's per-query operands: -> cs (B, n_q, n_c), codes
+    (B, cand_cap, cap), mask (B, cand_cap, cap) prefix masks, valid
+    (B, cand_cap) with holes (about a third of the slots invalid, the last
+    query's first slots too), q_mask (B, n_q)."""
+    rng = np.random.default_rng(seed)
+    cs = quant(rng.normal(size=(nb, n_q, n_c)) * 0.5, levels)
+    codes = rng.integers(0, n_c, size=(nb, cand_cap, cap)).astype(np.int32)
+    lens = rng.integers(0, cap + 1, size=(nb, cand_cap))
+    mask = np.arange(cap) < lens[..., None]
+    codes[~mask] = n_c
+    valid = rng.random((nb, cand_cap)) < 0.65
+    valid[-1, :min(cand_cap, 7)] = False
+    qm = rng.random((nb, n_q)) < 0.75
+    qm[:, 0] = True
+    return cs, codes, mask, valid, qm
+
+
+def doc_pass_rows(seed, nb, nf, passing, n_docs, k):
+    """(B, nf) bool verdicts per survivor: ``all``, ``none``, ``sparse``
+    (fewer than n_docs pass) or ``few`` (fewer than k pass), at random
+    positions."""
+    if passing in ("all", "none"):
+        return np.full((nb, nf), passing == "all")
+    rng = np.random.default_rng(seed)
+    count = n_docs // 2 if passing == "sparse" else k // 2
+    dp = np.zeros((nb, nf), bool)
+    for b in range(nb):
+        dp[b, rng.choice(nf, size=count + b % 2, replace=False)] = True
+    return dp
