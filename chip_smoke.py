@@ -66,6 +66,19 @@ Phases:
   6. timing  — CUDA-event medians of every step of both lanes, end to end,
                each kernel beside its plain version and its bound; the
                filtered and compact kernel forms and retrieve end to end
+  6b. bf16   — bf16 CS (cs_dtype="bfloat16", paper §6): each of the five
+               kernels with a CS operand (prefilter, pqinter, bitpack,
+               cinter, pqscore) == its plain version in its bf16 form on the
+               small phase's cases (CS entries equal to bf16(th) and
+               bf16(th_r), S̄ ties across blocks; bitfilter on words from a
+               bf16 bitpack) and at full width at B = 32 and B = 1;
+               retrieve on both lanes, unfiltered, with the 1 % filter and
+               in compact mode, launch counts read around each, planted
+               Success@100 on both lanes, each lane held step by step; the
+               lanes' differences counted, each traced to an entry equal to
+               bf16(th) (the unfused bitpack compares in float32); each bf16
+               form's ms, plain ms, bound (2 bytes a CS element) and the
+               fused lane's steps, and retrieve's ms per config and lane
   7. limits  — kernels off the default config, each held against its plain
                version and timed by pass: the prefilter and pqinter
                megakernels on a B = 32 batch whose queries share candidates
@@ -110,6 +123,13 @@ SUCCESS_FLOOR = 0.9
 # tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+
+# bf16 CS (phase bf16): th = 0.4 and th_r = 0.3 round to these bf16 values,
+# above their float32 values, so an entry equal to one of them compares
+# otherwise in bf16 than in float32 (the fused prefilter compares in bf16,
+# the unfused bitpack in float32).
+BF16_TH, BF16_TH_R = 0.4, 0.3
+BF16_EDGES = (0.400390625, 0.30078125)
 
 RECORD: dict = {}
 
@@ -282,6 +302,19 @@ def predicate_words(n: int, rates: dict, seed: int, device):
     return words.view(torch.uint32)
 
 
+def bf16_edges(seed, x, share: float = 0.15, values=BF16_EDGES):
+    """``x`` (float32, every entry a bf16 value) with a ``share`` of its
+    entries set to each of ``values`` (tests/torch_inputs.py holds the same
+    definition for the CPU tests)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    x = x.copy()
+    pick = rng.random(x.shape)
+    for i, v in enumerate(values):
+        x[(pick >= i * share) & (pick < (i + 1) * share)] = v
+    return x
+
+
 def _stress_lens(rng, shape, cap: int):
     """Token counts: from STRESS_LENS at its caps, else uniform in
     [0, cap]."""
@@ -305,9 +338,12 @@ def lit_row_words(rng, nb: int, n_c: int, share: float):
     return w.astype(np.uint32).view(np.int32)
 
 
-def small_phase(dev) -> dict:
+def small_phase(dev, cs_dtype: str = "float32") -> dict:
     """Phase 3: each kernel against its plain version on small, ragged,
-    tie-heavy inputs. -> max abs error per kernel (0: exact)."""
+    tie-heavy inputs. -> max abs error per kernel (0: exact). With
+    ``cs_dtype="bfloat16"`` (the bf16 phase) the CS operands are bf16, with
+    a share of entries equal to bf16(th) and bf16(th_r), and th and th_r
+    are BF16_TH and BF16_TH_R."""
     import numpy as np
     import torch
     from repro_torch.kernels import bitfilter as kbf
@@ -320,6 +356,17 @@ def small_phase(dev) -> dict:
 
     def t(x):
         return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+
+    bf16 = cs_dtype == "bfloat16"
+    th = BF16_TH if bf16 else 0.25
+
+    def thr(v):
+        """A stress case's th_r under this phase's CS dtype."""
+        return BF16_TH_R if bf16 and v == 0.25 else v
+
+    def c(x):
+        """A CS operand in this phase's dtype."""
+        return t(bf16_edges(x.size, x)).to(torch.bfloat16) if bf16 else t(x)
 
     err = dict.fromkeys(KERNELS, 0.0)
     cases = 0
@@ -338,10 +385,10 @@ def small_phase(dev) -> dict:
         bitmap = rng.random((nb, n_docs)) < 0.3
         qm = rng.random((nb, n_q)) < 0.8
         qm[:, 0] = True
-        args = (t(cs), 0.25, t(codes), t(lens), t(bitmap), n_filter, t(qm))
+        args = (c(cs), th, t(codes), t(lens), t(bitmap), n_filter, t(qm))
         hold("prefilter", ops.prefilter_batched(*args),
              kpf.prefilter_batched_ref(*args))
-        args = (t(cs), 0.25, t(qm))
+        args = (c(cs), th, t(qm))
         bits = kbp.bitpack_batched_ref(*args)
         hold("bitpack", (ops.bitpack_batched(*args),), (bits,))
         args = (bits, t(codes), t(lens))
@@ -355,15 +402,15 @@ def small_phase(dev) -> dict:
         plens = rng.integers(0, cap + 1, size=(nb, nf)).astype(np.int32)
         pcodes[np.arange(cap) >= plens[..., None]] = n_c
         res = rng.integers(0, ksub, size=(nb, nf, cap, m)).astype(np.uint8)
-        args = (t(cs_t), t(pcodes), t(plens), t(qm))
+        args = (c(cs_t), t(pcodes), t(plens), t(qm))
         hold("cinter", (ops.cinter_batched(*args),),
              (kci.cinter_batched_ref(*args),))
-        for th_r in (None, 0.25):
-            args = (t(cs_t), t(lut), t(pcodes), t(res), t(plens), th_r,
+        for th_r in (None, thr(0.25)):
+            args = (c(cs_t), t(lut), t(pcodes), t(res), t(plens), th_r,
                     n_docs2, k, t(qm))
             hold("pqinter", ops.pqinter_batched(*args),
                  kpq.pqinter_batched_ref(*args))
-            args = (t(cs_t), t(lut), t(pcodes), t(res), t(plens), th_r,
+            args = (c(cs_t), t(lut), t(pcodes), t(res), t(plens), th_r,
                     t(qm))
             hold("pqscore", (ops.pqscore_batched(*args),),
                  (kps.pqscore_batched_ref(*args),))
@@ -383,12 +430,12 @@ def small_phase(dev) -> dict:
         qm = rng.random((nb, n_q)) < 0.8
         qm[:, 0] = True
         for q in (t(qm), None):
-            args = (t(cs), 0.25, t(codes), t(lens), t(bitmap), n_filter, q)
+            args = (c(cs), th, t(codes), t(lens), t(bitmap), n_filter, q)
             hold("prefilter", ops.prefilter_batched(*args),
                  kpf.prefilter_batched_ref(*args))
-            hold("bitpack", (ops.bitpack_batched(t(cs), 0.25, q),),
-                 (kbp.bitpack_batched_ref(t(cs), 0.25, q),))
-        bits = kbp.bitpack_batched_ref(t(cs), 0.25, t(qm))
+            hold("bitpack", (ops.bitpack_batched(c(cs), th, q),),
+                 (kbp.bitpack_batched_ref(c(cs), th, q),))
+        bits = kbp.bitpack_batched_ref(c(cs), th, t(qm))
         args = (bits, t(codes), t(lens))
         hold("bitfilter", (ops.bitfilter_batched(*args),),
              (kbf.bitfilter_batched_ref(*args),))
@@ -403,18 +450,18 @@ def small_phase(dev) -> dict:
         res = rng.integers(0, ksub, size=(nb, nf, cap, m)).astype(np.uint8)
         qm = rng.random((nb, n_q)) < 0.8
         qm[:, 0] = True
-        for th_r in th_rs:
+        for th_r in map(thr, th_rs):
             for q in (t(qm), None):
-                args = (t(cs_t), t(lut), t(pcodes), t(res), t(plens), th_r,
+                args = (c(cs_t), t(lut), t(pcodes), t(res), t(plens), th_r,
                         n_docs2, k, q)
                 hold("pqinter", ops.pqinter_batched(*args),
                      kpq.pqinter_batched_ref(*args))
-                args = (t(cs_t), t(lut), t(pcodes), t(res), t(plens), th_r,
+                args = (c(cs_t), t(lut), t(pcodes), t(res), t(plens), th_r,
                         q)
                 hold("pqscore", (ops.pqscore_batched(*args),),
                      (kps.pqscore_batched_ref(*args),))
         for q in (t(qm), None):
-            args = (t(cs_t), t(pcodes), t(plens), q)
+            args = (c(cs_t), t(pcodes), t(plens), q)
             hold("cinter", (ops.cinter_batched(*args),),
                  (kci.cinter_batched_ref(*args),))
     for name, nb, n_c, n_docs, cap, share, lens in BITFILTER_STRESS:
@@ -440,9 +487,9 @@ def small_phase(dev) -> dict:
         res = rng.integers(0, ksub, size=(nb, nd, cap, m)).astype(np.uint8)
         qm = rng.random((nb, n_q)) < 0.8
         qm[:, 0] = True
-        for th_r in th_rs:
+        for th_r in map(thr, th_rs):
             for q in (t(qm), None):
-                args = (t(cs_t), t(lut), t(pcodes), t(res), t(plens), th_r,
+                args = (c(cs_t), t(lut), t(pcodes), t(res), t(plens), th_r,
                         q)
                 hold("pqscore", (ops.pqscore_batched(*args),),
                      (kps.pqscore_batched_ref(*args),))
@@ -458,7 +505,7 @@ def small_phase(dev) -> dict:
         qm[:, 0] = True
         words = predicate_words(n_docs, SMALL_RATES, nb, dev)
         for clauses in SMALL_PLANS.values():
-            args = (t(cs), 0.25, t(codes), t(lens), t(bitmap), 300, t(qm))
+            args = (c(cs), th, t(codes), t(lens), t(bitmap), 300, t(qm))
             kw = dict(pred_words=words, plan=clauses)
             hold("prefilter", ops.prefilter_batched(*args, **kw),
                  kpf.prefilter_batched_ref(*args, **kw))
@@ -473,11 +520,11 @@ def small_phase(dev) -> dict:
         valid[-1, :7] = False
         qm = rng.random((nb, 32)) < 0.8
         qm[:, 0] = True
-        args = (t(cs), 0.25, t(codes), t(lens), t(valid),
+        args = (c(cs), th, t(codes), t(lens), t(valid),
                 COMPACT_CASE["n_filter"], t(qm))
         hold("prefilter", ops.prefilter_batched(*args),
              kpf.prefilter_batched_ref(*args))
-        args = (kbp.bitpack_batched_ref(t(cs), 0.25, t(qm)), t(codes),
+        args = (kbp.bitpack_batched_ref(c(cs), th, t(qm)), t(codes),
                 t(np.where(valid, lens, 0).astype(np.int32)))
         hold("bitfilter", (ops.bitfilter_batched(*args),),
              (kbf.bitfilter_batched_ref(*args),))
@@ -496,13 +543,14 @@ def small_phase(dev) -> dict:
             dp = np.zeros((nb, nf), bool)
             for b in range(nb):
                 dp[b, rng.choice(nf, size=n_pass, replace=False)] = True
-            for th_r in (None, 0.25):
-                args = (t(cs_t), t(lut), t(pcodes), t(res), t(plens), th_r,
+            for th_r in (None, thr(0.25)):
+                args = (c(cs_t), t(lut), t(pcodes), t(res), t(plens), th_r,
                         n_docs2, k, t(qm))
                 hold("pqinter", ops.pqinter_batched(*args, doc_pass=t(dp)),
                      kpq.pqinter_batched_ref(*args, t(dp)))
     torch.cuda.synchronize()
-    emit("small", cases=cases, exact=True, max_abs_err=err,
+    emit("small" if not bf16 else "bf16_small", cases=cases, exact=True,
+         cs_dtype=cs_dtype, th=th, max_abs_err=err,
          stress=[c[0] for c in PREFILTER_STRESS + PQINTER_STRESS
                  + BITFILTER_STRESS + PQSCORE_STRESS],
          filter_cases=FILTER_CASES)
@@ -531,7 +579,8 @@ def prefilter_bound(cs, index, bitmap, n_filter, doc_pass=None) -> dict:
         any_cand = bitmap.any(0)
     n_cand_docs = int(any_cand.sum())
     tokens = int(index.doc_lens[any_cand].sum())
-    nbytes = (cs.numel() * 4 + bitmap.numel() + nb * n_q + words
+    nbytes = (cs.numel() * cs.element_size() + bitmap.numel() + nb * n_q
+              + words
               + n_cand_docs * 4 + tokens * 4
               + nb * n_filter * 8 + nb * n_c * 4)
     ops_ = nb * n_q * n_c + nb * tokens          # compares + word ORs
@@ -544,7 +593,7 @@ def prefilter_query_bound(cs, lens, valid, n_filter) -> dict:
     its valid slots, and its outputs."""
     nb, n_q, n_c = cs.shape
     tokens = int(lens[valid].sum())
-    nbytes = (cs.numel() * 4 + valid.numel() + nb * n_q
+    nbytes = (cs.numel() * cs.element_size() + valid.numel() + nb * n_q
               + int(valid.sum()) * 4 + tokens * 4
               + nb * n_filter * 8 + nb * n_c * 4)
     return _bound(nbytes, nb * n_q * n_c + tokens)
@@ -580,7 +629,8 @@ def pqinter_bound(cs_t, lut, codes, lens, sel2, n_docs, k,
     win_tokens = int(torch.gather(lens, 1, sel2.long().clamp(min=0))[
         sel2 >= 0].sum())
     tokens = int(lens.sum())
-    nbytes = (tokens * 4 + nb * nf * 4 + n_rows * n_q * 4 + lut.numel() * 4
+    nbytes = (tokens * 4 + nb * nf * 4 + n_rows * n_q * cs_t.element_size()
+              + lut.numel() * 4
               + win_tokens * m + nb * n_q + nb * k * 8 + nb * n_docs * 8
               + verdicts)
     ops_ = tokens * n_q + win_tokens * n_q * (m + 1)   # maxes + LUT adds
@@ -590,7 +640,8 @@ def pqinter_bound(cs_t, lut, codes, lens, sel2, n_docs, k,
 def bitpack_bound(cs) -> dict:
     """Least bytes bitpack must move: the CS, the term mask, the words."""
     nb, n_q, n_c = cs.shape
-    return _bound(cs.numel() * 4 + nb * n_q + nb * n_c * 4, nb * n_q * n_c)
+    return _bound(cs.numel() * cs.element_size() + nb * n_q + nb * n_c * 4,
+                  nb * n_q * n_c)
 
 
 def _sectors(nbytes: int) -> int:
@@ -631,7 +682,7 @@ def cinter_bound(cs_t, codes, lens) -> dict:
     n_c, n_q = cs_t.shape[1:]
     tokens = int(lens.sum())
     nbytes = (nb * nd * 4 + tokens * 4 + _rows_touched(codes, lens, n_c)
-              * n_q * 4 + nb * n_q + nb * nd * 4)
+              * n_q * cs_t.element_size() + nb * n_q + nb * nd * 4)
     return _bound(nbytes, tokens * n_q)
 
 
@@ -645,11 +696,13 @@ def pqscore_bound(cs_t, lut, codes, lens) -> dict:
     m = lut.shape[2]
     tokens = int(lens.sum())
     nbytes = (nb * nd * 4 + tokens * (4 + m) + _rows_touched(codes, lens, n_c)
-              * n_q * 4 + lut.numel() * 4 + nb * n_q + nb * nd * 4)
+              * n_q * cs_t.element_size() + lut.numel() * 4 + nb * n_q
+              + nb * nd * 4)
     out = _bound(nbytes, tokens * n_q * (m + 1))
     # the L2 bytes its gathers take: per valid token a CS^T row and m LUT
     # rows of n_q floats
-    out["l2_gather_bytes"] = tokens * (m + 1) * _sectors(n_q * 4)
+    out["l2_gather_bytes"] = tokens * (_sectors(n_q * cs_t.element_size())
+                                       + m * _sectors(n_q * 4))
     return out
 
 
@@ -665,14 +718,14 @@ def hold_phases(index, q, cfg) -> dict:
     """One batch through the fused lane's own steps (as ``engine``'s
     ``_phase12_batch`` and ``_phase34_batch`` run them, filter and candidate
     mode included): each kernel against its plain version on the SAME CS,
-    bitmap, LUT and survivor operands. Returns the intermediates and the
-    composed ids."""
+    bitmap, LUT and survivor operands, CS in ``cfg.cs_dtype``. Returns the
+    intermediates and the composed ids."""
     import torch
     from repro_torch.core import engine as teng
     from repro_torch.kernels import ops
     from repro_torch.kernels import pqinter as kpq
     from repro_torch.kernels import prefilter as kpf
-    cs = teng.centroid_scores(q, index.centroids)
+    cs = teng.centroid_scores(q, index.centroids, cfg.cs_dtype)
     bitmap = teng._candidates(index, cs, cfg)
     doc_pass = teng._doc_pass(index, cfg)
     cand_ids = None
@@ -710,7 +763,9 @@ def hold_unfused(index, q, cfg, h) -> dict:
     ``_phase1`` to ``_phase4`` run them, filter and candidate mode
     included) on the fused lane's CS, bitmap and LUT (``h``): each kernel
     against its plain version on the same operands, the phase-2 cut against
-    the prefilter's. Returns the intermediates and the composed result."""
+    the prefilter's on float32 CS (on bf16 CS the two lanes' bit vectors
+    differ where an entry equals bf16(th): the bf16 phase accounts for
+    that). Returns the intermediates and the composed result."""
     import torch
     from repro_torch.core import engine as teng
     from repro_torch.core.topk import topk
@@ -738,7 +793,7 @@ def hold_unfused(index, q, cfg, h) -> dict:
                 cfg.n_filter)[1]
     if cand_ids is not None:
         sel1 = torch.gather(cand_ids, 1, sel1)
-    if not torch.equal(sel1, h["sel1"]):
+    if cfg.cs_dtype == "float32" and not torch.equal(sel1, h["sel1"]):
         raise AssertionError("the unfused phase-2 cut differs from the "
                              "prefilter megakernel's")
     cs_t = teng._transposed(h["cs"])
@@ -923,8 +978,9 @@ def full_phase(dev) -> dict:
         if qual["success_at_100"] < SUCCESS_FLOOR:
             raise AssertionError(f"{lane} lane: planted Success@100 "
                                  f"{qual['success_at_100']} < {SUCCESS_FLOOR}")
-    return dict(index=index, cfg=cfg, ucfg=ucfg, queries=queries, held=held,
-                held_u=held_u, launches=launches, token_hist=hist)
+    return dict(index=index, cfg=cfg, ucfg=ucfg, queries=queries, gt=gt,
+                held=held, held_u=held_u, launches=launches,
+                token_hist=hist)
 
 
 def result_digest(results) -> str:
@@ -1118,6 +1174,24 @@ def time_ms(fn, **kw) -> float:
     return statistics.median(time_samples(fn, **kw))
 
 
+def burst_ms(fn, n: int = 20, flush=None) -> float:
+    """CUDA-event ms per call over ``n`` back-to-back calls of ``fn`` after
+    one warm-up and one flush of L2: the launches queue behind each other,
+    so the host's time between them hides behind the device's."""
+    import torch
+    fn()
+    if flush is not None:
+        flush.zero_()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(n):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / n
+
+
 def latency_stats(times: list) -> dict:
     """Median and the highest percentile with at least ten samples beyond
     it (p80 of 50, p90 of 100), with the sample count."""
@@ -1126,6 +1200,26 @@ def latency_stats(times: list) -> dict:
     pct = 100 * (n - 10) // n // 10 * 10
     return {"median_ms": statistics.median(ts), f"p{pct}_ms":
             ts[min(n - 1, -(-pct * n // 100) - 1)], "n": n}
+
+
+def in_turns(fns: dict, n: int, rounds: int = 5, flush=None) -> dict:
+    """Two functions timed in turns (:func:`time_samples`): ``rounds``
+    rounds of blocks in the order a, b, b, a, ``n`` samples of each in all,
+    so a drift of the card's clocks or the host's load falls on both alike.
+    -> the first's latency_stats, with the second's under
+    "<name>_in_turns" and every block's median ms under "block_medians"."""
+    a, b = fns
+    per = max(1, n // (2 * rounds))
+    samples = {a: [], b: []}
+    blocks = {a: [], b: []}
+    for _ in range(rounds):
+        for k in (a, b, b, a):
+            ts = time_samples(fns[k], n=per, warmup=1, flush=flush)
+            samples[k] += ts
+            blocks[k].append(statistics.median(ts))
+    return {**latency_stats(samples[a]),
+            f"{b}_in_turns": latency_stats(samples[b]),
+            "block_medians": blocks}
 
 
 def timing_phase(full: dict) -> dict:
@@ -1321,29 +1415,269 @@ def filter_timing_phase(filt: dict) -> dict:
                 rec["plain_ms" + sfx] = time_ms(plain, n=3, warmup=1,
                                                 flush=flush)
                 rec["bound" + sfx] = bound
-                rec["pass_ms" + sfx] = _passes_ms(fn, kern)
+                rec["pass_ms" + sfx], rec["pass_launches" + sfx] = \
+                    _passes(fn, kern)
             forms.setdefault(kern, {})[form] = rec
     out = {"forms": forms, "end_to_end": e2e, "step_ms": steps}
     emit("timing_filter", **out)
     return out
 
 
+# --- 6b. bf16 CS --------------------------------------------------------------
+
+# The bf16 configs: name -> (the 1 % filter or none, candidate mode).
+BF16_CONFIGS = {"unfiltered": (False, "score_all"),
+                "filter1pct": (True, "score_all"),
+                "compact": (False, "compact")}
+
+
+def lane_differences(index, q, cfg, ucfg, h, u) -> dict:
+    """Where the two lanes differ on bf16 CS (the same CS and LUT), and
+    whether each difference traces to an entry equal to bf16(th): there the
+    fused prefilter packs bit 0 (a bf16 comparison) and the unfused bitpack
+    bit 1 (float32), as the reference's kernels do. Raises unless the two
+    lanes' bit words differ exactly at those entries and every query whose
+    words agree gets the same results from both lanes (finite entries)."""
+    import torch
+    from repro_torch.core import bitvector
+    from repro_torch.core import engine as teng
+    from repro_torch.core.precision import round_to
+    cs = h["cs"]
+    edge = cs.float() == round_to(cfg.th, torch.bfloat16)
+    edge_words = bitvector.build_bitvectors(edge.float(), 0.5)
+    fused_bits, unfused_bits = h["pf"][2], u["bits"]
+    if not torch.equal(fused_bits ^ unfused_bits, edge_words):
+        raise AssertionError("bf16: the lanes' bit words differ elsewhere "
+                             "than at entries equal to bf16(th)")
+    a = teng._retrieve_batch(index, q, cfg, cs=cs, lut=h["lut"])
+    z = teng._retrieve_batch(index, q, ucfg, cs=cs, lut=h["lut"])
+    fin = torch.isfinite(a.scores)
+    same = ((fin == torch.isfinite(z.scores))
+            & (~fin | ((a.doc_ids == z.doc_ids) & (
+                a.scores.view(torch.int32) == z.scores.view(torch.int32)))))
+    words_differ = (fused_bits != unfused_bits).any(1)
+    rows = ~same.all(1)
+    if (rows & ~words_differ).any():
+        raise AssertionError("bf16: the lanes' results differ on a query "
+                             "whose bit words agree")
+    return {"entries_equal_bf16_th": int(edge.sum()),
+            "queries_with_such_entries": int(words_differ.sum()),
+            "queries_whose_results_differ": int(rows.sum()),
+            "results_that_differ": int((~same).sum()),
+            "every_difference_traced_to_bf16_th": True}
+
+
+def bf16_phase(dev, full: dict, filt: dict) -> dict:
+    """Phase 6b: bf16 CS (``cs_dtype="bfloat16"``, paper §6) on the planted
+    index with its predicate plane. Each kernel's bf16 form against its
+    plain version on the small stress cases (:func:`small_phase`) and at
+    full width; retrieve on both lanes at B = 32 and B = 1, unfiltered,
+    with the 1 % filter and in compact mode, the launch counts read around
+    those calls, the results checked (planted Success@100 >= SUCCESS_FLOOR
+    unfiltered) and held step by step; the lanes' differences, each traced
+    to an entry equal to bf16(th) (:func:`lane_differences`); then each
+    bf16 kernel form's ms, plain ms, bound and per-pass device ms, its ms
+    per call in bursts beside the float32 form's (in turns: float32, bf16,
+    bf16, float32), the fused lane's steps, and retrieve's ms per config
+    and lane, in turns with float32 on the same queries (:func:`in_turns`)."""
+    import torch
+    from repro_torch.core import bitvector
+    from repro_torch.core import engine as teng
+    from repro_torch.data import synthetic
+    from repro_torch.kernels import bitpack as kbp
+    from repro_torch.kernels import cinter as kci
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import pqinter as kpq
+    from repro_torch.kernels import pqscore as kps
+    from repro_torch.kernels import prefilter as kpf
+    small_err = small_phase(dev, "bfloat16")
+    index, queries = filt["index"], full["queries"]
+    plan = filt["configs"]["filter1pct"]["cfgs"]["fused"].doc_filter
+    passing = bitvector.apply_filter_plan(plan, index.pred_words)
+    batches = [queries[s:s + 32] for s in range(0, N_QUERIES, 32)]
+    gt_np = full["gt"].cpu().numpy()
+    configs = {}
+    for name, (filtered, mode) in BF16_CONFIGS.items():
+        over = dict(cs_dtype="bfloat16", candidate_mode=mode,
+                    cand_cap=CAND_CAP, doc_filter=plan if filtered else None)
+        cfgs = {"fused": dataclasses.replace(full["cfg"], **over),
+                "unfused": dataclasses.replace(full["ucfg"], **over)}
+        ok = passing if filtered else None
+        launches, results, quality, fillers = {}, {}, {}, {}
+        for lane, c in cfgs.items():
+            ops.reset_launches()
+            res = [teng.retrieve(index, q, c) for q in batches]
+            torch.cuda.synchronize()
+            launches[lane] = {"b32": ops.launch_counts()}
+            ops.reset_launches()
+            res1 = [teng.retrieve(index, queries[i:i + 1], c)
+                    for i in range(N_SINGLE)]
+            torch.cuda.synchronize()
+            launches[lane]["b1"] = ops.launch_counts()
+            for kname, kern in KERNELS.items():
+                want = ((len(batches), N_SINGLE) if kern["lane"] == lane
+                        else (0, 0))
+                got = tuple(launches[lane][b][kname] for b in ("b32", "b1"))
+                if got != want:
+                    raise AssertionError(f"bf16 {name} {lane}: {kname} "
+                                         f"launched {got}, expected {want}")
+            ids = torch.cat([r.doc_ids for r in res])
+            ids1 = torch.cat([r.doc_ids for r in res1])
+            fillers[lane] = {
+                "b32": check_filtered(ids, torch.cat([r.scores for r in res]),
+                                      ok),
+                "b1": check_filtered(ids1, torch.cat([r.scores
+                                                      for r in res1]), ok)}
+            quality[lane] = {
+                "success_at_100": synthetic.success_at_k(
+                    ids.cpu().numpy(), gt_np, 100),
+                "success_at_100_b1": synthetic.success_at_k(
+                    ids1.cpu().numpy(), gt_np[:N_SINGLE], 100)}
+            if name == "unfiltered" and min(quality[lane].values()) \
+                    < SUCCESS_FLOOR:
+                raise AssertionError(f"bf16 {lane} lane: planted "
+                                     f"Success@100 {quality[lane]} < "
+                                     f"{SUCCESS_FLOOR}")
+            results[lane] = {"b32": res[0], "b1": res1[0]}
+        held, diffs = {}, {}
+        for b, q in (("b32", batches[0]), ("b1", queries[:1])):
+            h = hold_phases(index, q, cfgs["fused"])
+            u = hold_unfused(index, q, cfgs["unfused"], h)
+            for lane, got in (("fused", (h["ids"], h["pq"][0])),
+                              ("unfused", (u["ids"], u["scores"]))):
+                ref = results[lane][b]
+                if not (torch.equal(got[0], ref.doc_ids) and torch.equal(
+                        got[1].view(torch.int32),
+                        ref.scores.view(torch.int32))):
+                    raise AssertionError(f"bf16 {name} {lane} {b}: the held "
+                                         "phases do not compose to retrieve")
+            diffs[b] = lane_differences(index, q, cfgs["fused"],
+                                        cfgs["unfused"], h, u)
+            held[b] = {"h": h, "u": u, "q": q}
+        configs[name] = dict(cfgs=cfgs, held=held, launches=launches)
+        emit(f"bf16_{name}", candidate_mode=mode, filtered=filtered,
+             launches=launches, phases_exact=True, quality=quality,
+             fillers=fillers, lane_differences=diffs,
+             max_abs_err={b: {**v["h"]["err"], **v["u"]["err"]}
+                          for b, v in held.items()})
+
+    flush = torch.empty(64 << 20, dtype=torch.int32, device=index.device)
+    e2e = {}
+    for name, conf in configs.items():
+        n32, n1 = (50, 100) if name == "unfiltered" else (20, 50)
+        for lane, c in conf["cfgs"].items():
+            c32 = dataclasses.replace(c, cs_dtype="float32")
+            for b, n in (("b32", n32), ("b1", n1)):
+                q = conf["held"][b]["q"]
+                e2e.setdefault(name, {}).setdefault(lane, {})[b] = in_turns(
+                    {"bf16": lambda: teng.retrieve(index, q, c),
+                     "float32": lambda: teng.retrieve(index, q, c32)},
+                    n, flush=flush)
+    conf = configs["unfiltered"]
+    cfg = conf["cfgs"]["fused"]
+    forms, steps = {}, {}
+    for b in ("b32", "b1"):
+        h, u, q = (conf["held"][b][k] for k in ("h", "u", "q"))
+        fh, fu = full["held"][b], full["held_u"][b]     # float32, same q
+        cs = h["cs"]
+        probe = bitvector.masked_topk_centroids(cs, cfg.th, cfg.nprobe)
+        steps[b] = {k: time_ms(fn, flush=flush) for k, fn in {
+            "cs_matmul": lambda: teng.centroid_scores(
+                q, index.centroids, "bfloat16"),
+            "probe_topk": lambda: bitvector.masked_topk_centroids(
+                cs, cfg.th, cfg.nprobe),
+            "bitmap": lambda: teng.candidate_bitmap(
+                index.ivf, index.ivf_lens, probe, index.codes.shape[0]),
+            "prefilter_kernel": lambda: ops.prefilter_batched(
+                *h["pf_args"]),
+            "lut_and_gathers": lambda: teng._survivor_operands(
+                index, cs, teng._query_lut(index, q), h["sel1"]),
+            "pqinter_kernel": lambda: ops.pqinter_batched(
+                *h["operands"], cfg.th_r, cfg.n_docs, cfg.k),
+        }.items()}
+        pq_args = (*h["operands"], cfg.th_r, cfg.n_docs, cfg.k)
+        ci, ps = u["ci_args"], u["ps_args"]
+        cases = {
+            "prefilter": (lambda: ops.prefilter_batched(*h["pf_args"]),
+                          lambda: kpf.prefilter_batched_ref(*h["pf_args"]),
+                          prefilter_bound(cs, index, h["bitmap"],
+                                          cfg.n_filter)),
+            "pqinter": (lambda: ops.pqinter_batched(*pq_args),
+                        lambda: kpq.pqinter_batched_ref(*pq_args),
+                        pqinter_bound(h["operands"][0], h["operands"][1],
+                                      h["operands"][2], h["operands"][4],
+                                      h["pq"][2], cfg.n_docs, cfg.k)),
+            "bitpack": (lambda: (ops.bitpack_batched(cs, cfg.th),),
+                        lambda: (kbp.bitpack_batched_ref(cs, cfg.th),),
+                        bitpack_bound(cs)),
+            "cinter": (lambda: (ops.cinter_batched(*ci),),
+                       lambda: (kci.cinter_batched_ref(*ci),),
+                       cinter_bound(*ci)),
+            "pqscore": (lambda: (ops.pqscore_batched(*ps),),
+                        lambda: (kps.pqscore_batched_ref(*ps),),
+                        pqscore_bound(ps[0], ps[1], ps[2], ps[4])),
+        }
+        # the float32 forms on the same queries, timed in turns with bf16
+        f32_fns = {
+            "prefilter": lambda: ops.prefilter_batched(*fh["pf_args"]),
+            "pqinter": lambda: ops.pqinter_batched(
+                *fh["operands"], cfg.th_r, cfg.n_docs, cfg.k),
+            "bitpack": lambda: ops.bitpack_batched(fh["cs"], cfg.th),
+            "cinter": lambda: ops.cinter_batched(*fu["ci_args"]),
+            "pqscore": lambda: ops.pqscore_batched(*fu["ps_args"]),
+        }
+        sfx = "" if b == "b32" else "_b1"
+        for kern, (fn, plain, bound) in cases.items():
+            lane = KERNELS[kern]["lane"]
+            rec = forms.setdefault(kern, {"config": "bf16", "lane": lane})
+            rec["launches" + sfx] = conf["launches"][lane][b][kern]
+            rec["max_abs_err" + sfx] = max(small_err[kern],
+                                           _exact(fn(), plain()))
+            rec["ms" + sfx] = time_ms(fn, flush=flush)
+            rec["plain_ms" + sfx] = time_ms(plain, n=3, warmup=1,
+                                            flush=flush)
+            rec["bound" + sfx] = bound
+            rec["pass_ms" + sfx], rec["pass_launches" + sfx] = \
+                _passes(fn, kern)
+            turns = {"float32": [], "bf16": []}
+            for dt in ("float32", "bf16", "bf16", "float32"):
+                turns[dt].append(burst_ms(
+                    f32_fns[kern] if dt == "float32" else fn, flush=flush))
+            rec["burst_ms" + sfx] = {dt: statistics.median(v)
+                                     for dt, v in turns.items()}
+    out = {"forms": {k: {"bf16": v} for k, v in forms.items()},
+           "end_to_end": e2e, "step_ms": steps}
+    emit("timing_bf16", **out)
+    return out
+
+
 # --- 7. kernels away from the default config ---------------------------------
 
-def _passes_ms(fn, kern: str, calls: int = 3) -> dict:
-    """Device ms per call of each __global__ function of ``kern`` over
-    ``calls`` calls of ``fn`` (torch.profiler)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    return {f: sum(_dev_us(e) for e in es) / 1e3 / calls
-            for f, es in _pass_events(_device_events(prof), kern).items()}
+def _passes(fn, kern: str, calls: int = 3) -> tuple:
+    """Device ms and launches per call of each __global__ function of
+    ``kern`` over ``calls`` calls of ``fn`` (:func:`_profiled`). A profile
+    that lost launches (:func:`_whole`) is taken again, up to three
+    times; if all three lose some, the ms are None."""
+    for _ in range(3):
+        prof, _ = _profiled(fn, calls)
+        mine = _pass_events(_device_events(prof), kern)
+        launches = {f: sum(e.count for e in es) for f, es in mine.items()}
+        if _whole(launches, calls):
+            break
+    ms = {f: sum(_dev_us(e) for e in es) / 1e3 / calls
+          for f, es in mine.items()}
+    return (ms if _whole(launches, calls) else None,
+            {f: n / calls for f, n in launches.items()})
+
+
+def _whole(launches: dict, calls: int) -> bool:
+    """Whether a profile saw some launches of a kernel's __global__
+    functions and a whole number of each per call: the profiler at times
+    loses a launch's device event (in one run 1 of 3 calls of every pass
+    of one prefilter case, and none of its pack pass), and a lost event
+    would make a pass look faster than the card can run it."""
+    return sum(launches.values()) > 0 and all(
+        n % calls == 0 for n in launches.values())
 
 
 def th_for_rho(cs, hist, rho: float) -> float:
@@ -1388,8 +1722,9 @@ def limits_phase(full: dict) -> dict:
 
     def case(name, kern, fn, ref):
         _exact(fn(), ref())
-        out[name] = {"ms": time_ms(fn, flush=flush),
-                     "pass_ms": _passes_ms(fn, kern)}
+        pass_ms, pass_launches = _passes(fn, kern)
+        out[name] = {"ms": time_ms(fn, flush=flush), "pass_ms": pass_ms,
+                     "pass_launches": pass_launches}
 
     h = full["held"]["b32"]
     bm = h["bitmap"]
@@ -1482,10 +1817,12 @@ def _dev_us(e) -> float:
 
 def _device_events(prof) -> list:
     """The profiler's device-side events (kernels, copies) with time, the
-    longest first: an aten op's row repeats the time of its kernels."""
+    longest first: an aten op's row repeats the time of its kernels, and so
+    does the schedule's ProfilerStep row."""
     from torch.autograd import DeviceType
     return sorted((e for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA and _dev_us(e) > 0),
+                   if e.device_type == DeviceType.CUDA and _dev_us(e) > 0
+                   and not e.key.startswith("ProfilerStep")),
                   key=_dev_us, reverse=True)
 
 
@@ -1502,57 +1839,78 @@ def _launched(key: str, fn: str) -> bool:
                     key) is not None
 
 
+def _profiled(fn, calls: int, reset=None) -> tuple:
+    """torch.profiler over ``calls`` calls of ``fn``, after a traced
+    warm-up round of as many calls whose events are dropped (the
+    profiler's own schedule): without it the profiler lost the device
+    events of the first launches it traced (4 of 5 bitpack launches over 5
+    retrieve calls; 1 of 3 of a short kernel's). ``reset`` runs just
+    before the recorded round. -> (the profile, that round's wall us)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        for recorded in (False, True):
+            if recorded and reset is not None:
+                reset()
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+            prof.step()
+    return prof, wall_us
+
+
 def profile_phase(full: dict, calls: int = 5) -> dict:
     """Phase 7: ``torch.profiler`` over ``calls`` ``retrieve`` calls of each
-    lane at B = 32 and B = 1 on the index already built: the device's busy
-    share of the profiled window, device time and launches per call by CUDA
-    kernel, and each hand-written kernel's __global__ launches per wrapper
-    call. The profiler's table goes to OUT_DIR/profile_<lane>_b<B>.txt."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+    lane at B = 32 and B = 1 on the index already built, on float32 CS and
+    on bf16 CS (``<lane>_bf16_b<B>``): the device's busy share of the
+    profiled window, device time and launches per call by CUDA kernel, and
+    each hand-written kernel's __global__ launches per wrapper call. The
+    profiler's table goes to OUT_DIR/profile_<name>.txt."""
     from repro_torch.core import engine as teng
     from repro_torch.kernels import ops
     index = full["index"]
     smi = RECORD["device"]["nvidia_smi"]
     out = {}
-    for name, cfg, q in (
-            ("fused_b32", full["cfg"], full["queries"][:32]),
-            ("fused_b1", full["cfg"], full["queries"][:1]),
-            ("unfused_b32", full["ucfg"], full["queries"][:32]),
-            ("unfused_b1", full["ucfg"], full["queries"][:1])):
-        for _ in range(3):
-            teng.retrieve(index, q, cfg)
-        torch.cuda.synchronize()
-        ops.reset_launches()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(calls):
-                teng.retrieve(index, q, cfg)
-            torch.cuda.synchronize()
-            wall_us = (time.perf_counter() - t0) * 1e6
-        wrapper_calls = ops.launch_counts()
+    runs = []
+    for lane in ("fused", "unfused"):
+        cfg = full["cfg" if lane == "fused" else "ucfg"]
+        for dt, c in (("", cfg), ("_bf16", dataclasses.replace(
+                cfg, cs_dtype="bfloat16"))):
+            runs += [(f"{lane}{dt}_b32", c, full["queries"][:32]),
+                     (f"{lane}{dt}_b1", c, full["queries"][:1])]
+    for name, cfg, q in runs:
+        for attempt in range(1, 4):         # again if it lost launches
+            prof, wall_us = _profiled(lambda: teng.retrieve(index, q, cfg),
+                                      calls, reset=ops.reset_launches)
+            wrapper_calls = ops.launch_counts()
+            events = _device_events(prof)
+            if not events:
+                raise AssertionError("the profiler saw no device time")
+            mine = {kern: _pass_events(events, kern)
+                    for kern in KERNEL_FUNCTIONS if wrapper_calls[kern]}
+            if all(_whole({f: sum(e.count for e in es)
+                           for f, es in m.items()}, wrapper_calls[kern])
+                   for kern, m in mine.items()):
+                break
         averages = prof.key_averages()
-        events = _device_events(prof)
-        if not events:
-            raise AssertionError("the profiler saw no device time")
         busy_us = sum(_dev_us(e) for e in events)
         per_wrapper, pass_ms = {}, {}
-        for kern in KERNEL_FUNCTIONS:
-            if not wrapper_calls[kern]:
-                continue                     # the other lane's kernel
-            mine = _pass_events(events, kern)
+        for kern, m in mine.items():        # this lane's kernels
             per_wrapper[kern] = sum(
-                e.count for es in mine.values() for e in es) / \
+                e.count for es in m.values() for e in es) / \
                 wrapper_calls[kern]
             pass_ms[kern] = {fn: sum(_dev_us(e) for e in es) / 1e3
-                             / wrapper_calls[kern] for fn, es in mine.items()}
+                             / wrapper_calls[kern] for fn, es in m.items()}
         os.makedirs(OUT_DIR, exist_ok=True)
         with open(os.path.join(OUT_DIR, f"profile_{name}.txt"), "w") as f:
             f.write(f"{smi}\n" + averages.table(
                 sort_by="self_cuda_time_total", row_limit=40) + "\n")
         out[name] = {
-            "calls": calls,
+            "calls": calls, "attempts": attempt,
             "wall_ms_per_call": wall_us / calls / 1e3,
             "device_busy_ms_per_call": busy_us / calls / 1e3,
             "device_busy_share": busy_us / wall_us,
@@ -1601,13 +1959,15 @@ KERNELS = {
 
 
 def kernels_line(small_err: dict, full: dict, timing: dict,
-                 prof: dict, ftiming: dict) -> dict:
+                 prof: dict, ftiming: dict, bf16: dict) -> dict:
     """Phase 9: one record per kernel, from this run's measurements. Each
     kernel's launches, time and profile come from the lane that runs it on
-    the main path; ``forms`` holds its filtered and compact operand forms,
-    each from its own config's run."""
+    the main path; ``forms`` holds its filtered and compact operand forms
+    and its bf16 form, each from its own config's run."""
     rows = []
     for name, info in KERNELS.items():
+        kforms = {**ftiming["forms"].get(name, {}),
+                  **bf16["forms"].get(name, {})}
         lane = info["lane"]
         held = full["held" if lane == "fused" else "held_u"]
         held_err = [held[b]["err"][name] for b in ("b32", "b1")]
@@ -1645,7 +2005,7 @@ def kernels_line(small_err: dict, full: dict, timing: dict,
                 "bound_bytes": f["bound"]["bytes"], "library_ms": None,
                 "ms_b1": f["ms_b1"], "plain_ms_b1": f["plain_ms_b1"],
                 "bound_ms_b1": f["bound_b1"]["bound_ms"]}
-                for form, f in ftiming["forms"].get(name, {}).items()},
+                for form, f in kforms.items()},
             "ok": True,
         })
     return {"kernels": rows}
@@ -1663,9 +2023,10 @@ def main() -> None:
     filt = filter_phase(full)
     timing = timing_phase(full)
     ftiming = filter_timing_phase(filt)
+    bf16 = bf16_phase(dev, full, filt)
     limits_phase(full)
     prof = profile_phase(full)
-    line = kernels_line(small_err, full, timing, prof, ftiming)
+    line = kernels_line(small_err, full, timing, prof, ftiming, bf16)
     RECORD["kernels"] = line["kernels"]
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:

@@ -23,6 +23,7 @@ from typing import Mapping, Optional, Union
 import numpy as np
 import torch
 
+from .precision import compare_dtype, greater, round_to
 from .topk import topk
 
 
@@ -48,11 +49,13 @@ def build_bitvectors(cs: torch.Tensor, th: float,
     cs (..., n_q, n_c) with n_q <= 32; q_mask optional (..., n_q) bool —
     masked terms pack a 0 bit for every centroid.
     -> (..., n_c) int32 words; bit i of word c == (cs[..., i, c] > th).
-    The comparison runs in the CS dtype, as in the reference.
+    The comparison runs in the reference's dtype (``precision.greater``):
+    on bf16 CS, bf16 against a Python number, float32 against a numpy
+    scalar.
     """
     n_q = cs.shape[-2]
     assert n_q <= 32, "stacked bitvector packs one query term per bit"
-    mask = cs > th
+    mask = greater(cs, th)
     if q_mask is not None:
         mask = mask & q_mask[..., :, None]
     shifts = torch.arange(n_q, device=cs.device, dtype=torch.int64)
@@ -87,9 +90,12 @@ def masked_topk_centroids(cs: torch.Tensor, th: float, nprobe: int,
     """Top-nprobe centroid ids per query term among the threshold's
     survivors (ref ``:86``): ranks in float32 with non-survivors offset by
     ``-1e6``, and masked terms return the one-past-end sentinel ``n_c``.
+    The threshold test runs in the reference's dtype (``precision.greater``:
+    bf16 on bf16 CS against a Python number).
     cs (..., n_q, n_c) -> (..., n_q, nprobe) int32."""
     cs32 = cs.to(torch.float32)
-    masked = torch.where(cs > th, cs32, cs32 - 1e6)
+    keep = cs32 > round_to(th, compare_dtype(cs.dtype, th))
+    masked = torch.where(keep, cs32, cs32 - 1e6)
     _, idx = topk(masked, nprobe)
     idx = idx.to(torch.int32)
     if q_mask is not None:

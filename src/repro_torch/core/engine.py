@@ -13,8 +13,8 @@ CUDA on the card, their plain PyTorch versions on the CPU. With the default
 two fused megakernels; with either flag False that half runs the unfused
 kernels of the reference's second kernel lane (bitpack + bitfilter, cinter +
 pqscore) with the selections between them in torch. ``use_kernels=False``
-runs the reference math of ``core`` (the reference's unfused path). All
-lanes give the same ids and score bits.
+runs the reference math of ``core`` (the reference's unfused path). On
+float32 CS all lanes give the same ids and score bits.
 
 Both candidate modes run: ``score_all`` (Eq. 4 over the whole corpus under
 the candidate bitmap) and ``compact`` (each query's candidates gathered
@@ -23,8 +23,15 @@ into a ``cand_cap`` buffer first, the paper's loop). A predicate filter
 selection, as in the reference (docs/FILTERING.md): phase 2 ANDs the pass
 mask into the candidate bitmap (inside the prefilter kernel in score_all
 mode, before compaction in compact mode), phases 3-4 mask failing
-survivors to -inf (inside pqinter on the fused lane). bf16 CS raises
-``NotImplementedError`` naming the ROADMAP item that ports it.
+survivors to -inf (inside pqinter on the fused lane).
+
+``cs_dtype="bfloat16"`` (paper §6) runs on every lane with the reference's
+dtypes: the CS matmul in bf16, the bit vectors and the masked top-nprobe
+comparing in bf16 (float32 in the unfused bitpack, as the reference's
+kernel does), S̄ in bf16, Eq. 5/6 on the kernel lanes adding the bf16
+centroid score to the float32 residual, and on the reference-math lane an
+exact float32 centroid term (the selected tokens' centroid vectors times
+the query) for the final scores.
 
 The batch dimension is written out: there is no vmap. At B = 1 the batched
 kernels run with B = 1 (row b of the batched kernels equals the
@@ -45,6 +52,7 @@ from ..kernels import ops
 from . import bitvector, interaction
 from .index import PackedIndex
 from .pq import build_lut
+from .precision import CS_DTYPES, CS_TYPES
 from .topk import topk
 
 
@@ -53,8 +61,7 @@ class EngineConfig:
     """Static retrieval configuration — the reference's fields and defaults
     (``repro/core/engine.py:57``) minus ``kernel_interpret``, whose job the
     tensors' device does here. ``__post_init__`` raises the reference's
-    errors, then ``NotImplementedError`` for bf16 CS, which is not ported
-    yet. ``compact_cap`` acts only with ``use_kernels=False``, as in the
+    errors. ``compact_cap`` acts only with ``use_kernels=False``, as in the
     reference."""
 
     n_q: int = 32
@@ -77,7 +84,7 @@ class EngineConfig:
     doc_filter: Optional[bitvector.FilterPlan] = None
 
     def __post_init__(self):
-        """Reject inconsistent and not-yet-ported configurations."""
+        """Reject inconsistent configurations, as the reference does."""
         if self.n_q > 32:
             raise ValueError(
                 f"n_q={self.n_q} > 32: the stacked bit vector packs one "
@@ -121,10 +128,6 @@ class EngineConfig:
                 "a compiled FilterPlan (or None) — compile your FilterExpr "
                 "against the index's predicate names first with "
                 "bitvector.compile_filter(expr, meta.pred_names)")
-        if self.cs_dtype == "bfloat16":
-            raise NotImplementedError(
-                "cs_dtype='bfloat16' is not ported yet (ROADMAP Queue 1, "
-                "item 4: engine remainder)")
 
 
 class RetrievalResult(NamedTuple):
@@ -167,15 +170,17 @@ def _as_query_batch(queries, q_masks=None) -> QueryBatch:
 
 def centroid_scores(q: torch.Tensor, centroids: torch.Tensor,
                     dtype: str = "float32") -> torch.Tensor:
-    """q (..., n_q, d), centroids (n_c, d) -> CS (..., n_q, n_c), float32.
+    """q (..., n_q, d), centroids (n_c, d) -> CS (..., n_q, n_c) in
+    ``dtype``: float32, or bf16 from bf16 operands (ref ``engine.py:229``).
 
     TF32 stays off: a float32 product in TF32 keeps about three decimal
-    digits and would change the bit vectors and every score."""
-    if dtype != "float32":
-        raise NotImplementedError("only float32 CS is ported")
+    digits and would change the bit vectors and every score. A bf16 product
+    may not reduce in bf16 (split-K GEMMs would round each partial sum)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    return torch.matmul(q, centroids.T)
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    dt = CS_DTYPES[dtype]
+    return torch.matmul(q.to(dt), centroids.T.to(dt))
 
 
 def candidate_bitmap(ivf: torch.Tensor, ivf_lens: torch.Tensor,
@@ -328,11 +333,24 @@ def _phase3(index: PackedIndex, cs_t: torch.Tensor, sel1: torch.Tensor,
     return torch.gather(sel1, 1, local)
 
 
-def _phase4(index: PackedIndex, cs_t: torch.Tensor, lut: torch.Tensor,
-            sel2: torch.Tensor, cfg: EngineConfig, q_masks=None):
+def _exact_centroid_term(index: PackedIndex, queries: torch.Tensor,
+                         codes: torch.Tensor) -> torch.Tensor:
+    """The float32 centroid term of Eq. 5/6 under reduced-precision CS (ref
+    ``engine.py:410-417``): the tokens' centroid vectors times the query.
+    queries (B, n_q, d), codes (B, docs, cap) -> (B, docs, cap, n_q)."""
+    n_c = index.centroids.shape[0]
+    vecs = index.centroids[torch.clamp(codes, 0, n_c - 1).long()]
+    return torch.einsum("bntd,bqd->bntq", vecs, queries)
+
+
+def _phase4(index: PackedIndex, queries: torch.Tensor, cs_t: torch.Tensor,
+            lut: torch.Tensor, sel2: torch.Tensor, cfg: EngineConfig,
+            q_masks=None):
     """PQ late interaction (+ Eq. 6) -> (scores (B, k), ids (B, k)).
     ``cfg.compact_cap`` compacts tokens first on the reference math only
-    (the kernels ignore it, as the reference's do); survivors failing
+    (the kernels ignore it, as the reference's do); under bf16 CS the
+    reference math without it scores with the exact float32 centroid term,
+    the kernels with the bf16 ``cs_t``; survivors failing
     ``cfg.doc_filter`` are -inf before the cut."""
     codes, res = index.codes[sel2], index.res_codes[sel2]
     if cfg.use_kernels:
@@ -343,9 +361,12 @@ def _phase4(index: PackedIndex, cs_t: torch.Tensor, lut: torch.Tensor,
             cs_t, lut, codes, res, index.token_mask()[sel2], cfg.th_r,
             cfg.compact_cap, q_masks)
     else:
+        centroid = None
+        if cfg.cs_dtype != "float32":
+            centroid = _exact_centroid_term(index, queries, codes)
         scores = interaction.late_interaction_pq(
             cs_t, lut, codes, res, index.token_mask()[sel2], cfg.th_r,
-            q_masks)
+            centroid=centroid, q_mask=q_masks)
     doc_pass = _doc_pass(index, cfg)
     if doc_pass is not None:
         scores = torch.where(doc_pass[sel2], scores,
@@ -427,7 +448,7 @@ def _phase34_batch(index: PackedIndex, queries: torch.Tensor,
     else:
         cs_t = _transposed(cs)
         sel2 = _phase3(index, cs_t, sel1, cfg, q_masks)
-        scores, ids = _phase4(index, cs_t, lut, sel2, cfg, q_masks)
+        scores, ids = _phase4(index, queries, cs_t, lut, sel2, cfg, q_masks)
     return RetrievalResult(scores, ids.to(torch.int32))
 
 
@@ -487,6 +508,14 @@ def _on(index: PackedIndex, x, dtype=None) -> torch.Tensor:
     return torch.as_tensor(x, dtype=dtype, device=index.codes.device)
 
 
+def _cs_on(index: PackedIndex, cs) -> torch.Tensor:
+    """A handed-back CS on the index's device, in its own dtype when that is
+    float32 or bf16 (as the reference traces whatever it is given), else
+    float32."""
+    cs = _on(index, cs)
+    return cs if cs.dtype in CS_TYPES else cs.to(torch.float32)
+
+
 def phase1_candidates(index: PackedIndex, queries, cfg: EngineConfig, *,
                       q_mask=None, doc_filter=None, device=None):
     """Phase 1 (ref ``engine.py:697``) -> (cs (B, n_q, n_c), bits (B, n_c)
@@ -538,7 +567,7 @@ def phase3_centroid_interaction(index: PackedIndex, queries,
         cs_c, sel1_c = _phase12_batch(index, q, cfg, qm)
         cs = cs_c if cs is None else cs
         sel1 = sel1_c if sel1 is None else sel1
-    cs_t = _transposed(_on(index, cs, torch.float32))
+    cs_t = _transposed(_cs_on(index, cs))
     return _phase3(index, cs_t, _on(index, sel1).long(), cfg,
                    qm).to(torch.int32)
 
@@ -555,10 +584,10 @@ def phase4_late_interaction(index: PackedIndex, queries, cfg: EngineConfig,
     if cs is None or sel2 is None:
         cs_c, sel1 = _phase12_batch(index, q, cfg, qm)
         cs = cs_c if cs is None else cs
-    cs_t = _transposed(_on(index, cs, torch.float32))
+    cs_t = _transposed(_cs_on(index, cs))
     if sel2 is None:
         sel2 = _phase3(index, cs_t, sel1, cfg, qm)
-    scores, ids = _phase4(index, cs_t, _query_lut(index, q),
+    scores, ids = _phase4(index, q, cs_t, _query_lut(index, q),
                           _on(index, sel2).long(), cfg, qm)
     return RetrievalResult(scores, ids.to(torch.int32))
 
@@ -576,5 +605,38 @@ def phase34_late_interaction(index: PackedIndex, queries, cfg: EngineConfig,
         cs_c, sel1_c = _phase12_batch(index, q, cfg, qm)
         cs = cs_c if cs is None else cs
         sel1 = sel1_c if sel1 is None else sel1
-    return _phase34_batch(index, q, _on(index, cs, torch.float32),
-                          _on(index, sel1), cfg, qm)
+    return _phase34_batch(index, q, _cs_on(index, cs), _on(index, sel1),
+                          cfg, qm)
+
+
+# ---------------------------------------------------------------------------
+# Query-embedding pruning (ref ``engine.py:1055``)
+# ---------------------------------------------------------------------------
+
+def prune_queries(q: torch.Tensor, keep: int,
+                  importance: Optional[torch.Tensor] = None, *,
+                  device=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """Keep the ``keep`` most important terms of each query (ref
+    ``engine.py:1057``), on ``resolve_device(device)``: the GPU unless the
+    caller asks for the CPU, as every entry point.
+
+    q (..., n_q, d); importance optional (..., n_q), by default each term's
+    L2 norm, so zero-padded terms rank last. The selection is ``lax.top_k``'s
+    (descending, the lower term first on ties), re-sorted to term order, so
+    ``keep == n_q`` is the identity. -> (q_pruned (..., keep, d), q_mask
+    (..., keep) bool), the mask False exactly where the kept term is a zero
+    embedding (its norm, never the sign of its importance). Raises
+    ``ValueError`` for ``keep > n_q``, where the reference asserts.
+    """
+    dev = resolve_device(device)
+    q = torch.as_tensor(q, device=dev)
+    n_q = q.shape[-2]
+    if keep > n_q:
+        raise ValueError(f"keep={keep} exceeds n_q={n_q}")
+    if importance is None:
+        importance = torch.linalg.vector_norm(q, dim=-1)
+    importance = torch.as_tensor(importance, device=dev)
+    sel = torch.sort(topk(importance, keep)[1], dim=-1).values
+    q_pruned = torch.gather(q, -2, sel[..., None].expand(*sel.shape,
+                                                          q.shape[-1]))
+    return q_pruned, torch.linalg.vector_norm(q_pruned, dim=-1) > 0

@@ -8,6 +8,12 @@ or a batch of queries with a leading axis on every operand (``cs_t
 sums follow the reference's order exactly: :func:`term_sum` is a
 left-to-right chain over the terms and the residual LUT sum runs over
 s = 0..m-1, so scores agree to the bit.
+
+CS may be float32 or bf16 (``cs_dtype="bfloat16"``, paper §6). On bf16 the
+functions keep the reference's dtypes: S̄ is bf16 (per-term bf16 maxima,
+:func:`term_sum` in float32 rounded once), Eq. 5/6 adds the widened bf16
+centroid score to the float32 residual, and every threshold is compared in
+the dtype the reference's promotion gives it (``precision.greater``).
 """
 from __future__ import annotations
 
@@ -16,6 +22,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .precision import greater
 from .topk import topk
 
 NEG = -1e9
@@ -24,11 +31,15 @@ NEG = -1e9
 def term_sum(colmax: torch.Tensor) -> torch.Tensor:
     """Sum (..., n_q) per-term maxima over the term axis in a fixed
     left-to-right chain (ref ``:23``) — never ``torch.sum``, whose
-    reduction tree could change the last bit."""
-    out = colmax[..., 0]
-    for i in range(1, colmax.shape[-1]):
-        out = out + colmax[..., i]
-    return out
+    reduction tree could change the last bit. Half-precision maxima are
+    widened to float32, chained, and the sum rounded once to their dtype."""
+    acc = colmax
+    if colmax.dtype in (torch.bfloat16, torch.float16):
+        acc = colmax.float()
+    out = acc[..., 0]
+    for i in range(1, acc.shape[-1]):
+        out = out + acc[..., i]
+    return out.to(colmax.dtype)
 
 
 def _rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -63,8 +74,8 @@ def centroid_interaction(cs_t: torch.Tensor, codes: torch.Tensor,
                          ) -> torch.Tensor:
     """Approximate passage score S̄ (paper Eq. 2; ref ``:61``): per term the
     max over valid tokens of the centroid score (invalid tokens are
-    ``-1e9``), masked terms 0.0, then :func:`term_sum`. -> (docs,) or
-    (B, docs)."""
+    ``-1e9`` in the CS dtype), masked terms 0.0, then :func:`term_sum`.
+    -> (docs,) or (B, docs), in the CS dtype."""
     pt = gather_centroid_scores(cs_t, codes)
     pt = torch.where(token_mask[..., None], pt, torch.full_like(pt, NEG))
     colmax = torch.amax(pt, dim=-2)
@@ -90,22 +101,26 @@ def _lut_gather(lut: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 def late_interaction_pq(cs_t: torch.Tensor, lut: torch.Tensor,
                         codes: torch.Tensor, res_codes: torch.Tensor,
                         token_mask: torch.Tensor, th_r: Optional[float],
+                        centroid: Optional[torch.Tensor] = None,
                         q_mask: Optional[torch.Tensor] = None
                         ) -> torch.Tensor:
     """PQ late interaction (ref ``:96``): Eq. 5 when ``th_r`` is None, else
     Eq. 6 — per term, the max over tokens whose centroid score beats
     ``th_r``, falling back to the max over all tokens when none does.
-    Invalid tokens are ``-1e9``; masked terms contribute 0.0.
-    -> (docs,) or (B, docs)."""
-    centroid = gather_centroid_scores(cs_t, codes)
-    full = centroid + _lut_gather(lut, res_codes)
+    ``centroid`` (docs, cap, n_q), when given, is the centroid term in place
+    of the CS^T gather (the engine's exact float32 term under bf16 CS);
+    Eq. 6 tests it. Invalid tokens are ``-1e9``; masked terms contribute
+    0.0. -> (docs,) or (B, docs) float32."""
+    if centroid is None:
+        centroid = gather_centroid_scores(cs_t, codes)
+    full = centroid.float() + _lut_gather(lut, res_codes)
     neg = torch.full_like(full, NEG)
     valid = token_mask[..., None]
     full = torch.where(valid, full, neg)
     if th_r is None:
         colmax = torch.amax(full, dim=-2)
     else:
-        keep = (centroid > th_r) & valid
+        keep = greater(centroid, th_r) & valid
         masked_max = torch.amax(torch.where(keep, full, neg), dim=-2)
         full_max = torch.amax(full, dim=-2)
         colmax = torch.where(keep.any(dim=-2), masked_max, full_max)
@@ -137,22 +152,36 @@ def _flush(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x.abs() < _F32_TINY, torch.zeros_like(x), x)
 
 
-def reference_sigmoid(x: torch.Tensor) -> torch.Tensor:
-    """float32 logistic with the reference's bits: ``jax.nn.sigmoid`` lowers
-    to ``1 / (1 + exp(-x))`` on XLA's CPU, whose exp is the Cephes
-    polynomial with fused multiply-adds, and XLA flushes subnormal results
-    to zero. ``torch.sigmoid`` differs from it in the last bit on some
-    inputs, which changes ties in the ranking of
-    :func:`late_interaction_pq_compact`."""
-    t = torch.clamp(-x, _f32(-88.8), _f32(88.8))
+def _reference_exp(t: torch.Tensor) -> torch.Tensor:
+    """float32 ``exp`` with XLA's CPU bits: the Cephes polynomial with fused
+    multiply-adds, the input clamped to +-88.8, subnormal results flushed
+    to zero."""
+    t = torch.clamp(t, _f32(-88.8), _f32(88.8))
     fx = torch.floor(t * _f32(1.44269504088896341) + 0.5)
     r = _fma(-fx, _f32(-2.12194440e-4), _fma(-fx, 0.693359375, t))
     y = _fma(r, _EXP_POLY[0], _EXP_POLY[1])
     for p in _EXP_POLY[2:]:
         y = _fma(y, r, p)
     y = _fma(y, (r * r).double(), r) + 1.0
-    e = _flush(y * torch.pow(2.0, fx))
-    return _flush(1.0 / (1.0 + e))
+    return _flush(y * torch.pow(2.0, fx))
+
+
+def reference_sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """Logistic with the reference's bits, in float32: ``jax.nn.sigmoid``
+    lowers to ``1 / (1 + exp(-x))`` on XLA's CPU, and XLA flushes subnormal
+    results to zero. ``torch.sigmoid`` differs from it in the last bit on
+    some inputs, which changes ties in the ranking of
+    :func:`late_interaction_pq_compact`. float32 ``x`` is computed in
+    float32. bf16 ``x`` as XLA computes it, each step in float32 rounded to
+    bf16 but the last: ``1 / bf16(1 + bf16(exp(-x)))``. That is what XLA
+    feeds a float32 sum inside a jitted function (the rank of
+    :func:`late_interaction_pq_compact`); rounded to bf16 it is
+    ``jax.nn.sigmoid``'s own bf16 result."""
+    if x.dtype == torch.bfloat16:
+        e = _reference_exp((-x).float()).to(torch.bfloat16)
+        d = (1.0 + e.float()).to(torch.bfloat16)
+        return _flush(1.0 / d.float())
+    return _flush(1.0 / (1.0 + _reference_exp(-x)))
 
 
 def late_interaction_pq_compact(cs_t: torch.Tensor, lut: torch.Tensor,
@@ -166,7 +195,9 @@ def late_interaction_pq_compact(cs_t: torch.Tensor, lut: torch.Tensor,
     each doc's ``cap_c`` buffer holds its kept tokens first, then the rest
     by keymax (a lax-order selection on ``2 * keep + sigmoid(keymax)``),
     and Eq. 6 runs on the buffer, a term with no kept token falling back to
-    the max over it. Batched with a leading B on every operand."""
+    the max over it. On bf16 CS keymax is bf16, and its logistic is the
+    bf16 one of :func:`reference_sigmoid`, as the reference's jitted engine
+    computes it. Batched with a leading B on every operand."""
     n_c = cs_t.shape[-2]
     if q_mask is not None:
         live = q_mask[..., None, :]
@@ -180,21 +211,21 @@ def late_interaction_pq_compact(cs_t: torch.Tensor, lut: torch.Tensor,
     else:
         keymax = torch.gather(row_max, 1, idx.reshape(idx.shape[0], -1)
                               ).reshape(idx.shape)
-    keep = (keymax > th_r) & token_mask
+    keep = greater(keymax, th_r) & token_mask
     rank = torch.where(token_mask,
                        keep.to(torch.float32) * 2.0
                        + reference_sigmoid(keymax),
-                       torch.full_like(keymax, -1.0))
+                       torch.full(keymax.shape, -1.0, device=keymax.device))
     sel = topk(rank, cap_c)[1]                         # (..., docs, cap_c)
     codes_c = torch.gather(codes, -1, sel)
     mask_c = torch.gather(token_mask, -1, sel)
     res_c = torch.gather(res_codes, -2, sel[..., None].expand(
         *sel.shape, res_codes.shape[-1]))
     centroid = gather_centroid_scores(cs_t, codes_c)
-    full = centroid + _lut_gather(lut, res_c)
+    full = centroid.float() + _lut_gather(lut, res_c)
     neg = torch.full_like(full, NEG)
     full = torch.where(mask_c[..., None], full, neg)
-    keep_t = (centroid > th_r) & mask_c[..., None]
+    keep_t = greater(centroid, th_r) & mask_c[..., None]
     masked_max = torch.amax(torch.where(keep_t, full, neg), dim=-2)
     comp_max = torch.amax(full, dim=-2)
     colmax = torch.where(keep_t.any(dim=-2), masked_max, comp_max)
@@ -212,7 +243,8 @@ def scored_term_fraction(cs_t: torch.Tensor, codes: torch.Tensor,
     (paper Fig. 5, right; ref ``:213``): one query's cs_t (n_c, n_q),
     codes/token_mask (docs, cap) -> a float32 scalar in [0, 1]. Masked terms
     count in neither the numerator nor the denominator."""
-    keep = (gather_centroid_scores(cs_t, codes) > th_r) & token_mask[..., None]
+    keep = greater(gather_centroid_scores(cs_t, codes), th_r) \
+        & token_mask[..., None]
     n_terms = torch.tensor(cs_t.shape[-1])
     if q_mask is not None:
         keep = keep & q_mask

@@ -116,20 +116,28 @@ def check(err: int, what: str) -> None:
 
 def check_operands(kernel: str, device, operands) -> None:
     """Raise unless every ``(name, tensor, dtype, shape)`` operand lies on
-    ``device`` with that dtype and shape and is contiguous: the kernel reads
-    raw pointers."""
+    ``device`` with that dtype (or one of a tuple of dtypes) and shape and
+    is contiguous: the kernel reads raw pointers."""
     for name, t, dtype, shape in operands:
         if t.device != device:
             raise ValueError(f"{kernel}: {name} is on {t.device}, the other "
                              f"operands on {device}")
-        if t.dtype != dtype:
+        dtypes = dtype if isinstance(dtype, tuple) else (dtype,)
+        if t.dtype not in dtypes:
             raise TypeError(f"{kernel}: {name} is {t.dtype}, the kernel "
-                            f"takes {dtype}")
+                            f"takes {' or '.join(map(str, dtypes))}")
         if tuple(t.shape) != tuple(shape):
             raise ValueError(f"{kernel}: {name} is {tuple(t.shape)}, "
                              f"expected {tuple(shape)}")
         if not t.is_contiguous():
             raise ValueError(f"{kernel}: {name} is not contiguous")
+
+
+def cs_flag(t) -> int:
+    """The ``cs_bf16`` argument of the C entries that read centroid scores
+    (``csrc/common.cuh``'s ``with_cs``): 1 for bf16 CS, 0 for float32."""
+    import torch
+    return int(t.dtype == torch.bfloat16)
 
 
 def ptr(t) -> ctypes.c_void_p:

@@ -11,6 +11,10 @@ per-document math is the fused pqinter's S̄ pass (``csrc/doc_math.cuh``).
 :func:`cinter_batched` dispatches on the tensors' device: on the CPU it
 runs the plain version; on CUDA it launches the kernel (and counts the launch
 in ``launches``) or raises — it never falls back.
+
+CS^T is float32 or bf16. On bf16, as in the reference, S̄ is the bf16 sum
+(per-term bf16 maxima, ``term_sum`` in float32 rounded once to bf16),
+written widened to float32 (``cinter.py:109``).
 """
 from __future__ import annotations
 
@@ -19,6 +23,7 @@ import ctypes
 import torch
 
 from ..core.interaction import centroid_interaction
+from ..core.precision import CS_TYPES
 from . import _build
 from .prefilter import lengths_of
 
@@ -29,7 +34,7 @@ def cinter_batched_ref(cs_t: torch.Tensor, codes: torch.Tensor,
                        lens: torch.Tensor, q_masks=None) -> torch.Tensor:
     """Plain PyTorch version of the kernel: S̄ (B, docs) float32."""
     valid = torch.arange(codes.shape[-1], device=codes.device) < lens[..., None]
-    return centroid_interaction(cs_t, codes, valid, q_masks)
+    return centroid_interaction(cs_t, codes, valid, q_masks).float()
 
 
 def _launch(cs_t, codes, lens, qm):
@@ -38,13 +43,13 @@ def _launch(cs_t, codes, lens, qm):
     global launches
     vp, ci = ctypes.c_void_p, ctypes.c_int
     fn = _build.function("cinter", "cinter_batched", ctypes.c_int,
-                         [vp, vp, vp, vp, ci, ci, ci, ci, ci, vp, vp])
+                         [vp, ci, vp, vp, vp, ci, ci, ci, ci, ci, vp, vp])
     nb, nd, cap = codes.shape
     n_c, n_q = cs_t.shape[1:]
     sbar = torch.empty((nb, nd), dtype=torch.float32, device=cs_t.device)
     p = _build.ptr
-    err = fn(p(cs_t), p(codes), p(lens), p(qm), nb, nd, cap, n_c, n_q,
-             p(sbar), _build.stream())
+    err = fn(p(cs_t), _build.cs_flag(cs_t), p(codes), p(lens),
+             p(qm), nb, nd, cap, n_c, n_q, p(sbar), _build.stream())
     _build.check(err, "cinter_batched")
     launches += 1
     return sbar
@@ -54,7 +59,7 @@ def cinter_batched(cs_t: torch.Tensor, codes: torch.Tensor,
                    token_mask: torch.Tensor, q_masks=None) -> torch.Tensor:
     """Batch-native centroid interaction.
 
-    cs_t (B, n_c, n_q <= 32) float32; codes (B, docs, cap) int32;
+    cs_t (B, n_c, n_q <= 32) float32 or bf16; codes (B, docs, cap) int32;
     token_mask (B, docs, cap) bool prefix mask or (B, docs) int32 lengths;
     q_masks optional (B, n_q) bool. -> S̄ (B, docs) float32.
     """
@@ -71,7 +76,7 @@ def cinter_batched(cs_t: torch.Tensor, codes: torch.Tensor,
         return cinter_batched_ref(cs_t, codes, lens, q_masks)
     if cs_t.device.type != "cuda":
         raise ValueError(f"cinter: unsupported device {cs_t.device}")
-    operands = [("cs_t", cs_t, torch.float32, (nb, n_c, n_q)),
+    operands = [("cs_t", cs_t, CS_TYPES, (nb, n_c, n_q)),
                 ("codes", codes, torch.int32, (nb, nd, cap)),
                 ("token lengths", lens, torch.int32, (nb, nd))]
     if q_masks is not None:

@@ -17,6 +17,11 @@
 // at n_q = 32. The per-document math is emvb::sbar_doc, a serial loop over
 // the pieces (sbar_token, sbar_finish) that the fused pqinter's
 // token-split S̄ pass merges, so the two lanes agree to the bit.
+//
+// CS^T is float32 or bf16 (cinter_kernel<T>). On bf16 S̄ is the reference's
+// bf16 sum (per-term bf16 maxima, the float32 term chain rounded once to
+// bf16), written widened to float32 as the reference kernel writes it
+// (cinter.py:109); the rows it gathers are half as many bytes.
 #include "common.cuh"
 #include "doc_math.cuh"
 
@@ -25,7 +30,8 @@ namespace {
 constexpr int WARPS = 8;
 
 // grid (ceil(nd / WARPS), B).
-__global__ void cinter_kernel(const float* __restrict__ cs_t,
+template <typename T>
+__global__ void cinter_kernel(const T* __restrict__ cs_t,
                               const int32_t* __restrict__ codes,
                               const int32_t* __restrict__ lens,
                               const uint8_t* __restrict__ qmask, int nd,
@@ -48,15 +54,18 @@ __global__ void cinter_kernel(const float* __restrict__ cs_t,
 extern "C" {
 
 // All pointers are device pointers; qmask may be null (every term live).
-// cs_t (B, n_c, n_q) f32; codes (B, nd, cap) i32; lens (B, nd) i32; qmask
-// (B, n_q) u8. Output: sbar (B, nd) f32.
-int cinter_batched(const float* cs_t, const int32_t* codes,
+// cs_t (B, n_c, n_q) f32, or bf16 when cs_bf16; codes (B, nd, cap) i32;
+// lens (B, nd) i32; qmask (B, n_q) u8. Output: sbar (B, nd) f32.
+int cinter_batched(const void* cs_t, int cs_bf16, const int32_t* codes,
                    const int32_t* lens, const uint8_t* qmask, int B, int nd,
                    int cap, int n_c, int n_q, float* sbar, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cinter_kernel<<<dim3((nd + WARPS - 1) / WARPS, B), WARPS * 32, 0, st>>>(
-      cs_t, codes, lens, qmask, nd, cap, n_c, n_q, sbar);
-  return cudaGetLastError();
+  const dim3 grid((nd + WARPS - 1) / WARPS, B);
+  return with_cs(cs_t, cs_bf16, [&](auto p) {
+    cinter_kernel<<<grid, WARPS * 32, 0, st>>>(p, codes, lens, qmask, nd, cap,
+                                               n_c, n_q, sbar);
+    return (int)cudaGetLastError();
+  });
 }
 
 }  // extern "C"

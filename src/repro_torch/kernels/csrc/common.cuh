@@ -2,10 +2,22 @@
 // exclusive scan, the cuts (each of n unique keys to its rank), order-
 // preserving float bits and cp.async (plain and zero-filling).
 #pragma once
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 constexpr unsigned FULL_MASK = 0xffffffffu;
+
+// Centroid scores (CS) come as float32 or bf16: the C entries that read them
+// take `const void*` and a `cs_bf16` flag (the Python wrappers'
+// _build.cs_flag). with_cs calls f with the pointer cast to its element type
+// and returns what f returns; f is a generic lambda that launches the
+// passes templated on that type.
+template <typename F>
+inline auto with_cs(const void* cs, int cs_bf16, F&& f) {
+  if (cs_bf16) return f(static_cast<const __nv_bfloat16*>(cs));
+  return f(static_cast<const float*>(cs));
+}
 
 __host__ __device__ __forceinline__ int next_pow2(int n) {
   int p = 1;

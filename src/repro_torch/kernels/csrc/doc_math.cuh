@@ -16,7 +16,18 @@
 // value whatever the split. Which of two equal maxima is kept does depend
 // on the split, which shows only for a -0.0 beside a 0.0 or for NaN; the
 // port's inputs exclude both (ROADMAP Queue 3, "Signed zeros and NaN").
+//
+// CS and CS^T are float32 or bf16 (cs_dtype="bfloat16", paper §6): every
+// function that reads them takes the element type T (Cs<T> below), widens
+// each value in registers (exactly) and computes in float32. Thresholds
+// arrive rounded on the host to the value the reference compares against,
+// so each compare is one of float32 values. What bf16 changes beyond the
+// read is S̄'s: an invalid token is the bf16 -1e9, and term_sum's float32
+// chain is rounded once to bf16 (the reference's term_sum of half
+// precision), then widened again. Eq. 5/6 adds the widened bf16 centroid
+// score to the float32 residual, as the reference's eq56_block does.
 #pragma once
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -26,6 +37,51 @@
 namespace emvb {
 
 constexpr float NEG = -1e9f;   // an invalid token's score in every max
+
+// --- CS element types -----------------------------------------------------------
+
+template <typename T>
+struct Cs;
+
+template <>
+struct Cs<float> {
+  static constexpr int kVec = 4;   // elements in 16 bytes
+  static __device__ __forceinline__ float widen(float v) { return v; }
+  // the 16 bytes r as kVec values, in memory order
+  static __device__ __forceinline__ void unpack(uint4 r, float (&f)[kVec]) {
+    f[0] = __uint_as_float(r.x);
+    f[1] = __uint_as_float(r.y);
+    f[2] = __uint_as_float(r.z);
+    f[3] = __uint_as_float(r.w);
+  }
+  // S̄'s floor for invalid tokens, and its term sum as the reference
+  // rounds it
+  static __device__ __forceinline__ float neg() { return NEG; }
+  static __device__ __forceinline__ float round_sum(float s) { return s; }
+};
+
+template <>
+struct Cs<__nv_bfloat16> {
+  static constexpr int kVec = 8;
+  static __device__ __forceinline__ float widen(__nv_bfloat16 v) {
+    return __bfloat162float(v);
+  }
+  // a bf16 value is the high half of its float32 (little-endian pairs)
+  static __device__ __forceinline__ void unpack(uint4 r, float (&f)[kVec]) {
+    const uint32_t w[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      f[2 * k] = __uint_as_float(w[k] << 16);
+      f[2 * k + 1] = __uint_as_float(w[k] & 0xffff0000u);
+    }
+  }
+  static __device__ __forceinline__ float neg() {
+    return __bfloat162float(__float2bfloat16_rn(NEG));
+  }
+  static __device__ __forceinline__ float round_sum(float s) {
+    return __bfloat162float(__float2bfloat16_rn(s));
+  }
+};
 
 // --- Phase 1b: bit words ------------------------------------------------------
 
@@ -46,36 +102,38 @@ __device__ __forceinline__ uint32_t live_terms(const uint8_t* __restrict__ qm,
 }
 
 // One centroid column: bit i = term i is live and cs[i, c] > th. `col`
-// points at cs[0, c]; term rows are `stride` floats apart.
-__device__ __forceinline__ uint32_t pack_column(const float* __restrict__ col,
+// points at cs[0, c]; term rows are `stride` elements apart.
+template <typename T>
+__device__ __forceinline__ uint32_t pack_column(const T* __restrict__ col,
                                                 size_t stride, float th,
                                                 uint32_t live, int n_q) {
   uint32_t w = 0;
   for (int i = 0; i < n_q; ++i)
-    if (col[(size_t)i * stride] > th) w |= 1u << i;
+    if (Cs<T>::widen(col[(size_t)i * stride]) > th) w |= 1u << i;
   return w & live;
 }
 
-// Four neighbouring columns at once (col 16-byte aligned, stride a multiple
-// of 4): the same bits as four pack_column calls, with one 16-byte load per
-// term.
-__device__ __forceinline__ uint4 pack_columns4(const float* __restrict__ col,
-                                               size_t stride, float th,
-                                               uint32_t live, int n_q) {
-  uint4 w = make_uint4(0, 0, 0, 0);
+// Cs<T>::kVec neighbouring columns at once (4 float32 or 8 bf16; col
+// 16-byte aligned, stride a multiple of kVec): the same bits as kVec
+// pack_column calls, with one 16-byte load per term.
+template <typename T>
+__device__ __forceinline__ void pack_columns(const T* __restrict__ col,
+                                             size_t stride, float th,
+                                             uint32_t live, int n_q,
+                                             uint32_t (&w)[Cs<T>::kVec]) {
+  constexpr int V = Cs<T>::kVec;
+#pragma unroll
+  for (int j = 0; j < V; ++j) w[j] = 0;
 #pragma unroll 8
   for (int i = 0; i < n_q; ++i) {
-    const float4 v = *reinterpret_cast<const float4*>(col + (size_t)i * stride);
-    w.x |= (uint32_t)(v.x > th) << i;
-    w.y |= (uint32_t)(v.y > th) << i;
-    w.z |= (uint32_t)(v.z > th) << i;
-    w.w |= (uint32_t)(v.w > th) << i;
+    float v[V];
+    Cs<T>::unpack(*reinterpret_cast<const uint4*>(col + (size_t)i * stride),
+                  v);
+#pragma unroll
+    for (int j = 0; j < V; ++j) w[j] |= (uint32_t)(v[j] > th) << i;
   }
-  w.x &= live;
-  w.y &= live;
-  w.z &= live;
-  w.w &= live;
-  return w;
+#pragma unroll
+  for (int j = 0; j < V; ++j) w[j] &= live;
 }
 
 // --- Eq. 4: a document's word OR ------------------------------------------------
@@ -243,18 +301,27 @@ __device__ __forceinline__ float sbar_token(float acc, float v) {
 }
 
 // The per-term max over all of a doc's valid tokens -> the term's column
-// max: the -1e9 floor when the doc has invalid tokens, 0.0 for a masked
-// term.
+// max: the -1e9 floor (in T) when the doc has invalid tokens, 0.0 for a
+// masked term.
+template <typename T>
 __device__ __forceinline__ float sbar_finish(float acc, int len, int cap,
                                              bool live) {
-  if (len < cap) acc = acc > NEG ? acc : NEG;
+  if (len < cap) acc = acc > Cs<T>::neg() ? acc : Cs<T>::neg();
   return live ? acc : 0.0f;
+}
+
+// S̄ from the finished column maxima, one term a lane: term_sum, rounded
+// as the reference rounds it for T. All 32 lanes must call it.
+template <typename T>
+__device__ __forceinline__ float sbar_sum(float colmax, int n_q) {
+  return Cs<T>::round_sum(term_sum_lanes(colmax, n_q));
 }
 
 // S̄ of one document in one warp, lane i = query term i, tokens in series
 // (cinter.cu). cb = this query's (n_c, n_q) CS^T; cd = the doc's codes; qm =
 // the query's term mask or null. All 32 lanes must call it.
-__device__ __forceinline__ float sbar_doc(const float* __restrict__ cb,
+template <typename T>
+__device__ __forceinline__ float sbar_doc(const T* __restrict__ cb,
                                           const int32_t* __restrict__ cd,
                                           int len, const uint8_t* __restrict__ qm,
                                           int cap, int n_c, int n_q, int lane) {
@@ -263,11 +330,11 @@ __device__ __forceinline__ float sbar_doc(const float* __restrict__ cb,
   if (lane < n_q) {
     for (int t = 0; t < len; ++t) {
       const int c = min(max(cd[t], 0), n_c - 1);
-      acc = sbar_token(acc, cb[(size_t)c * n_q + lane]);
+      acc = sbar_token(acc, Cs<T>::widen(cb[(size_t)c * n_q + lane]));
     }
   }
   const bool live = lane < n_q && (qm == nullptr || qm[lane]);
-  return term_sum_lanes(sbar_finish(acc, len, cap, live), n_q);
+  return sbar_sum<T>(sbar_finish<T>(acc, len, cap, live), n_q);
 }
 
 // --- Eq. 5/6 -----------------------------------------------------------------------
@@ -370,11 +437,12 @@ __device__ __forceinline__ float eq56_finish(const Eq56Part& p, int len,
 // winners), else row b * nf + r, and writes out[b * n_docs + r]. Warp w
 // takes tokens w, w + SPLIT, ..., lane i = query term i; the warps' states
 // merge through shared memory, and warp 0 finishes and term-sums. cs_t
-// (B, n_c, n_q); lut2 (B, m*ksub, n_q); res (B, nf, cap, m); qmask (B, n_q)
-// or null; M as in eq56_full. Every thread of the block must call it.
-template <int M, int SPLIT>
+// (B, n_c, n_q) of T; lut2 (B, m*ksub, n_q); res (B, nf, cap, m); qmask
+// (B, n_q) or null; M as in eq56_full; th_r the value the reference
+// compares a T centroid score with. Every thread of the block must call it.
+template <int M, int SPLIT, typename T>
 __device__ __forceinline__ void eq56_block(
-    const float* __restrict__ cs_t, const float* __restrict__ lut2,
+    const T* __restrict__ cs_t, const float* __restrict__ lut2,
     const int32_t* __restrict__ codes, const uint8_t* __restrict__ res,
     const int32_t* __restrict__ lens, const uint8_t* __restrict__ qmask,
     const int32_t* __restrict__ sel2, int nf, int n_docs, int cap, int n_c,
@@ -390,12 +458,12 @@ __device__ __forceinline__ void eq56_block(
   if (lane < n_q) {
     const int32_t* cd = codes + row * cap;
     const uint8_t* rs = res + row * cap * m;
-    const float* cb = cs_t + (size_t)b * n_c * n_q + lane;
+    const T* cb = cs_t + (size_t)b * n_c * n_q + lane;
     const float* lb = lut2 + (size_t)b * m * ksub * n_q + lane;
 #pragma unroll 2
     for (int t = warp; t < len; t += SPLIT) {
       const int c = min(max(cd[t], 0), n_c - 1);
-      const float cen = cb[(size_t)c * n_q];
+      const float cen = Cs<T>::widen(cb[(size_t)c * n_q]);
       eq56_token(acc, cen,
                  eq56_full<M>(cen, lb, rs + (size_t)t * m, m, ksub, n_q),
                  th_r, use_filter);

@@ -57,6 +57,15 @@
 // pass scores a position -1 slot as -inf without reading a row; select2
 // writes each -inf slot as (score -inf, position 0). Without doc_pass no
 // step reads it, and the cuts are the unfiltered ones.
+//
+// CS^T is float32 or bf16 (sbar_kernel<T>, eq56_kernel<M, T>), the
+// reference's pqinter.py:115-118 and :279. On bf16 S̄ is the bf16 sum
+// (per-term bf16 maxima, the float32 term chain rounded once), widened
+// exactly for the phase-3 cut; its ties are frequent, and the cut's unique
+// (S̄, position) keys break them as the reference's merges do. Eq. 5/6 adds
+// the widened bf16 centroid score to the float32 residual and compares it
+// with th_r rounded to bf16 on the host. The rows of CS^T are half as many
+// bytes.
 #include "common.cuh"
 #include "doc_math.cuh"
 
@@ -70,8 +79,9 @@ static_assert(WARPS % S_SPLIT_MAX == 0 && WARPS % E_SPLIT == 0,
 
 // Pass 1: S̄ of every survivor row, `split` warps a doc (a power of two up
 // to S_SPLIT_MAX). grid (ceil(nf / (WARPS / split)), B).
+template <typename T>
 __global__ void __launch_bounds__(WARPS * 32)
-sbar_kernel(const float* __restrict__ cs_t, const int32_t* __restrict__ codes,
+sbar_kernel(const T* __restrict__ cs_t, const int32_t* __restrict__ codes,
             const int32_t* __restrict__ lens,
             const uint8_t* __restrict__ qmask, int nf, int cap, int n_c,
             int n_q, int split, float* __restrict__ sbar_all) {
@@ -87,12 +97,12 @@ sbar_kernel(const float* __restrict__ cs_t, const int32_t* __restrict__ codes,
   if (ok) {
     len = min(max(lens[row], 0), cap);
     const int32_t* cd = codes + row * cap;
-    const float* cb = cs_t + (size_t)b * n_c * n_q + lane;
+    const T* cb = cs_t + (size_t)b * n_c * n_q + lane;
     if (lane < n_q) {
 #pragma unroll 4
       for (int t = piece; t < len; t += split) {
         const int c = min(max(cd[t], 0), n_c - 1);
-        acc = emvb::sbar_token(acc, cb[(size_t)c * n_q]);
+        acc = emvb::sbar_token(acc, emvb::Cs<T>::widen(cb[(size_t)c * n_q]));
       }
     }
   }
@@ -107,7 +117,7 @@ sbar_kernel(const float* __restrict__ cs_t, const int32_t* __restrict__ codes,
   const uint8_t* qm = emvb::mask_row(qmask, b, n_q);
   const bool live = lane < n_q && (qm == nullptr || qm[lane]);
   const float s =
-      emvb::term_sum_lanes(emvb::sbar_finish(acc, len, cap, live), n_q);
+      emvb::sbar_sum<T>(emvb::sbar_finish<T>(acc, len, cap, live), n_q);
   if (lane == 0) sbar_all[row] = s;
 }
 
@@ -141,9 +151,9 @@ select1_kernel(const float* __restrict__ sbar_all,
 // (emvb::eq56_block, which pqscore.cu runs on its rows too, with the same
 // bound of three blocks an SM). Filtered (`filtered`), a filler slot
 // (position -1) scores -inf.
-template <int M>
+template <int M, typename T>
 __global__ void __launch_bounds__(WARPS * 32, 3)
-eq56_kernel(const float* __restrict__ cs_t, const float* __restrict__ lut2,
+eq56_kernel(const T* __restrict__ cs_t, const float* __restrict__ lut2,
             const int32_t* __restrict__ codes,
             const uint8_t* __restrict__ res, const int32_t* __restrict__ lens,
             const uint8_t* __restrict__ qmask,
@@ -184,29 +194,15 @@ select2_kernel(const float* __restrict__ score2,
   });
 }
 
-}  // namespace
-
-extern "C" {
-
-// Bytes of device scratch pqinter_batched needs.
-size_t pqinter_scratch_bytes(int B, int nf, int n_docs) {
-  return (((size_t)B * nf * 4 + 255) & ~size_t(255)) + (size_t)B * n_docs * 4;
-}
-
-// All pointers are device pointers; qmask may be null (every term live),
-// doc_pass too (every survivor passes). cs_t (B, n_c, n_q) f32; lut2
-// (B, m*ksub, n_q) f32; codes (B, nf, cap) i32; res (B, nf, cap, m) u8;
-// lens (B, nf) i32; qmask (B, n_q) u8; doc_pass (B, nf) u8.
-// Outputs: scores/pos (B, k), sel2/sbar (B, n_docs). scratch: the bytes
-// pqinter_scratch_bytes gives, 256-byte aligned.
-int pqinter_batched(const float* cs_t, const float* lut2, const int32_t* codes,
-                    const uint8_t* res, const int32_t* lens,
-                    const uint8_t* qmask, const uint8_t* doc_pass, int B,
-                    int nf, int cap, int n_c, int n_q, int m, int ksub,
-                    float th_r, int use_filter, int n_docs, int k,
-                    float* scores, int32_t* pos,
-                    int32_t* sel2, float* sbar, void* scratch, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+// All passes on cs_t (B, n_c, n_q) of T; the operands as in
+// pqinter_batched.
+template <typename T>
+int run(const T* cs_t, const float* lut2, const int32_t* codes,
+        const uint8_t* res, const int32_t* lens, const uint8_t* qmask,
+        const uint8_t* doc_pass, int B, int nf, int cap, int n_c, int n_q,
+        int m, int ksub, float th_r, int use_filter, int n_docs, int k,
+        float* scores, int32_t* pos, int32_t* sel2, float* sbar,
+        void* scratch, cudaStream_t st) {
   float* sbar_all = static_cast<float*>(scratch);
   float* score2 = reinterpret_cast<float*>(
       static_cast<char*>(scratch) +
@@ -218,7 +214,7 @@ int pqinter_batched(const float* cs_t, const float* lut2, const int32_t* codes,
   const int fill = 32 * sm_count();
   const int split = min(S_SPLIT_MAX, next_pow2((fill + B * nf - 1) / (B * nf)));
   const int s_docs = WARPS / split;
-  sbar_kernel<<<dim3((nf + s_docs - 1) / s_docs, B), WARPS * 32, 0, st>>>(
+  sbar_kernel<T><<<dim3((nf + s_docs - 1) / s_docs, B), WARPS * 32, 0, st>>>(
       cs_t, codes, lens, qmask, nf, cap, n_c, n_q, split, sbar_all);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   const CutLaunch c1 = cut_launch(B, nf);
@@ -229,11 +225,11 @@ int pqinter_batched(const float* cs_t, const float* lut2, const int32_t* codes,
   const dim3 grid(n_docs, B);
   const int filtered = doc_pass != nullptr;
   if (emvb::eq56_vector_m16(m, res))
-    eq56_kernel<16><<<grid, WARPS * 32, 0, st>>>(
+    eq56_kernel<16, T><<<grid, WARPS * 32, 0, st>>>(
         cs_t, lut2, codes, res, lens, qmask, sel2, nf, cap, n_c, n_q, m, ksub,
         th_r, use_filter, n_docs, filtered, score2);
   else
-    eq56_kernel<0><<<grid, WARPS * 32, 0, st>>>(
+    eq56_kernel<0, T><<<grid, WARPS * 32, 0, st>>>(
         cs_t, lut2, codes, res, lens, qmask, sel2, nf, cap, n_c, n_q, m, ksub,
         th_r, use_filter, n_docs, filtered, score2);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
@@ -242,6 +238,37 @@ int pqinter_batched(const float* cs_t, const float* lut2, const int32_t* codes,
                    st>>>(score2, sel2, n_docs, c2.P, c2.sort, k, filtered,
                          scores, pos);
   return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// Bytes of device scratch pqinter_batched needs.
+size_t pqinter_scratch_bytes(int B, int nf, int n_docs) {
+  return (((size_t)B * nf * 4 + 255) & ~size_t(255)) + (size_t)B * n_docs * 4;
+}
+
+// All pointers are device pointers; qmask may be null (every term live),
+// doc_pass too (every survivor passes). cs_t (B, n_c, n_q) f32, or bf16
+// when cs_bf16; th_r rounded to the CS type; lut2 (B, m*ksub, n_q) f32;
+// codes (B, nf, cap) i32; res (B, nf, cap, m) u8; lens (B, nf) i32; qmask
+// (B, n_q) u8; doc_pass (B, nf) u8.
+// Outputs: scores/pos (B, k), sel2/sbar (B, n_docs). scratch: the bytes
+// pqinter_scratch_bytes gives, 256-byte aligned.
+int pqinter_batched(const void* cs_t, int cs_bf16, const float* lut2,
+                    const int32_t* codes, const uint8_t* res,
+                    const int32_t* lens, const uint8_t* qmask,
+                    const uint8_t* doc_pass, int B, int nf, int cap, int n_c,
+                    int n_q, int m, int ksub, float th_r, int use_filter,
+                    int n_docs, int k, float* scores, int32_t* pos,
+                    int32_t* sel2, float* sbar, void* scratch, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return with_cs(cs_t, cs_bf16, [&](auto p) {
+    return run(p, lut2, codes, res, lens, qmask, doc_pass, B, nf, cap, n_c,
+               n_q, m, ksub, th_r, use_filter, n_docs, k, scores, pos, sel2,
+               sbar, scratch, st);
+  });
 }
 
 }  // extern "C"

@@ -25,6 +25,11 @@
 // are all in flight before the first add; any other m runs the serial
 // form. The warps' per-term states merge exactly (order-free maxima and
 // counts), and Eq. 6's corner cases and term_sum run once per doc.
+//
+// CS^T is float32 or bf16 (pqscore_kernel<M, T>). On bf16 a token's full
+// score is its widened bf16 centroid score plus the float32 residual, and
+// Eq. 6 compares the centroid score with th_r rounded to bf16 on the host,
+// as the reference's eq56_block does (pqscore.py:52-62).
 #include "common.cuh"
 #include "doc_math.cuh"
 
@@ -35,9 +40,9 @@ constexpr int E_SPLIT = 8;     // warps a doc
 // grid (nd, B), one doc a block; M is m when known at compile time, else 0.
 // Three blocks an SM: without the bound the compiler gives the m = 16 form
 // more registers and two blocks an SM, fewer warps to hide the LUT reads.
-template <int M>
+template <int M, typename T>
 __global__ void __launch_bounds__(E_SPLIT * 32, 3)
-pqscore_kernel(const float* __restrict__ cs_t, const float* __restrict__ lut2,
+pqscore_kernel(const T* __restrict__ cs_t, const float* __restrict__ lut2,
                const int32_t* __restrict__ codes,
                const uint8_t* __restrict__ res,
                const int32_t* __restrict__ lens,
@@ -49,30 +54,43 @@ pqscore_kernel(const float* __restrict__ cs_t, const float* __restrict__ lut2,
                                use_filter, score);
 }
 
+// One launch on cs_t (B, n_c, n_q) of T; lut2 (B, m*ksub, n_q) f32;
+// codes (B, nd, cap) i32; res (B, nd, cap, m) u8; lens (B, nd) i32; qmask
+// (B, n_q) u8; th_r rounded to the CS type. Output: score (B, nd) f32.
+template <typename T>
+int launch(const T* cs_t, const float* lut2, const int32_t* codes,
+           const uint8_t* res, const int32_t* lens, const uint8_t* qmask,
+           int B, int nd, int cap, int n_c, int n_q, int m, int ksub,
+           float th_r, int use_filter, float* score, cudaStream_t st) {
+  const dim3 grid(nd, B);
+  if (emvb::eq56_vector_m16(m, res))
+    pqscore_kernel<16, T><<<grid, E_SPLIT * 32, 0, st>>>(
+        cs_t, lut2, codes, res, lens, qmask, nd, cap, n_c, n_q, m, ksub, th_r,
+        use_filter, score);
+  else
+    pqscore_kernel<0, T><<<grid, E_SPLIT * 32, 0, st>>>(
+        cs_t, lut2, codes, res, lens, qmask, nd, cap, n_c, n_q, m, ksub, th_r,
+        use_filter, score);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
 // All pointers are device pointers; qmask may be null (every term live).
-// cs_t (B, n_c, n_q) f32; lut2 (B, m*ksub, n_q) f32; codes (B, nd, cap)
-// i32; res (B, nd, cap, m) u8; lens (B, nd) i32; qmask (B, n_q) u8.
-// Output: score (B, nd) f32.
-int pqscore_batched(const float* cs_t, const float* lut2, const int32_t* codes,
-                    const uint8_t* res, const int32_t* lens,
-                    const uint8_t* qmask, int B, int nd, int cap, int n_c,
-                    int n_q, int m, int ksub, float th_r, int use_filter,
-                    float* score, void* stream) {
+// cs_t (B, n_c, n_q) f32, or bf16 when cs_bf16; the other operands as in
+// launch.
+int pqscore_batched(const void* cs_t, int cs_bf16, const float* lut2,
+                    const int32_t* codes, const uint8_t* res,
+                    const int32_t* lens, const uint8_t* qmask, int B, int nd,
+                    int cap, int n_c, int n_q, int m, int ksub, float th_r,
+                    int use_filter, float* score, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid(nd, B);
-  if (emvb::eq56_vector_m16(m, res))
-    pqscore_kernel<16><<<grid, E_SPLIT * 32, 0, st>>>(
-        cs_t, lut2, codes, res, lens, qmask, nd, cap, n_c, n_q, m, ksub, th_r,
-        use_filter, score);
-  else
-    pqscore_kernel<0><<<grid, E_SPLIT * 32, 0, st>>>(
-        cs_t, lut2, codes, res, lens, qmask, nd, cap, n_c, n_q, m, ksub, th_r,
-        use_filter, score);
-  return cudaGetLastError();
+  return with_cs(cs_t, cs_bf16, [&](auto p) {
+    return launch(p, lut2, codes, res, lens, qmask, B, nd, cap, n_c, n_q, m,
+                  ksub, th_r, use_filter, score, st);
+  });
 }
 
 }  // extern "C"

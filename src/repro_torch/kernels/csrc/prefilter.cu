@@ -18,8 +18,13 @@
 // L2 round trip.
 //
 // What the design does about it:
-//  * Pass `pack` reads the CS with 16-byte loads, four columns a thread, and
-//    stores `bits` (B, n_c) in 16-byte stores. When B >= DENSE_MIN, pass
+//  * Pass `pack` reads the CS with 16-byte loads, four float32 or eight bf16
+//    columns a thread, and stores `bits` (B, n_c) in 16-byte stores. CS is
+//    float32 or bf16 (pack_kernel<T>): the reference compares in the CS
+//    dtype against th cast to it (prefilter.py:76, :118), so th comes
+//    rounded to that type and a bf16 entry is widened before the compare.
+//    Every pass after the pack sees only words. In bf16 the pack reads half
+//    the bytes. When B >= DENSE_MIN, pass
 //    `transpose` copies it to bitsT (n_c, B), one token's words in one row
 //    (emvb::transpose_words, as bitfilter.cu; ~64 MB moved at B = 32).
 //  * Pass `score` takes a tile of TILE docs per block. It builds each doc's
@@ -161,26 +166,48 @@ __device__ __forceinline__ bool plan_pass(uint32_t w,
 }
 
 // Pass 1: bits (B, n_c), and zeros in the bin totals the score pass adds
-// to. grid (ceil(n_c / (4 * PACK_THREADS)), B); thread = four neighbouring
-// columns (16-byte loads and store when `vec`).
-__global__ void pack_kernel(const float* __restrict__ cs, float th,
+// to. grid (ceil(n_c / (V * PACK_THREADS)), B); thread = V = Cs<T>::kVec
+// neighbouring columns, 16 bytes of CS a term (16-byte loads and stores
+// when `vec`).
+template <typename T>
+__global__ void pack_kernel(const T* __restrict__ cs, float th,
                             const uint8_t* __restrict__ qmask, int n_q,
                             int n_c, int vec, uint32_t* __restrict__ bits,
                             int32_t* __restrict__ tot) {
+  constexpr int V = emvb::Cs<T>::kVec;
   const int b = blockIdx.y;
   if (blockIdx.x == 0 && threadIdx.x < NBINS) tot[b * NBINS + threadIdx.x] = 0;
-  const int c0 = 4 * (blockIdx.x * blockDim.x + threadIdx.x);
+  const int c0 = V * (blockIdx.x * blockDim.x + threadIdx.x);
   if (c0 >= n_c) return;
   const uint32_t live = emvb::live_terms(emvb::mask_row(qmask, b, n_q), n_q);
-  const float* col = cs + (size_t)b * n_q * n_c + c0;
+  const T* col = cs + (size_t)b * n_q * n_c + c0;
   uint32_t* out = bits + (size_t)b * n_c + c0;
   if (vec) {
-    *reinterpret_cast<uint4*>(out) =
-        emvb::pack_columns4(col, n_c, th, live, n_q);
+    uint32_t w[V];
+    emvb::pack_columns(col, n_c, th, live, n_q, w);
+#pragma unroll
+    for (int j = 0; j < V; j += 4)
+      *reinterpret_cast<uint4*>(out + j) =
+          make_uint4(w[j], w[j + 1], w[j + 2], w[j + 3]);
   } else {
-    for (int j = 0; j < 4 && c0 + j < n_c; ++j)
+    for (int j = 0; j < V && c0 + j < n_c; ++j)
       out[j] = emvb::pack_column(col + j, n_c, th, live, n_q);
   }
+}
+
+// Pass 1 on CS of T; `vec` when its rows are 16-byte aligned.
+template <typename T>
+cudaError_t launch_pack(const T* cs, float th, const uint8_t* qmask, int B,
+                        int n_q, int n_c, uint32_t* bits, int32_t* tot,
+                        cudaStream_t st) {
+  constexpr int V = emvb::Cs<T>::kVec;
+  const int vec =
+      (n_c % V == 0) && (reinterpret_cast<uintptr_t>(cs) % 16 == 0);
+  const int groups = (n_c + V - 1) / V;
+  pack_kernel<T><<<dim3((groups + PACK_THREADS - 1) / PACK_THREADS, B),
+                   PACK_THREADS, 0, st>>>(cs, th, qmask, n_q, n_c, vec, bits,
+                                          tot);
+  return cudaGetLastError();
 }
 
 // Pass 1b, B >= DENSE_MIN only: bitsT (n_c, B) from bits. grid
@@ -641,14 +668,16 @@ size_t prefilter_scratch_bytes(int B, int n_c, int n_docs, int n_filter,
 }
 
 // All pointers are device pointers; qmask may be null (every term live).
-// cs (B, n_q, n_c) f32; qmask (B, n_q) u8; codes (n_docs, cap) i32 and
-// doc_lens (n_docs,) i32, or per_query: codes (B, n_docs, cap) and doc_lens
-// (B, n_docs); bitmap (B, n_docs) u8; B <= 32. pred (n_docs,) u32 predicate
+// cs (B, n_q, n_c) f32, or bf16 when cs_bf16; th rounded to the CS type;
+// qmask (B, n_q) u8; codes (n_docs, cap) i32 and doc_lens (n_docs,) i32, or
+// per_query: codes (B, n_docs, cap) and doc_lens (B, n_docs); bitmap
+// (B, n_docs) u8; B <= 32. pred (n_docs,) u32 predicate
 // words, or null for no plan; clauses (n_clauses, 2) u32 (required,
 // forbidden). Outputs: bits (B, n_c) u32, scores/ids (B, n_filter) i32.
 // scratch: the bytes prefilter_scratch_bytes gives, 256-byte aligned.
-int prefilter_batched(const float* cs, float th, const uint8_t* qmask,
-                      const int32_t* codes, const int32_t* doc_lens,
+int prefilter_batched(const void* cs, int cs_bf16, float th,
+                      const uint8_t* qmask, const int32_t* codes,
+                      const int32_t* doc_lens,
                       const uint8_t* bitmap, int B, int n_q, int n_c,
                       int n_docs, int cap, int n_filter, int per_query,
                       const uint32_t* pred, const uint32_t* clauses,
@@ -658,13 +687,10 @@ int prefilter_batched(const float* cs, float th, const uint8_t* qmask,
   const int n_tiles = (n_docs + TILE - 1) / TILE;
   Scratch s;
   carve(scratch, B, n_c, n_docs, n_filter, per_query, &s);
-  cudaError_t err;
-  const int vec = (n_c % 4 == 0) && (reinterpret_cast<uintptr_t>(cs) % 16 == 0);
-  const int n_quads = (n_c + 3) / 4;
-  pack_kernel<<<dim3((n_quads + PACK_THREADS - 1) / PACK_THREADS, B),
-                PACK_THREADS, 0, st>>>(cs, th, qmask, n_q, n_c, vec, bits,
-                                       s.tot);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  cudaError_t err = with_cs(cs, cs_bf16, [&](auto p) {
+    return launch_pack(p, th, qmask, B, n_q, n_c, bits, s.tot, st);
+  });
+  if (err != cudaSuccess) return err;
   if (per_query) {
     score_query_kernel<<<dim3(n_tiles, B), QSCORE_THREADS, 0, st>>>(
         codes, doc_lens, bitmap, pred, clauses, n_clauses, bits, n_c, n_docs,

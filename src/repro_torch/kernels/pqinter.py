@@ -21,6 +21,12 @@ in (score -inf, position 0) slots.
 :func:`pqinter_batched` dispatches on the tensors' device: on the CPU it
 runs the plain version; on CUDA it launches the kernel (and counts the launch
 in ``launches``) or raises — it never falls back.
+
+CS^T is float32 or bf16; the LUT is float32. On bf16, as in the reference
+(``pqinter.py:115-118``, ``:279``), S̄ is the bf16 sum widened exactly to
+float32 for the phase-3 cut (bf16 ties are frequent; the cut's (S̄,
+position) keys break them), and Eq. 5/6 is pqscore's (``th_r`` rounded
+through float32 to bf16).
 """
 from __future__ import annotations
 
@@ -29,6 +35,7 @@ import ctypes
 import torch
 
 from ..core.interaction import centroid_interaction, late_interaction_pq
+from ..core.precision import CS_TYPES, kernel_th, round_to
 from ..core.topk import topk
 from . import _build
 from .prefilter import lengths_of
@@ -53,7 +60,8 @@ def pqinter_batched_ref(cs_t: torch.Tensor, lut: torch.Tensor,
         sbar (B, n_docs) f32)"""
     cap = codes.shape[-1]
     valid = torch.arange(cap, device=codes.device) < lens[..., None]
-    sbar_all = centroid_interaction(cs_t, codes, valid, q_masks)  # (B, nf)
+    sbar_all = centroid_interaction(cs_t, codes, valid,
+                                    q_masks).float()          # (B, nf)
     if doc_pass is not None:
         sbar_all = torch.where(doc_pass, sbar_all,
                                torch.full_like(sbar_all, -torch.inf))
@@ -65,7 +73,7 @@ def pqinter_batched_ref(cs_t: torch.Tensor, lut: torch.Tensor,
     rows = torch.clamp(sel2, min=0)
     score = late_interaction_pq(cs_t, lut, _rows(codes, rows),
                                 _rows(res_codes, rows), _rows(valid, rows),
-                                th_r, q_masks)                     # (B, nd)
+                                kernel_th(th_r), q_mask=q_masks)   # (B, nd)
     if doc_pass is not None:
         score = torch.where(filler, -torch.inf, score)
     scores, rank = topk(score, k)
@@ -85,9 +93,9 @@ def flat_lut(lut: torch.Tensor) -> torch.Tensor:
 _VP, _CI = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "pqinter_scratch_bytes": (ctypes.c_size_t, [_CI, _CI, _CI]),
-    "pqinter_batched": (_CI, [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _CI, _CI,
-                              _CI, _CI, _CI, _CI, _CI, ctypes.c_float, _CI,
-                              _CI, _CI, _VP, _VP, _VP, _VP, _VP, _VP]),
+    "pqinter_batched": (_CI, [_VP, _CI, _VP, _VP, _VP, _VP, _VP, _VP, _CI,
+                              _CI, _CI, _CI, _CI, _CI, _CI, ctypes.c_float,
+                              _CI, _CI, _CI, _VP, _VP, _VP, _VP, _VP, _VP]),
 }
 
 
@@ -113,8 +121,9 @@ def _launch(cs_t, lut2, codes, res_codes, lens, qm, doc_pass, th_r, n_docs,
                           dtype=torch.uint8, device=dev)
     p = _build.ptr
     err = _fn("pqinter_batched")(
-        p(cs_t), p(lut2), p(codes), p(res_codes), p(lens), p(qm), p(doc_pass),
-        nb, nf, cap, n_c, n_q, m, ksub, 0.0 if th_r is None else float(th_r),
+        p(cs_t), _build.cs_flag(cs_t), p(lut2), p(codes),
+        p(res_codes), p(lens), p(qm), p(doc_pass), nb, nf, cap, n_c, n_q, m,
+        ksub, 0.0 if th_r is None else round_to(th_r, cs_t.dtype),
         int(th_r is not None), n_docs, k, p(scores), p(pos), p(sel2),
         p(sbar), p(scratch), torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "pqinter_batched")
@@ -128,7 +137,7 @@ def pqinter_batched(cs_t: torch.Tensor, lut: torch.Tensor,
                     q_masks=None, doc_pass=None):
     """Batch-native fused phases 3-4.
 
-    cs_t (B, n_c, n_q <= 32) float32; lut (B, n_q, m, K) float32; codes
+    cs_t (B, n_c, n_q <= 32) float32 or bf16; lut (B, n_q, m, K) float32; codes
     (B, n_filter, cap) int32; res_codes (B, n_filter, cap, m) uint8;
     token_mask (B, n_filter, cap) bool prefix mask or (B, n_filter) int32
     lengths; th_r None (Eq. 5) or a float (Eq. 6); q_masks optional
@@ -161,7 +170,7 @@ def pqinter_batched(cs_t: torch.Tensor, lut: torch.Tensor,
                          "hold their keys in shared memory")
     lut2 = flat_lut(lut)
     n_c = cs_t.shape[1]
-    operands = [("cs_t", cs_t, torch.float32, (nb, n_c, n_q)),
+    operands = [("cs_t", cs_t, CS_TYPES, (nb, n_c, n_q)),
                 ("lut", lut2, torch.float32, (nb, m * ksub, n_q)),
                 ("codes", codes, torch.int32, (nb, nf, cap)),
                 ("res_codes", res_codes, torch.uint8, (nb, nf, cap, m)),

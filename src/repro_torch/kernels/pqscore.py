@@ -14,6 +14,11 @@ codes stay uint8 in memory (the reference widens them to int32, :139).
 :func:`pqscore_batched` dispatches on the tensors' device: on the CPU it
 runs the plain version; on CUDA it launches the kernel (and counts the launch
 in ``launches``) or raises — it never falls back.
+
+CS^T is float32 or bf16; the LUT is float32. On bf16, as in the reference's
+``eq56_block`` (``pqscore.py:52-62``), a token's full score is the widened
+bf16 centroid score plus the float32 residual, and Eq. 6 compares the
+centroid score with ``th_r`` rounded through float32 to bf16.
 """
 from __future__ import annotations
 
@@ -22,6 +27,7 @@ import ctypes
 import torch
 
 from ..core.interaction import late_interaction_pq
+from ..core.precision import CS_TYPES, kernel_th, round_to
 from . import _build
 from .pqinter import flat_lut
 from .prefilter import lengths_of
@@ -33,10 +39,11 @@ def pqscore_batched_ref(cs_t: torch.Tensor, lut: torch.Tensor,
                         codes: torch.Tensor, res_codes: torch.Tensor,
                         lens: torch.Tensor, th_r, q_masks=None
                         ) -> torch.Tensor:
-    """Plain PyTorch version of the kernel: scores (B, docs) float32."""
+    """Plain PyTorch version of the kernel: scores (B, docs) float32; the
+    kernel's ``th_r`` is a float32 value (``kernel_th``)."""
     valid = torch.arange(codes.shape[-1], device=codes.device) < lens[..., None]
-    return late_interaction_pq(cs_t, lut, codes, res_codes, valid, th_r,
-                               q_masks)
+    return late_interaction_pq(cs_t, lut, codes, res_codes, valid,
+                               kernel_th(th_r), q_mask=q_masks)
 
 
 def _launch(cs_t, lut2, codes, res_codes, lens, qm, th_r, m, ksub):
@@ -45,14 +52,15 @@ def _launch(cs_t, lut2, codes, res_codes, lens, qm, th_r, m, ksub):
     global launches
     vp, ci = ctypes.c_void_p, ctypes.c_int
     fn = _build.function("pqscore", "pqscore_batched", ctypes.c_int,
-                         [vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci,
+                         [vp, ci, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci,
                           ci, ctypes.c_float, ci, vp, vp])
     nb, nd, cap = codes.shape
     n_c, n_q = cs_t.shape[1:]
     score = torch.empty((nb, nd), dtype=torch.float32, device=cs_t.device)
     p = _build.ptr
-    err = fn(p(cs_t), p(lut2), p(codes), p(res_codes), p(lens), p(qm), nb, nd,
-             cap, n_c, n_q, m, ksub, 0.0 if th_r is None else float(th_r),
+    err = fn(p(cs_t), _build.cs_flag(cs_t), p(lut2), p(codes),
+             p(res_codes), p(lens), p(qm), nb, nd, cap, n_c, n_q, m, ksub,
+             0.0 if th_r is None else round_to(th_r, cs_t.dtype),
              int(th_r is not None), p(score), _build.stream())
     _build.check(err, "pqscore_batched")
     launches += 1
@@ -65,7 +73,7 @@ def pqscore_batched(cs_t: torch.Tensor, lut: torch.Tensor,
                     q_masks=None) -> torch.Tensor:
     """Batch-native Eq. 5/6 scores.
 
-    cs_t (B, n_c, n_q <= 32) float32; lut (B, n_q, m, K) float32; codes
+    cs_t (B, n_c, n_q <= 32) float32 or bf16; lut (B, n_q, m, K) float32; codes
     (B, docs, cap) int32; res_codes (B, docs, cap, m) uint8; token_mask
     (B, docs, cap) bool prefix mask or (B, docs) int32 lengths; th_r None
     (Eq. 5) or a float (Eq. 6); q_masks optional (B, n_q) bool.
@@ -87,7 +95,7 @@ def pqscore_batched(cs_t: torch.Tensor, lut: torch.Tensor,
         raise ValueError(f"pqscore: unsupported device {cs_t.device}")
     lut2 = flat_lut(lut)
     n_c = cs_t.shape[1]
-    operands = [("cs_t", cs_t, torch.float32, (nb, n_c, n_q)),
+    operands = [("cs_t", cs_t, CS_TYPES, (nb, n_c, n_q)),
                 ("lut", lut2, torch.float32, (nb, m * ksub, n_q)),
                 ("codes", codes, torch.int32, (nb, nd, cap)),
                 ("res_codes", res_codes, torch.uint8, (nb, nd, cap, m)),

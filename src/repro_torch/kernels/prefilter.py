@@ -20,6 +20,11 @@ codes (B, cand_cap, cap), ids are buffer positions).
 :func:`prefilter_batched` dispatches on the tensors' device: on the CPU it
 runs the plain version; on CUDA it launches the kernel (and counts the launch
 in ``launches``) or raises — it never falls back.
+
+CS is float32 or bf16. The pack compares in the CS dtype against ``th``
+rounded through float32 to it, as the reference's ``th_ref[0].astype(
+cs.dtype)`` (``prefilter.py:76``, ``:118``); every pass after the pack sees
+only words.
 """
 from __future__ import annotations
 
@@ -30,6 +35,7 @@ import torch
 
 from ..core.bitvector import (apply_filter_plan, build_bitvectors,
                                or_reduce, popcount)
+from ..core.precision import CS_TYPES, kernel_th, round_to
 from ..core.topk import topk
 from . import _build
 
@@ -97,7 +103,7 @@ def prefilter_batched_ref(cs: torch.Tensor, th: float, codes: torch.Tensor,
     keys.
     -> (scores (B, n_filter) int32, doc_ids (B, n_filter) int32,
         bits (B, n_c) int32 words)"""
-    bits = build_bitvectors(cs, th, q_masks)                # (B, n_c)
+    bits = build_bitvectors(cs, kernel_th(th), q_masks)     # (B, n_c)
     if plan is not None:
         bitmap = bitmap & apply_filter_plan(plan, pred_words)
     f = filter_scores_ref(bits, codes, doc_lens, bitmap)
@@ -111,7 +117,7 @@ def prefilter_batched_ref(cs: torch.Tensor, th: float, codes: torch.Tensor,
 _VP, _CI = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "prefilter_scratch_bytes": (ctypes.c_size_t, [_CI, _CI, _CI, _CI, _CI]),
-    "prefilter_batched": (_CI, [_VP, ctypes.c_float, _VP, _VP, _VP, _VP,
+    "prefilter_batched": (_CI, [_VP, _CI, ctypes.c_float, _VP, _VP, _VP, _VP,
                                 _CI, _CI, _CI, _CI, _CI, _CI, _CI, _VP, _VP,
                                 _CI, _VP, _VP, _VP, _VP, _VP]),
 }
@@ -146,7 +152,8 @@ def _launch(cs, th, codes, doc_lens, bitmap, n_filter, qm, pred, clauses):
         nb, n_c, n_docs, n_filter, per_query), dtype=torch.uint8, device=dev)
     p = _build.ptr
     err = _fn("prefilter_batched")(
-        p(cs), float(th), p(qm), p(codes), p(doc_lens), p(bitmap), nb, n_q,
+        p(cs), _build.cs_flag(cs), round_to(th, cs.dtype), p(qm),
+        p(codes), p(doc_lens), p(bitmap), nb, n_q,
         n_c, n_docs, cap, n_filter, per_query, p(pred), p(clauses),
         0 if clauses is None else clauses.shape[0], p(bits), p(out[0]),
         p(out[1]), p(scratch), _build.stream())
@@ -161,7 +168,7 @@ def prefilter_batched(cs: torch.Tensor, th: float, codes: torch.Tensor,
                       plan=None):
     """Batch-native fused phases 1b-2.
 
-    cs (B, n_q <= 32, n_c) float32; codes (n_docs, cap) int32 shared by the
+    cs (B, n_q <= 32, n_c) float32 or bf16; codes (n_docs, cap) int32 shared by the
     batch or (B, n_docs, cap) per query; token_mask the codes' shape in
     bool (a prefix mask) or their leading shape in int32 lengths; bitmap
     (B, n_docs) bool; q_masks optional (B, n_q) bool; plan optional
@@ -203,7 +210,7 @@ def prefilter_batched(cs: torch.Tensor, th: float, codes: torch.Tensor,
         raise ValueError(f"n_filter={n_filter} > {MAX_N_FILTER}: the "
                          "kernel's final ranking holds its keys in shared "
                          "memory")
-    operands = [("cs", cs, torch.float32, (nb, n_q, n_c)),
+    operands = [("cs", cs, CS_TYPES, (nb, n_q, n_c)),
                 ("codes", codes, torch.int32, (*lead, cap)),
                 ("token lengths", doc_lens, torch.int32, lead),
                 ("bitmap", bitmap, torch.bool, (nb, n_docs))]

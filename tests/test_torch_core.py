@@ -136,7 +136,7 @@ def test_late_interaction_pq(th_r, levels, masked):
         torch.from_numpy(np.ascontiguousarray(cs.T)), torch.from_numpy(lut),
         torch.from_numpy(codes), torch.from_numpy(res),
         torch.from_numpy(mask), th_r,
-        None if qm is None else torch.from_numpy(qm))
+        q_mask=None if qm is None else torch.from_numpy(qm))
     _bits_eq(port, ref)
 
 
@@ -148,12 +148,13 @@ def test_interaction_batched_rows_equal_single():
     cs, lut, codes, mask, res, qm = stack
     cs_t = cs.transpose(1, 2).contiguous()
     sbar = tint.centroid_interaction(cs_t, codes, mask, qm)
-    score = tint.late_interaction_pq(cs_t, lut, codes, res, mask, 0.3, qm)
+    score = tint.late_interaction_pq(cs_t, lut, codes, res, mask, 0.3,
+                                     q_mask=qm)
     for b in range(2):
         one = tint.centroid_interaction(cs_t[b], codes[b], mask[b], qm[b])
         assert torch.equal(sbar[b].view(torch.int32), one.view(torch.int32))
         one = tint.late_interaction_pq(cs_t[b], lut[b], codes[b], res[b],
-                                       mask[b], 0.3, qm[b])
+                                       mask[b], 0.3, q_mask=qm[b])
         assert torch.equal(score[b].view(torch.int32), one.view(torch.int32))
 
 

@@ -19,7 +19,8 @@ from repro_torch.kernels import ops
 from repro_torch.kernels import pqinter as kpq
 from repro_torch.kernels import pqscore as kps
 from repro_torch.kernels import prefilter as kpf
-from torch_inputs import (compact_inputs, doc_pass_rows, lit_row_words,
+from torch_inputs import (BF16_EDGES, BF16_TH, BF16_TH_R, bf16_edges,
+                          compact_inputs, doc_pass_rows, lit_row_words,
                           plan_words, pqinter_inputs, prefilter_inputs)
 
 
@@ -346,3 +347,194 @@ def test_bitfilter_per_query_kernel_equals_plain(card, nb):
     torch.cuda.synchronize()
     assert kbf.launches == before + 1
     _same((f,), (kbf.bitfilter_batched_ref(bits, codes, lens),))
+
+
+# bf16 CS (cs_dtype="bfloat16"): each kernel's bf16 form against its plain
+# version, on CS with entries equal to bf16(th) and bf16(th_r), where the
+# lanes' comparison dtypes differ (the prefilter compares in bf16, bitpack
+# in float32). n_c 300 takes the prefilter pack's per-column form, 304 (a
+# multiple of 8) its 16-byte loads of eight bf16 columns.
+
+def _bf16(dev, x):
+    """A float32 array of bf16 values as a bf16 tensor on dev (exact)."""
+    return torch.from_numpy(np.ascontiguousarray(x)).to(dev).to(
+        torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nb", [1, 3, 32, 40])
+@pytest.mark.parametrize("n_c", [300, 304])
+@pytest.mark.parametrize("masked", [False, True])
+def test_bf16_bitpack_and_prefilter_equal_plain(card, nb, n_c, masked):
+    cs, codes, mask, bitmap, qm = prefilter_inputs(nb, nb, 32, n_c, 2100, 12)
+    cs = bf16_edges(nb, cs)
+    cs_b = _bf16(card, cs)
+    codes, mask, bitmap, qm = _on(card, codes, mask, bitmap, qm)
+    lens = mask.sum(-1, dtype=torch.int32)
+    qm = qm if masked else None
+    before = (kbp.launches, kpf.launches)
+    bits = ops.bitpack_batched(cs_b, BF16_TH, qm)
+    got = ops.prefilter_batched(cs_b, BF16_TH, codes, lens, bitmap, 200, qm)
+    torch.cuda.synchronize()
+    assert (kbp.launches, kpf.launches) == (
+        before[0] + 1, before[1] + -(-nb // kpf.MAX_BATCH))
+    _same((bits,), (kbp.bitpack_batched_ref(cs_b, BF16_TH, qm),))
+    _same(got, kpf.prefilter_batched_ref(cs_b, BF16_TH, codes, lens, bitmap,
+                                         200, qm))
+    b, i, c = (int(x[0]) for x in np.nonzero(cs == BF16_EDGES[0]))
+    if qm is None or qm[b, i]:
+        assert (int(bits[b, c]) >> i) & 1 == 1      # float32 comparison
+        assert (int(got[2][b, c]) >> i) & 1 == 0    # bf16 comparison
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [
+    # B, n_c, n_docs, cap, n_filter, density, lens
+    (32, 304, 5003, 12, 200, 0.02, None),          # sparse candidacy
+    (32, 304, 3001, 12, 200, 0.9, None),           # dense candidacy
+    (3, 300, 2100, 80, 200, 0.3, EDGE_LENS),       # cap 80
+    (32, 304, 2100, 200, 200, 0.6, CHUNK_LENS),    # docs over 2 chunks
+], ids=["sparse", "dense", "cap80", "cap200"])
+def test_bf16_prefilter_kernel_stress(card, case):
+    nb, n_c, n_docs, cap, n_filter, density, lens = case
+    cs, codes, mask, bitmap, qm = prefilter_inputs(
+        n_docs, nb, 32, n_c, n_docs, cap, density=density, lens=lens)
+    cs = _bf16(card, bf16_edges(n_docs, cs))
+    codes, mask, bitmap, qm = _on(card, codes, mask, bitmap, qm)
+    lens = mask.sum(-1, dtype=torch.int32)
+    got = ops.prefilter_batched(cs, BF16_TH, codes, lens, bitmap, n_filter,
+                                qm)
+    torch.cuda.synchronize()
+    _same(got, kpf.prefilter_batched_ref(cs, BF16_TH, codes, lens, bitmap,
+                                         n_filter, qm))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nb", [1, 32])
+@pytest.mark.parametrize("form", ["plan", "per_query"])
+def test_bf16_prefilter_operand_forms_equal_plain(card, nb, form):
+    if form == "plan":
+        cs, codes, mask, valid, qm = prefilter_inputs(nb, nb, 32, 304, 5003,
+                                                      12, density=0.3)
+        words, = _on(card, plan_words(nb, 5003))
+        extra = dict(pred_words=words, plan=CARD_PLANS["forbidden"])
+    else:
+        cs, codes, mask, valid, qm = compact_inputs(nb, nb, 32, 304, 4100, 80)
+        extra = {}
+    cs = _bf16(card, bf16_edges(nb, cs))
+    codes, mask, valid, qm = _on(card, codes, mask, valid, qm)
+    lens = mask.sum(-1, dtype=torch.int32)
+    got = ops.prefilter_batched(cs, BF16_TH, codes, lens, valid, 1024, qm,
+                                **extra)
+    torch.cuda.synchronize()
+    if "pred_words" in extra:
+        extra["pred_words"] = extra["pred_words"].view(torch.int32)
+    _same(got, kpf.prefilter_batched_ref(cs, BF16_TH, codes, lens, valid,
+                                         1024, qm, **extra))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nb", [1, 3, 32, 40])
+def test_bf16_bitfilter_on_bitpack_words(card, nb):
+    """bitfilter has no bf16 operand: its words come from a bf16 bitpack."""
+    cs, codes, mask, _, qm = prefilter_inputs(nb, nb, 32, 300, 2100, 12)
+    cs = _bf16(card, bf16_edges(nb, cs))
+    codes, mask, qm = _on(card, codes, mask, qm)
+    lens = mask.sum(-1, dtype=torch.int32)
+    bits = ops.bitpack_batched(cs, BF16_TH, qm)
+    f = ops.bitfilter_batched(bits, codes, lens)
+    torch.cuda.synchronize()
+    _same((f,), (kbf.bitfilter_batched_ref(
+        kbp.bitpack_batched_ref(cs, BF16_TH, qm), codes, lens),))
+
+
+def _bf16_pq(dev, seed, nb, nf, cap, m, ksub, lens=None):
+    cs_t, lut, codes, res, mask, qm = pqinter_inputs(seed, nb, 32, 200, nf,
+                                                     cap, m, ksub, lens=lens)
+    lut, codes, res, mask, qm = _on(dev, lut, codes, res, mask, qm)
+    return (_bf16(dev, bf16_edges(seed, cs_t)), lut, codes, res,
+            mask.sum(-1, dtype=torch.int32), qm)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nb", [1, 3, 32])
+@pytest.mark.parametrize("th_r", [None, BF16_TH_R])
+@pytest.mark.parametrize("shape", [
+    (10, 16, 256, None), (80, 16, 256, SPLIT_LENS), (80, 5, 256, SPLIT_LENS)],
+    ids=["cap10_m16", "cap80_m16", "cap80_m5"])
+@pytest.mark.parametrize("masked", [True, False])
+def test_bf16_cinter_and_pqscore_equal_plain(card, nb, th_r, shape, masked):
+    cap, m, ksub, lens = shape
+    cs_t, lut, codes, res, lens, qm = _bf16_pq(card, nb, nb, 150, cap, m,
+                                               ksub, lens)
+    qm = qm if masked else None
+    before = (kci.launches, kps.launches)
+    sbar = ops.cinter_batched(cs_t, codes, lens, qm)
+    score = ops.pqscore_batched(cs_t, lut, codes, res, lens, th_r, qm)
+    torch.cuda.synchronize()
+    assert (kci.launches, kps.launches) == (before[0] + 1, before[1] + 1)
+    _same((sbar, score), (
+        kci.cinter_batched_ref(cs_t, codes, lens, qm),
+        kps.pqscore_batched_ref(cs_t, lut, codes, res, lens, th_r, qm)))
+    assert torch.equal(sbar.to(torch.bfloat16).float(), sbar)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [
+    # B, nf, cap, m, K, n_docs, k, lens
+    (1, 150, 10, 16, 256, 40, 10, None),
+    (3, 300, 80, 16, 256, 60, 20, EDGE_LENS),     # cap 80, m = 16
+    (32, 150, 10, 16, 256, 40, 10, None),
+    (2, 600, 8, 8, 16, 40, 10, None),             # S̄ ties, serial m
+    (32, 2100, 12, 4, 16, 2100, 50, None),        # both cuts sorted
+], ids=["b1", "cap80_m16", "b32", "ties_m8", "sorted_cuts"])
+@pytest.mark.parametrize("th_r", [None, BF16_TH_R])
+def test_bf16_pqinter_equals_plain(card, case, th_r):
+    nb, nf, cap, m, ksub, n_docs, k, lens = case
+    cs_t, lut, codes, res, lens, qm = _bf16_pq(card, nf + m, nb, nf, cap, m,
+                                               ksub, lens)
+    before = kpq.launches
+    got = ops.pqinter_batched(cs_t, lut, codes, res, lens, th_r, n_docs, k,
+                              qm)
+    torch.cuda.synchronize()
+    assert kpq.launches == before + 1
+    _same(got, kpq.pqinter_batched_ref(cs_t, lut, codes, res, lens, th_r,
+                                       n_docs, k, qm))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("passing", ["all", "none", "sparse", "few"])
+def test_bf16_pqinter_doc_pass_equals_plain(card, passing):
+    cs_t, lut, codes, res, lens, qm = _bf16_pq(card, 3, 3, 300, 80, 16, 256)
+    dp, = _on(card, doc_pass_rows(3, 3, 300, passing, 60, 20))
+    got = ops.pqinter_batched(cs_t, lut, codes, res, lens, BF16_TH_R, 60, 20,
+                              qm, doc_pass=dp)
+    torch.cuda.synchronize()
+    _same(got, kpq.pqinter_batched_ref(cs_t, lut, codes, res, lens,
+                                       BF16_TH_R, 60, 20, qm, dp))
+
+
+@pytest.mark.cuda
+def test_wrappers_refuse_other_cs_dtypes_on_the_card(card):
+    cs, codes, mask, bitmap, qm = _on(card, *prefilter_inputs(
+        0, 2, 32, 64, 100, 6))
+    lens = mask.sum(-1, dtype=torch.int32)
+    half = cs.half()
+    with pytest.raises(TypeError, match="torch.float32 or torch.bfloat16"):
+        ops.bitpack_batched(half, 0.2, qm)
+    with pytest.raises(TypeError, match="torch.float32 or torch.bfloat16"):
+        ops.prefilter_batched(half, 0.2, codes, lens, bitmap, 10, qm)
+    cs_t, lut, pcodes, res, pmask, pqm = _on(card, *pqinter_inputs(
+        0, 2, 32, 64, 20, 6, 4, 16))
+    plens = pmask.sum(-1, dtype=torch.int32)
+    for call in (lambda c: ops.cinter_batched(c, pcodes, plens, pqm),
+                 lambda c: ops.pqscore_batched(c, lut, pcodes, res, plens,
+                                               0.1, pqm),
+                 lambda c: ops.pqinter_batched(c, lut, pcodes, res, plens,
+                                               0.1, 8, 4, pqm)):
+        with pytest.raises(TypeError, match="torch.float32 or "
+                                            "torch.bfloat16"):
+            call(cs_t.half())
+    with pytest.raises(TypeError, match="float32"):
+        ops.pqscore_batched(cs_t.bfloat16(), lut.bfloat16(), pcodes, res,
+                            plens, 0.1, pqm)

@@ -159,14 +159,23 @@ def test_engine_config_raises_reference_errors(bad):
 @pytest.mark.parametrize("todo", [
     {"candidate_mode": "compact"}, {"compact_cap": 8},
     {"cs_dtype": "bfloat16"}, {"doc_filter": object()}])
-def test_engine_config_refuses_configs_outside_the_slice(todo):
-    """bf16 CS is the one configuration not ported yet; compact mode and
-    compact_cap are taken, and a doc_filter that is no compiled plan is
+def test_engine_config_refuses_configs_outside_the_slice(todo, small_corpus,
+                                                         port_index):
+    """Every configuration of the reference is ported: compact mode,
+    compact_cap and bf16 CS build as the reference's config does (bf16 CS
+    also serves retrieve), and a doc_filter that is no compiled plan is
     refused with the reference's error."""
     kw = {**KW, **todo}
     if todo.get("cs_dtype") == "bfloat16":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            teng.EngineConfig(**kw)
+        cfg = teng.EngineConfig(**kw)
+        assert dataclasses.asdict(cfg) == {
+            k: v for k, v in dataclasses.asdict(reng.EngineConfig(**kw))
+            .items() if k != "kernel_interpret"}
+        q, _ = _queries(small_corpus, slice(0, 2), 0)
+        res = teng.retrieve(port_index, q, cfg, device="cpu")
+        assert res.doc_ids.shape == (2, KW["k"])
+        assert res.scores.dtype == torch.float32
+        assert torch.isfinite(res.scores).all()
     elif "doc_filter" in todo:
         with pytest.raises(ValueError) as want:
             reng.EngineConfig(**kw)

@@ -103,6 +103,8 @@ def test_entry_points_refuse_the_cpu_unless_asked(monkeypatch, small_index,
                                     n_centroids=4, m=2, nbits=2, list_cap=8)
     with pytest.raises(RuntimeError, match="CUDA"):
         tstore.load_index(str(tmp_path))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        teng.prune_queries(q, 8)
     assert teng.retrieve(index, q, cfg, device="cpu").doc_ids.shape == (1, 10)
 
 

@@ -109,3 +109,24 @@ def doc_pass_rows(seed, nb, nf, passing, n_docs, k):
     for b in range(nb):
         dp[b, rng.choice(nf, size=count + b % 2, replace=False)] = True
     return dp
+
+
+# bf16 thresholds of the bf16 tests, and the bf16 values they round to:
+# bf16(0.4) = 0.400390625 lies above float32(0.4), so an entry equal to it
+# fails a bf16 comparison with 0.4 and passes a float32 one. chip_smoke.py
+# holds the same constants and bf16_edges for the card.
+BF16_TH, BF16_TH_R = 0.4, 0.3
+BF16_EDGES = (0.400390625, 0.30078125)
+
+
+def bf16_edges(seed, x, share=0.15, values=BF16_EDGES):
+    """``x`` (float32, every entry a bf16 value, as the quantized inputs
+    above are) with a ``share`` of its entries set to each of ``values``:
+    bf16(th) and bf16(th_r), where the comparison dtypes of the lanes
+    differ."""
+    rng = np.random.default_rng(seed)
+    x = x.copy()
+    pick = rng.random(x.shape)
+    for i, v in enumerate(values):
+        x[(pick >= i * share) & (pick < (i + 1) * share)] = v
+    return x
