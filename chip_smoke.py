@@ -40,7 +40,13 @@ Phases:
                bitmap's shared-memory limit; PQSCORE_STRESS: lengths at
                the edges of the 8-warp token split, one query over 4096
                docs, cap 200, m = 16 and the serial m = 5 and 8, Eq. 6
-               with no kept token); the filtered and compact forms
+               with no kept token; CINTER_STRESS: the S̄ pass that cinter
+               and pqinter share, at n_q in {1, 4, 7, 8, 12, 16, 32}
+               (both of its forms), on an aligned CS^T and one element off,
+               B in {1, 3, 32, 40} (a doc split over up to 8, 4, 2 and 1
+               warps), cap in {10, 33, 80, 200} with lengths at the
+               split's and the rounds' edges); the filtered and
+               compact forms
                (FILTER_CASES: plans passing 0, 1, 50 and 100 % of docs and
                one with forbidden bits and bit 31; per-query codes at B in
                {1, 3, 32, 40}, cand_cap 4100 (no multiple of the 1024-doc
@@ -63,8 +69,10 @@ Phases:
                held against its plain version on the same operands; every
                finite-scored result passes the filter; unfused == fused on
                the finite entries with the same CS and LUT
-  6. timing  — CUDA-event medians of every step of both lanes, end to end,
-               each kernel beside its plain version and its bound; the
+  6. timing  — CUDA-event medians of every step of both lanes (the CS^T
+               transpose a step of its own), end to end, each kernel
+               beside its plain version and its bound, and the host ms of
+               the prefilter, pqinter, bitpack and cinter wrappers; the
                filtered and compact kernel forms and retrieve end to end
   6b. bf16   — bf16 CS (cs_dtype="bfloat16", paper §6): each of the five
                kernels with a CS operand (prefilter, pqinter, bitpack,
@@ -271,6 +279,40 @@ PQSCORE_STRESS = (
     ("m16_eq6_no_kept_token", 3, 700, 300, 80, 16, 256, SPLIT_LENS,
      (100.0,)),
 )
+# The S̄ pass (emvb::sbar_block), which cinter and pqinter's pass 1 both
+# run: n_q 1 and 7 run one lane per term; 4, 8, 12, 16 and 32 the 16-byte
+# rows in float32 (1, 2, 4 (3 pieces), 4 and 8 lanes a row), 8, 16 and 32
+# in bf16 (1, 2 and 4 lanes); each case runs again on a CS^T one element
+# past 16-byte alignment (one lane per term). Docs per query such that on
+# 132 SMs B = 1, 3 and 40 split a doc over up to 8, 4 and 2 warps (fewer
+# where cap is short of that many rounds) and B = 32 over one; each cap
+# once per n_q.
+SBAR_DOCS = {1: 300, 3: 400, 32: 300, 40: 60}
+SBAR_CAPS = (10, 33, 80, 200)
+CINTER_STRESS = tuple(
+    (f"sbar_nq{n_q}_b{nb}_cap{cap}", nb, n_q, SBAR_DOCS[nb], cap)
+    for i, n_q in enumerate((1, 4, 7, 8, 12, 16, 32))
+    for k, nb in enumerate(SBAR_DOCS)
+    for cap in (SBAR_CAPS[(i + k) % len(SBAR_CAPS)],))
+
+
+def sbar_lens(cap: int) -> tuple:
+    """Token counts of the S̄ stress cases: SPLIT_LENS's edges of an 8-warp
+    split and the edges of the pass's 32-, 64- and 128-token rounds, 0 and
+    cap among them."""
+    return tuple(sorted({n for n in (0, 1, 7, 8, 9, 31, 32, 33, 63, 64, 65,
+                                     127, 128, 129, cap - 1, cap)
+                         if n <= cap}))
+
+
+def off_alignment(x):
+    """A contiguous copy of x whose storage starts one element past a
+    16-byte boundary (the S̄ pass's one-lane-per-term form)."""
+    import torch
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    view = buf[1:].view(x.shape)
+    view.copy_(x)
+    return view
 
 # Filtered and compact retrieval's operand forms. Plans over predicate words
 # drawn with the bit rates SMALL_RATES (bit 31 in use): none, ~1 %, ~50 % and
@@ -493,6 +535,27 @@ def small_phase(dev, cs_dtype: str = "float32") -> dict:
                         q)
                 hold("pqscore", (ops.pqscore_batched(*args),),
                      (kps.pqscore_batched_ref(*args),))
+    for name, nb, n_q, nd, cap in CINTER_STRESS:
+        rng = np.random.default_rng(len(name) * 1000 + n_q * 50 + nb)
+        n_c, m, ksub = 300, 4, 16
+        cs_t = _quant(rng, (nb, n_c, n_q), 0.5, 2)
+        lut = _quant(rng, (nb, n_q, m, ksub), 0.1, 8)
+        pcodes = rng.integers(0, n_c, size=(nb, nd, cap)).astype(np.int32)
+        plens = rng.choice(np.asarray(sbar_lens(cap), np.int32),
+                           size=(nb, nd))
+        pcodes[np.arange(cap) >= plens[..., None]] = n_c
+        res = rng.integers(0, ksub, size=(nb, nd, cap, m)).astype(np.uint8)
+        qm = rng.random((nb, n_q)) < 0.8
+        qm[:, 0] = True
+        for cs_op in (c(cs_t), off_alignment(c(cs_t))):
+            for q in (t(qm), None):
+                args = (cs_op, t(pcodes), t(plens), q)
+                hold("cinter", (ops.cinter_batched(*args),),
+                     (kci.cinter_batched_ref(*args),))
+                args = (cs_op, t(lut), t(pcodes), t(res), t(plens),
+                        thr(0.25), min(nd, 50), 10, q)
+                hold("pqinter", ops.pqinter_batched(*args),
+                     kpq.pqinter_batched_ref(*args))
     for nb in (1, 3, 32):                      # plans, shared codes
         rng = np.random.default_rng(200 + nb)
         n_c, n_docs, cap = 700, 5003, 17
@@ -552,7 +615,7 @@ def small_phase(dev, cs_dtype: str = "float32") -> dict:
     emit("small" if not bf16 else "bf16_small", cases=cases, exact=True,
          cs_dtype=cs_dtype, th=th, max_abs_err=err,
          stress=[c[0] for c in PREFILTER_STRESS + PQINTER_STRESS
-                 + BITFILTER_STRESS + PQSCORE_STRESS],
+                 + BITFILTER_STRESS + PQSCORE_STRESS + CINTER_STRESS],
          filter_cases=FILTER_CASES)
     return err
 
@@ -677,13 +740,16 @@ def bitfilter_query_bound(bits, codes, lens) -> dict:
 def cinter_bound(cs_t, codes, lens) -> dict:
     """Least bytes cinter must move: the survivors' lengths and valid-token
     codes, the CS^T rows those tokens touch, the term mask and S̄ out; one
-    max per (valid token, term)."""
+    max per (valid token, term). Beside it, the L2 bytes its gathers take:
+    one CS^T row per valid token."""
     nb, nd, _ = codes.shape
     n_c, n_q = cs_t.shape[1:]
     tokens = int(lens.sum())
     nbytes = (nb * nd * 4 + tokens * 4 + _rows_touched(codes, lens, n_c)
               * n_q * cs_t.element_size() + nb * n_q + nb * nd * 4)
-    return _bound(nbytes, tokens * n_q)
+    out = _bound(nbytes, tokens * n_q)
+    out["l2_gather_bytes"] = tokens * _sectors(n_q * cs_t.element_size())
+    return out
 
 
 def pqscore_bound(cs_t, lut, codes, lens) -> dict:
@@ -1256,8 +1322,10 @@ def timing_phase(full: dict) -> dict:
             "bitmap": lambda: teng.candidate_bitmap(
                 index.ivf, index.ivf_lens, probe, index.codes.shape[0]),
             "prefilter_kernel": lambda: ops.prefilter_batched(*pf_args),
-            "lut_and_gathers": lambda: teng._survivor_operands(
-                index, cs, teng._query_lut(index, q), sel1),
+            "cs_transpose": lambda: teng._transposed(cs),
+            "lut_and_gathers": lambda: (
+                teng._query_lut(index, q), index.codes[sel1],
+                index.res_codes[sel1], index.doc_lens[sel1]),
             "pqinter_kernel": lambda: ops.pqinter_batched(*pq_args),
         }
         # the unfused lane's own steps; cs_matmul, probe_topk and bitmap are
@@ -1267,8 +1335,9 @@ def timing_phase(full: dict) -> dict:
             "bitfilter_kernel": lambda: ops.bitfilter_batched(*bf_args),
             "mask_and_topk_n_filter": lambda: topk(
                 torch.where(bitmap, f, torch.full_like(f, -1)), cfg.n_filter),
-            "cs_transpose_and_gathers": lambda: (
-                teng._transposed(cs), index.codes[sel1], index.doc_lens[sel1]),
+            "cs_transpose": lambda: teng._transposed(cs),
+            "survivor_gathers": lambda: (index.codes[sel1],
+                                         index.doc_lens[sel1]),
             "cinter_kernel": lambda: ops.cinter_batched(*u["ci_args"]),
             "topk_n_docs": lambda: topk(u["sbar"], cfg.n_docs),
             "lut_and_gathers": lambda: (
@@ -1307,7 +1376,9 @@ def timing_phase(full: dict) -> dict:
         }
         wrapper_host = {
             "prefilter": host_ms(lambda: ops.prefilter_batched(*pf_args)),
-            "pqinter": host_ms(lambda: ops.pqinter_batched(*pq_args))}
+            "pqinter": host_ms(lambda: ops.pqinter_batched(*pq_args)),
+            "bitpack": host_ms(lambda: ops.bitpack_batched(cs, cfg.th)),
+            "cinter": host_ms(lambda: ops.cinter_batched(*u["ci_args"]))}
         ci_cs_t, ci_codes, ci_lens = u["ci_args"]
         ps_cs_t, ps_lut, ps_codes, _, ps_lens, _ = u["ps_args"]
         bounds = {
@@ -1590,8 +1661,10 @@ def bf16_phase(dev, full: dict, filt: dict) -> dict:
                 index.ivf, index.ivf_lens, probe, index.codes.shape[0]),
             "prefilter_kernel": lambda: ops.prefilter_batched(
                 *h["pf_args"]),
-            "lut_and_gathers": lambda: teng._survivor_operands(
-                index, cs, teng._query_lut(index, q), h["sel1"]),
+            "cs_transpose": lambda: teng._transposed(cs),
+            "lut_and_gathers": lambda: (
+                teng._query_lut(index, q), index.codes[h["sel1"]],
+                index.res_codes[h["sel1"]], index.doc_lens[h["sel1"]]),
             "pqinter_kernel": lambda: ops.pqinter_batched(
                 *h["operands"], cfg.th_r, cfg.n_docs, cfg.k),
         }.items()}

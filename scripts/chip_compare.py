@@ -31,31 +31,28 @@ OUT = os.path.join(ROOT, "chiprun_out", "compare")
 
 # Dotted paths into chip_smoke.json printed on their own lines.
 HEADLINE = (
-    "timing_b32.unfused_step_ms.bitfilter_kernel",
-    "timing_b1.unfused_step_ms.bitfilter_kernel",
-    "timing_b32.unfused_step_ms.pqscore_kernel",
-    "timing_b1.unfused_step_ms.pqscore_kernel",
-    "profile_unfused_b32.pass_device_ms_per_wrapper_call.pqscore",
-    "profile_unfused_b1.pass_device_ms_per_wrapper_call.pqscore",
-    "profile_unfused_b32.pass_device_ms_per_wrapper_call.bitfilter",
-    "profile_unfused_b1.pass_device_ms_per_wrapper_call.bitfilter",
-    "timing_b32.unfused_step_ms.end_to_end",
-    "timing_b1.unfused_step_ms.end_to_end",
-    "timing_b32.step_ms.prefilter_kernel",
-    "timing_b1.step_ms.prefilter_kernel",
+    "profile_fused_b32.pass_device_ms_per_wrapper_call.pqinter",
+    "profile_fused_b1.pass_device_ms_per_wrapper_call.pqinter",
+    "profile_fused_bf16_b32.pass_device_ms_per_wrapper_call.pqinter",
+    "profile_fused_bf16_b1.pass_device_ms_per_wrapper_call.pqinter",
+    "profile_unfused_b32.pass_device_ms_per_wrapper_call.cinter",
+    "profile_unfused_b1.pass_device_ms_per_wrapper_call.cinter",
+    "profile_unfused_bf16_b32.pass_device_ms_per_wrapper_call.cinter",
+    "profile_unfused_bf16_b1.pass_device_ms_per_wrapper_call.cinter",
+    "limits.pqinter_nf4096_n_docs256_b32.pass_ms.sbar_kernel",
+    "limits.pqinter_nf4096_n_docs256_b1.pass_ms.sbar_kernel",
     "timing_b32.step_ms.pqinter_kernel",
     "timing_b1.step_ms.pqinter_kernel",
-    "profile_fused_b32.pass_device_ms_per_wrapper_call",
-    "profile_fused_b1.pass_device_ms_per_wrapper_call",
+    "timing_b32.unfused_step_ms.cinter_kernel",
+    "timing_b1.unfused_step_ms.cinter_kernel",
+    "timing_b32.wrapper_host_ms",
+    "timing_b1.wrapper_host_ms",
+    "timing_b32.step_ms.cs_transpose",
+    "timing_b1.step_ms.cs_transpose",
     "timing_b32.step_ms.end_to_end",
     "timing_b1.step_ms.end_to_end",
-    "limits.bitfilter_rho50_b32.ms",
-    "limits.bitfilter_rho100_b32.ms",
-    "limits.bitfilter_rho50_b1.ms",
-    "limits.bitfilter_rho100_b1.ms",
-    "limits.pqscore_winners4096_b32",
-    "limits.pqscore_winners4096_b1",
-    "full.funnel.lit_rows",
+    "timing_b32.unfused_step_ms.end_to_end",
+    "timing_b1.unfused_step_ms.end_to_end",
 )
 
 

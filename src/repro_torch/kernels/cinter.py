@@ -3,8 +3,9 @@ survivors.
 
 Replaces ``repro/kernels/cinter.py::cinter`` (Pallas body
 ``_cinter_kernel``, :77, calling ``sbar_block``, :31), batched: row b equals
-the reference kernel on query b. The CUDA kernel is ``csrc/cinter.cu``; its
-per-document math is the fused pqinter's S̄ pass (``csrc/doc_math.cuh``).
+the reference kernel on query b. The CUDA kernel is ``csrc/cinter.cu``, which
+launches the S̄ pass that the fused pqinter's pass 1 runs too
+(``emvb::sbar_block``, ``csrc/doc_math.cuh``).
 :func:`cinter_batched_ref` is its plain PyTorch version
 (``core.interaction.centroid_interaction``).
 

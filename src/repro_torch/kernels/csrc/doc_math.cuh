@@ -32,6 +32,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace emvb {
@@ -284,11 +286,17 @@ __device__ __forceinline__ void lit_rows_or(
 // --- term_sum -------------------------------------------------------------------
 
 // term_sum over a warp holding one term per lane: lane 0 + lane 1 + ... +
-// lane n_q-1, in that order (a shuffle tree would change bits). All 32 lanes
-// must call it; every lane gets the sum.
+// lane n_q-1, in that order (a shuffle tree would change bits). The 32
+// shuffles are issued first, so only the adds wait on each other. All 32
+// lanes must call it; every lane gets the sum.
 __device__ __forceinline__ float term_sum_lanes(float colmax, int n_q) {
-  float s = __shfl_sync(FULL_MASK, colmax, 0);
-  for (int i = 1; i < n_q; ++i) s = s + __shfl_sync(FULL_MASK, colmax, i);
+  float v[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) v[i] = __shfl_sync(FULL_MASK, colmax, i);
+  float s = v[0];
+#pragma unroll
+  for (int i = 1; i < 32; ++i)
+    if (i < n_q) s = s + v[i];
   return s;
 }
 
@@ -317,24 +325,250 @@ __device__ __forceinline__ float sbar_sum(float colmax, int n_q) {
   return Cs<T>::round_sum(term_sum_lanes(colmax, n_q));
 }
 
-// S̄ of one document in one warp, lane i = query term i, tokens in series
-// (cinter.cu). cb = this query's (n_c, n_q) CS^T; cd = the doc's codes; qm =
-// the query's term mask or null. All 32 lanes must call it.
-template <typename T>
-__device__ __forceinline__ float sbar_doc(const T* __restrict__ cb,
-                                          const int32_t* __restrict__ cd,
-                                          int len, const uint8_t* __restrict__ qm,
-                                          int cap, int n_c, int n_q, int lane) {
-  len = min(max(len, 0), cap);
-  float acc = -INFINITY;
-  if (lane < n_q) {
-    for (int t = 0; t < len; ++t) {
-      const int c = min(max(cd[t], 0), n_c - 1);
-      acc = sbar_token(acc, Cs<T>::widen(cb[(size_t)c * n_q + lane]));
+// The S̄ pass (Eq. 2) of every doc of a (B, nd, cap) code array, which the
+// unfused cinter.cu and the fused pqinter.cu's pass 1 both launch. A block
+// of SBAR_WARPS warps scores SBAR_WARPS / split docs, `split` warps a doc,
+// each over a contiguous run of ceil(cap / split) of the doc's token slots.
+// Per warp, the codes arrive up to 128 at a time, 32 a coalesced load,
+// issued beside the doc's length (so the two loads are in flight
+// together), clamped as jnp.clip does, and go from lane to lane by
+// shuffles: no row gather waits on a code load of its own. Then rounds of
+// SBAR_K gathers, all issued before the round's first max. Two forms,
+// chosen on the host from the shape and the pointer (sbar_launch):
+//  * 16-byte rows (LP > 0): when a row of CS^T (n_q * sizeof(T) bytes) is a
+//    whole number of 16-byte pieces at a 16-byte-aligned base, LP lanes (a
+//    power of two) hold one row, a piece each (4 float32 or 8 bf16 terms),
+//    so one warp load gathers 32 / LP tokens' rows. Each lane keeps its
+//    group's per-term maxima; shuffles merge the groups and then move term
+//    i to lane i.
+//  * one lane per term (LP = 0), any other row width or base: a 4- or
+//    2-byte gather per (token, term), SBAR_K tokens a round.
+// Then the warps of a doc merge through shared memory, and its first warp
+// finishes (sbar_finish) and term-sums (sbar_sum). A per-term max is
+// order-free, so every form and split gives the same bits. The pass waits
+// on latency: on the H100 more resident warps with SBAR_K = 4 gathers each
+// beat fewer warps with 8 (PERF.md, PR 17).
+constexpr int SBAR_WARPS = 8;        // 256 threads a block
+constexpr int SBAR_MIN_BLOCKS = 6;   // blocks an SM at least: <= 40 regs
+constexpr int SBAR_SPLIT_MAX = 8;    // warps per doc, at most
+constexpr int SBAR_K = 4;            // gathers a lane issues a round
+constexpr int SBAR_CODES = 128;      // codes a warp holds at least
+static_assert(SBAR_WARPS % SBAR_SPLIT_MAX == 0, "whole docs a block");
+
+// Tokens a warp gathers in one round: SBAR_K warp loads of 32 / LP rows,
+// or SBAR_K tokens one lane per term (LP = 0).
+__host__ __device__ constexpr int sbar_round(int lp) {
+  return lp > 0 ? SBAR_K * (32 / lp) : SBAR_K;
+}
+
+// A warp's codes of token slots [b0, b0 + 32 * NR): lane l holds slot
+// b0 + 32 * r + l in c[r], read when below `end` (a bound known before the
+// doc's length arrives) and then kept, clamped, when below `hi`, else -1.
+template <int NR>
+__device__ __forceinline__ void sbar_codes(const int32_t* __restrict__ cd,
+                                           int b0, int end, int hi, int n_c,
+                                           int (&c)[NR]) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int r = 0; r < NR; ++r) {
+    const int t = b0 + 32 * r + lane;
+    c[r] = t < end ? cd[t] : 0;
+  }
+#pragma unroll
+  for (int r = 0; r < NR; ++r) {
+    const int t = b0 + 32 * r + lane;
+    c[r] = t < hi ? min(max(c[r], 0), n_c - 1) : -1;
+  }
+}
+
+// One warp's per-term max over the valid tokens of the slots [lo, end) of
+// a doc of `len` tokens, the 16-byte form: cb = the query's (n_c, n_q)
+// CS^T, cd = the doc's codes. Lane l returns term l's max (lanes >= n_q:
+// no term's). All 32 lanes must call it with the same lo, end and len.
+template <typename T, int LP>
+__device__ __forceinline__ float sbar_span_rows(const T* __restrict__ cb,
+                                                const int32_t* __restrict__ cd,
+                                                int lo, int end, int len,
+                                                int n_c, int n_q) {
+  constexpr int V = Cs<T>::kVec;       // terms a lane loads
+  constexpr int G = 32 / LP;           // tokens a warp load
+  constexpr int S = sbar_round(LP);    // tokens a round
+  constexpr int CB = S > SBAR_CODES ? S : SBAR_CODES;   // tokens a block
+  constexpr int NR = CB / 32;          // codes a lane holds
+  static_assert(CB % S == 0, "whole rounds a block");
+  const int lane = threadIdx.x & 31, g = lane / LP, j = lane % LP;
+  const bool piece = j * V < n_q;      // this lane's 16 bytes are in the row
+  const T* rb = cb + j * V;
+  const int hi = min(len, end);
+  float acc[V];
+#pragma unroll
+  for (int v = 0; v < V; ++v) acc[v] = -INFINITY;
+  for (int b0 = lo; b0 < end; b0 += CB) {        // warp-uniform
+    int c[NR];
+    sbar_codes<NR>(cd, b0, end, hi, n_c, c);
+    if (b0 >= hi) break;
+#pragma unroll
+    for (int q = 0; q < CB / S; ++q) {
+      if (b0 + q * S >= hi) break;               // warp-uniform
+      uint4 raw[SBAR_K];
+      bool ok[SBAR_K];
+#pragma unroll
+      for (int k = 0; k < SBAR_K; ++k) {  // slot q * S + k * G + g
+        const int ck = __shfl_sync(FULL_MASK, c[(q * S + k * G) / 32],
+                                   (q * S + k * G) % 32 + g);
+        ok[k] = piece && ck >= 0;
+        raw[k] = ok[k] ? __ldg(reinterpret_cast<const uint4*>(
+                             rb + (size_t)ck * n_q))
+                       : make_uint4(0, 0, 0, 0);
+      }
+#pragma unroll
+      for (int k = 0; k < SBAR_K; ++k) {
+        if (!ok[k]) continue;
+        float f[V];
+        Cs<T>::unpack(raw[k], f);
+#pragma unroll
+        for (int v = 0; v < V; ++v) acc[v] = sbar_token(acc[v], f[v]);
+      }
     }
   }
+#pragma unroll
+  for (int o = LP; o < 32; o <<= 1)              // merge the token groups
+#pragma unroll
+    for (int v = 0; v < V; ++v)
+      acc[v] = sbar_token(acc[v], __shfl_xor_sync(FULL_MASK, acc[v], o));
+  // term i = piece i / V, value i % V: on lane i / V of every group
+  float col = -INFINITY;
+#pragma unroll
+  for (int v = 0; v < V; ++v) {
+    const float x = __shfl_sync(FULL_MASK, acc[v], lane / V);
+    if (lane % V == v) col = x;
+  }
+  return col;
+}
+
+// The same, one lane per term (lane l = term l): a gather of one element
+// per (token, term), SBAR_K tokens' gathers issued before their maxima.
+template <typename T>
+__device__ __forceinline__ float sbar_span_terms(
+    const T* __restrict__ cb, const int32_t* __restrict__ cd, int lo,
+    int end, int len, int n_c, int n_q) {
+  constexpr int CB = SBAR_CODES, NR = CB / 32;
+  static_assert(CB % SBAR_K == 0, "whole rounds a block");
+  const int lane = threadIdx.x & 31;
+  const bool term = lane < n_q;
+  const T* tb = cb + lane;
+  const int hi = min(len, end);
+  float acc = -INFINITY;
+  for (int b0 = lo; b0 < end; b0 += CB) {        // warp-uniform
+    int c[NR];
+    sbar_codes<NR>(cd, b0, end, hi, n_c, c);
+    if (b0 >= hi) break;
+#pragma unroll
+    for (int k0 = 0; k0 < CB; k0 += SBAR_K) {
+      if (b0 + k0 >= hi) break;                  // warp-uniform
+      float v[SBAR_K];
+#pragma unroll
+      for (int k = 0; k < SBAR_K; ++k) {
+        const int ck =
+            __shfl_sync(FULL_MASK, c[(k0 + k) / 32], (k0 + k) % 32);
+        v[k] = term && ck >= 0 ? Cs<T>::widen(tb[(size_t)ck * n_q])
+                               : -INFINITY;
+      }
+#pragma unroll
+      for (int k = 0; k < SBAR_K; ++k) acc = sbar_token(acc, v[k]);
+    }
+  }
+  return acc;
+}
+
+// The S̄ pass's body: S̄ of doc p = blockIdx.x * (SBAR_WARPS / split) +
+// warp / split of query b = blockIdx.y, written to out[b * nd + p]. cs_t
+// (B, n_c, n_q) of T; codes (B, nd, cap); lens (B, nd); qmask (B, n_q) or
+// null. LP as in sbar_span_rows, or 0 for one lane per term. Every thread
+// of the block must call it.
+template <int LP, typename T>
+__device__ __forceinline__ void sbar_block(
+    const T* __restrict__ cs_t, const int32_t* __restrict__ codes,
+    const int32_t* __restrict__ lens, const uint8_t* __restrict__ qmask,
+    int nd, int cap, int n_c, int n_q, int split, float* __restrict__ out) {
+  __shared__ float part[SBAR_WARPS][32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int piece = warp % split;
+  const int p = blockIdx.x * (SBAR_WARPS / split) + warp / split;
+  const int b = blockIdx.y;
+  const bool ok = p < nd;                              // warp-uniform
+  const size_t row = (size_t)b * nd + p;
+  float col = -INFINITY;
+  int len = 0;
+  if (ok) {
+    const int span = (cap + split - 1) / split;
+    const int lo = piece * span, end = min(cap, lo + span);
+    len = min(max(lens[row], 0), cap);
+    const T* cb = cs_t + (size_t)b * n_c * n_q;
+    const int32_t* cd = codes + row * cap;
+    if constexpr (LP > 0)
+      col = sbar_span_rows<T, LP>(cb, cd, lo, end, len, n_c, n_q);
+    else
+      col = sbar_span_terms<T>(cb, cd, lo, end, len, n_c, n_q);
+  }
+  if (split > 1) {                                     // block-uniform
+    part[warp][lane] = col;
+    __syncthreads();
+    if (piece != 0) return;
+    for (int k = 1; k < split; ++k) col = sbar_token(col, part[warp + k][lane]);
+  }
+  if (!ok) return;
+  const uint8_t* qm = mask_row(qmask, b, n_q);
   const bool live = lane < n_q && (qm == nullptr || qm[lane]);
-  return sbar_sum<T>(sbar_finish<T>(acc, len, cap, live), n_q);
+  const float s = sbar_sum<T>(sbar_finish<T>(col, len, cap, live), n_q);
+  if (lane == 0) out[row] = s;
+}
+
+// Host side of the S̄ pass: its grid, its warps per doc and its form.
+struct SbarLaunch {
+  dim3 grid;
+  int split;   // warps per doc
+  int lanes;   // LP of sbar_block: lanes per 16-byte-loaded row, or 0
+};
+
+// The 16-byte form runs when a row of cs_t is a whole number of 16-byte
+// pieces (n_q % 4 == 0 in float32, % 8 in bf16) at a 16-byte-aligned base;
+// LP is their count rounded up to a power of two. A doc's token slots are
+// split over warps, a power of two, only while the batch's docs times the
+// split fit the card in one wave (SBAR_MIN_BLOCKS blocks an SM: at B = 32
+// the 32K survivors already take several, and a split would add merges; at
+// B = 1 the 1,024 survivors take 4 warps each) and a warp would still
+// gather more than one round (sbar_round).
+template <typename T>
+inline SbarLaunch sbar_launch(const T* cs_t, int B, int nd, int cap,
+                              int n_q) {
+  const size_t row = (size_t)n_q * sizeof(T);
+  const bool rows = row % 16 == 0 &&
+                    reinterpret_cast<uintptr_t>(cs_t) % 16 == 0;
+  const int lanes = rows ? next_pow2((int)(row / 16)) : 0;
+  const long long docs = (long long)B * nd;
+  const long long resident =
+      (long long)SBAR_MIN_BLOCKS * SBAR_WARPS * sm_count();
+  const int round = sbar_round(lanes);
+  int split = 1;
+  while (split < SBAR_SPLIT_MAX && docs * 2 * split <= resident &&
+         cap > split * round)
+    split *= 2;
+  const int per_block = SBAR_WARPS / split;
+  return {dim3((nd + per_block - 1) / per_block, B), split, lanes};
+}
+
+// Calls f(std::integral_constant<int, LP>) for lanes = LP in {0, 1, 2, 4,
+// 8}: a kernel templated on LP is launched inside f.
+template <typename F>
+inline void with_sbar_lanes(int lanes, F&& f) {
+  switch (lanes) {
+    case 1: f(std::integral_constant<int, 1>{}); break;
+    case 2: f(std::integral_constant<int, 2>{}); break;
+    case 4: f(std::integral_constant<int, 4>{}); break;
+    case 8: f(std::integral_constant<int, 8>{}); break;
+    default: f(std::integral_constant<int, 0>{});
+  }
 }
 
 // --- Eq. 5/6 -----------------------------------------------------------------------

@@ -14,14 +14,21 @@
 // reads addressed by the token's residual codes, and two cuts per query.
 //
 // What the design does about it:
-//  * One lane per query term (n_q <= 32): a row of CS^T and a row of the
-//    flattened (m*K, n_q) LUT are n_q contiguous floats, so every gather is
-//    one coalesced 128-byte load at n_q = 32. The LUT is read through L2,
-//    not narrowed (narrowing changes bits).
-//  * A doc's tokens are split over warps, each over tokens w, w + split,
-//    ...: in the S̄ pass as many warps a doc (up to S_SPLIT_MAX) as it takes
-//    to fill the card with the batch's survivors, in the Eq. 5/6 pass
-//    always E_SPLIT.
+//  * Pass 1 (S̄) is emvb::sbar_block (doc_math.cuh), the one S̄ pass that
+//    the unfused cinter.cu runs too: a warp loads up to 128 of a doc's
+//    codes at once (32 a coalesced load) and shuffles them across; at
+//    n_q = 32 one warp load gathers 4 float32 (8 bf16) tokens' CS^T rows
+//    as 16-byte pieces, a round's gathers all in flight before its first
+//    max (other row widths and unaligned bases: one lane per term). A
+//    doc's tokens are split over as many warps (up to 8) as the card holds
+//    in one wave with the batch's survivors (emvb::sbar_launch): one at
+//    B = 32, four at B = 1.
+//  * The Eq. 5/6 pass runs one lane per query term (n_q <= 32): a row of
+//    CS^T and a row of the flattened (m*K, n_q) LUT are n_q contiguous
+//    floats, so every gather is one coalesced 128-byte load at n_q = 32.
+//    The LUT is read through L2, not narrowed (narrowing changes bits). A
+//    doc's tokens are split over E_SPLIT warps, each over tokens w, w +
+//    E_SPLIT, ....
 //    The per-term max, Eq. 6's kept max and its kept count are order-free,
 //    so the warps' partial states merge exactly through shared memory; the
 //    -1e9 floor, Eq. 6's fallback, the masked terms and term_sum (lane 0 +
@@ -41,10 +48,9 @@
 //    cut_keys): counted over lanes and several blocks a query while B x n
 //    is small, so at B = 1 a cut runs on many SMs; sorted in one block a
 //    query above that.
-//  * The per-(token, term) value, the merge and the per-doc finish are the
-//    functions of doc_math.cuh that the unfused cinter.cu builds its serial
-//    loop from; the Eq. 5/6 pass is emvb::eq56_block, which the unfused
-//    pqscore.cu runs too. So the two lanes agree to the bit.
+//  * The S̄ pass is the unfused cinter.cu's and the Eq. 5/6 pass is
+//    emvb::eq56_block, which the unfused pqscore.cu runs too. So the two
+//    lanes agree to the bit.
 //
 // Filtered retrieval (doc_pass (B, nf), the predicate verdict per survivor,
 // the reference's pqinter.py:265-279 and :309): a survivor that fails is
@@ -58,7 +64,7 @@
 // writes each -inf slot as (score -inf, position 0). Without doc_pass no
 // step reads it, and the cuts are the unfiltered ones.
 //
-// CS^T is float32 or bf16 (sbar_kernel<T>, eq56_kernel<M, T>), the
+// CS^T is float32 or bf16 (sbar_kernel<LP, T>, eq56_kernel<M, T>), the
 // reference's pqinter.py:115-118 and :279. On bf16 S̄ is the bf16 sum
 // (per-term bf16 maxima, the float32 term chain rounded once), widened
 // exactly for the phase-3 cut; its ties are frequent, and the cut's unique
@@ -71,54 +77,20 @@
 
 namespace {
 
-constexpr int WARPS = 8;       // 256 threads a block in the per-doc passes
-constexpr int S_SPLIT_MAX = 8; // warps per doc in the S̄ pass, at most
+constexpr int WARPS = 8;       // 256 threads a block in the Eq. 5/6 pass
 constexpr int E_SPLIT = 8;     // warps per doc in the Eq. 5/6 pass
-static_assert(WARPS % S_SPLIT_MAX == 0 && WARPS % E_SPLIT == 0,
-              "whole docs a block");
 
-// Pass 1: S̄ of every survivor row, `split` warps a doc (a power of two up
-// to S_SPLIT_MAX). grid (ceil(nf / (WARPS / split)), B).
-template <typename T>
-__global__ void __launch_bounds__(WARPS * 32)
+// Pass 1: S̄ of every survivor row (emvb::sbar_block, the pass cinter.cu
+// runs); grid and split from emvb::sbar_launch, LP its form.
+template <int LP, typename T>
+__global__ void
+__launch_bounds__(emvb::SBAR_WARPS * 32, emvb::SBAR_MIN_BLOCKS)
 sbar_kernel(const T* __restrict__ cs_t, const int32_t* __restrict__ codes,
             const int32_t* __restrict__ lens,
             const uint8_t* __restrict__ qmask, int nf, int cap, int n_c,
             int n_q, int split, float* __restrict__ sbar_all) {
-  __shared__ float part[WARPS][32];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int piece = warp % split;
-  const int p = blockIdx.x * (WARPS / split) + warp / split;
-  const int b = blockIdx.y;
-  const bool ok = p < nf;                              // warp-uniform
-  const size_t row = (size_t)b * nf + p;
-  float acc = -INFINITY;
-  int len = 0;
-  if (ok) {
-    len = min(max(lens[row], 0), cap);
-    const int32_t* cd = codes + row * cap;
-    const T* cb = cs_t + (size_t)b * n_c * n_q + lane;
-    if (lane < n_q) {
-#pragma unroll 4
-      for (int t = piece; t < len; t += split) {
-        const int c = min(max(cd[t], 0), n_c - 1);
-        acc = emvb::sbar_token(acc, emvb::Cs<T>::widen(cb[(size_t)c * n_q]));
-      }
-    }
-  }
-  if (split > 1) {                                     // block-uniform
-    part[warp][lane] = acc;
-    __syncthreads();
-    if (piece != 0) return;
-    for (int k = 1; k < split; ++k)
-      acc = emvb::sbar_token(acc, part[warp + k][lane]);
-  }
-  if (!ok) return;
-  const uint8_t* qm = emvb::mask_row(qmask, b, n_q);
-  const bool live = lane < n_q && (qm == nullptr || qm[lane]);
-  const float s =
-      emvb::sbar_sum<T>(emvb::sbar_finish<T>(acc, len, cap, live), n_q);
-  if (lane == 0) sbar_all[row] = s;
+  emvb::sbar_block<LP>(cs_t, codes, lens, qmask, nf, cap, n_c, n_q, split,
+                       sbar_all);
 }
 
 // Pass 1 cut: top-n_docs by (S̄ desc, position asc); a cut_launch grid.
@@ -208,14 +180,12 @@ int run(const T* cs_t, const float* lut2, const int32_t* codes,
       static_cast<char*>(scratch) +
       (((size_t)B * nf * 4 + 255) & ~size_t(255)));
   cudaError_t err;
-  // Split a doc's tokens only as far as it takes to give the card 32 warps
-  // an SM: at B = 32 the 32K survivors do that one warp each, and a split
-  // would add merges; at B = 1 the 1,024 survivors need several warps each.
-  const int fill = 32 * sm_count();
-  const int split = min(S_SPLIT_MAX, next_pow2((fill + B * nf - 1) / (B * nf)));
-  const int s_docs = WARPS / split;
-  sbar_kernel<T><<<dim3((nf + s_docs - 1) / s_docs, B), WARPS * 32, 0, st>>>(
-      cs_t, codes, lens, qmask, nf, cap, n_c, n_q, split, sbar_all);
+  const emvb::SbarLaunch s = emvb::sbar_launch(cs_t, B, nf, cap, n_q);
+  emvb::with_sbar_lanes(s.lanes, [&](auto lp) {
+    sbar_kernel<decltype(lp)::value>
+        <<<s.grid, emvb::SBAR_WARPS * 32, 0, st>>>(
+            cs_t, codes, lens, qmask, nf, cap, n_c, n_q, s.split, sbar_all);
+  });
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   const CutLaunch c1 = cut_launch(B, nf);
   select1_kernel<<<c1.grid, c1.threads, c1.P * sizeof(unsigned long long),

@@ -538,3 +538,56 @@ def test_wrappers_refuse_other_cs_dtypes_on_the_card(card):
     with pytest.raises(TypeError, match="float32"):
         ops.pqscore_batched(cs_t.bfloat16(), lut.bfloat16(), pcodes, res,
                             plens, 0.1, pqm)
+
+
+# The S̄ pass that cinter and pqinter's pass 1 share (emvb::sbar_block):
+# n_q 1 and 7 run one lane per term; 4, 8, 12, 16 and 32 the 16-byte rows
+# in float32 (1, 2, 4 (3 pieces), 4 and 8 lanes a row), 8, 16 and 32 in
+# bf16 (1, 2 and 4 lanes); a CS^T one element past 16-byte alignment runs
+# one lane per term. Docs per query such that on an H100's 132 SMs B = 1,
+# 3 and 40 split a doc over up to 8, 4 and 2 warps (fewer where cap is
+# short of that many rounds), B = 32 over one; lengths at the 8-warp
+# split's and the 16- to 128-token rounds' edges, 0 and cap among them.
+SBAR_DOCS = {1: 300, 3: 400, 32: 300, 40: 60}
+
+
+def _off_alignment(x):
+    """A contiguous copy of x whose storage starts one element past a
+    16-byte boundary."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    view = buf[1:].view(x.shape)
+    view.copy_(x)
+    return view
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_q", [1, 4, 7, 8, 12, 16, 32])
+@pytest.mark.parametrize("nb", [1, 3, 32, 40])
+@pytest.mark.parametrize("cap", [10, 33, 80, 200])
+@pytest.mark.parametrize("aligned", [True, False], ids=["aligned", "offset"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_sbar_pass_stress(card, n_q, nb, cap, aligned, dtype):
+    seed = nb * 1000 + n_q * 10 + cap
+    lens = sorted({n for n in (0, 1, 7, 8, 9, 31, 32, 33, 63, 64, 65, 127,
+                               128, 129, cap - 1, cap) if n <= cap})
+    cs_t, lut, codes, res, mask, qm = pqinter_inputs(
+        seed, nb, n_q, 300, SBAR_DOCS[nb], cap, 4, 16, lens=lens)
+    cs_t = (_bf16(card, bf16_edges(seed, cs_t)) if dtype == "bfloat16"
+            else _on(card, cs_t)[0])
+    if not aligned:
+        cs_t = _off_alignment(cs_t)
+        assert cs_t.data_ptr() % 16 != 0
+    lut, codes, res, mask, qm = _on(card, lut, codes, res, mask, qm)
+    lens = mask.sum(-1, dtype=torch.int32)
+    n_docs = min(SBAR_DOCS[nb], 50)
+    th_r = BF16_TH_R if dtype == "bfloat16" else 0.25
+    for q in (qm, None):
+        before = (kci.launches, kpq.launches)
+        sbar = ops.cinter_batched(cs_t, codes, lens, q)
+        got = ops.pqinter_batched(cs_t, lut, codes, res, lens, th_r, n_docs,
+                                  10, q)
+        torch.cuda.synchronize()
+        assert (kci.launches, kpq.launches) == (before[0] + 1, before[1] + 1)
+        _same((sbar,), (kci.cinter_batched_ref(cs_t, codes, lens, q),))
+        _same(got, kpq.pqinter_batched_ref(cs_t, lut, codes, res, lens, th_r,
+                                           n_docs, 10, q))

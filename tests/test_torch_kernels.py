@@ -264,14 +264,23 @@ def test_bitfilter_matches_pallas(nb, n_c, n_docs, cap, lit_share,
     assert torch.equal(single, port[0])
 
 
-@pytest.mark.parametrize("nb,n_q,n_c,nd,cap", [
-    (3, 32, 100, 130, 10),     # 130 docs: ragged against block 128
-    (2, 16, 64, 70, 7),        # less than one block
+# Lengths at the edges of the kernels' 8-warp token split, 0, 1 and cap.
+SPLIT_LENS = (0, 1, 7, 8, 9, 79, 80)
+
+
+@pytest.mark.parametrize("nb,n_q,n_c,nd,cap,lens", [
+    # 130 docs: ragged against block 128
+    pytest.param(3, 32, 100, 130, 10, None, id="3-32-100-130-10"),
+    # less than one block
+    pytest.param(2, 16, 64, 70, 7, None, id="2-16-64-70-7"),
+    # n_q 1 and 7: the card's S̄ pass runs one lane per term
+    pytest.param(2, 1, 100, 40, 80, SPLIT_LENS, id="2-1-100-40-80-split_lens"),
+    pytest.param(3, 7, 100, 40, 80, SPLIT_LENS, id="3-7-100-40-80-split_lens"),
 ])
 @pytest.mark.parametrize("masked", [False, True])
-def test_cinter_matches_pallas(nb, n_q, n_c, nd, cap, masked):
+def test_cinter_matches_pallas(nb, n_q, n_c, nd, cap, lens, masked):
     cs_t, _, codes, _, mask, qm = _pqinter_inputs(nd + cap, nb, n_q, n_c, nd,
-                                                  cap, 2, 4)
+                                                  cap, 2, 4, lens=lens)
     qm = qm if masked else None
     tqm = None if qm is None else torch.from_numpy(qm)
     port = _no_launch(lambda: tops.cinter_batched(*_t(cs_t, codes, mask),
@@ -283,10 +292,6 @@ def test_cinter_matches_pallas(nb, n_q, n_c, nd, cap, masked):
     single = tops.cinter(*_t(cs_t[0], codes[0], mask[0]),
                          None if tqm is None else tqm[0])
     assert torch.equal(single.view(torch.int32), port[0].view(torch.int32))
-
-
-# Lengths at the edges of the kernel's 8-warp token split, 0, 1 and cap.
-SPLIT_LENS = (0, 1, 7, 8, 9, 79, 80)
 
 
 @pytest.mark.parametrize("nb,n_q,n_c,nd,cap,m,ksub,lens", [
