@@ -1044,8 +1044,8 @@ def full_phase(dev) -> dict:
         if qual["success_at_100"] < SUCCESS_FLOOR:
             raise AssertionError(f"{lane} lane: planted Success@100 "
                                  f"{qual['success_at_100']} < {SUCCESS_FLOOR}")
-    return dict(index=index, cfg=cfg, ucfg=ucfg, queries=queries, gt=gt,
-                held=held, held_u=held_u, launches=launches,
+    return dict(index=index, meta=meta, cfg=cfg, ucfg=ucfg, queries=queries,
+                gt=gt, held=held, held_u=held_u, launches=launches,
                 token_hist=hist)
 
 
@@ -1195,6 +1195,353 @@ def filter_phase(full: dict) -> dict:
              max_abs_err={b: {**v["h"]["err"], **v["u"]["err"]}
                           for b, v in held.items()})
     return dict(index=index, configs=out)
+
+
+# --- 5b. timeline: generations encoded on the card -------------------------
+
+GEN_DOCS = 2048      # docs of each encoded generation
+GEN2_OPEN = 1536     # generation 2 opens with these; add_passages the rest
+TL_QUERIES = 22      # planted on generation 0; 21 each on generations 1, 2
+ENCODE_HOLD = (128, 32)  # docs held against the CPU encode: generation 1's
+#                          first, then the first that add_passages grew
+#                          generation 2 by
+ENCODE_REPS = 3      # warm encode calls timed after the first (cold) one
+MERGE_BUDGETS = dict(n_filter=4096, n_docs=4096, cand_cap=4096)  # lossless
+#                          over generations 1-2 (pqinter takes n_filter 4096)
+
+
+def _codebooks_on_cpu(index):
+    """An index's frozen codebooks on the CPU, its per-doc fields empty: all
+    that encoding new passages against it reads."""
+    book = ("centroids", "pq_codebooks", "plaid_cutoffs", "plaid_weights",
+            "opq_rotation")
+    return index._replace(**{f: getattr(index, f).cpu() if f in book
+                             else getattr(index, f)[:0].cpu()
+                             for f in index._fields})
+
+
+def encode_hold(index, meta, g1, g2, a, la, b, lb) -> dict:
+    """The served generations' encode on the card against the port's CPU
+    path on the same docs: generation 1's first ENCODE_HOLD[0] docs
+    (new_generation of docs ``a``) and the first ENCODE_HOLD[1] docs that
+    add_passages grew generation 2 by (docs ``b`` from GEN2_OPEN), encoded
+    on the CPU as one new generation grown by add_passages. At real tokens:
+    codes equal except at near-ties, each measured in float64 and at most
+    kmeans.NEAR_TIE_EPS apart; PQ codes likewise where the codes agree;
+    PLAID codes equal where the codes agree; lengths and predicate words
+    equal. Each served generation's IVF equals build_ivf of its own codes
+    on the CPU, and generation 1's meta the CPU's list_cap, n_dropped and
+    mean squared real residual from those codes. -> the counts."""
+    import numpy as np
+    import torch
+    from repro_torch.core import index as tindex
+    from repro_torch.core import kmeans
+    from repro_torch.core import store as tstore
+    n, m = ENCODE_HOLD
+    grown = slice(GEN2_OPEN, GEN2_OPEN + m)
+    (c1, m1), (c2, _) = g1, g2
+    cpu_base = _codebooks_on_cpu(index)
+    t0 = time.perf_counter()
+    host = tstore.new_generation(cpu_base, meta, a[:n], la[:n], device="cpu")
+    hi, _ = tstore.add_passages(*host, b[grown], lb[grown], device="cpu")
+    cpu_seconds = time.perf_counter() - t0
+    card = {f: torch.cat([getattr(c1, f)[:n].cpu(), getattr(c2, f)[grown]
+                          .cpu()]) for f in ("codes", "res_codes",
+                                             "plaid_res", "doc_lens",
+                                             "pred_words")}
+    for f in ("doc_lens", "pred_words"):
+        if not torch.equal(card[f], getattr(hi, f)):
+            raise AssertionError(f"card and CPU encodes: {f} differs")
+    x = torch.from_numpy(np.concatenate([tindex.normalized_tokens(a[:n]),
+                                         tindex.normalized_tokens(b[grown])]))
+    lens = np.concatenate([la[:n], lb[grown]])
+    real = (np.arange(meta.cap)[None] < lens[:, None]).reshape(-1)
+    on_card, on_cpu = card["codes"].reshape(-1), hi.codes.reshape(-1)
+    diff = (on_card != on_cpu).numpy()
+    if (diff & ~real).any():
+        raise AssertionError("card and CPU encodes: padding codes differ")
+    gap = kmeans.choice_gap(x[diff], cpu_base.centroids, on_cpu[diff],
+                            on_card[diff])
+    agree = real & ~diff
+    rc = card["res_codes"].numpy().reshape(-1, meta.m)
+    hc = hi.res_codes.numpy().reshape(-1, meta.m)
+    pq_rows, pq_subs = np.nonzero((rc != hc) & agree[:, None])
+    dsub = meta.d // meta.m
+    residual = x - cpu_base.centroids[on_cpu.clamp(max=meta.n_centroids - 1)
+                                      .long()]    # read at real tokens only
+    pq_gap = torch.cat([kmeans.choice_gap(
+        residual[r:r + 1, s * dsub:(s + 1) * dsub],
+        cpu_base.pq_codebooks[s], torch.tensor([int(hc[r, s])]),
+        torch.tensor([int(rc[r, s])])) for r, s in zip(pq_rows, pq_subs)]
+        or [torch.zeros(0, dtype=torch.float64)])
+    worst = max([0.0] + gap.tolist() + pq_gap.tolist())
+    if worst > kmeans.NEAR_TIE_EPS:
+        raise AssertionError(f"card and CPU encodes differ beyond a near "
+                             f"tie: gap {worst} > {kmeans.NEAR_TIE_EPS}")
+    if not np.array_equal(
+            card["plaid_res"].numpy().reshape(len(real), -1)[agree],
+            hi.plaid_res.numpy().reshape(len(real), -1)[agree]):
+        raise AssertionError("PLAID codes differ where the card's and the "
+                             "CPU's codes agree")
+    built = {}
+    for g, gi in ((1, c1), (2, c2)):
+        ivf, ivf_lens, *built[g] = tindex.build_ivf(
+            gi.codes.cpu(), meta.n_centroids, None, origin="new_generation")
+        if not (torch.equal(gi.ivf.cpu(), ivf)
+                and torch.equal(gi.ivf_lens.cpu(), ivf_lens)):
+            raise AssertionError(f"generation {g}: the IVF is not its "
+                                 "codes' on the CPU")
+    a_real = (np.arange(meta.cap)[None] < la[:, None]).reshape(-1)
+    r1 = (tindex.normalized_tokens(a)[a_real] - cpu_base.centroids.numpy()[
+        c1.codes.cpu().numpy().reshape(-1)[a_real]])
+    mse = float(np.sum(r1 * r1)) / max(int(a_real.sum()), 1)
+    if [m1.list_cap, m1.n_dropped, m1.grown_quant_mse] != built[1] + [mse]:
+        raise AssertionError(f"generation 1: meta (list_cap, n_dropped, "
+                             f"grown_quant_mse) {m1} is not its codes' on "
+                             f"the CPU ({built[1]}, {mse})")
+    return {"docs": n + m, "real_tokens": int(real.sum()),
+            "assign_near_ties": int(diff.sum()),
+            "pq_near_ties": len(pq_rows), "max_gap": worst,
+            "near_tie_eps": kmeans.NEAR_TIE_EPS, "ivf_equal": True,
+            "generation_1_meta_equal": True, "cpu_seconds": cpu_seconds}
+
+
+def _interleaved(parts):
+    """Rows of several (queries, gt, generation) parts interleaved, one of
+    each in turn, so that every batch and the first B = 1 queries hold
+    targets of every generation."""
+    import torch
+    order = [(p, i) for i in range(max(len(q) for q, _, _ in parts))
+             for p in range(len(parts)) if i < len(parts[p][0])]
+    q = torch.stack([parts[p][0][i] for p, i in order])
+    gt = torch.stack([parts[p][1][i] for p, i in order])
+    gen = torch.tensor([parts[p][2] for p, _ in order])
+    return q, gt, gen
+
+
+def _same_result(a, b) -> bool:
+    import torch
+    return torch.equal(a.doc_ids, b.doc_ids) and torch.equal(
+        a.scores.view(torch.int32), b.scores.view(torch.int32))
+
+
+def timeline_phase(full: dict) -> dict:
+    """Phase 5b: generation 0 is the full-width planted index as it is;
+    generations 1 and 2 are raw passages made on the card and encoded
+    against its frozen codebooks (new_generation; add_passages and
+    with_newest for generation 2), held against the CPU encode; then
+    retrieve_timeline on both lanes at B = 32 and B = 1 with the launch
+    counts read around those calls, each generation's kernels held against
+    their plain versions, unfused == fused per generation on the same CS and
+    LUT, the held partials merged to retrieve_timeline's result, global ids
+    in their generation's range, and the planted Success@100; then
+    merge_generations over generations 1-2 (retrieval equal before and
+    after under lossless budgets), a save/load round trip of generations
+    1-2, the timeline's footprint, and the timeline's ms per generation
+    count beside retrieve on generation 0."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from repro_torch.core import engine as teng
+    from repro_torch.core import store as tstore
+    from repro_torch.data import synthetic
+    from repro_torch.kernels import ops
+    index, meta = full["index"], full["meta"]
+    t0 = time.perf_counter()
+    raw = {}
+    for name, seed in (("a", 2), ("b", 3)):
+        embs, lens = synthetic.make_raw_docs(index, seed, GEN_DOCS, MIN_LEN)
+        raw[name] = (embs, lens, embs.cpu().numpy(), lens.cpu().numpy())
+    make_s = time.perf_counter() - t0
+    (_, _, a, la), (_, _, b, lb) = raw["a"], raw["b"]
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t
+
+    g1, s1 = timed(lambda: tstore.new_generation(index, meta, a, la))
+    g2_open, s2 = timed(lambda: tstore.new_generation(
+        index, meta, b[:GEN2_OPEN], lb[:GEN2_OPEN]))
+    tl = tstore.ShardedTimeline.of((index, meta), g1).append(*g2_open)
+    g2, s3 = timed(lambda: tstore.add_passages(*g2_open, b[GEN2_OPEN:],
+                                               lb[GEN2_OPEN:]))
+    tl = tl.with_newest(*g2)
+    if tl.offsets != (0, meta.n_docs, meta.n_docs + GEN_DOCS) or \
+            tl.metas[2].n_grown != GEN_DOCS or g2[0].plaid_res.shape[0] \
+            != GEN_DOCS:
+        raise AssertionError(f"timeline malformed: {tl.offsets}")
+    encodes = {
+        "new_generation_1": (lambda: tstore.new_generation(index, meta, a,
+                                                           la), la, s1),
+        "new_generation_2": (lambda: tstore.new_generation(
+            index, meta, b[:GEN2_OPEN], lb[:GEN2_OPEN]), lb[:GEN2_OPEN], s2),
+        "add_passages_2": (lambda: tstore.add_passages(
+            *g2_open, b[GEN2_OPEN:], lb[GEN2_OPEN:]), lb[GEN2_OPEN:], s3)}
+    warm = {k: statistics.median(timed(fn)[1] for _ in range(ENCODE_REPS))
+            for k, (fn, _, _) in encodes.items()}
+    hold = encode_hold(index, meta, g1, g2, a, la, b, lb)
+    emit("timeline_encode", generations=len(tl), offsets=tl.offsets,
+         docs=[m.n_docs for m in tl.metas], make_docs_seconds=make_s,
+         tokens={k: int(v[1].sum()) for k, v in encodes.items()},
+         cold_seconds={k: v[2] for k, v in encodes.items()},
+         warm_seconds_median=warm, warm_calls=ENCODE_REPS,
+         tokens_per_second={k: int(v[1].sum()) / warm[k]
+                            for k, v in encodes.items()},
+         tokens_per_second_cold={k: int(v[1].sum()) / v[2]
+                                 for k, v in encodes.items()},
+         drift=[m.drift for m in tl.metas[1:]],
+         list_cap=[m.list_cap for m in tl.metas], card_vs_cpu=hold)
+
+    n_q = ENGINE["n_q"]
+    parts = [(full["queries"][:TL_QUERIES], full["gt"][:TL_QUERIES], 0)]
+    for g, (name, seed) in enumerate((("a", 4), ("b", 5)), start=1):
+        q, gt = synthetic.make_raw_queries(raw[name][0], raw[name][1], seed,
+                                           TL_QUERIES - 1, n_q)
+        parts.append((q, gt + tl.offsets[g], g))
+    queries, gt, gen_of = _interleaved(parts)
+    batches = [queries[s:s + 32] for s in range(0, len(queries), 32)]
+    cfgs = {"fused": full["cfg"], "unfused": full["ucfg"]}
+    launches, quality, results = {}, {}, {}
+    gt_np, gen_np = gt.cpu().numpy(), gen_of.numpy()
+    for lane, c in cfgs.items():
+        ops.reset_launches()
+        res = [teng.retrieve_timeline(tl, q, c) for q in batches]
+        torch.cuda.synchronize()
+        launches[lane] = {"b32": ops.launch_counts()}
+        ops.reset_launches()
+        res1 = [teng.retrieve_timeline(tl, queries[i:i + 1], c)
+                for i in range(N_SINGLE)]
+        torch.cuda.synchronize()
+        launches[lane]["b1"] = ops.launch_counts()
+        for kname, kern in KERNELS.items():
+            want = ((len(batches) * len(tl), N_SINGLE * len(tl))
+                    if kern["lane"] == lane else (0, 0))
+            got = tuple(launches[lane][x][kname] for x in ("b32", "b1"))
+            if got != want:
+                raise AssertionError(f"timeline {lane}: {kname} launched "
+                                     f"{got}, expected {want}")
+        ids = torch.cat([r.doc_ids for r in res])
+        scores = torch.cat([r.scores for r in res])
+        if not torch.isfinite(scores).all() or not (
+                scores[:, :-1] >= scores[:, 1:]).all() or not (
+                (ids >= 0) & (ids < tl.n_docs)).all():
+            raise AssertionError(f"timeline {lane}: malformed results")
+        ids_np = ids.cpu().numpy()
+        quality[lane] = {
+            "success_at_100": synthetic.success_at_k(ids_np, gt_np, 100),
+            "mrr_at_10": synthetic.mrr_at_k(ids_np, gt_np, 10),
+            "success_at_100_by_generation": [
+                synthetic.success_at_k(ids_np[gen_np == g], gt_np[gen_np == g],
+                                       100) for g in range(len(tl))],
+            "success_at_100_b1": synthetic.success_at_k(
+                torch.cat([r.doc_ids for r in res1]).cpu().numpy(),
+                gt_np[:N_SINGLE], 100)}
+        results[lane] = {"b32": res[0], "b1": res1[0]}
+
+    errs, hits = {}, {}
+    for bname, q in (("b32", batches[0]), ("b1", queries[:1])):
+        held = {"fused": [], "unfused": []}
+        for g, (gi, gm, off) in enumerate(tl):
+            gc = teng.adapt_config_to_corpus(cfgs["fused"], gm.n_docs, gm.cap)
+            gu = teng.adapt_config_to_corpus(cfgs["unfused"], gm.n_docs,
+                                             gm.cap)
+            h = hold_phases(gi, q, gc)
+            u = hold_unfused(gi, q, gu, h)
+            errs[f"{bname}_gen{g}"] = {**h["err"], **u["err"]}
+            f_res = teng._retrieve_batch(gi, q, gc, cs=h["cs"], lut=h["lut"])
+            u_res = teng._retrieve_batch(gi, q, gu, cs=h["cs"], lut=h["lut"])
+            if not _same_result(f_res, u_res):
+                raise AssertionError(f"generation {g} {bname}: unfused != "
+                                     "fused on the same CS and LUT")
+            for lane, r, got in (("fused", f_res, (h["ids"], h["pq"][0])),
+                                 ("unfused", u_res,
+                                  (u["ids"], u["scores"]))):
+                if not _same_result(r, teng.RetrievalResult(got[1], got[0])):
+                    raise AssertionError(f"generation {g} {bname} {lane}: "
+                                         "the held phases do not compose")
+                if not ((r.doc_ids >= 0) & (r.doc_ids < gm.n_docs)).all():
+                    raise AssertionError(f"generation {g}: ids outside it")
+                held[lane].append(r)
+        for lane in cfgs:
+            merged = teng.merge_generation_topk(held[lane], tl.offsets,
+                                                ENGINE["k"])
+            if not _same_result(merged, results[lane][bname]):
+                raise AssertionError(f"timeline {lane} {bname}: the held "
+                                     "generations do not merge to "
+                                     "retrieve_timeline's result")
+            ids = merged.doc_ids.cpu().numpy()
+            hits[f"{lane}_{bname}"] = [
+                int(((ids >= o) & (ids < o + m.n_docs)).sum())
+                for o, m in zip(tl.offsets, tl.metas)]
+    emit("timeline", generations=len(tl), n_docs=tl.n_docs,
+         launches=launches, phases_exact=True,
+         unfused_equals_fused_per_generation=True,
+         held_partials_merge_to_result=True, quality=quality,
+         results_per_generation_first_batch=hits, max_abs_err=errs)
+    for lane, qual in quality.items():
+        low = min(qual["success_at_100"], *qual[
+            "success_at_100_by_generation"])
+        if low < SUCCESS_FLOOR:
+            raise AssertionError(f"timeline {lane}: planted Success@100 "
+                                 f"{low} < {SUCCESS_FLOOR}")
+
+    merged, merge_s = timed(lambda: tstore.merge_generations(tl, 1, 3))
+    if merged.generations[0] is not tl.generations[0] or \
+            merged.offsets != tl.offsets[:2] or merged.n_docs != tl.n_docs:
+        raise AssertionError("merge_generations moved generation 0")
+    pair = tstore.ShardedTimeline(tl.generations[1:], tl.metas[1:])
+    one = tstore.ShardedTimeline(merged.generations[1:], merged.metas[1:])
+    equal = {}
+    for lane, c in cfgs.items():
+        lc = dataclasses.replace(c, **MERGE_BUDGETS)
+        for bname, q in (("b32", batches[0]), ("b1", queries[:1])):
+            x = teng.retrieve_timeline(pair, q, lc)
+            y = teng.retrieve_timeline(one, q, lc)
+            if not _same_result(x, y):
+                raise AssertionError(f"merge {lane} {bname}: retrieval "
+                                     "differs after merge_generations")
+            equal[f"{lane}_{bname}"] = True
+    emit("timeline_merge", range=[1, 3], ms=merge_s * 1e3,
+         merged_docs=merged.metas[1].n_docs,
+         list_cap=merged.metas[1].list_cap, budgets=MERGE_BUDGETS,
+         retrieval_equal=equal)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        _, save_s = timed(lambda: tstore.save_timeline(tmp, pair))
+        back, load_s = timed(lambda: tstore.load_timeline(tmp))
+        if back.fingerprints != pair.fingerprints or not all(
+                torch.equal(getattr(x, f), getattr(y, f))
+                for x, y in zip(back.generations, pair.generations)
+                for f in x._fields) or back.metas != pair.metas:
+            raise AssertionError("save_timeline/load_timeline round trip "
+                                 "changed generations 1-2")
+    fp = tstore.timeline_footprint(tl)
+    emit("timeline_store", round_trip_generations=[1, 2],
+         fingerprints=list(pair.fingerprints), save_seconds=save_s,
+         load_seconds=load_s,
+         footprint={k: v for k, v in fp.items() if k != "generations"},
+         footprint_total_bytes_per_generation=[
+             g["total_bytes"] for g in fp["generations"]])
+
+    smi = RECORD["device"]["nvidia_smi"]
+    tls = {1: tstore.ShardedTimeline.of((index, meta)),
+           2: tstore.ShardedTimeline.of((index, meta), g1), 3: tl}
+    flush = torch.empty(64 << 20, dtype=torch.int32, device=index.device)
+    ms = {}
+    for lane, c in cfgs.items():
+        for bname, q in (("b32", batches[0]), ("b1", queries[:1])):
+            row = {"retrieve_generation_0": time_ms(
+                lambda: teng.retrieve(index, q, c), flush=flush)}
+            for n, t in tls.items():
+                row[f"retrieve_timeline_{n}"] = time_ms(
+                    lambda t=t: teng.retrieve_timeline(t, q, c), flush=flush)
+            ms[f"{lane}_{bname}"] = row
+    emit("timing_timeline", nvidia_smi=smi, ms=ms)
+    return dict(timeline=tl, merged=merged, queries=queries, gt=gt)
 
 
 # --- 6. timing ---------------------------------------------------------------
@@ -2094,6 +2441,7 @@ def main() -> None:
     small_err = small_phase(dev)
     full = full_phase(dev)
     filt = filter_phase(full)
+    timeline_phase(full)
     timing = timing_phase(full)
     ftiming = filter_timing_phase(filt)
     bf16 = bf16_phase(dev, full, filt)

@@ -6,8 +6,9 @@ The port keeps the reference's module names (``core/index.py``,
 counterpart is easy to find. It imports ``torch`` and numpy only: nothing of
 ``jax`` and nothing of ``repro``.
 
-Entry points (``load_index``, ``index_from_arrays``, the synthetic index
-generator, ``retrieve``) run on ``cuda`` unless the caller passes
+Entry points (``load_index``, ``load_timeline``, ``index_from_arrays``, the
+synthetic index generator, ``retrieve``, ``retrieve_timeline``,
+``new_generation``, ``add_passages``) run on ``cuda`` unless the caller passes
 ``device="cpu"``; with no GPU present and none declined they raise instead of
 running on the CPU.
 """

@@ -1,2 +1,3 @@
-"""Core retrieval math of the port: index, store (read side), PQ, bit
-vectors, interaction, top-k and the engine."""
+"""Core retrieval math of the port: index, store (persistence, growth and
+timelines), k-means assignment, PQ, the PLAID residual codec, bit vectors,
+interaction, top-k and the engine."""

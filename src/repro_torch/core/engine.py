@@ -33,6 +33,11 @@ centroid score to the float32 residual, and on the reference-math lane an
 exact float32 centroid term (the selected tokens' centroid vectors times
 the query) for the final scores.
 
+A ``store.ShardedTimeline`` of generations sharing frozen codebooks is
+served by :func:`retrieve_timeline`: the pipeline once per generation, the
+partial top-k merged by score (by rank across the epochs of a
+``store.EpochedTimeline``).
+
 The batch dimension is written out: there is no vmap. At B = 1 the batched
 kernels run with B = 1 (row b of the batched kernels equals the
 single-query kernel, the reference's tested contract). Internal helpers
@@ -47,7 +52,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from ..device import resolve_device
+from ..device import resolve_device, resolve_on
 from ..kernels import ops
 from . import bitvector, interaction
 from .index import PackedIndex
@@ -463,13 +468,8 @@ def _retrieve_batch(index: PackedIndex, queries: torch.Tensor,
 def _inputs(index: PackedIndex, queries, q_masks, device):
     """Normalize queries/mask onto the index's device, which must be the
     requested one (CUDA unless the caller passes ``device="cpu"``)."""
-    dev = resolve_device(device)
     idev = index.codes.device
-    if idev.type != dev.type or (dev.index is not None
-                                 and idev.index != dev.index):
-        raise ValueError(f"the index lives on {idev} but device={dev} was "
-                         "requested; load it there (load_index(..., "
-                         "device=...)) first")
+    resolve_on(idev, device)
     qb = _as_query_batch(queries, q_masks)
     q = torch.as_tensor(qb.q, dtype=torch.float32, device=idev)
     qm = (None if qb.q_mask is None
@@ -607,6 +607,155 @@ def phase34_late_interaction(index: PackedIndex, queries, cfg: EngineConfig,
         sel1 = sel1_c if sel1 is None else sel1
     return _phase34_batch(index, q, _cs_on(index, cs), _on(index, sel1),
                           cfg, qm)
+
+
+# ---------------------------------------------------------------------------
+# Multi-generation serving (ref ``engine.py:837``, PLAID SHIRTTT): the
+# pipeline once per immutable generation, the partial top-k merged by score
+# (by rank across codebook epochs).
+# ---------------------------------------------------------------------------
+
+def adapt_config_to_corpus(cfg: EngineConfig, n_docs: int,
+                           cap: Optional[int] = None) -> EngineConfig:
+    """Clamp a config's selection budgets to a corpus of ``n_docs`` (ref
+    ``engine.py:843``): ``n_filter``, ``n_docs`` and ``cand_cap`` to the
+    generation's size and ``compact_cap`` to its token ``cap``, all
+    lossless. ``k`` is not clamped: a generation of fewer than ``k`` docs
+    raises."""
+    if n_docs < cfg.k:
+        raise ValueError(
+            f"corpus/generation has {n_docs} docs but cfg.k={cfg.k}: "
+            "every generation must hold >= k docs to fill a per-generation "
+            "top-k — batch tiny additions with store.add_passages instead "
+            "of opening a new generation")
+    nf = min(cfg.n_filter, n_docs)
+    cc = cfg.compact_cap
+    if cc is not None and cap is not None:
+        cc = min(cc, cap)
+    return dataclasses.replace(
+        cfg, n_filter=nf, n_docs=min(cfg.n_docs, nf),
+        cand_cap=max(min(cfg.cand_cap, n_docs), nf), compact_cap=cc)
+
+
+def merge_partial_topk(parts: list[RetrievalResult], k: int, *,
+                       device=None) -> RetrievalResult:
+    """Merge partial top-k results carrying global doc ids into one top-k
+    (ref ``engine.py:879``), on ``device`` (CUDA unless ``"cpu"`` is asked
+    for), where the parts must live: the parts concatenate in generation
+    order and the top ``k`` are re-selected by score with ``lax.top_k``'s
+    ties (the earlier position, the lower global id, first)."""
+    resolve_on(parts[0].scores.device, device)
+    scores = torch.cat([r.scores for r in parts], 1)              # (B, G*k)
+    ids = torch.cat([r.doc_ids for r in parts], 1)
+    top, pos = topk(scores, k)
+    return RetrievalResult(top, torch.gather(ids, 1, pos))
+
+
+def merge_partial_topk_by_rank(parts: list[RetrievalResult], k: int, *,
+                               device=None) -> RetrievalResult:
+    """Merge per-epoch top-k results whose scores are not comparable (ref
+    ``engine.py:899``), on ``device`` as :func:`merge_partial_topk`: the
+    results interleave by rank, the newest epoch first at every rank, cut to
+    ``k``. Each score is its doc's own-epoch score (diagnostic, unsorted).
+    A single part passes through unchanged."""
+    resolve_on(parts[0].scores.device, device)
+    if len(parts) == 1:
+        return parts[0]
+    ids = torch.stack([p.doc_ids for p in reversed(parts)], 1)    # (B, E, k)
+    sc = torch.stack([p.scores for p in reversed(parts)], 1)
+    b = ids.shape[0]
+    return RetrievalResult(sc.transpose(1, 2).reshape(b, -1)[:, :k],
+                           ids.transpose(1, 2).reshape(b, -1)[:, :k])
+
+
+def merge_generation_topk(parts: list[RetrievalResult], offsets, k: int, *,
+                          device=None) -> RetrievalResult:
+    """Merge per-generation top-k results carrying local doc ids (ref
+    ``engine.py:931``): each generation's ``offset`` applied, then
+    :func:`merge_partial_topk`."""
+    return merge_partial_topk(
+        [RetrievalResult(r.scores, r.doc_ids + off)
+         for r, off in zip(parts, offsets)], k, device=device)
+
+
+def _generation_topk(index: PackedIndex, meta, offset: int,
+                     queries: torch.Tensor, cfg: EngineConfig, q_masks,
+                     operands=None) -> RetrievalResult:
+    """One generation's partial top-k in global ids. ``operands``, when
+    given, maps a generation's index to its (cs, lut): the test harness
+    injects the reference's matmul outputs there, as ``_retrieve_batch``
+    takes them."""
+    if cfg.doc_filter is not None and \
+            tuple(cfg.doc_filter.names) != tuple(meta.pred_names):
+        raise ValueError(
+            f"doc_filter was compiled against predicate names "
+            f"{tuple(cfg.doc_filter.names)} but this generation declares "
+            f"{tuple(meta.pred_names)}: bit positions would disagree — "
+            "recompile the FilterExpr with compile_filter(expr, "
+            "meta.pred_names) for this timeline")
+    cs, lut = (None, None) if operands is None else operands(index)
+    part = _retrieve_batch(index, queries,
+                           adapt_config_to_corpus(cfg, meta.n_docs, meta.cap),
+                           q_masks, cs=cs, lut=lut)
+    return RetrievalResult(part.scores, part.doc_ids + offset)
+
+
+def retrieve_generation_topk(index: PackedIndex, meta, offset: int, queries,
+                             cfg: EngineConfig, q_masks=None, *,
+                             doc_filter=None, device=None
+                             ) -> RetrievalResult:
+    """One generation's partial top-k, doc ids mapped into the global space
+    (ref ``engine.py:943``), on ``device`` (CUDA unless ``"cpu"`` is asked
+    for): ``retrieve`` with the budgets clamped to the generation
+    (:func:`adapt_config_to_corpus`), ids shifted by ``offset``. The filter
+    (``doc_filter`` or ``cfg.doc_filter``) must be compiled against
+    ``meta.pred_names``."""
+    q, qm = _inputs(index, queries, q_masks, device)
+    return _generation_topk(index, meta, offset, q,
+                            _with_filter(cfg, doc_filter), qm)
+
+
+def _timeline_topk(timeline, queries: torch.Tensor, cfg: EngineConfig,
+                   q_masks, doc_filter, operands=None) -> RetrievalResult:
+    """:func:`retrieve_timeline` on normalized queries; ``operands`` as in
+    :func:`_generation_topk`."""
+    if getattr(timeline, "epochs", None) is not None:
+        parts = [RetrievalResult(r.scores, r.doc_ids + eoff)
+                 for tl, eoff in timeline
+                 for r in (_timeline_topk(tl, queries, cfg, q_masks,
+                                          doc_filter, operands),)]
+        return merge_partial_topk_by_rank(parts, cfg.k,
+                                          device=queries.device)
+    if isinstance(doc_filter, bitvector.FilterExpr):
+        doc_filter = bitvector.compile_filter(doc_filter,
+                                              timeline.metas[0].pred_names)
+    cfg = _with_filter(cfg, doc_filter)
+    parts = [_generation_topk(gen, meta, off, queries, cfg, q_masks,
+                              operands)
+             for gen, meta, off in timeline]
+    return merge_partial_topk(parts, cfg.k, device=queries.device)
+
+
+def retrieve_timeline(timeline, queries, cfg: EngineConfig, q_masks=None, *,
+                      doc_filter=None, device=None) -> RetrievalResult:
+    """Retrieve over a ``store.ShardedTimeline`` (ref ``engine.py:979``), on
+    ``device`` (CUDA unless ``"cpu"`` is asked for), where the timeline must
+    live: ``retrieve`` once per generation with the budgets clamped to it,
+    local ids offset into the global space, the partial top-k merged by
+    score (:func:`merge_partial_topk`). Under cut-lossless budgets the
+    result equals ``retrieve`` on one index grown over the union corpus,
+    ids and score bits.
+
+    An ``store.EpochedTimeline`` retrieves each epoch so, shifts its ids by
+    the epoch's offset, and merges the epochs by rank
+    (:func:`merge_partial_topk_by_rank`). ``doc_filter`` is a compiled
+    ``FilterPlan`` (matching the timeline's predicate names) or a raw
+    ``bitvector.FilterExpr``, compiled here against each epoch's names.
+    """
+    epochs = getattr(timeline, "epochs", None)
+    first = (epochs[0] if epochs is not None else timeline).generations[0]
+    q, qm = _inputs(first, queries, q_masks, device)
+    return _timeline_topk(timeline, q, cfg, qm, doc_filter)
 
 
 # ---------------------------------------------------------------------------

@@ -4,6 +4,11 @@
 Same layout as the reference: documents padded to ``cap`` tokens with the
 one-past-end centroid id ``n_c`` as pad, true lengths in ``doc_lens``, and a
 padded ``(n_c, list_cap)`` inverted file whose pad is the doc id ``n_docs``.
+
+The deterministic half of the build lives here too: quantizing tokens
+against frozen centroids, pooling documents to a budget, and the IVF. The
+trained half (k-means, PQ/OPQ and codec training) belongs with the index
+build.
 """
 from __future__ import annotations
 
@@ -15,7 +20,9 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from .kmeans import assign
 from .pq import PQCodebooks
+from .residual import ResidualCodec
 
 IVF_BLOCK_DOCS = 1 << 20   # docs per step of build_ivf's pair dedup
 
@@ -74,6 +81,13 @@ class PackedIndex(NamedTuple):
         return PQCodebooks(self.pq_codebooks)
 
     @property
+    def plaid_codec(self) -> ResidualCodec:
+        """The PLAID b-bit residual codec reconstructed from its arrays."""
+        nb = self.plaid_weights.shape[0]
+        return ResidualCodec(self.plaid_cutoffs, self.plaid_weights,
+                             int(np.log2(nb)))
+
+    @property
     def device(self) -> torch.device:
         """The device every field lives on."""
         return self.codes.device
@@ -83,6 +97,116 @@ class PackedIndex(NamedTuple):
         cap = self.codes.shape[1]
         return (torch.arange(cap, device=self.codes.device)[None, :]
                 < self.doc_lens[:, None])
+
+
+def bytes_per_embedding(meta: IndexMeta, method: str) -> float:
+    """Paper Table 1 'Bytes' column (ref ``index.py:137``): the centroid id
+    at a machine width (1/2/4 bytes) plus the residual code bytes."""
+    bits = int(np.ceil(np.log2(meta.n_centroids)))
+    cid = 1 if bits <= 8 else 2 if bits <= 16 else 4
+    if method == "emvb":
+        return cid + meta.m * meta.nbits / 8
+    if method == "plaid":
+        return cid + meta.d * meta.plaid_b / 8
+    raise ValueError(method)
+
+
+def normalized_tokens(doc_embs: np.ndarray) -> np.ndarray:
+    """Every token row re-normalized on the host with numpy exactly as the
+    reference does it (``index.py:150``), so the same inputs give the same
+    float32 bits: (n_docs, cap, d) -> (n_docs*cap, d) float32, zero padding
+    rows staying zero."""
+    normed = np.asarray(doc_embs, dtype=np.float32)
+    norms = np.maximum(np.linalg.norm(normed, axis=-1, keepdims=True), 1e-12)
+    return (normed / norms).reshape(-1, normed.shape[-1])
+
+
+def quantize_tokens(centroids: torch.Tensor, doc_embs: np.ndarray,
+                    doc_lens: np.ndarray
+                    ) -> tuple[torch.Tensor, torch.Tensor, np.ndarray]:
+    """Assign every token to its nearest frozen centroid (ref
+    ``index.py:150``), on the centroids' device.
+
+    The rows are re-normalized by :func:`normalized_tokens`; the
+    assignment is :func:`~.kmeans.assign` (equal to the reference's except
+    at near-ties, see ``kmeans``). Padding rows (all zero) are assigned
+    too, and their residuals feed the residual codes as in the reference.
+
+    centroids : (n_c, d) float32
+    doc_embs  : (n_docs, cap, d) float32, zero-padded
+    doc_lens  : (n_docs,) int
+    -> (codes (n_docs, cap) int32 with the ``n_c`` pad sentinel,
+        residual_flat (n_docs*cap, d) float32 token - centroid residuals,
+        mask (n_docs, cap) bool of real tokens, a numpy array)
+    """
+    n_docs, cap, _ = doc_embs.shape
+    n_centroids = centroids.shape[0]
+    mask = (np.arange(cap)[None, :] < np.asarray(doc_lens)[:, None])
+    flat = torch.from_numpy(normalized_tokens(doc_embs)).to(centroids.device)
+    codes_flat = assign(flat, centroids)
+    residual_flat = flat - centroids[codes_flat.long()]
+    codes = codes_flat.reshape(n_docs, cap)
+    pad = torch.from_numpy(~mask).to(centroids.device)
+    codes = torch.where(pad, n_centroids, codes).to(torch.int32)
+    return codes, residual_flat, mask
+
+
+def pool_documents(doc_embs: np.ndarray, doc_lens: np.ndarray,
+                   budget: int, *, iters: int = 4
+                   ) -> tuple[np.ndarray, np.ndarray]:
+    """Pool every document down to at most ``budget`` vectors (ref
+    ``index.py:182``; arXiv 2504.01818), in numpy on the host as the
+    reference does it.
+
+    Documents with ``len <= budget`` pass through unchanged. Longer docs
+    are clustered with a per-doc deterministic spherical k-means (evenly
+    spaced token indices as seeds, no RNG), then each cluster is
+    mean-pooled over its raw token vectors; empty clusters are dropped.
+
+    doc_embs : (n_docs, cap, d) float32, zero-padded
+    doc_lens : (n_docs,) int
+    -> (pooled_embs (n_docs, min(cap, budget), d) float32 zero-padded,
+        pooled_lens (n_docs,) int32)
+    """
+    if budget < 1:
+        raise ValueError(f"doc_budget must be >= 1, got {budget}")
+    doc_embs = np.asarray(doc_embs, dtype=np.float32)
+    doc_lens = np.asarray(doc_lens)
+    n_docs, cap, d = doc_embs.shape
+    new_cap = min(cap, int(budget))
+    out = np.zeros((n_docs, new_cap, d), np.float32)
+    out_lens = np.zeros((n_docs,), np.int32)
+    for i in range(n_docs):
+        ln = int(doc_lens[i])
+        toks = doc_embs[i, :ln]
+        if ln <= budget:
+            out[i, :ln] = toks
+            out_lens[i] = ln
+            continue
+        normed = toks / np.maximum(
+            np.linalg.norm(toks, axis=-1, keepdims=True), 1e-12)
+        # evenly spaced seeds, distinct because ln > budget
+        seed_idx = np.round(np.linspace(0, ln - 1, budget)).astype(int)
+        cents = normed[seed_idx]
+        labels = np.argmax(normed @ cents.T, axis=1)
+        for _ in range(iters):
+            sums = np.zeros((budget, d), np.float32)
+            np.add.at(sums, labels, normed)
+            counts = np.bincount(labels, minlength=budget)
+            means = sums / np.maximum(counts, 1)[:, None]
+            means /= np.maximum(
+                np.linalg.norm(means, axis=-1, keepdims=True), 1e-12)
+            # empty clusters keep their previous centroid
+            cents = np.where((counts > 0)[:, None], means, cents)
+            labels = np.argmax(normed @ cents.T, axis=1)
+        sums = np.zeros((budget, d), np.float32)
+        np.add.at(sums, labels, toks)          # mean over RAW token vectors
+        counts = np.bincount(labels, minlength=budget)
+        keep = counts > 0
+        pooled = sums[keep] / counts[keep][:, None]
+        out[i, :pooled.shape[0]] = pooled
+        out_lens[i] = pooled.shape[0]
+    return out, out_lens
 
 
 def index_from_arrays(arrays: dict, device=None) -> PackedIndex:

@@ -11,6 +11,9 @@ Two parts:
   cannot be downloaded here, and building one takes k-means over about 700M
   token vectors. Its shapes and dtypes are a real index's; its contents are
   random but structured so that retrieval has a right answer.
+* :func:`make_raw_docs` / :func:`make_raw_queries`: new passages for such an
+  index as raw token embeddings (what ``store.new_generation`` and
+  ``store.add_passages`` encode), and queries planted on them.
 """
 from __future__ import annotations
 
@@ -94,6 +97,7 @@ CENTROID_SPREAD = 3.0      # two centroids of a topic: cosine about 0.1
 PRIMARY_SHARE = 0.75       # tokens drawn from a doc's primary topic
 CODEBOOK_SCALE = 0.3       # norm of a decoded PQ residual
 QUERY_NOISE = 0.1          # norm of the noise added to a query term
+TOKEN_NOISE = 0.3          # norm of the noise on a raw token embedding
 
 
 def _unit(x: torch.Tensor) -> torch.Tensor:
@@ -193,4 +197,51 @@ def make_queries(index: PackedIndex, seed: int, n_queries: int,
         PQCodebooks(index.pq_codebooks)).reshape(n_queries, n_q, d)
     vec = vec + QUERY_NOISE / d ** 0.5 * torch.randn(n_queries, n_q, d,
                                                generator=g, device=dev)
+    return _unit(vec), gt
+
+
+def make_raw_docs(index: PackedIndex, seed: int, n_docs: int, min_len: int
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """New passages for a planted index as raw token embeddings, on its
+    device: topics and centroids drawn as :func:`make_packed_index` draws
+    them, each token ``normalize(centroid + noise)`` with noise of norm
+    about ``TOKEN_NOISE``, lengths uniform in [min_len, cap], zero-padded.
+    -> (doc_embs (n_docs, cap, d) float32, doc_lens (n_docs,) int32)."""
+    dev = index.codes.device
+    n_c, d = index.centroids.shape
+    cap = index.codes.shape[1]
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    per = max(1, min(CENTROIDS_PER_TOPIC, n_c))
+    n_topics = max(1, n_c // per)
+    doc_lens = torch.randint(min_len, cap + 1, (n_docs,), generator=g,
+                             device=dev, dtype=torch.int32)
+    two = torch.randint(0, n_topics, (n_docs, 2), generator=g, device=dev)
+    primary = torch.rand((n_docs, cap), generator=g, device=dev) \
+        < PRIMARY_SHARE
+    topic = torch.where(primary, two[:, :1], two[:, 1:])
+    slot = torch.randint(0, per, (n_docs, cap), generator=g, device=dev)
+    c = torch.clamp(topic * per + slot, max=n_c - 1)
+    embs = _unit(index.centroids[c] + TOKEN_NOISE / d ** 0.5 * torch.randn(
+        n_docs, cap, d, generator=g, device=dev))
+    pad = torch.arange(cap, device=dev)[None, :] >= doc_lens[:, None]
+    return embs.masked_fill(pad[..., None], 0.0), doc_lens
+
+
+def make_raw_queries(doc_embs: torch.Tensor, doc_lens: torch.Tensor,
+                     seed: int, n_queries: int, n_q: int
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Queries planted on raw passages: each term is one of the target's
+    token embeddings plus noise of norm about ``QUERY_NOISE``, normalized.
+    -> (queries (n_queries, n_q, d) float32, gt (n_queries,) int64 target
+    positions among the passages), on their device."""
+    dev = doc_embs.device
+    n_docs, _, d = doc_embs.shape
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    gt = torch.randint(0, n_docs, (n_queries,), generator=g, device=dev)
+    u = torch.rand((n_queries, n_q), generator=g, device=dev)
+    take = (u * doc_lens[gt, None]).long()
+    vec = doc_embs[gt[:, None], take] + QUERY_NOISE / d ** 0.5 * torch.randn(
+        n_queries, n_q, d, generator=g, device=dev)
     return _unit(vec), gt

@@ -22,3 +22,15 @@ def resolve_device(device=None) -> torch.device:
         raise RuntimeError(f"device={device!r} requested but CUDA is not "
                            "available")
     return dev
+
+
+def resolve_on(where: torch.device, device=None) -> torch.device:
+    """:func:`resolve_device`, refusing when the data an entry point was
+    given lives on ``where``, another device than the one asked for."""
+    dev = resolve_device(device)
+    if where.type != dev.type or (dev.index is not None
+                                  and where.index != dev.index):
+        raise ValueError(f"the index lives on {where} but device={dev} was "
+                         "requested; load it there (load_index(..., "
+                         "device=...)) first")
+    return dev

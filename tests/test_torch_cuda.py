@@ -591,3 +591,150 @@ def test_sbar_pass_stress(card, n_q, nb, cap, aligned, dtype):
         _same((sbar,), (kci.cinter_batched_ref(cs_t, codes, lens, q),))
         _same(got, kpq.pqinter_batched_ref(cs_t, lut, codes, res, lens, th_r,
                                            n_docs, 10, q))
+
+
+# --- timelines, their merges and growth on the card --------------------------
+
+TL_WIDTHS = dict(n_docs=3000, cap=16, min_len=6, d=32, n_centroids=512, m=4,
+                 nbits=4, list_cap=None)
+TL_ENGINE = dict(n_q=16, nprobe=4, th=0.4, th_r=0.5, n_filter=128, n_docs=32,
+                 k=10)
+TL_LANES = {"fused": dict(use_kernels=True),
+            "unfused": dict(use_kernels=True, fused_prefilter=False,
+                            fused_late_interaction=False)}
+
+
+def _moved(index, dev):
+    return index._replace(**{f: getattr(index, f).to(dev)
+                             for f in index._fields})
+
+
+def _cpu_timeline():
+    """A planted base and two generations encoded on the CPU (the second
+    grown by add_passages), with queries planted on all three."""
+    from repro_torch.core import store as tstore
+    from repro_torch.data import synthetic
+    index, meta = synthetic.make_packed_index(0, device="cpu", **TL_WIDTHS)
+    tl = tstore.ShardedTimeline.of((index, meta))
+    qs = [synthetic.make_queries(index, 1, 6, TL_ENGINE["n_q"])[0]]
+    for seed in (2, 3):
+        a, la = synthetic.make_raw_docs(index, seed, 300,
+                                        TL_WIDTHS["min_len"])
+        gen = tstore.new_generation(index, meta, a[:240].numpy(),
+                                    la[:240].numpy(), device="cpu")
+        tl = tl.append(*tstore.add_passages(*gen, a[240:].numpy(),
+                                            la[240:].numpy(), device="cpu"))
+        qs.append(synthetic.make_raw_queries(a, la, seed, 5,
+                                             TL_ENGINE["n_q"])[0])
+    return tl, torch.cat(qs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lane", sorted(TL_LANES))
+@pytest.mark.parametrize("nb", [1, 16])
+def test_timeline_on_card_equals_plain(card, lane, nb):
+    """retrieve_timeline's kernels on the card == their plain versions on
+    the CPU, through the whole timeline: the same CS and LUT (made on the
+    card) go into both runs, ids and score bits equal; the merged
+    generations 1-2 retrieve as the pair did under lossless budgets; the
+    generations survive a save/load round trip on the card."""
+    import dataclasses
+    import tempfile
+
+    from repro_torch.core import engine as teng
+    from repro_torch.core import store as tstore
+    tl_cpu, q = _cpu_timeline()
+    tl = tstore.ShardedTimeline(tuple(_moved(g, card)
+                                      for g in tl_cpu.generations),
+                                tl_cpu.metas)
+    q = q[:nb]
+    cfg = teng.EngineConfig(**TL_ENGINE, **TL_LANES[lane])
+    g0 = tl.generations[0]
+    cs = teng.centroid_scores(q.to(card), g0.centroids)
+    lut = teng._query_lut(g0, q.to(card))
+    before = dict(ops.launch_counts())
+    got = teng._timeline_topk(tl, q.to(card), cfg, None, None,
+                              lambda _: (cs, lut))
+    torch.cuda.synchronize()
+    launched = {k: v - before[k] for k, v in ops.launch_counts().items()}
+    assert sum(launched.values()) == len(tl) * (2 if lane == "fused" else 4)
+    want = teng._timeline_topk(tl_cpu, q, cfg, None, None,
+                               lambda _: (cs.cpu(), lut.cpu()))
+    _same((got.doc_ids.cpu(), got.scores.cpu()),
+          (want.doc_ids, want.scores))
+    pair = tstore.ShardedTimeline(tl.generations[1:], tl.metas[1:])
+    merged = tstore.merge_generations(tl, 1, 3)
+    one = tstore.ShardedTimeline(merged.generations[1:], merged.metas[1:])
+    lossless = dataclasses.replace(cfg, n_filter=600, n_docs=600,
+                                   cand_cap=600)
+    a = teng.retrieve_timeline(pair, q.to(card), lossless)
+    b = teng.retrieve_timeline(one, q.to(card), lossless)
+    _same((a.doc_ids, a.scores), (b.doc_ids, b.scores))
+    with tempfile.TemporaryDirectory() as tmp:
+        back = tstore.load_timeline(tstore.save_timeline(tmp, pair))
+        assert back.fingerprints == pair.fingerprints
+        assert all(torch.equal(getattr(x, f), getattr(y, f))
+                   for x, y in zip(back.generations, pair.generations)
+                   for f in x._fields)
+
+
+@pytest.fixture
+def smoke(card, monkeypatch):
+    """chip_smoke.py at a tiny width: its timeline phase's holds, run as
+    the script runs them."""
+    import os
+    import sys
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    import chip_smoke
+    monkeypatch.setattr(chip_smoke, "MIN_LEN", TL_WIDTHS["min_len"])
+    monkeypatch.setattr(chip_smoke, "ENGINE", TL_ENGINE)
+    monkeypatch.setattr(chip_smoke, "GEN_DOCS", 300)
+    monkeypatch.setattr(chip_smoke, "GEN2_OPEN", 200)
+    monkeypatch.setattr(chip_smoke, "ENCODE_HOLD", (40, 10))
+    monkeypatch.setattr(chip_smoke, "MERGE_BUDGETS",
+                        dict(n_filter=600, n_docs=600, cand_cap=600))
+    monkeypatch.setattr(chip_smoke, "N_SINGLE", 4)
+    monkeypatch.setitem(chip_smoke.RECORD, "device",
+                        {"nvidia_smi": "pytest -m cuda"})
+    return chip_smoke
+
+
+@pytest.mark.cuda
+def test_encode_on_card_equals_cpu_except_near_ties(smoke, card):
+    from repro_torch.data import synthetic
+    widths = {k: v for k, v in TL_WIDTHS.items() if k != "min_len"}
+    index, meta = synthetic.make_packed_index(
+        0, min_len=TL_WIDTHS["min_len"], device=card, **widths)
+    from repro_torch.core import store as tstore
+    a, la, b, lb = (t.cpu().numpy() for seed in (2, 3)
+                    for t in synthetic.make_raw_docs(index, seed, 300,
+                                                     TL_WIDTHS["min_len"]))
+    g1 = tstore.new_generation(index, meta, a, la)
+    g2 = tstore.add_passages(
+        *tstore.new_generation(index, meta, b[:200], lb[:200]), b[200:],
+        lb[200:])
+    out = smoke.encode_hold(index, meta, g1, g2, a, la, b, lb)
+    assert out["docs"] == 50 and out["max_gap"] <= out["near_tie_eps"]
+
+
+@pytest.mark.cuda
+def test_timeline_phase_on_card(smoke, card):
+    """The timeline phase of chip_smoke.py at a tiny width on the card:
+    every hold in it (encode against the CPU, each generation's kernels
+    against their plain versions, unfused == fused, the merge, the round
+    trip) passes."""
+    import dataclasses
+
+    from repro_torch.core import engine as teng
+    from repro_torch.data import synthetic
+    widths = {k: v for k, v in TL_WIDTHS.items() if k != "min_len"}
+    index, meta = synthetic.make_packed_index(
+        0, min_len=TL_WIDTHS["min_len"], device=card, **widths)
+    queries, gt = synthetic.make_queries(index, 1, 64, TL_ENGINE["n_q"])
+    cfg = teng.EngineConfig(**TL_ENGINE, use_kernels=True)
+    out = smoke.timeline_phase(dict(
+        index=index, meta=meta, cfg=cfg, queries=queries, gt=gt,
+        ucfg=dataclasses.replace(cfg, fused_prefilter=False,
+                                 fused_late_interaction=False)))
+    assert len(out["timeline"]) == 3 and len(out["merged"]) == 2

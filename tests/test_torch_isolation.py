@@ -2,6 +2,7 @@
 import with ``jax`` and ``repro`` blocked; entry points refuse to run on the
 CPU unless asked; the planted synthetic generator is deterministic per seed
 and its IVF is the reference's ``_build_ivf`` layout."""
+import dataclasses
 import os
 import pkgutil
 import subprocess
@@ -106,6 +107,24 @@ def test_entry_points_refuse_the_cpu_unless_asked(monkeypatch, small_index,
     with pytest.raises(RuntimeError, match="CUDA"):
         teng.prune_queries(q, 8)
     assert teng.retrieve(index, q, cfg, device="cpu").doc_ids.shape == (1, 10)
+    meta = tstore.IndexMeta(**{**dataclasses.asdict(small_index[1])})
+    tl = tstore.ShardedTimeline.of((index, meta))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        teng.retrieve_timeline(tl, q, cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tstore.load_timeline(str(tmp_path))
+    docs = np.zeros((2, meta.cap, meta.d), np.float32)
+    lens = np.array([3, 0], np.int32)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tstore.new_generation(index, meta, docs, lens)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tstore.add_passages(index, meta, docs, lens)
+    assert teng.retrieve_timeline(tl, q, cfg, device="cpu").doc_ids.shape \
+        == (1, 10)
+    gen, gmeta = tstore.new_generation(index, meta, docs, lens, device="cpu")
+    assert gmeta.n_docs == 2 and gen.device.type == "cpu"
+    assert tstore.add_passages(index, meta, docs, lens,
+                               device="cpu")[1].n_docs == meta.n_docs + 2
 
 
 TINY = dict(n_docs=700, cap=12, min_len=5, d=32, n_centroids=96, m=4,
@@ -159,3 +178,30 @@ def test_numpy_corpus_copy_matches_reference():
     assert synthetic.mrr_at_k(ranked, gt, 10) == rsyn.mrr_at_k(ranked, gt, 10)
     assert synthetic.success_at_k(ranked, gt, 10) == \
         rsyn.success_at_k(ranked, gt, 10)
+
+
+def test_raw_docs_encode_into_a_generation_that_finds_them():
+    """The timeline data of chip_smoke.py at a tiny width: raw passages for
+    the planted index, deterministic per seed, encoded against its frozen
+    codebooks by new_generation and add_passages; queries planted on them
+    find their docs through retrieve_timeline."""
+    index, meta = synthetic.make_packed_index(5, **TINY)
+    a, la = synthetic.make_raw_docs(index, 2, 300, TINY["min_len"])
+    a2, _ = synthetic.make_raw_docs(index, 2, 300, TINY["min_len"])
+    assert torch.equal(a, a2)
+    pad = torch.arange(TINY["cap"])[None] >= la[:, None]
+    assert not a[pad].any()
+    assert torch.allclose(a[~pad].norm(dim=-1), torch.ones(int((~pad).sum())))
+    gen = tstore.new_generation(index, meta, a[:250].numpy(),
+                                la[:250].numpy(), device="cpu")
+    gen = tstore.add_passages(*gen, a[250:].numpy(), la[250:].numpy(),
+                              device="cpu")
+    assert gen[1].n_docs == 300 and gen[1].n_grown == 300
+    assert gen[0].plaid_res.shape == (300, TINY["cap"], TINY["d"] // 4)
+    tl = tstore.ShardedTimeline.of((index, meta), gen)
+    q, gt = synthetic.make_raw_queries(a, la, 6, n_queries=8, n_q=16)
+    cfg = teng.EngineConfig(n_q=16, n_filter=64, n_docs=16, k=10,
+                            use_kernels=True)
+    ids = teng.retrieve_timeline(tl, q, cfg, device="cpu").doc_ids.numpy()
+    assert synthetic.success_at_k(ids, gt.numpy() + TINY["n_docs"], 10) \
+        >= 0.9
