@@ -69,6 +69,31 @@ Phases:
                held against its plain version on the same operands; every
                finite-scored result passes the filter; unfused == fused on
                the finite entries with the same CS and LUT
+  5b. timeline — two generations of raw passages encoded on the card
+               against the index, held against the CPU encode;
+               retrieve_timeline on both lanes, held per generation; a
+               merge, a save/load round trip, ms per generation count
+  5c. index_build — build_index on the card at the emvb-msmarco widths
+               (2^18 centroids, PQ 16 x 8 bits, k-means 8 iterations, a PQ
+               sample of 65,536) over BUILD_DOCS raw passages, each stage
+               timed, k-means iterations beside their float32 floor; then
+               retrieve on both lanes of the trained index at B = 32 and
+               B = 1 with planted queries and launch counts, each kernel
+               held against its plain version, Success@100 and MRR@10, rho
+               beside the planted index's; BUILD_HOLD docs encoded again on
+               the CPU against the trained codebooks, equal but for
+               near-ties; k-means' update twice on the card, bit-equal
+  5d. serving — RetrievalService over the timeline: planted queries of 8
+               to 32 terms submitted one at a time, cold and warm, every
+               ticket == retrieve_timeline on its padded batch, launch
+               counts read around that traffic; a query's row in a B = 16
+               flush against B = 1 and a padded miss lane, differences
+               counted; a filtered batch; a hot swap staged behind pending
+               tickets; add_passages; MaintenanceRunner's merge (results
+               equal before and after under lossless budgets) and its
+               re-epoch of a drifted generation with 2^18-centroid
+               codebooks built on the card; latencies, cache, the
+               exposition linted
   6. timing  — CUDA-event medians of every step of both lanes (the CS^T
                transpose a step of its own), end to end, each kernel
                beside its plain version and its bound, and the host ms of
@@ -947,11 +972,9 @@ def full_phase(dev) -> dict:
     """Phase 4: the planted index at full width, the main path at B = 32
     and B = 1 with its launch counts, the held phases, funnel and
     quality."""
-    import numpy as np
     import torch
     from repro_torch.core import engine as teng
     from repro_torch.data import synthetic
-    from repro_torch.kernels import ops
 
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -969,12 +992,44 @@ def full_phase(dev) -> dict:
     cfg = teng.EngineConfig(**ENGINE, use_kernels=True)
     ucfg = dataclasses.replace(cfg, fused_prefilter=False,
                                fused_late_interaction=False)
+    launches, results, quality, digests = serve_lanes(
+        index, {"fused": cfg, "unfused": ucfg}, queries, gt)
+    held, held_u, lanes_equal = hold_lanes(
+        index, cfg, ucfg, queries, results)
+    fun = funnel(index, held["b32"], cfg)
+    hist = token_hist(index)
+    fun["lit_rows"] = {b: lit_shares(held_u[b]["bits"], hist)
+                       for b in ("b32", "b1")}
+    emit("full", launches=launches, phases_exact=True,
+         unfused_equals_fused=lanes_equal, funnel=fun, quality=quality,
+         result_sha256=digests,
+         max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9)
+    for lane, qual in quality.items():
+        if qual["success_at_100"] < SUCCESS_FLOOR:
+            raise AssertionError(f"{lane} lane: planted Success@100 "
+                                 f"{qual['success_at_100']} < {SUCCESS_FLOOR}")
+    return dict(index=index, meta=meta, cfg=cfg, ucfg=ucfg, queries=queries,
+                gt=gt, held=held, held_u=held_u, launches=launches,
+                token_hist=hist)
+
+
+def serve_lanes(index, cfgs: dict, queries, gt) -> tuple:
+    """The main path of each lane of ``cfgs`` on ``index``: retrieve over
+    N_QUERIES queries at B = 32, then N_SINGLE at B = 1, the launch counts
+    set to 0 just before and read just after each (every kernel of the lane
+    launched once a call, none of the other lane's); results well formed.
+    -> (launches, first results, quality against ``gt``, digests) by
+    lane."""
+    import numpy as np
+    import torch
+    from repro_torch.core import engine as teng
+    from repro_torch.data import synthetic
+    from repro_torch.kernels import ops
+    n_docs = index.codes.shape[0]
     batches = [queries[s:s + 32] for s in range(0, N_QUERIES, 32)]
     gt_np = gt.cpu().numpy()
     launches, results, quality, digests = {}, {}, {}, {}
-    for lane, c in (("fused", cfg), ("unfused", ucfg)):
-        # the main path of the lane, B = 32 then B = 1: counts read just
-        # around these calls
+    for lane, c in cfgs.items():
         ops.reset_launches()
         res = [teng.retrieve(index, q, c) for q in batches]
         torch.cuda.synchronize()
@@ -995,7 +1050,7 @@ def full_phase(dev) -> dict:
         scores = torch.cat([r.scores for r in res])
         if ids.shape != (N_QUERIES, ENGINE["k"]) or not torch.isfinite(
                 scores).all() or not (scores[:, :-1] >= scores[:, 1:]).all() \
-                or not ((ids >= 0) & (ids < WIDTHS["n_docs"])).all():
+                or not ((ids >= 0) & (ids < n_docs)).all():
             raise AssertionError(f"{lane} retrieve returned malformed results")
         ids_np = ids.cpu().numpy()
         ids1_np = torch.cat([r.doc_ids for r in res1]).cpu().numpy()
@@ -1011,9 +1066,19 @@ def full_phase(dev) -> dict:
         }
         results[lane] = {"b32": res[0], "b1": res1[0]}
         digests[lane] = {"b32": result_digest(res), "b1": result_digest(res1)}
+    return launches, results, quality, digests
 
+
+def hold_lanes(index, cfg, ucfg, queries, results) -> tuple:
+    """The first B = 32 batch and the first B = 1 query held step by step
+    on both lanes (:func:`hold_phases`, :func:`hold_unfused`), each
+    composed to retrieve's result (``results`` of :func:`serve_lanes`), and
+    unfused == fused on the same CS and LUT. -> (held, held_u,
+    lanes_equal) by batch."""
+    import torch
+    from repro_torch.core import engine as teng
     held, held_u, lanes_equal = {}, {}, {}
-    for name, q in (("b32", batches[0]), ("b1", queries[:1])):
+    for name, q in (("b32", queries[:32]), ("b1", queries[:1])):
         h = hold_phases(index, q, cfg)
         u = hold_unfused(index, q, ucfg, h)
         for lane, got in (("fused", (h["ids"], h["pq"][0])),
@@ -1032,21 +1097,7 @@ def full_phase(dev) -> dict:
                                  "and LUT")
         lanes_equal[name] = True
         held[name], held_u[name] = h, u
-    fun = funnel(index, held["b32"], cfg)
-    hist = token_hist(index)
-    fun["lit_rows"] = {b: lit_shares(held_u[b]["bits"], hist)
-                       for b in ("b32", "b1")}
-    emit("full", launches=launches, phases_exact=True,
-         unfused_equals_fused=lanes_equal, funnel=fun, quality=quality,
-         result_sha256=digests,
-         max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9)
-    for lane, qual in quality.items():
-        if qual["success_at_100"] < SUCCESS_FLOOR:
-            raise AssertionError(f"{lane} lane: planted Success@100 "
-                                 f"{qual['success_at_100']} < {SUCCESS_FLOOR}")
-    return dict(index=index, meta=meta, cfg=cfg, ucfg=ucfg, queries=queries,
-                gt=gt, held=held, held_u=held_u, launches=launches,
-                token_hist=hist)
+    return held, held_u, lanes_equal
 
 
 def result_digest(results) -> str:
@@ -1235,7 +1286,6 @@ def encode_hold(index, meta, g1, g2, a, la, b, lb) -> dict:
     import numpy as np
     import torch
     from repro_torch.core import index as tindex
-    from repro_torch.core import kmeans
     from repro_torch.core import store as tstore
     n, m = ENCODE_HOLD
     grown = slice(GEN2_OPEN, GEN2_OPEN + m)
@@ -1246,15 +1296,48 @@ def encode_hold(index, meta, g1, g2, a, la, b, lb) -> dict:
     hi, _ = tstore.add_passages(*host, b[grown], lb[grown], device="cpu")
     cpu_seconds = time.perf_counter() - t0
     card = {f: torch.cat([getattr(c1, f)[:n].cpu(), getattr(c2, f)[grown]
-                          .cpu()]) for f in ("codes", "res_codes",
-                                             "plaid_res", "doc_lens",
-                                             "pred_words")}
+                          .cpu()]) for f in ENCODE_FIELDS}
+    counts = compare_encodes(meta, cpu_base, card, hi, np.concatenate(
+        [a[:n], b[grown]]), np.concatenate([la[:n], lb[grown]]))
+    built = {}
+    for g, gi in ((1, c1), (2, c2)):
+        ivf, ivf_lens, *built[g] = tindex.build_ivf(
+            gi.codes.cpu(), meta.n_centroids, None, origin="new_generation")
+        if not (torch.equal(gi.ivf.cpu(), ivf)
+                and torch.equal(gi.ivf_lens.cpu(), ivf_lens)):
+            raise AssertionError(f"generation {g}: the IVF is not its "
+                                 "codes' on the CPU")
+    a_real = (np.arange(meta.cap)[None] < la[:, None]).reshape(-1)
+    r1 = (tindex.normalized_tokens(a)[a_real] - cpu_base.centroids.numpy()[
+        c1.codes.cpu().numpy().reshape(-1)[a_real]])
+    mse = float(np.sum(r1 * r1)) / max(int(a_real.sum()), 1)
+    if [m1.list_cap, m1.n_dropped, m1.grown_quant_mse] != built[1] + [mse]:
+        raise AssertionError(f"generation 1: meta (list_cap, n_dropped, "
+                             f"grown_quant_mse) {m1} is not its codes' on "
+                             f"the CPU ({built[1]}, {mse})")
+    return {"docs": n + m, **counts, "ivf_equal": True,
+            "generation_1_meta_equal": True, "cpu_seconds": cpu_seconds}
+
+
+ENCODE_FIELDS = ("codes", "res_codes", "plaid_res", "doc_lens", "pred_words")
+
+
+def compare_encodes(meta, cpu_base, card, hi, embs, lens) -> dict:
+    """Docs ``embs`` (numpy, with their ``lens``) as encoded on the card
+    (``card``: ENCODE_FIELDS on the CPU) against their CPU encode ``hi``
+    against the same codebooks ``cpu_base``: lengths and predicate words
+    equal; at real tokens, codes equal except at near-ties, each measured in
+    float64 and at most kmeans.NEAR_TIE_EPS apart; PQ codes likewise where
+    the codes agree; PLAID codes equal where the codes agree; padding codes
+    equal. -> the counts."""
+    import numpy as np
+    import torch
+    from repro_torch.core import index as tindex
+    from repro_torch.core import kmeans
     for f in ("doc_lens", "pred_words"):
         if not torch.equal(card[f], getattr(hi, f)):
             raise AssertionError(f"card and CPU encodes: {f} differs")
-    x = torch.from_numpy(np.concatenate([tindex.normalized_tokens(a[:n]),
-                                         tindex.normalized_tokens(b[grown])]))
-    lens = np.concatenate([la[:n], lb[grown]])
+    x = torch.from_numpy(tindex.normalized_tokens(embs))
     real = (np.arange(meta.cap)[None] < lens[:, None]).reshape(-1)
     on_card, on_cpu = card["codes"].reshape(-1), hi.codes.reshape(-1)
     diff = (on_card != on_cpu).numpy()
@@ -1283,27 +1366,10 @@ def encode_hold(index, meta, g1, g2, a, la, b, lb) -> dict:
             hi.plaid_res.numpy().reshape(len(real), -1)[agree]):
         raise AssertionError("PLAID codes differ where the card's and the "
                              "CPU's codes agree")
-    built = {}
-    for g, gi in ((1, c1), (2, c2)):
-        ivf, ivf_lens, *built[g] = tindex.build_ivf(
-            gi.codes.cpu(), meta.n_centroids, None, origin="new_generation")
-        if not (torch.equal(gi.ivf.cpu(), ivf)
-                and torch.equal(gi.ivf_lens.cpu(), ivf_lens)):
-            raise AssertionError(f"generation {g}: the IVF is not its "
-                                 "codes' on the CPU")
-    a_real = (np.arange(meta.cap)[None] < la[:, None]).reshape(-1)
-    r1 = (tindex.normalized_tokens(a)[a_real] - cpu_base.centroids.numpy()[
-        c1.codes.cpu().numpy().reshape(-1)[a_real]])
-    mse = float(np.sum(r1 * r1)) / max(int(a_real.sum()), 1)
-    if [m1.list_cap, m1.n_dropped, m1.grown_quant_mse] != built[1] + [mse]:
-        raise AssertionError(f"generation 1: meta (list_cap, n_dropped, "
-                             f"grown_quant_mse) {m1} is not its codes' on "
-                             f"the CPU ({built[1]}, {mse})")
-    return {"docs": n + m, "real_tokens": int(real.sum()),
+    return {"real_tokens": int(real.sum()),
             "assign_near_ties": int(diff.sum()),
             "pq_near_ties": len(pq_rows), "max_gap": worst,
-            "near_tie_eps": kmeans.NEAR_TIE_EPS, "ivf_equal": True,
-            "generation_1_meta_equal": True, "cpu_seconds": cpu_seconds}
+            "near_tie_eps": kmeans.NEAR_TIE_EPS}
 
 
 def _interleaved(parts):
@@ -1542,6 +1608,472 @@ def timeline_phase(full: dict) -> dict:
             ms[f"{lane}_{bname}"] = row
     emit("timing_timeline", nvidia_smi=smi, ms=ms)
     return dict(timeline=tl, merged=merged, queries=queries, gt=gt)
+
+
+# --- 5c. index_build: the trained build on the card -------------------------
+
+BUILD_DOCS = 32_768   # raw passages built over: a cut of MS MARCO's 8,841,823
+BUILD_SEED = 7        # the passages' seed and build_index's
+BUILD = dict(n_centroids=WIDTHS["n_centroids"], m=WIDTHS["m"],
+             nbits=WIDTHS["nbits"], plaid_b=2, list_cap=WIDTHS["list_cap"],
+             kmeans_iters=8, pq_train_size=65_536)  # the reference's defaults
+BUILD_HOLD = 128      # docs encoded again on the CPU against the trained books
+MIN_TRAIN_TOKENS = 1 << 18   # real tokens the k-means must see at least
+
+
+class StageClock:
+    """Times the stages of build_index: while it is entered, the functions
+    build_index (``core/index.py``) and the k-means (``core/kmeans.py``)
+    call by module attribute are wrapped to synchronize, time and
+    synchronize; each call lands in ``calls`` as (stage, function,
+    seconds), the stage being the build_index step it ran under."""
+
+    STAGES = ("kmeans_spherical", "quantize_tokens", "train_pq", "encode_pq",
+              "train_residual_codec", "encode_residual", "build_ivf")
+    STEPS = ("assign", "_update")
+
+    def __init__(self):
+        """No call timed yet; nothing wrapped until entered."""
+        self.calls: list = []
+        self._stage = None
+        self._saved: list = []
+
+    def __enter__(self):
+        """Wrap the stage and step functions."""
+        from repro_torch.core import index, kmeans
+        for mod, names in ((index, self.STAGES), (kmeans, self.STEPS)):
+            for name in names:
+                fn = getattr(mod, name)
+                self._saved.append((mod, name, fn))
+                setattr(mod, name, self._timed(name, fn, mod is index))
+        return self
+
+    def __exit__(self, *exc):
+        """Put the functions back."""
+        for mod, name, fn in self._saved:
+            setattr(mod, name, fn)
+        return False
+
+    def _timed(self, name, fn, stage: bool):
+        import torch
+
+        def timed(*args, **kwargs):
+            if stage:
+                self._stage = name
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            self.calls.append((self._stage, name, time.perf_counter() - t0))
+            return out
+        return timed
+
+    def seconds(self, stage: str, fn=None) -> list:
+        """Seconds of each call of ``fn`` (the stage itself by default)
+        made under ``stage``."""
+        return [s for st, f, s in self.calls
+                if st == stage and f == (fn or stage)]
+
+
+def update_twice(index, embs, lens) -> bool:
+    """k-means' update step run twice on the card on the build's real
+    tokens and their assignment (the codes): bit-equal, or raise."""
+    import numpy as np
+    import torch
+    from repro_torch.core import index as tindex
+    from repro_torch.core import kmeans
+    real = (np.arange(embs.shape[1])[None] < lens[:, None]).reshape(-1)
+    x = torch.from_numpy(tindex.normalized_tokens(embs)[real]).to(
+        index.device)
+    a = index.codes.reshape(-1)[torch.from_numpy(real).to(index.device)]
+    k = index.centroids.shape[0]
+    one, two = (kmeans._update(x, a, k, index.centroids, kmeans.generator(0))
+                for _ in range(2))
+    if not torch.equal(one.view(torch.int32), two.view(torch.int32)):
+        raise AssertionError("k-means _update gave other bits on a second "
+                             "run over the same assignment")
+    return True
+
+
+def index_build_phase(full: dict) -> dict:
+    """Phase 5c: build_index on the card at the emvb-msmarco widths over
+    BUILD_DOCS raw passages drawn on the planted index's centroid table
+    (stage times under :class:`StageClock`, k-means iterations against the
+    float32 floor of their assignment), then the main path on the trained
+    index: retrieve on both lanes at B = 32 and B = 1 with planted queries
+    and launch counts, each kernel held against its plain version, planted
+    Success@100 and MRR@10, rho beside the planted index's; the first
+    BUILD_HOLD docs encoded on the CPU against the trained codebooks equal
+    but for near-ties; k-means' update twice, bit-equal."""
+    import numpy as np
+    import torch
+    from repro_torch.core import index as tindex
+    from repro_torch.core import store as tstore
+    from repro_torch.data import synthetic
+    t0 = time.perf_counter()
+    embs_t, lens_t = synthetic.make_raw_docs(full["index"], BUILD_SEED,
+                                             BUILD_DOCS, MIN_LEN)
+    embs, lens = embs_t.cpu().numpy(), lens_t.cpu().numpy()
+    make_s = time.perf_counter() - t0
+    n_tok = int(lens.sum())
+    if n_tok < max(MIN_TRAIN_TOKENS, BUILD["n_centroids"]):
+        raise AssertionError(f"{n_tok} real tokens: too few to train")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with StageClock() as clock:
+        t0 = time.perf_counter()
+        index, meta = tindex.build_index(BUILD_SEED, embs, lens,
+                                         device=full["index"].device, **BUILD)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+    iters = BUILD["kmeans_iters"]
+    assign_s = clock.seconds("kmeans_spherical", "assign")
+    update_s = clock.seconds("kmeans_spherical", "_update")
+    floor_ms = 2 * n_tok * BUILD["n_centroids"] * meta.d / F32_OPS_PER_S * 1e3
+    fb = _field_bytes(index)
+    emit("index_build", docs=BUILD_DOCS, real_tokens=n_tok,
+         padded_tokens=BUILD_DOCS * meta.cap, make_docs_seconds=make_s,
+         build_seconds=build_s, training_tokens_per_second=n_tok / build_s,
+         stage_seconds={st: sum(clock.seconds(st)) for st in
+                        StageClock.STAGES},
+         kmeans_iteration_ms=[(a + u) * 1e3 for a, u in
+                              zip(assign_s[:iters], update_s)],
+         kmeans_assign_ms=[a * 1e3 for a in assign_s],
+         kmeans_update_ms=[u * 1e3 for u in update_s],
+         assign_floor_ms=floor_ms, pq_train_assign_ms=[
+             a * 1e3 for a in clock.seconds("train_pq", "assign")],
+         index_bytes=sum(fb.values()), field_bytes=fb,
+         list_cap=meta.list_cap, n_dropped=meta.n_dropped,
+         train_quant_mse=meta.train_quant_mse, build=BUILD,
+         max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9)
+
+    queries, gt = synthetic.make_raw_queries(embs_t, lens_t, BUILD_SEED + 1,
+                                             N_QUERIES, ENGINE["n_q"])
+    del embs_t, lens_t
+    cfg, ucfg = full["cfg"], full["ucfg"]
+    launches, results, quality, _ = serve_lanes(
+        index, {"fused": cfg, "unfused": ucfg}, queries, gt)
+    held, held_u, lanes_equal = hold_lanes(index, cfg, ucfg, queries,
+                                           results)
+    hist = token_hist(index)
+    rho = {b: lit_shares(held_u[b]["bits"], hist) for b in ("b32", "b1")}
+    planted = {b: lit_shares(full["held_u"][b]["bits"], full["token_hist"])
+               for b in ("b32", "b1")}
+    cpu_base = _codebooks_on_cpu(index)
+    t0 = time.perf_counter()
+    hi, _ = tstore.new_generation(cpu_base, meta, embs[:BUILD_HOLD],
+                                  lens[:BUILD_HOLD], device="cpu")
+    cpu_s = time.perf_counter() - t0
+    card = {f: getattr(index, f)[:BUILD_HOLD].cpu() for f in ENCODE_FIELDS}
+    encode = compare_encodes(meta, cpu_base, card, hi, embs[:BUILD_HOLD],
+                             lens[:BUILD_HOLD])
+    emit("index_build_serve", launches=launches, phases_exact=True,
+         unfused_equals_fused=lanes_equal, quality=quality,
+         lit_rows=rho, lit_rows_planted=planted,
+         max_abs_err={b: {**held[b]["err"], **held_u[b]["err"]}
+                      for b in ("b32", "b1")},
+         card_vs_cpu_encode={"docs": BUILD_HOLD, **encode,
+                             "cpu_seconds": cpu_s},
+         update_twice_bit_equal=update_twice(index, embs, lens))
+    for lane, qual in quality.items():
+        if qual["success_at_100"] < SUCCESS_FLOOR:
+            raise AssertionError(f"trained index, {lane} lane: Success@100 "
+                                 f"{qual['success_at_100']} < {SUCCESS_FLOOR}")
+    return {"launches": launches, "held": held, "held_u": held_u}
+
+
+# --- 5d. serving: RetrievalService over the full-width timeline -------------
+
+SERVE_BATCH = 16      # max_batch of the service
+SERVE_TERMS = (8, 32)  # a served query's term count, uniform in this range
+SWAP_PENDING = 5      # tickets pending when a new generation is staged
+SWAP_DOCS = 512       # docs of that generation
+ADD_DOCS = 256        # docs add_passages then grows it by
+DRIFT_DOCS = 4096     # docs of the drifted generation the runner re-epochs
+DRIFT_NOISE = (0.45, 0.6, 0.8, 1.2)  # token noise tried until drift > 1.5
+
+
+def _lint_exposition(text: str) -> list:
+    """scripts/check_metrics_exposition.py's validator, loaded by path."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "check_metrics_exposition",
+        os.path.join(ROOT, "scripts", "check_metrics_exposition.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.validate_exposition(text)
+
+
+def _tickets_equal(tickets, want) -> bool:
+    """Each ticket's (scores, ids) equal row i of ``want``, score bits
+    included."""
+    import numpy as np
+    ids, sc = want.doc_ids.cpu().numpy(), want.scores.cpu().numpy()
+    return all(np.array_equal(t.result()[1], ids[i]) and np.array_equal(
+        t.result()[0].view(np.uint32), sc[i].view(np.uint32))
+        for i, t in enumerate(tickets))
+
+
+def _padded(qs: list):
+    """The service's padded batch of ``qs`` (numpy (t, d) queries):
+    (queries, masks), each stacked."""
+    import numpy as np
+    from repro_torch.serving import pad_query
+    q, m = zip(*(pad_query(x, ENGINE["n_q"]) for x in qs))
+    return np.stack(q), np.stack(m)
+
+
+def _submit_all(svc, qs: list) -> tuple:
+    """Submit ``qs`` one at a time (a flush every SERVE_BATCH), flush the
+    rest. -> (tickets, per-query ms from submit to its answer)."""
+    import torch
+    tickets, submitted, done = [], [], {}
+    for q in qs:
+        submitted.append(time.perf_counter())
+        tickets.append(svc.submit(q))
+        now = time.perf_counter()
+        for i, t in enumerate(tickets):
+            if t.done and i not in done:
+                done[i] = now
+    svc.flush()
+    torch.cuda.synchronize()
+    now = time.perf_counter()
+    return tickets, [((done.get(i, now)) - s) * 1e3
+                     for i, s in enumerate(submitted)]
+
+
+def _ms_stats(ms: list) -> dict:
+    return {"median_ms": statistics.median(ms),
+            "p90_ms": sorted(ms)[-(-9 * len(ms) // 10) - 1], "n": len(ms)}
+
+
+def serving_phase(full: dict, filt: dict, tlres: dict) -> dict:
+    """Phase 5d: RetrievalService over the timeline phase's timeline (the
+    planted base and its two generations) with the fused config: planted
+    queries of SERVE_TERMS terms submitted one at a time, cold then warm,
+    every ticket == retrieve_timeline on the same padded batch and warm ==
+    cold, the launch counts read around that traffic; the invariance of a
+    query's row to its batch (the B = 16 flush against retrieve_timeline at
+    B = 1 and in a miss lane padded with its own row), counted; a filtered
+    batch through query() on the timeline with a predicate plane; a hot
+    swap staged behind pending tickets; add_passages; MaintenanceRunner's
+    merge of generations 1-2 (results equal before and after under lossless
+    budgets); a drifted generation re-epoched by the runner with fresh
+    codebooks on the card and the epoched timeline served; the service's
+    metrics and its exposition, linted."""
+    import numpy as np
+    import torch
+    from repro_torch.core import bitvector
+    from repro_torch.core import engine as teng
+    from repro_torch.core import store as tstore
+    from repro_torch.data import synthetic
+    from repro_torch.kernels import ops
+    from repro_torch.serving import (MaintenancePolicy, MaintenanceRunner,
+                                     RetrievalService)
+    tl, index, meta = tlres["timeline"], full["index"], full["meta"]
+    cfg = full["cfg"]
+    rng = np.random.default_rng(BUILD_SEED)
+    qs = [q[:rng.integers(SERVE_TERMS[0], SERVE_TERMS[1] + 1)]
+          for q in tlres["queries"].cpu().numpy()]
+    batches = [qs[s:s + SERVE_BATCH] for s in range(0, len(qs), SERVE_BATCH)]
+
+    svc = RetrievalService(tl, cfg, max_batch=SERVE_BATCH)
+    ops.reset_launches()
+    cold, cold_ms = _submit_all(svc, qs)
+    warm, warm_ms = _submit_all(svc, qs)
+    launches = ops.launch_counts()
+    want_launches = len(batches) * (len(tl) + 1)   # cold: every generation
+    for name, kern in KERNELS.items():
+        want = want_launches if kern["lane"] == "fused" else 0
+        if launches[name] != want:
+            raise AssertionError(f"serving: {name} launched "
+                                 f"{launches[name]}x, expected {want}x")
+    flush_rows = {}
+    for b, part in enumerate(batches):
+        q, m = _padded(part)
+        want = teng.retrieve_timeline(tl, q, cfg, m)
+        rows = slice(b * SERVE_BATCH, b * SERVE_BATCH + len(part))
+        if not (_tickets_equal(cold[rows], want)
+                and _tickets_equal(warm[rows], want)):
+            raise AssertionError(f"serving batch {b}: a ticket differs from "
+                                 "retrieve_timeline on its padded batch")
+        flush_rows[b] = want
+    traffic = svc.stats()
+
+    # batch invariance: is a query's row the same in any batch on the card?
+    differ = {"b1": {"rows": 0, "ids": 0, "score_bits": 0},
+              "padded_miss_lane": {"rows": 0, "ids": 0, "score_bits": 0}}
+    for i, q1 in enumerate(qs):
+        q, m = _padded([q1])
+        base = flush_rows[i // SERVE_BATCH]
+        row = i % SERVE_BATCH
+        ids0 = base.doc_ids[row].cpu().numpy()
+        sc0 = base.scores[row].cpu().numpy().view(np.uint32)
+        for key, (qq, mm) in (("b1", (q, m)), ("padded_miss_lane", (
+                np.repeat(q, SERVE_BATCH, 0), np.repeat(m, SERVE_BATCH, 0)))):
+            r = teng.retrieve_timeline(tl, qq, cfg, mm)
+            ids = r.doc_ids[0].cpu().numpy()
+            sc = r.scores[0].cpu().numpy().view(np.uint32)
+            d_ids, d_sc = int((ids != ids0).sum()), int((sc != sc0).sum())
+            differ[key]["rows"] += int(d_ids + d_sc > 0)
+            differ[key]["ids"] += d_ids
+            differ[key]["score_bits"] += d_sc
+
+    # a filtered batch through query(), on the timeline with a plane
+    names = tuple(FILTER_PREDICATES)
+    rates = dict(enumerate(FILTER_PREDICATES.values()))
+    planed = tstore.ShardedTimeline(
+        (filt["index"],) + tuple(
+            g._replace(pred_words=predicate_words(g.codes.shape[0], rates,
+                                                  10 + i, g.device))
+            for i, g in enumerate(tl.generations[1:])),
+        tuple(dataclasses.replace(m, pred_names=names) for m in tl.metas))
+    plan = bitvector.compile_filter(bitvector.Pred("p1"), names)
+    fsvc = RetrievalService(planed, cfg, max_batch=SERVE_BATCH)
+    fq = tlres["queries"][:32].cpu().numpy()
+    fres = [fsvc.query(fq, doc_filter=plan) for _ in range(2)]
+    fwant = teng.retrieve_timeline(planed, fq, cfg, doc_filter=plan)
+    if not all(_same_result(r, fwant) for r in fres):
+        raise AssertionError("filtered query() differs from "
+                             "retrieve_timeline with the filter")
+    passing = torch.cat([bitvector.apply_filter_plan(plan, g.pred_words)
+                         for g in planed.generations])
+    fin = torch.isfinite(fwant.scores)
+    if not passing[fwant.doc_ids[fin].long()].all():
+        raise AssertionError("a finite filtered result fails the filter")
+    del fsvc, planed
+
+    # a hot swap staged behind pending tickets, then add_passages. From
+    # here on the queries are new to the cache, planted on the new docs, so
+    # each result is held against retrieve_timeline on the batch the service
+    # ran (a cached row of another batch equals it only where the products
+    # are batch invariant: counted above)
+    new_t = synthetic.make_raw_docs(index, BUILD_SEED + 2,
+                                    SWAP_DOCS + ADD_DOCS, MIN_LEN)
+    new_embs, new_lens = (t.cpu().numpy() for t in new_t)
+    fresh = synthetic.make_raw_queries(*new_t, BUILD_SEED + 5,
+                                       SWAP_PENDING + SERVE_BATCH,
+                                       ENGINE["n_q"])[0].cpu().numpy()
+    pending = [svc.submit(q) for q in fresh[:SWAP_PENDING]]
+    t0 = time.perf_counter()
+    svc.new_generation(new_embs[:SWAP_DOCS], new_lens[:SWAP_DOCS])
+    stage_s = time.perf_counter() - t0
+    if len(svc.timeline) != len(tl):
+        raise AssertionError("the swap installed with tickets pending")
+    t0 = time.perf_counter()
+    svc.flush()
+    flush_s = time.perf_counter() - t0
+    q, m = _padded(list(fresh[:SWAP_PENDING]))
+    if not _tickets_equal(pending, teng.retrieve_timeline(tl, q, cfg, m)):
+        raise AssertionError("pending tickets were not answered against "
+                             "the snapshot they were accepted under")
+    if len(svc.timeline) != len(tl) + 1 or svc.metrics.deferred_swaps != 1:
+        raise AssertionError("the staged swap did not install at the flush")
+    t0 = time.perf_counter()
+    svc.add_passages(new_embs[SWAP_DOCS:], new_lens[SWAP_DOCS:])
+    add_s = time.perf_counter() - t0
+    q16 = fresh[SWAP_PENDING:]
+    if not _same_result(svc.query(q16),
+                        teng.retrieve_timeline(svc.timeline, q16, cfg)):
+        raise AssertionError("after add_passages the service differs from "
+                             "retrieve_timeline")
+
+    # compaction: generations 1-2 merge; under lossless budgets the results
+    # are the same before and after
+    lossless = dataclasses.replace(cfg, **MERGE_BUDGETS)
+    msvc = RetrievalService(svc.timeline, lossless, max_batch=SERVE_BATCH)
+    before = msvc.query(q16)
+    merges = {}
+    for name, s in (("service", svc), ("lossless", msvc)):
+        t0 = time.perf_counter()
+        acts = MaintenanceRunner(s, MaintenancePolicy(merge_factor=2)) \
+            .run_once()
+        merges[name] = time.perf_counter() - t0
+        if [(a.kind, a.lo, a.hi) for a in acts] != [("merge", 1, 3)]:
+            raise AssertionError(f"maintenance on the {name} service: "
+                                 f"{acts}, expected the merge of [1, 3)")
+    if not _same_result(msvc.query(q16), before):
+        raise AssertionError("results differ after the merge")
+    if not _same_result(svc.query(q16),
+                        teng.retrieve_timeline(svc.timeline, q16, cfg)):
+        raise AssertionError("the merged service differs from "
+                             "retrieve_timeline")
+    del msvc
+
+    # drift: a generation whose tokens moved away from the centroids, the
+    # runner re-epochs it with fresh codebooks built on the card
+    for noise in DRIFT_NOISE:
+        d_embs, d_lens = (t.cpu().numpy() for t in synthetic.make_raw_docs(
+            index, BUILD_SEED + 3, DRIFT_DOCS, MIN_LEN, token_noise=noise))
+        drift = tstore.new_generation(index, meta, d_embs[:256],
+                                      d_lens[:256])[1].drift
+        if drift > MaintenancePolicy().drift_threshold:
+            break
+    else:
+        raise AssertionError(f"no token noise of {DRIFT_NOISE} drifts")
+    if int(d_lens.sum()) < MIN_TRAIN_TOKENS:
+        raise AssertionError("the drifted generation is too small to train")
+    svc.new_generation(d_embs, d_lens)
+    start = svc.timeline.offsets[-1]
+    served_drift = svc.timeline.metas[-1].drift
+    fetched = []
+
+    def fetch(a, b):
+        fetched.append((a, b))
+        return d_embs[a - start:b - start], d_lens[a - start:b - start]
+    t0 = time.perf_counter()
+    acts = MaintenanceRunner(svc, MaintenancePolicy(), fetch_embeddings=fetch,
+                             build_seed=BUILD_SEED).run_once()
+    torch.cuda.synchronize()
+    reepoch_s = time.perf_counter() - t0
+    if [a.kind for a in acts] != ["reepoch"] or fetched != [
+            (start, start + DRIFT_DOCS)] or len(svc.epoched) != 2:
+        raise AssertionError(f"re-epoch: {acts}, fetched {fetched}")
+    # queries no generation has cached, so every lane holds the whole batch
+    dq, dgt = synthetic.make_raw_queries(
+        torch.from_numpy(d_embs), torch.from_numpy(d_lens), BUILD_SEED + 4,
+        2 * SERVE_BATCH, ENGINE["n_q"])
+    eq = dq.numpy()
+    eres = svc.query(eq)
+    if not _same_result(eres, teng.retrieve_timeline(svc.epoched, eq, cfg)):
+        raise AssertionError("the epoched service differs from "
+                             "retrieve_timeline")
+    new_epoch = svc.epoched.epochs[-1]
+    d_ids = eres.doc_ids.cpu().numpy()
+    found = float(np.mean([start + g in r for g, r in
+                           zip(dgt.numpy(), d_ids)]))
+
+    stats = svc.stats()
+    text = svc.exposition()
+    errors = _lint_exposition(text)
+    if errors:
+        raise AssertionError(f"exposition: {errors[:5]}")
+    emit("serving", queries=len(qs), terms=[len(q) for q in qs[:8]],
+         max_batch=SERVE_BATCH, launches=launches,
+         tickets_equal_padded_batch=True, warm_equals_cold=True,
+         cold_ms_per_query=_ms_stats(cold_ms),
+         warm_ms_per_query=_ms_stats(warm_ms),
+         flush_latency=traffic["latency"],
+         cold_flush_latency=traffic["cold_latency"],
+         warm_flush_latency=traffic["warm_latency"],
+         cache_after_warm=traffic["cache"], batch_invariance=differ,
+         filtered={"predicate": "p1", "equal": True,
+                   "fillers": int((~fin).sum())},
+         swap={"stage_seconds": stage_s, "flush_seconds": flush_s,
+               "add_passages_seconds": add_s,
+               "pending_answered_on_old_snapshot": True},
+         merge_seconds=merges, merge_equal_before_after=True,
+         drift={"token_noise": noise, "drift_first_256": drift,
+                "drift": served_drift, "real_tokens": int(d_lens.sum())},
+         reepoch={"seconds": reepoch_s, "docs": DRIFT_DOCS,
+                  "epochs": len(svc.epoched),
+                  "n_centroids": new_epoch.metas[0].n_centroids,
+                  "drift_after": new_epoch.metas[0].drift,
+                  "planted_found_at_100": found, "served_equal": True},
+         service_latency=stats["latency"], cache=stats["cache"],
+         maintenance=stats["maintenance"], timeline=stats["timeline"],
+         exposition_lines=len(text.splitlines()), exposition_valid=True)
+    return {"launches": launches}
 
 
 # --- 6. timing ---------------------------------------------------------------
@@ -2379,24 +2911,32 @@ KERNELS = {
 
 
 def kernels_line(small_err: dict, full: dict, timing: dict,
-                 prof: dict, ftiming: dict, bf16: dict) -> dict:
+                 prof: dict, ftiming: dict, bf16: dict, build: dict,
+                 serve: dict) -> dict:
     """Phase 9: one record per kernel, from this run's measurements. Each
     kernel's launches, time and profile come from the lane that runs it on
-    the main path; ``forms`` holds its filtered and compact operand forms
+    the main path; ``launches_by_path`` adds its launches on the trained
+    index (``index_build``, B = 32 then B = 1) and through the service
+    (``serving``); ``forms`` holds its filtered and compact operand forms
     and its bf16 form, each from its own config's run."""
     rows = []
     for name, info in KERNELS.items():
         kforms = {**ftiming["forms"].get(name, {}),
                   **bf16["forms"].get(name, {})}
         lane = info["lane"]
-        held = full["held" if lane == "fused" else "held_u"]
-        held_err = [held[b]["err"][name] for b in ("b32", "b1")]
+        key = "held" if lane == "fused" else "held_u"
+        held_err = [h[key][b]["err"][name] for h in (full, build)
+                    for b in ("b32", "b1")]
         step = "step_ms" if lane == "fused" else "unfused_step_ms"
         t32, t1 = timing["b32"], timing["b1"]
         rows.append({
             "name": name, "route": "cuda", **info,
             "launches": full["launches"][lane]["b32"][name],
             "launches_b1": full["launches"][lane]["b1"][name],
+            "launches_by_path": {
+                "index_build": [build["launches"][lane][b][name]
+                                for b in ("b32", "b1")],
+                "serving": serve["launches"][name]},
             "kernel_launches_per_call": prof[f"{lane}_b32"][
                 "kernel_launches_per_wrapper_call"][name],
             "max_abs_err": max(small_err[name], *held_err),
@@ -2441,13 +2981,17 @@ def main() -> None:
     small_err = small_phase(dev)
     full = full_phase(dev)
     filt = filter_phase(full)
-    timeline_phase(full)
+    tlres = timeline_phase(full)
+    build = index_build_phase(full)
+    serve = serving_phase(full, filt, tlres)
+    del tlres
     timing = timing_phase(full)
     ftiming = filter_timing_phase(filt)
     bf16 = bf16_phase(dev, full, filt)
     limits_phase(full)
     prof = profile_phase(full)
-    line = kernels_line(small_err, full, timing, prof, ftiming, bf16)
+    line = kernels_line(small_err, full, timing, prof, ftiming, bf16,
+                        build, serve)
     RECORD["kernels"] = line["kernels"]
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:

@@ -54,6 +54,7 @@ import torch
 
 from ..device import resolve_device, resolve_on
 from ..kernels import ops
+from ..obs import trace
 from . import bitvector, interaction
 from .index import PackedIndex
 from .pq import build_lut
@@ -491,7 +492,12 @@ def retrieve(index: PackedIndex, queries, cfg: EngineConfig, q_masks=None,
     retrieve-then-post-filter bit for bit.
     """
     q, qm = _inputs(index, queries, q_masks, device)
-    return _retrieve_batch(index, q, _with_filter(cfg, doc_filter), qm)
+    cfg = _with_filter(cfg, doc_filter)
+    # spans time the launches, not the device work (the reference's
+    # dispatch spans, same names)
+    with trace.span("engine.retrieve.dispatch", batch=q.shape[0],
+                    filtered=cfg.doc_filter is not None):
+        return _retrieve_batch(index, q, cfg, qm)
 
 
 # ---------------------------------------------------------------------------
@@ -694,9 +700,12 @@ def _generation_topk(index: PackedIndex, meta, offset: int,
             "recompile the FilterExpr with compile_filter(expr, "
             "meta.pred_names) for this timeline")
     cs, lut = (None, None) if operands is None else operands(index)
-    part = _retrieve_batch(index, queries,
-                           adapt_config_to_corpus(cfg, meta.n_docs, meta.cap),
-                           q_masks, cs=cs, lut=lut)
+    with trace.span("engine.retrieve.dispatch", batch=queries.shape[0],
+                    filtered=cfg.doc_filter is not None):
+        part = _retrieve_batch(
+            index, queries, adapt_config_to_corpus(cfg, meta.n_docs,
+                                                   meta.cap),
+            q_masks, cs=cs, lut=lut)
     return RetrievalResult(part.scores, part.doc_ids + offset)
 
 
@@ -730,10 +739,12 @@ def _timeline_topk(timeline, queries: torch.Tensor, cfg: EngineConfig,
         doc_filter = bitvector.compile_filter(doc_filter,
                                               timeline.metas[0].pred_names)
     cfg = _with_filter(cfg, doc_filter)
-    parts = [_generation_topk(gen, meta, off, queries, cfg, q_masks,
-                              operands)
-             for gen, meta, off in timeline]
-    return merge_partial_topk(parts, cfg.k, device=queries.device)
+    with trace.span("engine.retrieve_timeline.dispatch",
+                    generations=len(timeline.generations)):
+        parts = [_generation_topk(gen, meta, off, queries, cfg, q_masks,
+                                  operands)
+                 for gen, meta, off in timeline]
+        return merge_partial_topk(parts, cfg.k, device=queries.device)
 
 
 def retrieve_timeline(timeline, queries, cfg: EngineConfig, q_masks=None, *,

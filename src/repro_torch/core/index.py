@@ -5,10 +5,12 @@ Same layout as the reference: documents padded to ``cap`` tokens with the
 one-past-end centroid id ``n_c`` as pad, true lengths in ``doc_lens``, and a
 padded ``(n_c, list_cap)`` inverted file whose pad is the doc id ``n_docs``.
 
-The deterministic half of the build lives here too: quantizing tokens
-against frozen centroids, pooling documents to a budget, and the IVF. The
-trained half (k-means, PQ/OPQ and codec training) belongs with the index
-build.
+The build lives here too: :func:`build_index` trains the centroid
+vocabulary, the PQ (or OPQ) codebooks and the PLAID codec, then quantizes
+every token against them, pools documents to a budget when asked, and lays
+out the IVF. Its trained parts draw from a ``torch.Generator`` where the
+reference draws from ``jax.random``, so a build equals the reference's in
+its deterministic fields and in retrieval quality, not to the bit.
 """
 from __future__ import annotations
 
@@ -20,9 +22,10 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from .kmeans import assign
-from .pq import PQCodebooks
-from .residual import ResidualCodec
+from .bitvector import PredicateSet
+from .kmeans import Seed, assign, kmeans_spherical, split
+from .pq import PQCodebooks, encode_pq, train_opq, train_pq
+from .residual import ResidualCodec, encode_residual, train_residual_codec
 
 IVF_BLOCK_DOCS = 1 << 20   # docs per step of build_ivf's pair dedup
 
@@ -279,3 +282,112 @@ def build_ivf(codes: torch.Tensor, n_centroids: int,
             "(or leave it None to auto-size) if recall matters.",
             stacklevel=2)
     return ivf, ivf_lens, list_cap, n_dropped
+
+
+def build_index(seed: Seed, doc_embs: np.ndarray, doc_lens: np.ndarray, *,
+                n_centroids: int, m: int = 16, nbits: int = 8,
+                plaid_b: int = 2, list_cap: Optional[int] = None,
+                kmeans_iters: int = 8, pq_train_size: int = 65536,
+                use_opq: bool = False, predicates=None,
+                doc_budget: Optional[int] = None, device=None
+                ) -> tuple[PackedIndex, IndexMeta]:
+    """Build the full EMVB/PLAID index over a padded corpus (ref
+    ``index.py:293``) on ``resolve_device(device)``: the GPU unless the
+    caller asks for the CPU.
+
+    Spherical k-means over every real token builds the centroid vocabulary
+    (paper §4.1); every token is assigned (:func:`quantize_tokens`); PQ
+    codebooks (OPQ with ``use_opq``) are trained on a sample of at most
+    ``pq_train_size`` real residuals, the rows numpy's
+    ``default_rng(0).choice`` picks as in the reference, and encode every
+    residual (§4.4); the PLAID b-bit codec is fitted on the same sample;
+    the IVF is laid out by :func:`build_ivf` (``list_cap=None`` sizes it to
+    the longest list, a given one warns when it drops entries).
+    ``train_quant_mse``, the drift baseline, is the mean squared real
+    residual, computed in numpy in the reference's order.
+
+    ``seed`` (an int or a ``torch.Generator``) gives the k-means and the
+    PQ/OPQ training a generator each. ``predicates`` (a
+    :class:`~.bitvector.PredicateSet` or ``{name: (n_docs,) bool}``)
+    attaches the predicate plane; ``doc_budget`` pools every document to at
+    most that many vectors first (:func:`pool_documents`).
+
+    doc_embs : (n_docs, cap, d) float32, zero-padded
+    doc_lens : (n_docs,) int
+    -> (PackedIndex on the device, IndexMeta)
+    """
+    dev = resolve_device(device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    n_raw_tokens = int(np.asarray(doc_lens).sum())
+    if doc_budget is not None:
+        doc_embs, doc_lens = pool_documents(doc_embs, doc_lens, doc_budget)
+    doc_embs = np.asarray(doc_embs, dtype=np.float32)
+    doc_lens = np.asarray(doc_lens)
+    n_docs, cap, d = doc_embs.shape
+    g_centroids, g_pq = split(seed, 2)
+
+    if predicates is None:
+        pred_names: tuple = ()
+        pred_words = torch.zeros(n_docs, dtype=torch.uint32)
+    else:
+        pset = (predicates if isinstance(predicates, PredicateSet)
+                else PredicateSet.pack(predicates))
+        if pset.words.shape[0] != n_docs:
+            raise ValueError(
+                f"predicate plane covers {pset.words.shape[0]} docs but the "
+                f"corpus has {n_docs}: predicates must be given for every "
+                "doc at build time")
+        pred_names = pset.names
+        pred_words = pset.words
+
+    mask = np.arange(cap)[None, :] < doc_lens[:, None]
+    flat = torch.from_numpy(doc_embs.reshape(-1, d)[mask.reshape(-1)]).to(dev)
+    flat = flat / torch.clamp(torch.linalg.norm(flat, dim=-1, keepdim=True),
+                              min=1e-12)
+    centroids, _ = kmeans_spherical(g_centroids, flat, n_centroids,
+                                    iters=kmeans_iters, device=dev)
+    del flat
+
+    codes, residual_flat, mask = quantize_tokens(centroids, doc_embs,
+                                                 doc_lens)
+    real = torch.from_numpy(mask.reshape(-1)).to(dev)
+    real_res = residual_flat[real]
+    n_real = real_res.shape[0]
+    pick = np.random.default_rng(0).choice(
+        n_real, size=min(pq_train_size, n_real), replace=False)
+    res_sample = real_res[torch.from_numpy(pick).to(dev)]
+    if use_opq:
+        opq = train_opq(g_pq, res_sample, m, nbits=nbits, device=dev)
+        rotation, pq_cb = opq.rotation, opq.cb
+        residual_rot = residual_flat @ rotation
+    else:
+        rotation = torch.eye(d, dtype=torch.float32, device=dev)
+        pq_cb = train_pq(g_pq, res_sample, m, nbits=nbits, device=dev)
+        residual_rot = residual_flat
+    res_codes = encode_pq(residual_rot, pq_cb).reshape(n_docs, cap, m)
+    del residual_rot
+
+    codec = train_residual_codec(res_sample, plaid_b)
+    plaid_res = encode_residual(residual_flat, codec).reshape(n_docs, cap,
+                                                              -1)
+    del residual_flat
+
+    ivf, ivf_lens, list_cap, n_dropped = build_ivf(
+        codes, n_centroids, list_cap, origin="build_index")
+
+    host_res = real_res.cpu().numpy()
+    train_quant_mse = float(np.mean(np.sum(host_res * host_res, axis=-1)))
+
+    meta = IndexMeta(n_docs=n_docs, n_centroids=n_centroids, d=d, cap=cap,
+                     m=m, nbits=nbits, plaid_b=plaid_b, list_cap=list_cap,
+                     n_dropped=n_dropped, train_quant_mse=train_quant_mse,
+                     pred_names=pred_names, doc_budget=doc_budget,
+                     n_raw_tokens=n_raw_tokens)
+    index = PackedIndex(
+        centroids=centroids, codes=codes,
+        doc_lens=torch.from_numpy(doc_lens.astype(np.int32)).to(dev),
+        res_codes=res_codes, pq_codebooks=pq_cb.codebooks, ivf=ivf,
+        ivf_lens=ivf_lens, plaid_res=plaid_res,
+        plaid_cutoffs=codec.cutoffs, plaid_weights=codec.bucket_weights,
+        opq_rotation=rotation, pred_words=pred_words.to(dev))
+    return index, meta

@@ -1,13 +1,16 @@
 """Product quantization (counterpart of ``repro/core/pq.py``): the codebook
-view, the encoder against frozen codebooks, the decoder and the
-inner-product LUT. Training belongs with the index build."""
+view, training (per-subspace k-means, and OPQ's alternating rotation), the
+encoder against frozen codebooks, the decoder, the inner-product LUT and
+scoring against it. ``pq_ste`` (the straight-through quantizer) belongs with
+encoder training and is not here."""
 from __future__ import annotations
 
 from typing import NamedTuple
 
 import torch
 
-from .kmeans import _pairwise_sq_dists
+from ..device import resolve_device
+from .kmeans import Seed, _pairwise_sq_dists, kmeans, split
 
 
 class PQCodebooks(NamedTuple):
@@ -39,6 +42,20 @@ def _split(x: torch.Tensor, m: int) -> torch.Tensor:
     return x.reshape(n, m, d // m).transpose(0, 1)
 
 
+def train_pq(seed: Seed, x, m: int, *, nbits: int = 8, iters: int = 8,
+             device=None) -> PQCodebooks:
+    """Per-subspace codebooks trained on residuals x (n, d) (ref
+    ``pq.py:57``), on ``resolve_device(device)``: :func:`~.kmeans.kmeans`
+    with 2^nbits centroids on each of the m slices, each slice with its own
+    generator split from ``seed``."""
+    dev = resolve_device(device)
+    subs = _split(torch.as_tensor(x, dtype=torch.float32, device=dev), m)
+    gens = split(seed, m)
+    return PQCodebooks(torch.stack([
+        kmeans(gens[s], subs[s], 1 << nbits, iters=iters, device=dev)[0]
+        for s in range(m)]))
+
+
 def encode_pq(x: torch.Tensor, cb: PQCodebooks) -> torch.Tensor:
     """(n, d) -> (n, m) uint8 codes, the nearest codeword per subspace (ref
     ``pq.py:74``): the distances of :func:`~.kmeans._pairwise_sq_dists`,
@@ -63,3 +80,50 @@ def build_lut(q: torch.Tensor, cb: PQCodebooks) -> torch.Tensor:
     *lead, _ = q.shape
     qs = q.reshape(*lead, cb.m, cb.dsub)
     return torch.einsum("...sd,skd->...sk", qs, cb.codebooks)
+
+
+def lut_score(lut: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
+    """Score tokens against a LUT without decompression (ref ``pq.py:106``):
+    lut (..., m, K), codes (n, m) uint8 -> (..., n) with
+    ``sum_s lut[..., s, codes[n, s]]``, summed over s = 0..m-1."""
+    idx = codes.long()
+    out = lut[..., 0, idx[:, 0]]
+    for s in range(1, lut.shape[-2]):
+        out = out + lut[..., s, idx[:, s]]
+    return out
+
+
+class OPQ(NamedTuple):
+    """Optimized PQ (ref ``pq.py:130``): an orthonormal rotation plus the
+    codebooks trained on the rotated residuals (Ge et al., 2013)."""
+
+    rotation: torch.Tensor  # (d, d) orthonormal
+    cb: PQCodebooks
+
+
+def train_opq(seed: Seed, x, m: int, *, nbits: int = 8,
+              kmeans_iters: int = 6, opq_iters: int = 4,
+              device=None) -> OPQ:
+    """Alternate PQ training on the rotated data with the procrustes update
+    of the rotation (ref ``pq.py:138``), on ``resolve_device(device)``:
+    ``R = U V^T`` from the SVD of ``x^T x_hat``. Sign flips of paired
+    singular vectors leave R unchanged."""
+    dev = resolve_device(device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    x = torch.as_tensor(x, dtype=torch.float32, device=dev)
+    rot = torch.eye(x.shape[1], dtype=x.dtype, device=dev)
+    cb = None
+    for g in split(seed, opq_iters):
+        xr = x @ rot
+        cb = train_pq(g, xr, m, nbits=nbits, iters=kmeans_iters, device=dev)
+        xhat = decode_pq(encode_pq(xr, cb), cb)
+        u, _, vt = torch.linalg.svd(x.T @ xhat, full_matrices=False)
+        rot = u @ vt
+    return OPQ(rot, cb)
+
+
+def pq_reconstruction_mse(x: torch.Tensor, cb: PQCodebooks) -> torch.Tensor:
+    """Mean squared encode -> decode reconstruction error of x (n, d) (ref
+    ``pq.py:158``)."""
+    xhat = decode_pq(encode_pq(x, cb), cb)
+    return torch.mean(torch.sum((x - xhat) ** 2, dim=-1))

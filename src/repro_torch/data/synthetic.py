@@ -123,6 +123,9 @@ def make_packed_index(seed: int, *, n_docs: int, cap: int, min_len: int,
       zero predicate plane;
       PLAID fields are placeholders of the smallest shapes.
     * IVF: :func:`build_ivf` over the codes, truncated at ``list_cap``.
+    * ``meta.train_quant_mse``: a planted token is its centroid plus its
+      decoded residual, so the drift baseline is the mean squared norm of
+      the real tokens' decoded residuals (:func:`_planted_quant_mse`).
     """
     dev = resolve_device(device)
     g = torch.Generator(device=dev)
@@ -169,8 +172,26 @@ def make_packed_index(seed: int, *, n_docs: int, cap: int, min_len: int,
     meta = IndexMeta(n_docs=n_docs, n_centroids=n_centroids, d=d, cap=cap,
                      m=m, nbits=nbits, plaid_b=2, list_cap=list_cap,
                      n_dropped=n_dropped,
+                     train_quant_mse=_planted_quant_mse(index),
                      n_raw_tokens=int(doc_lens.sum()))
     return index, meta
+
+
+def _planted_quant_mse(index: PackedIndex) -> float:
+    """Mean over the real tokens of ``|decode_pq(residual code)|^2`` — the
+    squared distance of a planted token to its centroid — summed in
+    float64 a block of docs at a time."""
+    sq = (index.pq_codebooks ** 2).sum(-1)                    # (m, K)
+    sub = torch.arange(sq.shape[0], device=sq.device)
+    cap = index.codes.shape[1]
+    tok = torch.arange(cap, device=sq.device)
+    total = torch.zeros((), dtype=torch.float64, device=sq.device)
+    step = max(1, GEN_BLOCK_DOCS // 8)
+    for s in range(0, index.codes.shape[0], step):
+        per_token = sq[sub, index.res_codes[s:s + step].long()].sum(-1)
+        valid = tok[None, :] < index.doc_lens[s:s + step, None]
+        total += per_token[valid].double().sum()
+    return float(total) / max(int(index.doc_lens.sum()), 1)
 
 
 def make_queries(index: PackedIndex, seed: int, n_queries: int,
@@ -200,12 +221,15 @@ def make_queries(index: PackedIndex, seed: int, n_queries: int,
     return _unit(vec), gt
 
 
-def make_raw_docs(index: PackedIndex, seed: int, n_docs: int, min_len: int
+def make_raw_docs(index: PackedIndex, seed: int, n_docs: int, min_len: int,
+                  token_noise: float = TOKEN_NOISE
                   ) -> tuple[torch.Tensor, torch.Tensor]:
     """New passages for a planted index as raw token embeddings, on its
     device: topics and centroids drawn as :func:`make_packed_index` draws
     them, each token ``normalize(centroid + noise)`` with noise of norm
-    about ``TOKEN_NOISE``, lengths uniform in [min_len, cap], zero-padded.
+    about ``token_noise``, lengths uniform in [min_len, cap], zero-padded.
+    A larger ``token_noise`` than the default moves the passages away from
+    the index's centroids, which the grown generation's drift reads.
     -> (doc_embs (n_docs, cap, d) float32, doc_lens (n_docs,) int32)."""
     dev = index.codes.device
     n_c, d = index.centroids.shape
@@ -222,7 +246,7 @@ def make_raw_docs(index: PackedIndex, seed: int, n_docs: int, min_len: int
     topic = torch.where(primary, two[:, :1], two[:, 1:])
     slot = torch.randint(0, per, (n_docs, cap), generator=g, device=dev)
     c = torch.clamp(topic * per + slot, max=n_c - 1)
-    embs = _unit(index.centroids[c] + TOKEN_NOISE / d ** 0.5 * torch.randn(
+    embs = _unit(index.centroids[c] + token_noise / d ** 0.5 * torch.randn(
         n_docs, cap, d, generator=g, device=dev))
     pad = torch.arange(cap, device=dev)[None, :] >= doc_lens[:, None]
     return embs.masked_fill(pad[..., None], 0.0), doc_lens

@@ -738,3 +738,118 @@ def test_timeline_phase_on_card(smoke, card):
         ucfg=dataclasses.replace(cfg, fused_prefilter=False,
                                  fused_late_interaction=False)))
     assert len(out["timeline"]) == 3 and len(out["merged"]) == 2
+
+
+@pytest.mark.cuda
+def test_build_index_on_card_matches_cpu(card):
+    """build_index on the card against the CPU from one seed: the same
+    deterministic fields, retrieval quality within 0.05 MRR@10, and two
+    card builds with one fingerprint."""
+    from repro_torch.core import build_index, index_fingerprint
+    from repro_torch.core import engine as teng
+    from repro_torch.data.synthetic import make_corpus, mrr_at_k
+    c = make_corpus(3, n_docs=800, cap=24, min_len=8, n_queries=32,
+                    n_topics=32)
+    kw = dict(n_centroids=128, m=8, nbits=4, kmeans_iters=3)
+    cpu, cm = build_index(0, c.doc_embs, c.doc_lens, device="cpu", **kw)
+    dev, dm = build_index(0, c.doc_embs, c.doc_lens, device=card, **kw)
+    again, _ = build_index(0, c.doc_embs, c.doc_lens, device=card, **kw)
+    assert index_fingerprint(dev) == index_fingerprint(again)
+    for f in ("n_docs", "cap", "n_raw_tokens", "doc_budget", "pred_names"):
+        assert getattr(dm, f) == getattr(cm, f)
+    assert all(getattr(dev, f).device.type == "cuda" for f in dev._fields)
+    cfg = teng.EngineConfig(nprobe=8, th=0.2, th_r=0.4, n_filter=128,
+                            n_docs=48, k=10, use_kernels=True)
+    mrr = [mrr_at_k(teng.retrieve(i, c.queries, cfg, device=d).doc_ids
+                    .cpu().numpy(), c.gt_doc)
+           for i, d in ((cpu, "cpu"), (dev, card))]
+    assert mrr[1] >= mrr[0] - 0.05, mrr
+
+
+@pytest.mark.cuda
+def test_kmeans_update_is_deterministic_on_card(card):
+    from repro_torch.core import kmeans
+    g = torch.Generator(device=card).manual_seed(0)
+    x = torch.randn(200_000, 128, generator=g, device=card)
+    a = torch.randint(0, 4096, (200_000,), generator=g, device=card)
+    one, two = (kmeans._update(x, a, 4100, x[:4100], kmeans.generator(1))
+                for _ in range(2))
+    assert torch.equal(one.view(torch.int32), two.view(torch.int32))
+    cpu = kmeans._update(x.cpu(), a.cpu(), 4100, x[:4100].cpu(),
+                         kmeans.generator(1))
+    assert torch.allclose(one.cpu(), cpu, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lane", sorted(TL_LANES))
+def test_service_on_card_equals_retrieve_timeline(card, lane):
+    """RetrievalService on the card: every ticket and query() result equals
+    retrieve_timeline on the card (same padded batch), cold and warm, and
+    the warm pass launches the kernels for the open generation only."""
+    from repro_torch.core import engine as teng
+    from repro_torch.core import store as tstore
+    from repro_torch.serving import RetrievalService, pad_query
+    tl_cpu, q = _cpu_timeline()
+    tl = tstore.ShardedTimeline(tuple(_moved(g, card)
+                                      for g in tl_cpu.generations),
+                                tl_cpu.metas)
+    cfg = teng.EngineConfig(**TL_ENGINE, **TL_LANES[lane])
+    svc = RetrievalService(tl, cfg, max_batch=8)
+    qs = [x[:8 + i % 9] for i, x in enumerate(q.numpy())]
+    padded = [pad_query(x, TL_ENGINE["n_q"]) for x in qs[:8]]
+    want = teng.retrieve_timeline(tl, np.stack([p[0] for p in padded]), cfg,
+                                  np.stack([p[1] for p in padded]))
+    for rnd in range(2):
+        before = dict(ops.launch_counts())
+        tickets = [svc.submit(x) for x in qs[:8]]
+        launched = sum(v - before[k] for k, v in ops.launch_counts().items())
+        per = 2 if lane == "fused" else 4
+        assert launched == per * (len(tl) if rnd == 0 else 1)
+        for i, t in enumerate(tickets):
+            s, ids = t.result()
+            assert np.array_equal(ids, want.doc_ids[i].cpu().numpy())
+            assert np.array_equal(s.view(np.uint32),
+                                  want.scores[i].cpu().numpy().view(np.uint32))
+    got = svc.query(q.numpy())
+    ref = teng.retrieve_timeline(tl, q.numpy(), cfg)
+    _same((got.doc_ids, got.scores), (ref.doc_ids, ref.scores))
+
+
+@pytest.mark.cuda
+def test_index_build_and_serving_phases_on_card(smoke, card, monkeypatch):
+    """The index_build and serving phases of chip_smoke.py at a tiny width
+    on the card, after the timeline phase they serve: every hold passes."""
+    import dataclasses
+
+    from repro_torch.core import engine as teng
+    from repro_torch.data import synthetic
+    widths = {k: v for k, v in TL_WIDTHS.items() if k != "min_len"}
+    for name, value in (("BUILD_DOCS", 400), ("BUILD_HOLD", 16),
+                        ("MIN_TRAIN_TOKENS", 1000), ("SWAP_DOCS", 64),
+                        ("ADD_DOCS", 32), ("DRIFT_DOCS", 300),
+                        ("BUILD", dict(n_centroids=widths["n_centroids"],
+                                       m=widths["m"], nbits=widths["nbits"],
+                                       plaid_b=2, list_cap=None,
+                                       kmeans_iters=3, pq_train_size=2000))):
+        monkeypatch.setattr(smoke, name, value)
+    index, meta = synthetic.make_packed_index(
+        0, min_len=TL_WIDTHS["min_len"], device=card, **widths)
+    queries, gt = synthetic.make_queries(index, 1, 64, TL_ENGINE["n_q"])
+    cfg = teng.EngineConfig(**TL_ENGINE, use_kernels=True)
+    ucfg = dataclasses.replace(cfg, fused_prefilter=False,
+                               fused_late_interaction=False)
+    full = dict(index=index, meta=meta, cfg=cfg, ucfg=ucfg, queries=queries,
+                gt=gt)
+    launches, results, _, _ = smoke.serve_lanes(
+        index, {"fused": cfg, "unfused": ucfg}, queries, gt)
+    full["held"], full["held_u"], _ = smoke.hold_lanes(
+        index, cfg, ucfg, queries, results)
+    full["token_hist"] = smoke.token_hist(index)
+    tlres = smoke.timeline_phase(full)
+    filt = {"index": index._replace(pred_words=smoke.predicate_words(
+        meta.n_docs, dict(enumerate(smoke.FILTER_PREDICATES.values())), 1,
+        card))}
+    build = smoke.index_build_phase(full)
+    serve = smoke.serving_phase(full, filt, tlres)
+    assert build["launches"]["fused"]["b32"]["prefilter"] == 2
+    assert serve["launches"]["pqinter"] == 16

@@ -16,9 +16,13 @@ import torch
 import repro_torch
 from repro.core.index import _build_ivf
 from repro_torch.core import engine as teng
+from repro_torch.core import index as tindex
+from repro_torch.core import kmeans
+from repro_torch.core import pq as tpq
 from repro_torch.core import store as tstore
 from repro_torch.core.index import build_ivf, index_from_arrays
 from repro_torch.data import synthetic
+from repro_torch.serving import RetrievalService, reepoch_tail
 
 torch.set_num_threads(1)
 
@@ -50,6 +54,28 @@ def test_port_imports_without_jax_or_repro():
     assert out.stdout.startswith("ok")
 
 
+def test_every_module_imports_first():
+    """Each module of the port imports on its own, as the first of the
+    package to load (a kernel module first caught an import cycle through
+    ``core/__init__.py``)."""
+    modules = sorted(m.name for m in pkgutil.walk_packages(
+        repro_torch.__path__, "repro_torch."))
+    code = textwrap.dedent(f"""
+        import importlib, sys
+        sys.path[:0] = [{os.path.join(ROOT, "src")!r}]
+        for name in {modules!r}:
+            for m in [m for m in sys.modules if m.startswith("repro_torch")]:
+                del sys.modules[m]
+            importlib.import_module(name)
+        print("ok")
+    """)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300, cwd=ROOT, env=env)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("ok")
+
+
 def _port_sources() -> list:
     """Every Python source of the port: the package, chip_smoke.py and the
     card scripts beside it."""
@@ -70,6 +96,10 @@ def test_port_sources_import_no_jax_or_repro():
     files = _port_sources()
     assert any(f.endswith(os.path.join("core", "bitvector.py"))
                for f in files)
+    for sub in (("serving", "service.py"), ("serving", "maintenance.py"),
+                ("serving", "cache.py"), ("obs", "trace.py"),
+                ("obs", "registry.py")):
+        assert any(f.endswith(os.path.join(*sub)) for f in files), sub
     bad = []
     for path in files:
         with open(path) as f:
@@ -125,6 +155,29 @@ def test_entry_points_refuse_the_cpu_unless_asked(monkeypatch, small_index,
     assert gmeta.n_docs == 2 and gen.device.type == "cpu"
     assert tstore.add_passages(index, meta, docs, lens,
                                device="cpu")[1].n_docs == meta.n_docs + 2
+    rows = np.random.default_rng(0).normal(size=(40, 8)).astype(np.float32)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        kmeans.kmeans(0, rows, 4)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        kmeans.kmeans_spherical(0, rows, 4)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tpq.train_pq(0, rows, 2, nbits=2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tpq.train_opq(0, rows, 2, nbits=2)
+    embs = np.zeros((3, 4, 8), np.float32)
+    embs[:, :, 0] = 1.0
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tindex.build_index(0, embs, np.array([4, 2, 3]), n_centroids=2,
+                           m=2, nbits=2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        RetrievalService(tl, cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        reepoch_tail(tl, 0, docs, lens, seed=0)
+    assert kmeans.kmeans(0, rows, 4, device="cpu")[0].shape == (4, 8)
+    assert tindex.build_index(0, embs, np.array([4, 2, 3]), n_centroids=2,
+                              m=2, nbits=2, device="cpu")[1].n_docs == 3
+    assert RetrievalService(tl, cfg, device="cpu").query(
+        q.numpy()).doc_ids.shape == (1, 10)
 
 
 TINY = dict(n_docs=700, cap=12, min_len=5, d=32, n_centroids=96, m=4,
