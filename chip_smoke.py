@@ -52,6 +52,12 @@ Phases:
                {1, 3, 32, 40}, cand_cap 4100 (no multiple of the 1024-doc
                tile), holes in the valid slots; doc_pass with every, no,
                fewer than n_docs and fewer than k survivors passing)
+  3b. distributed_two_ranks — two ranks spawned on the one card over gloo
+               (NCCL refuses two ranks on one device), each with a planted
+               index of DIST_DOCS docs: shard_index + make_shardmap_retriever
+               at B = 32 and B = 1 equal to the two-level top-k composed on
+               the card from each shard's retrieve and topk; run while
+               nothing else is resident
   4. full    — the planted index on the card at MS MARCO width; retrieve at
                B = 32 and B = 1 on each lane (launch counts read around those
                runs only); each kernel held against its plain version on the
@@ -60,6 +66,11 @@ Phases:
                rows (rho: the share of the corpus' valid tokens whose
                centroid's row has a bit set) at B = 32 and B = 1; the planted
                docs' Success@100 and MRR@10 on both lanes
+  4b. invariance — the CS and LUT elements that differ between B rows of
+               a batch of B and the same rows of a batch of 32 (its first
+               and its last B), B in {1, 2, 4, 8, 16, 17}, at 512, 4,096 and
+               2^18 centroids, float32 and bf16: all 0; beside them the
+               counts and ms of one product over the whole batch
   5. filter  — the same index with a predicate plane built on the card
                from a seed (four predicates passing 50, 10, 1 and 0.01 % of
                docs); retrieve at B = 32 and B = 1 on both lanes with the
@@ -92,8 +103,26 @@ Phases:
                tickets; add_passages; MaintenanceRunner's merge (results
                equal before and after under lossless budgets) and its
                re-epoch of a drifted generation with 2^18-centroid
-               codebooks built on the card; latencies, cache, the
-               exposition linted
+               codebooks built on the card; every row the same in any
+               batch, and a batch mixing cached rows of other batches with
+               new queries equal to an uncached run of it; latencies,
+               cache, the exposition linted
+  5e. explain — explain on a planted query at full width on both lanes,
+               unfiltered, with the 1 % filter and in compact mode, and
+               explain_timeline over the timeline: each top-k equal to
+               retrieve's (retrieve_timeline's), contributions summing to
+               k, the funnel counts and phase ms
+  5f. distributed — the sharded plan over one NCCL rank at full width:
+               equal to retrieve at B = 32 and B = 1 (launch counts read
+               around those calls), make_timeline_retriever equal to
+               retrieve_timeline, make_service equal to RetrievalService
+  5g. plaid  — 22.6 GB of b = 2 PLAID residuals made on the card for the
+               full index; PLAID retrieve and its four phases at B = 32 and
+               B = 1 (cinter launched once a query over all 8,841,823 docs,
+               held exactly against its plain version on the first 65,536
+               docs and every selected doc), planted Success@100 and
+               MRR@10, ms per phase and end to end beside EMVB fused in
+               turns; then PLAID and EMVB on the trained index, MRR@10
   6. timing  — CUDA-event medians of every step of both lanes (the CS^T
                transpose a step of its own), end to end, each kernel
                beside its plain version and its bound, and the host ms of
@@ -125,7 +154,7 @@ Phases:
                launches per wrapper call (tables in OUT_DIR, one
                profile_<lane>_b<B>.txt each)
   9. kernels — one JSON line describing the six kernels, each with its
-               operand forms
+               operand forms and its launches on every path
 and last ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -1779,7 +1808,8 @@ def index_build_phase(full: dict) -> dict:
         if qual["success_at_100"] < SUCCESS_FLOOR:
             raise AssertionError(f"trained index, {lane} lane: Success@100 "
                                  f"{qual['success_at_100']} < {SUCCESS_FLOOR}")
-    return {"launches": launches, "held": held, "held_u": held_u}
+    return {"launches": launches, "held": held, "held_u": held_u,
+            "index": index, "queries": queries, "gt": gt}
 
 
 # --- 5d. serving: RetrievalService over the full-width timeline -------------
@@ -1878,6 +1908,7 @@ def serving_phase(full: dict, filt: dict, tlres: dict) -> dict:
     batches = [qs[s:s + SERVE_BATCH] for s in range(0, len(qs), SERVE_BATCH)]
 
     svc = RetrievalService(tl, cfg, max_batch=SERVE_BATCH)
+    fingerprints = svc._fingerprints(tl)
     ops.reset_launches()
     cold, cold_ms = _submit_all(svc, qs)
     warm, warm_ms = _submit_all(svc, qs)
@@ -1918,6 +1949,8 @@ def serving_phase(full: dict, filt: dict, tlres: dict) -> dict:
             differ[key]["rows"] += int(d_ids + d_sc > 0)
             differ[key]["ids"] += d_ids
             differ[key]["score_bits"] += d_sc
+    if any(v["rows"] for v in differ.values()):
+        raise AssertionError(f"a query's row differs by batch: {differ}")
 
     # a filtered batch through query(), on the timeline with a plane
     names = tuple(FILTER_PREDICATES)
@@ -1943,11 +1976,8 @@ def serving_phase(full: dict, filt: dict, tlres: dict) -> dict:
         raise AssertionError("a finite filtered result fails the filter")
     del fsvc, planed
 
-    # a hot swap staged behind pending tickets, then add_passages. From
-    # here on the queries are new to the cache, planted on the new docs, so
-    # each result is held against retrieve_timeline on the batch the service
-    # ran (a cached row of another batch equals it only where the products
-    # are batch invariant: counted above)
+    # a hot swap staged behind pending tickets, then add_passages; queries
+    # planted on the new docs
     new_t = synthetic.make_raw_docs(index, BUILD_SEED + 2,
                                     SWAP_DOCS + ADD_DOCS, MIN_LEN)
     new_embs, new_lens = (t.cpu().numpy() for t in new_t)
@@ -1977,6 +2007,21 @@ def serving_phase(full: dict, filt: dict, tlres: dict) -> dict:
                         teng.retrieve_timeline(svc.timeline, q16, cfg)):
         raise AssertionError("after add_passages the service differs from "
                              "retrieve_timeline")
+    # cached rows of one batch against an uncached run of another: the
+    # immutable generations' partials of q16 and of the pending tickets are
+    # cached, each computed in its own batch; this batch mixes them in
+    # another order with queries new to this service's cache
+    mixed = np.concatenate([q16[8:], fresh[:SWAP_PENDING][::-1],
+                            tlres["queries"][32:36].cpu().numpy(),
+                            q16[:3]])
+    hits = svc.cache.hits
+    if not _same_result(svc.query(mixed),
+                        teng.retrieve_timeline(svc.timeline, mixed, cfg)):
+        raise AssertionError("cached rows of other batches differ from an "
+                             "uncached run of this batch")
+    mixed_hits = svc.cache.hits - hits
+    if mixed_hits == 0:
+        raise AssertionError("the mixed batch hit no cached row")
 
     # compaction: generations 1-2 merge; under lossless budgets the results
     # are the same before and after
@@ -2057,6 +2102,8 @@ def serving_phase(full: dict, filt: dict, tlres: dict) -> dict:
          cold_flush_latency=traffic["cold_latency"],
          warm_flush_latency=traffic["warm_latency"],
          cache_after_warm=traffic["cache"], batch_invariance=differ,
+         mixed_batch={"queries": len(mixed), "cache_hits": mixed_hits,
+                      "equal_uncached_run": True},
          filtered={"predicate": "p1", "equal": True,
                    "fillers": int((~fin).sum())},
          swap={"stage_seconds": stage_s, "flush_seconds": flush_s,
@@ -2073,7 +2120,507 @@ def serving_phase(full: dict, filt: dict, tlres: dict) -> dict:
          service_latency=stats["latency"], cache=stats["cache"],
          maintenance=stats["maintenance"], timeline=stats["timeline"],
          exposition_lines=len(text.splitlines()), exposition_valid=True)
+    return {"launches": launches, "fingerprints": fingerprints}
+
+
+# --- 5e. invariance: a query's CS and LUT bits in any batch -----------------
+
+# (n_centroids, d, n_q, m, nbits): the width where one product over the
+# batch was not invariant, and the emvb-msmarco d, n_q, m, nbits over 4,096
+# centroids; 2^18 centroids is the full index itself.
+INVARIANCE_WIDTHS = ((512, 32, 16, 4, 4), (4096, 128, 32, 16, 8))
+INVARIANCE_BATCHES = (1, 2, 4, 8, 16, 17)
+
+
+def invariance_phase(full: dict) -> dict:
+    """Phase 5e: at each width of INVARIANCE_WIDTHS (a 3,000-doc planted
+    index) and on the full index (2^18 centroids), in float32 and bf16, the
+    CS and LUT elements that differ between B rows computed in a batch of B
+    and the same rows in a batch of 32 (its first B rows, and its last B),
+    for B in INVARIANCE_BATCHES: every count must be 0. Beside them, the
+    counts of one product over the whole batch (``torch.matmul`` of
+    (B, n_q, d) by the table, the form before the per-query product), which
+    are not held, and the ms of both forms at B = 32 and B = 1 (L2
+    flushed)."""
+    import torch
+    from repro_torch.core import engine as teng
+    from repro_torch.core.precision import CS_DTYPES
+    from repro_torch.data import synthetic
+    index0 = full["index"]
+    dev = index0.device
+    widths = [(w, synthetic.make_packed_index(
+        0, n_docs=3000, cap=16, min_len=6, d=w[1], n_centroids=w[0], m=w[3],
+        nbits=w[4], list_cap=None, device=dev)[0]) for w in INVARIANCE_WIDTHS]
+    widths.append(((WIDTHS["n_centroids"], WIDTHS["d"], ENGINE["n_q"],
+                    WIDTHS["m"], WIDTHS["nbits"]), index0))
+    flush = torch.empty(64 << 20, dtype=torch.int32, device=dev)
+    counts, one_gemm, ms = {}, {}, {}
+    for (n_c, d, n_q, _, _), index in widths:
+        q, _ = synthetic.make_queries(index, 1, 32, n_q)
+        lut = teng._query_lut(index, q).view(torch.int32)
+        for dtype in ("float32", "bfloat16"):
+            key = f"n_c={n_c},d={d},n_q={n_q},{dtype}"
+            dt = CS_DTYPES[dtype]
+
+            def batched(x):
+                return torch.matmul(x.to(dt), index.centroids.T.to(dt))
+            cs = teng.centroid_scores(q, index.centroids, dtype)
+            one = batched(q)
+            counts[key], one_gemm[key] = {}, {}
+            for b in INVARIANCE_BATCHES:
+                # the first b rows, and the last b (at other positions in
+                # the batch of b than in the batch of 32)
+                rows = (slice(0, b), slice(32 - b, 32))
+                counts[key][b] = {
+                    "cs_elements_differing": sum(int((teng.centroid_scores(
+                        q[r], index.centroids, dtype).view(torch.int16)
+                        != cs[r].view(torch.int16)).sum()) for r in rows),
+                    "lut_elements_differing": sum(int((teng._query_lut(
+                        index, q[r]).view(torch.int32) != lut[r]).sum())
+                        for r in rows),
+                    "cs_elements": 2 * cs[:b].numel()}
+                one_gemm[key][b] = sum(int((batched(q[r]).view(torch.int16)
+                                            != one[r].view(torch.int16)
+                                            ).sum()) for r in rows)
+            if n_c == WIDTHS["n_centroids"]:
+                for name, x in (("b32", q), ("b1", q[:1])):
+                    ms[f"{dtype}_{name}"] = {
+                        "per_query_products": time_ms(
+                            lambda x=x: teng.centroid_scores(
+                                x, index.centroids, dtype), flush=flush),
+                        "one_product": time_ms(lambda x=x: batched(x),
+                                               flush=flush)}
+    bad = {k: {b: c for b, c in v.items()
+               if c["cs_elements_differing"] or c["lut_elements_differing"]}
+           for k, v in counts.items()}
+    emit("invariance", counts=counts, one_product_cs_elements_differing=
+         one_gemm, cs_ms=ms, nvidia_smi=RECORD["device"]["nvidia_smi"])
+    if any(bad.values()):
+        raise AssertionError(f"CS or LUT rows differ by batch: {bad}")
+    return {"counts": counts, "cs_ms": ms}
+
+
+# --- 5f. PLAID at full width -------------------------------------------------
+
+PLAID_CFG = dict(k=100, n_docs=100, nprobe=4)  # table1_msmarco.py:32, k = 100
+PLAID_SAMPLE_DOCS = 1 << 16   # docs whose S̄ the plain version recomputes
+
+
+def cinter_corpus_bound(n_docs: int, tokens: int, rows: int, n_q: int
+                        ) -> dict:
+    """Least bytes one whole-corpus cinter launch must move: every doc's
+    length and valid-token codes, the CS^T rows the corpus' tokens touch
+    (``rows`` distinct centroids), the term mask and S̄ out; one max per
+    (valid token, term)."""
+    return _bound(n_docs * 4 + tokens * 4 + rows * n_q * 4 + n_q
+                  + n_docs * 4, tokens * n_q)
+
+
+def plaid_phase(full: dict, build: dict) -> dict:
+    """Phase 5f: the PLAID baseline at full width. The planted index gains
+    b = 2 PLAID residuals made on the card (synthetic.with_plaid_residuals);
+    plaid.retrieve at B = 32 and B = 1 with the launch counts read around
+    those calls (cinter once a query, nothing else); the four phases of
+    the first batch and of one query composed to retrieve's result; each
+    query's whole-corpus cinter launch held exactly against
+    cinter_batched_ref on the first PLAID_SAMPLE_DOCS docs and every
+    selected doc; planted Success@100 and MRR@10; ms per phase and end to
+    end beside EMVB fused on the same queries, in turns; cinter's
+    whole-corpus ms beside its bound; then PLAID and EMVB fused on the
+    trained index of index_build (real residuals), MRR@10 and Success@100
+    for both."""
+    import torch
+    from repro_torch.core import engine as teng
+    from repro_torch.core import plaid
+    from repro_torch.core.topk import topk
+    from repro_torch.data import synthetic
+    from repro_torch.kernels import cinter as kci
+    from repro_torch.kernels import ops
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    index, meta = synthetic.with_plaid_residuals(full["index"], full["meta"])
+    torch.cuda.synchronize()
+    make_s = time.perf_counter() - t0
+    pcfg = plaid.PlaidConfig(n_q=ENGINE["n_q"], **PLAID_CFG)
+    cfg = full["cfg"]
+    queries, gt = full["queries"], full["gt"]
+    batches = [queries[s:s + 32] for s in range(0, N_QUERIES, 32)]
+    n_docs = index.codes.shape[0]
+    ops.reset_launches()
+    res = [plaid.retrieve(index, q, pcfg) for q in batches]
+    torch.cuda.synchronize()
+    launches = {"b32": ops.launch_counts()}
+    ops.reset_launches()
+    res1 = [plaid.retrieve(index, queries[i:i + 1], pcfg)
+            for i in range(N_SINGLE)]
+    torch.cuda.synchronize()
+    launches["b1"] = ops.launch_counts()
+    for b, want in (("b32", N_QUERIES), ("b1", N_SINGLE)):
+        got = {k: v for k, v in launches[b].items() if v}
+        if got != {"cinter": want}:
+            raise AssertionError(f"plaid {b}: launches {launches[b]}, "
+                                 f"expected cinter {want}x and no other")
+    ids = torch.cat([r.doc_ids for r in res])
+    scores = torch.cat([r.scores for r in res])
+    if ids.shape != (N_QUERIES, pcfg.k) or not torch.isfinite(scores).all() \
+            or not (scores[:, :-1] >= scores[:, 1:]).all() \
+            or not ((ids >= 0) & (ids < n_docs)).all():
+        raise AssertionError("plaid.retrieve returned malformed results")
+    gt_np, ids_np = gt.cpu().numpy(), ids.cpu().numpy()
+    ids1_np = torch.cat([r.doc_ids for r in res1]).cpu().numpy()
+    quality = {"success_at_100": synthetic.success_at_k(ids_np, gt_np, 100),
+               "mrr_at_10": synthetic.mrr_at_k(ids_np, gt_np, 10),
+               "success_at_100_b1": synthetic.success_at_k(
+                   ids1_np, gt_np[:N_SINGLE], 100),
+               "b1_rows_equal_b32": int(sum(
+                   (ids1_np[i] == ids_np[i]).all()
+                   for i in range(N_SINGLE)))}
+
+    # the phases composed, and every whole-corpus cinter launch held
+    held, err = {}, 0.0
+    for name, q, ref in (("b32", batches[0], res[0]),
+                         ("b1", queries[:1], res1[0])):
+        cs, bitmap = plaid.phase_retrieval(index, q, pcfg)
+        sel2 = plaid.phase_filtering(index, cs, bitmap, pcfg)
+        emb = plaid.phase_decompression(index, sel2)
+        top, pids = plaid.phase_late_interaction(index, q, emb, sel2,
+                                                 pcfg.k)
+        if not _same_result(teng.RetrievalResult(top, pids), ref):
+            raise AssertionError(f"plaid {name}: the phases do not compose "
+                                 "to retrieve's result")
+        cs_t = teng._transposed(cs)
+        first = torch.arange(PLAID_SAMPLE_DOCS, device=index.device)
+        for b in range(q.shape[0]):
+            sbar = ops.cinter(cs_t[b], index.codes, index.doc_lens)
+            docs = torch.unique(torch.cat([first, sel2[b].long()]))
+            want = kci.cinter_batched_ref(
+                cs_t[b][None], index.codes[docs][None],
+                index.doc_lens[docs][None])[0]
+            err = max(err, _exact((sbar[docs],), (want,)))
+            cand = torch.where(bitmap[b], sbar, -torch.inf)
+            if not torch.equal(sel2[b].long(), topk(cand, pcfg.n_docs)[1]):
+                raise AssertionError(f"plaid {name}: the cut is not the "
+                                     "top n_docs of the kernel's S̄")
+        held[name] = dict(cs_t=cs_t, bitmap=bitmap, sel2=sel2, emb=emb,
+                          candidates=bitmap.sum(1).tolist()[:4])
+
+    # ms: each phase, end to end, and EMVB fused on the same queries
+    flush = torch.empty(64 << 20, dtype=torch.int32, device=index.device)
+    hist = full["token_hist"]
+    tokens = int(hist.sum())
+    rows = int((hist > 0).sum())
+    timing = {}
+    for name, q in (("b32", batches[0]), ("b1", queries[:1])):
+        h = held[name]
+        cs = h["cs_t"].transpose(1, 2)
+        n = 6 if name == "b32" else 20
+        steps = {
+            "retrieval": lambda: plaid.phase_retrieval(index, q, pcfg),
+            "filtering": lambda: plaid.phase_filtering(index, cs,
+                                                       h["bitmap"], pcfg),
+            "decompression": lambda: plaid.phase_decompression(index,
+                                                               h["sel2"]),
+            "late_interaction": lambda: plaid.phase_late_interaction(
+                index, q, h["emb"], h["sel2"], pcfg.k)}
+        ms = {k: time_ms(fn, n=n, warmup=1, flush=flush)
+              for k, fn in steps.items()}
+        turns = in_turns({"plaid": lambda: plaid.retrieve(index, q, pcfg),
+                          "emvb_fused": lambda: teng.retrieve(index, q, cfg)},
+                         n=2 * n, rounds=2 if name == "b32" else 5,
+                         flush=flush)
+        timing[name] = {"phase_ms": ms, "plaid_end_to_end": {
+            k: v for k, v in turns.items() if k != "emvb_fused_in_turns"},
+            "emvb_fused_end_to_end": turns["emvb_fused_in_turns"],
+            "plaid_over_emvb": turns["median_ms"]
+            / turns["emvb_fused_in_turns"]["median_ms"]}
+    cs_t0 = held["b1"]["cs_t"][0]
+    sample = torch.arange(PLAID_SAMPLE_DOCS, device=index.device)
+    s_args = (cs_t0[None], index.codes[:PLAID_SAMPLE_DOCS][None],
+              index.doc_lens[:PLAID_SAMPLE_DOCS][None])
+    cinter = {
+        "ms": time_ms(lambda: ops.cinter(cs_t0, index.codes,
+                                         index.doc_lens), flush=flush),
+        "docs": n_docs,
+        "bound": cinter_corpus_bound(n_docs, tokens, rows, ENGINE["n_q"]),
+        "sample_docs": int(sample.numel()),
+        "ms_sample": time_ms(lambda: ops.cinter_batched(*s_args),
+                             flush=flush),
+        "plain_ms_sample": time_ms(lambda: kci.cinter_batched_ref(*s_args),
+                                   n=5, warmup=1, flush=flush),
+        "launches": [launches["b32"]["cinter"], launches["b1"]["cinter"]],
+        "max_abs_err": err}
+    fb = _field_bytes(index)
+    emit("plaid", config=PLAID_CFG, residual_b=meta.plaid_b,
+         plaid_res_gb=fb["plaid_res"] / 1e9, make_residuals_seconds=make_s,
+         codec={"cutoffs": index.plaid_cutoffs.tolist(),
+                "weights": index.plaid_weights.tolist()},
+         launches=launches, quality=quality, phases_compose=True,
+         cinter_corpus=cinter, timing=timing,
+         candidates_first_queries=held["b32"]["candidates"],
+         max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
+         nvidia_smi=RECORD["device"]["nvidia_smi"])
+    if quality["success_at_100"] < SUCCESS_FLOOR:
+        raise AssertionError(f"plaid: planted Success@100 "
+                             f"{quality['success_at_100']} < {SUCCESS_FLOOR}")
+    del index, held, res, res1
+    torch.cuda.empty_cache()
+
+    # the trained index (real residuals): PLAID and EMVB fused
+    tix, tq, tgt = build["index"], build["queries"], build["gt"]
+    tb = [tq[s:s + 32] for s in range(0, N_QUERIES, 32)]
+    trained = {}
+    for name, fn in (("plaid", lambda q: plaid.retrieve(tix, q, pcfg)),
+                     ("emvb_fused", lambda q: teng.retrieve(tix, q, cfg))):
+        got = torch.cat([fn(q).doc_ids for q in tb]).cpu().numpy()
+        g = tgt.cpu().numpy()
+        trained[name] = {"mrr_at_10": synthetic.mrr_at_k(got, g, 10),
+                         "success_at_100": synthetic.success_at_k(got, g,
+                                                                  100),
+                         "ms_b32": time_ms(lambda: fn(tb[0]), n=5,
+                                           warmup=1, flush=flush)}
+    emit("plaid_trained", docs=tix.codes.shape[0], queries=N_QUERIES,
+         **trained)
+    return {"launches": launches, "cinter": cinter, "timing": timing,
+            "quality": quality, "trained": trained}
+
+
+# --- 5g. explain at full width -----------------------------------------------
+
+def explain_phase(full: dict, filt: dict, tlres: dict,
+                  fingerprints: tuple) -> dict:
+    """Phase 5g: explain one planted query at full width on both lanes,
+    unfiltered, with the 1 % filter (the filter phase's plane) and in
+    compact mode, and explain_timeline on the timeline (its generations'
+    fingerprints the serving phase's service computed); the launch counts
+    read around the explains alone; each top-k equal to retrieve's (or
+    retrieve_timeline's) ids and score bits, contributions summing to k;
+    the funnel counts and phase_ms."""
+    import numpy as np
+    import torch
+    from repro_torch.core import bitvector
+    from repro_torch.core import engine as teng
+    from repro_torch.kernels import ops
+    from repro_torch.obs import explain
+    q = full["queries"][0]
+    plan = bitvector.compile_filter(bitvector.Pred("p1"),
+                                    tuple(FILTER_PREDICATES))
+    cases = {}
+    for lane, c in (("fused", full["cfg"]), ("unfused", full["ucfg"])):
+        cases[f"{lane}"] = (full["index"], c)
+        cases[f"{lane}_filter1pct"] = (filt["index"], dataclasses.replace(
+            c, doc_filter=plan))
+        cases[f"{lane}_compact"] = (full["index"], dataclasses.replace(
+            c, candidate_mode="compact", cand_cap=CAND_CAP))
+    tl = tlres["timeline"]
+    tl.__dict__["fingerprints"] = tuple(fingerprints)
+    ops.reset_launches()
+    reports = {name: explain.explain(ix, q, c)
+               for name, (ix, c) in cases.items()}
+    trpt = explain.explain_timeline(tl, q, full["cfg"])
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    n_exp = len(cases) + len(tl)
+    want = {"bitpack": n_exp, "bitfilter": n_exp, "cinter": n_exp,
+            "pqscore": n_exp, "prefilter": len(tl), "pqinter": len(tl)}
+    if launches != want:
+        raise AssertionError(f"explain: launches {launches}, expected {want}")
+    out = {}
+    for name, rpt in reports.items():
+        ix, c = cases[name]
+        ref = teng.retrieve(ix, q[None], c)
+        if not (torch.equal(torch.from_numpy(rpt.topk_ids),
+                            ref.doc_ids[0].cpu())
+                and torch.equal(torch.from_numpy(rpt.topk_scores).view(
+                    torch.int32), ref.scores[0].cpu().view(torch.int32))):
+            raise AssertionError(f"explain {name}: top-k differs from "
+                                 "retrieve's")
+        d = rpt.to_dict()
+        out[name] = {k: v for k, v in d.items()
+                     if k not in ("topk_ids", "topk_scores")}
+    ref = teng.retrieve_timeline(tl, q[None], full["cfg"])
+    if not (np.array_equal(trpt.topk_ids, ref.doc_ids[0].cpu().numpy())
+            and np.array_equal(trpt.topk_scores.view(np.uint32),
+                               ref.scores[0].cpu().numpy().view(np.uint32))):
+        raise AssertionError("explain_timeline: top-k differs from "
+                             "retrieve_timeline's")
+    contrib = [g.contribution for g in trpt.generations]
+    if sum(contrib) != full["cfg"].k:
+        raise AssertionError(f"explain_timeline: contributions {contrib} "
+                             f"do not sum to k={full['cfg'].k}")
+    emit("explain", launches=launches, topk_equal_retrieve=True,
+         funnels=out, timeline={
+             "contributions": contrib, "merge_ms": trpt.merge_ms,
+             "funnels": [{k: v for k, v in g.funnel.to_dict().items()
+                          if k not in ("topk_ids", "topk_scores")}
+                         for g in trpt.generations]})
     return {"launches": launches}
+
+
+# --- 5h. the distributed plan ------------------------------------------------
+
+DIST_DOCS = 1 << 22   # docs of the two-rank run: each rank holds the planted
+#                       index and its two local IVFs (4.3 GB each at
+#                       2^18 x 4096 slots); run before the full index is made
+
+
+def _dist_rank(rank: int, world: int, init_file: str, out_dir: str,
+               device: str = "cuda") -> None:
+    """One of ``world`` ranks on the one card, over gloo: the planted index
+    at DIST_DOCS docs (same seed on every rank), shard_index(index, world),
+    the sharded plan at B = 32 and B = 1 against the two-level top-k
+    composed on the card from each shard's retrieve and topk; its result in
+    rank<r>.json."""
+    _import_port()
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import engine as teng
+    from repro_torch.core.topk import topk
+    from repro_torch.data import synthetic
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    dist.init_process_group("gloo", init_method=f"file://{init_file}",
+                            rank=rank, world_size=world)
+    widths = {**WIDTHS, "n_docs": DIST_DOCS}
+    index, _ = synthetic.make_packed_index(0, min_len=MIN_LEN, device=device,
+                                           **widths)
+    q, _ = synthetic.make_queries(index, 1, 32, ENGINE["n_q"])
+    cfg = teng.EngineConfig(**ENGINE, use_kernels=True)
+    stacked = serve.shard_index(index, world, device=device)
+    run = serve.make_shardmap_retriever(None, cfg, device=device)
+    ops.reset_launches()
+    got = {b: run(stacked, x) for b, x in (("b32", q), ("b1", q[:1]))}
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    per = DIST_DOCS // world
+    equal = {}
+    for b, x in (("b32", q), ("b1", q[:1])):
+        parts = [teng.retrieve(serve._shard(stacked, s), x, cfg,
+                               device=device) for s in range(world)]
+        sc = torch.cat([p.scores for p in parts], 1)
+        ids = torch.cat([p.doc_ids + s * per for s, p in enumerate(parts)],
+                        1)
+        top, pos = topk(sc, cfg.k)
+        equal[b] = _same_result(got[b], teng.RetrievalResult(
+            top, torch.gather(ids, 1, pos)))
+    dist.barrier()
+    ms = time_ms(lambda: run(stacked, q), n=5, warmup=1)
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump({"equal": equal, "launches": launches, "ms_b32": ms,
+                   "max_memory_allocated_gb":
+                   torch.cuda.max_memory_allocated() / 1e9
+                   if torch.cuda.is_available() else None}, f)
+    dist.destroy_process_group()
+
+
+def two_ranks_phase() -> list:
+    """Phase 3b (the distributed plan, first half): two ranks spawned on
+    the one card over gloo (NCCL refuses two ranks on one device) at
+    DIST_DOCS docs, run while nothing else is resident, each equal to the
+    two-level top-k composed on the card (:func:`_dist_rank`). -> each
+    rank's record."""
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as mp
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        mp.spawn(_dist_rank, args=(2, f"{tmp}/init", tmp), nprocs=2,
+                 join=True)
+        seconds = time.perf_counter() - t0
+        ranks = []
+        for r in range(2):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+    if not all(all(r["equal"].values()) for r in ranks):
+        raise AssertionError(f"two gloo ranks differ from the composed "
+                             f"two-level top-k: {ranks}")
+    emit("distributed_two_ranks", backend="gloo", docs=DIST_DOCS,
+         seconds=seconds, ranks=ranks)
+    return ranks
+
+
+def distributed_phase(full: dict, tlres: dict, fingerprints: tuple,
+                      two_ranks: list) -> dict:
+    """Phase 5h: the sharded serving plan at world size 1 over NCCL at full
+    width: make_shardmap_retriever over shard_index(index, 1) equal to
+    retrieve (ids and score bits) at B = 32 and B = 1, the launch counts
+    read around those calls; make_timeline_retriever equal to
+    retrieve_timeline and make_service equal to RetrievalService on the
+    timeline (its generations' fingerprints the serving phase's service
+    computed), cold and warm. ``two_ranks``: phase 3b's records."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import engine as teng
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.serving import RetrievalService
+    index, cfg = full["index"], full["cfg"]
+    queries = full["queries"]
+    batches = [queries[s:s + 32] for s in range(0, N_QUERIES, 32)]
+    tl = tlres["timeline"]
+    tl.__dict__["fingerprints"] = tuple(fingerprints)
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/init",
+                                rank=0, world_size=1)
+        try:
+            t0 = time.perf_counter()
+            stacked = serve.shard_index(index, 1)
+            torch.cuda.synchronize()
+            shard_s = time.perf_counter() - t0
+            run = serve.make_shardmap_retriever(None, cfg)
+            ops.reset_launches()
+            got = [run(stacked, q) for q in batches]
+            torch.cuda.synchronize()
+            launches = {"b32": ops.launch_counts()}
+            ops.reset_launches()
+            got1 = [run(stacked, queries[i:i + 1]) for i in range(N_SINGLE)]
+            torch.cuda.synchronize()
+            launches["b1"] = ops.launch_counts()
+            for b, n in (("b32", len(batches)), ("b1", N_SINGLE)):
+                want = {"prefilter": n, "pqinter": n}
+                if {k: v for k, v in launches[b].items() if v} != want:
+                    raise AssertionError(f"distributed {b}: launches "
+                                         f"{launches[b]}, expected {want}")
+            for r, q in zip(got + got1, batches + [
+                    queries[i:i + 1] for i in range(N_SINGLE)]):
+                if not _same_result(r, teng.retrieve(index, q, cfg)):
+                    raise AssertionError("the one-rank sharded plan differs "
+                                         "from retrieve")
+            del stacked
+            tq = tlres["queries"][:32]
+            trun = serve.make_timeline_retriever(None, cfg, tl)
+            for x in (tq, tq[:1]):
+                if not _same_result(trun(x),
+                                    teng.retrieve_timeline(tl, x, cfg)):
+                    raise AssertionError("make_timeline_retriever differs "
+                                         "from retrieve_timeline")
+            del trun
+            svc = serve.make_service(None, cfg, tl, max_batch=SERVE_BATCH)
+            ref = RetrievalService(tl, cfg, max_batch=SERVE_BATCH)
+            qn = tq.cpu().numpy()
+            for _ in range(2):
+                if not _same_result(svc.query(qn), ref.query(qn)):
+                    raise AssertionError("make_service differs from "
+                                         "RetrievalService")
+            hits = svc.cache.hits
+            del svc, ref
+        finally:
+            dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    emit("distributed", one_rank={"backend": "nccl", "launches": launches,
+                                  "shard_index_seconds": shard_s,
+                                  "equal_retrieve": True,
+                                  "timeline_equal": True,
+                                  "service_equal": True,
+                                  "service_warm_hits": hits},
+         two_ranks={"backend": "gloo", "docs": DIST_DOCS,
+                    "equal": True,
+                    "launches": [r["launches"] for r in two_ranks]})
+    return {"launches": launches, "two_ranks": two_ranks}
 
 
 # --- 6. timing ---------------------------------------------------------------
@@ -2910,15 +3457,46 @@ KERNELS = {
 }
 
 
+def _path_launches(name: str, pl: dict, expl: dict, distr: dict) -> dict:
+    """A kernel's launches on the PLAID, explain and distributed paths
+    ([B = 32, B = 1] runs; explain's all its calls), for the paths that
+    launch it."""
+    out = {}
+    for path, rec in (("plaid", pl), ("distributed", distr)):
+        got = [rec["launches"][b][name] for b in ("b32", "b1")]
+        if any(got):
+            out[path] = got
+    if expl["launches"][name]:
+        out["explain"] = expl["launches"][name]
+    return out
+
+
+def _plaid_form(pl: dict) -> dict:
+    """cinter's whole-corpus launch on PLAID's phase 2 as a form of the
+    kernels line: its plain version cannot hold the corpus' (docs, cap,
+    n_q) gather, so it is timed on a sample beside the kernel."""
+    c = pl["cinter"]
+    return {"config": "plaid", "launches": c["launches"][0],
+            "launches_b1": c["launches"][1], "max_abs_err": c["max_abs_err"],
+            "ms": c["ms"], "docs": c["docs"], "plain_ms": None,
+            "bound_ms": c["bound"]["bound_ms"],
+            "bound_by": c["bound"]["bound_by"],
+            "bound_bytes": c["bound"]["bytes"], "library_ms": None,
+            "sample_docs": c["sample_docs"], "ms_sample": c["ms_sample"],
+            "plain_ms_sample": c["plain_ms_sample"]}
+
+
 def kernels_line(small_err: dict, full: dict, timing: dict,
                  prof: dict, ftiming: dict, bf16: dict, build: dict,
-                 serve: dict) -> dict:
+                 serve: dict, pl: dict, expl: dict, distr: dict) -> dict:
     """Phase 9: one record per kernel, from this run's measurements. Each
     kernel's launches, time and profile come from the lane that runs it on
     the main path; ``launches_by_path`` adds its launches on the trained
-    index (``index_build``, B = 32 then B = 1) and through the service
-    (``serving``); ``forms`` holds its filtered and compact operand forms
-    and its bf16 form, each from its own config's run."""
+    index (``index_build``, B = 32 then B = 1), through the service
+    (``serving``), and on the PLAID, explain and distributed paths
+    (:func:`_path_launches`); ``forms`` holds its filtered and compact
+    operand forms and its bf16 form, each from its own config's run, and
+    cinter's whole-corpus launch on PLAID's phase 2."""
     rows = []
     for name, info in KERNELS.items():
         kforms = {**ftiming["forms"].get(name, {}),
@@ -2936,7 +3514,8 @@ def kernels_line(small_err: dict, full: dict, timing: dict,
             "launches_by_path": {
                 "index_build": [build["launches"][lane][b][name]
                                 for b in ("b32", "b1")],
-                "serving": serve["launches"][name]},
+                "serving": serve["launches"][name],
+                **_path_launches(name, pl, expl, distr)},
             "kernel_launches_per_call": prof[f"{lane}_b32"][
                 "kernel_launches_per_wrapper_call"][name],
             "max_abs_err": max(small_err[name], *held_err),
@@ -2968,6 +3547,8 @@ def kernels_line(small_err: dict, full: dict, timing: dict,
                 for form, f in kforms.items()},
             "ok": True,
         })
+        if name == "cinter":
+            rows[-1]["forms"]["plaid_corpus"] = _plaid_form(pl)
     return {"kernels": rows}
 
 
@@ -2979,19 +3560,26 @@ def main() -> None:
     dev = torch.device("cuda")
     build_phase()
     small_err = small_phase(dev)
+    two_ranks = two_ranks_phase()
     full = full_phase(dev)
+    invariance_phase(full)
     filt = filter_phase(full)
     tlres = timeline_phase(full)
     build = index_build_phase(full)
     serve = serving_phase(full, filt, tlres)
+    expl = explain_phase(full, filt, tlres, serve["fingerprints"])
+    distr = distributed_phase(full, tlres, serve["fingerprints"], two_ranks)
     del tlres
+    pl = plaid_phase(full, build)
+    for key in ("index", "queries", "gt"):
+        del build[key]
     timing = timing_phase(full)
     ftiming = filter_timing_phase(filt)
     bf16 = bf16_phase(dev, full, filt)
     limits_phase(full)
     prof = profile_phase(full)
     line = kernels_line(small_err, full, timing, prof, ftiming, bf16,
-                        build, serve)
+                        build, serve, pl, expl, distr)
     RECORD["kernels"] = line["kernels"]
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:

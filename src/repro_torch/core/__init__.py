@@ -2,10 +2,11 @@
 growth and timelines), k-means, PQ, the PLAID residual codec, bit vectors,
 interaction, top-k and the engine.
 
-Exports the names the reference's ``repro.core`` exports (but ``plaid``,
-not ported). The engine's load on first use: it imports the kernels, whose
-plain versions import ``core.bitvector``, so loading it here would make
-``import repro_torch.kernels.<kernel>`` circular.
+Exports the names the reference's ``repro.core`` exports. The engine and
+the PLAID baseline (``plaid``, ``PlaidConfig``) load on first use: they
+import the kernels, whose plain versions import ``core.bitvector``, so
+loading them here would make ``import repro_torch.kernels.<kernel>``
+circular.
 """
 from . import (bitvector, index, interaction, kmeans, pq,  # noqa: F401
                residual, store)
@@ -18,12 +19,15 @@ from .store import (EpochedTimeline, ShardedTimeline, add_passages,  # noqa: F40
 
 _ENGINE = ("engine", "EngineConfig", "QueryBatch", "RetrievalResult",
            "prune_queries", "retrieve", "retrieve_timeline")
+_PLAID = ("plaid", "PlaidConfig")
 
 
 def __getattr__(name):
-    """``engine`` and its exported names, imported on first use."""
-    if name in _ENGINE:
-        import importlib
-        engine = importlib.import_module(".engine", __name__)
-        return engine if name == "engine" else getattr(engine, name)
+    """``engine``, ``plaid`` and their exported names, imported on first
+    use."""
+    for mod, names in (("engine", _ENGINE), ("plaid", _PLAID)):
+        if name in names:
+            import importlib
+            m = importlib.import_module("." + mod, __name__)
+            return m if name == mod else getattr(m, name)
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -174,10 +174,26 @@ def _as_query_batch(queries, q_masks=None) -> QueryBatch:
 # Phase 1 — centroid scores and the candidate bitmap
 # ---------------------------------------------------------------------------
 
+def _aligned(x: torch.Tensor) -> bool:
+    """Whether ``x`` starts at a 16-byte boundary: the alignment class the
+    GEMM libraries choose their kernels by."""
+    return x.data_ptr() % 16 == 0
+
+
 def centroid_scores(q: torch.Tensor, centroids: torch.Tensor,
                     dtype: str = "float32") -> torch.Tensor:
     """q (..., n_q, d), centroids (n_c, d) -> CS (..., n_q, n_c) in
     ``dtype``: float32, or bf16 from bf16 operands (ref ``engine.py:229``).
+
+    Each query's (n_q, d) @ (d, n_c) is its own product. One GEMM over all
+    B · n_q rows is not batch-invariant: the library picks its algorithm
+    (tiles, split-K) by M, so a query's row took other bits in a batch of
+    1, 16 or 17 than in a batch of 32 (on the H100 at 512 centroids,
+    d = 32, n_q = 16). A product per query has the same shape and operands
+    in every batch, and the same alignment class: its query and its slice
+    of the output are used in place when they start at a 16-byte boundary,
+    else through a fresh copy (which does). So a query's CS has the same
+    bits in any batch; at B = 1 it is the one product of before.
 
     TF32 stays off: a float32 product in TF32 keeps about three decimal
     digits and would change the bit vectors and every score. A bf16 product
@@ -186,7 +202,17 @@ def centroid_scores(q: torch.Tensor, centroids: torch.Tensor,
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     dt = CS_DTYPES[dtype]
-    return torch.matmul(q.to(dt), centroids.T.to(dt))
+    table = centroids.T.to(dt)
+    rows = q.to(dt).reshape(-1, *q.shape[-2:])
+    out = torch.empty((rows.shape[0], q.shape[-2], centroids.shape[0]),
+                      dtype=dt, device=q.device)
+    for x, o in zip(rows, out):
+        x = x if _aligned(x) else x.clone()
+        if _aligned(o):
+            torch.matmul(x, table, out=o)
+        else:
+            o.copy_(torch.matmul(x, table))
+    return out.reshape(*q.shape[:-1], centroids.shape[0])
 
 
 def candidate_bitmap(ivf: torch.Tensor, ivf_lens: torch.Tensor,
@@ -417,9 +443,28 @@ def _phase12_batch(index: PackedIndex, queries: torch.Tensor,
     return cs, sel1.long()
 
 
+LUT_CHUNK = 32   # queries one LUT product covers
+
+
 def _query_lut(index: PackedIndex, queries: torch.Tensor) -> torch.Tensor:
-    """The OPQ rotation, then the PQ inner-product LUT -> (B, n_q, m, K)."""
-    return build_lut(torch.matmul(queries, index.opq_rotation), index.pq)
+    """The OPQ rotation, then the PQ inner-product LUT -> (B, n_q, m, K).
+
+    Computed LUT_CHUNK queries at a time, the last chunk padded with zero
+    queries, so each product has one shape whatever the batch: a query's
+    LUT does not depend on what else is in the batch (each row of a GEMM
+    of one shape runs the same reduction, wherever it sits), and a batch
+    of one costs a chunk's few microseconds. One product per query, as the
+    CS takes (:func:`centroid_scores`), costs its launches per query: the
+    LUT and survivor gathers took 3.4 ms at B = 32 on an H100 that way,
+    0.12 ms with one product."""
+    rows = queries.reshape(-1, *queries.shape[-2:])
+    n = rows.shape[0]
+    pad = max(1, -(-n // LUT_CHUNK)) * LUT_CHUNK - n
+    if pad:
+        rows = torch.cat([rows, rows.new_zeros(pad, *rows.shape[1:])])
+    lut = torch.cat([build_lut(torch.matmul(c, index.opq_rotation), index.pq)
+                     for c in rows.split(LUT_CHUNK)])
+    return lut[:n].reshape(*queries.shape[:-1], *lut.shape[-2:])
 
 
 def _transposed(cs: torch.Tensor) -> torch.Tensor:

@@ -85,6 +85,27 @@ def centroid_interaction(cs_t: torch.Tensor, codes: torch.Tensor,
     return term_sum(colmax)
 
 
+def centroid_interaction_batch(cs_t: torch.Tensor, codes: torch.Tensor,
+                               token_mask: torch.Tensor) -> torch.Tensor:
+    """S̄ of a batch of queries (ref ``:80``): cs_t (B, n_c, n_q),
+    codes/token_mask (B, docs, cap) -> (B, docs);
+    :func:`centroid_interaction` with its leading batch axis."""
+    return centroid_interaction(cs_t, codes, token_mask)
+
+
+def maxsim(q: torch.Tensor, doc_emb: torch.Tensor,
+           token_mask: torch.Tensor) -> torch.Tensor:
+    """Exact late interaction (paper Eq. 3; ref ``:86``) on full-precision
+    embeddings: per term the max over valid tokens of ``q . emb`` (invalid
+    tokens ``-1e9``), summed over the terms. q (n_q, d), doc_emb
+    (docs, cap, d), token_mask (docs, cap) -> (docs,); batched with a
+    leading B on all three. An einsum, as the reference's: its float32 bits
+    differ from XLA's (hazard 3), so its scores agree at rtol 1e-5."""
+    sim = torch.einsum("...qd,...ntd->...nqt", q, doc_emb)
+    sim = torch.where(token_mask[..., None, :], sim, torch.full_like(sim, NEG))
+    return torch.amax(sim, dim=-1).sum(dim=-1)
+
+
 def _lut_gather(lut: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """lut (n_q, m, K), idx (docs, cap, m) -> (docs, cap, n_q) (ref
     ``:143``); batched with a leading B on both. Per-subspace gathers over
@@ -251,3 +272,15 @@ def scored_term_fraction(cs_t: torch.Tensor, codes: torch.Tensor,
         n_terms = q_mask.sum()
     den = torch.clamp(token_mask.sum() * n_terms, min=1)
     return keep.sum().to(torch.float32) / den.to(torch.float32)
+
+
+def token_compaction_mask(cs_t: torch.Tensor, codes: torch.Tensor,
+                          token_mask: torch.Tensor, th_r: float
+                          ) -> torch.Tensor:
+    """Tokens whose residuals must be scored under the per-token filter
+    (ref ``:230``): a valid token whose centroid's largest term score beats
+    ``th_r`` (compared in the reference's dtype, ``precision.greater``).
+    cs_t (n_c, n_q), codes/token_mask (docs, cap) -> (docs, cap) bool;
+    batched with a leading B."""
+    centroid = gather_centroid_scores(cs_t, codes)
+    return greater(torch.amax(centroid, dim=-1), th_r) & token_mask

@@ -14,9 +14,12 @@ Two parts:
 * :func:`make_raw_docs` / :func:`make_raw_queries`: new passages for such an
   index as raw token embeddings (what ``store.new_generation`` and
   ``store.add_passages`` encode), and queries planted on them.
+* :func:`with_plaid_residuals`: the PLAID baseline's b-bit residuals for
+  such an index, encoded on its device.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple
 
 import numpy as np
@@ -25,6 +28,7 @@ import torch
 from ..device import resolve_device
 from ..core.index import IndexMeta, PackedIndex, build_ivf
 from ..core.pq import PQCodebooks, decode_pq
+from ..core.residual import encode_residual, train_residual_codec
 
 
 class Corpus(NamedTuple):
@@ -175,6 +179,42 @@ def make_packed_index(seed: int, *, n_docs: int, cap: int, min_len: int,
                      train_quant_mse=_planted_quant_mse(index),
                      n_raw_tokens=int(doc_lens.sum()))
     return index, meta
+
+
+PLAID_SAMPLE_TOKENS = 1 << 16   # real tokens the PLAID codec is trained on
+PLAID_BLOCK_DOCS = 1 << 14      # docs encoded per step (bounds temporaries)
+
+
+def with_plaid_residuals(index: PackedIndex, meta: IndexMeta, b: int = 2
+                         ) -> tuple[PackedIndex, IndexMeta]:
+    """The planted index with PLAID's b-bit residual codes (ColBERTv2's
+    codec, ``core/residual.py``) in place of its placeholders, made on its
+    device from what the seed made: a planted token is its centroid plus
+    the decoded PQ residual (:func:`make_queries` rebuilds query terms so),
+    and that residual is what PLAID stores. The codec's 2^b quantile
+    buckets (all dimensions pooled) are trained on the decoded residuals of
+    the first ``PLAID_SAMPLE_TOKENS`` real tokens, then every token slot,
+    padding too as in ``build_index``, is encoded to ``d * b / 8`` bytes —
+    22.6 GB at the emvb-msmarco widths (b = 2, d = 128, 8,841,823 x 80
+    slots). -> (index, meta with ``plaid_b=b``)."""
+    cb = PQCodebooks(index.pq_codebooks)
+    n_docs, cap = index.codes.shape
+    d = index.centroids.shape[1]
+    real = (torch.arange(cap, device=index.codes.device)[None, :]
+            < index.doc_lens[:, None])
+    docs = 2 * -(-PLAID_SAMPLE_TOKENS // cap)   # enough real tokens
+    sample = index.res_codes[:docs][real[:docs]][:PLAID_SAMPLE_TOKENS]
+    codec = train_residual_codec(decode_pq(sample, cb), b)
+    plaid_res = torch.empty((n_docs, cap, d * b // 8), dtype=torch.uint8,
+                            device=index.codes.device)
+    for s in range(0, n_docs, PLAID_BLOCK_DOCS):
+        block = index.res_codes[s:s + PLAID_BLOCK_DOCS]
+        res = decode_pq(block.reshape(-1, block.shape[-1]), cb)
+        plaid_res[s:s + PLAID_BLOCK_DOCS] = encode_residual(
+            res, codec).reshape(block.shape[0], cap, -1)
+    index = index._replace(plaid_res=plaid_res, plaid_cutoffs=codec.cutoffs,
+                           plaid_weights=codec.bucket_weights)
+    return index, dataclasses.replace(meta, plaid_b=b)
 
 
 def _planted_quant_mse(index: PackedIndex) -> float:

@@ -1,0 +1,2 @@
+"""Launch tooling of the port (counterpart of ``repro/launch``): the
+distributed serving plans (:mod:`repro_torch.launch.serve`)."""

@@ -853,3 +853,81 @@ def test_index_build_and_serving_phases_on_card(smoke, card, monkeypatch):
     serve = smoke.serving_phase(full, filt, tlres)
     assert build["launches"]["fused"]["b32"]["prefilter"] == 2
     assert serve["launches"]["pqinter"] == 16
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_query_products_batch_invariant_on_card(card, dtype):
+    """At 512 centroids, d = 32, n_q = 16 (where one product over the whole
+    batch gave a query's CS row other bits in batches of 1, 16 and 17 than
+    in a batch of 32) every CS and LUT element of a query is the same in
+    any batch."""
+    from repro_torch.core import engine as teng
+    from repro_torch.data import synthetic
+    index, _ = synthetic.make_packed_index(0, device=card, **TL_WIDTHS)
+    q, _ = synthetic.make_queries(index, 1, 32, TL_ENGINE["n_q"])
+    cs = teng.centroid_scores(q, index.centroids, dtype).view(torch.int16)
+    lut = teng._query_lut(index, q).view(torch.int32)
+    for b in (1, 2, 4, 8, 16, 17):
+        for r in (slice(0, b), slice(32 - b, 32)):
+            assert torch.equal(teng.centroid_scores(
+                q[r], index.centroids, dtype).view(torch.int16), cs[r]), r
+            assert torch.equal(teng._query_lut(index, q[r]).view(
+                torch.int32), lut[r]), r
+
+
+@pytest.mark.cuda
+def test_plaid_explain_distributed_phases_on_card(smoke, card, monkeypatch,
+                                                  tmp_path):
+    """The invariance, explain, distributed (one NCCL rank; one gloo rank
+    through the two-rank phase's rank function) and PLAID phases of
+    chip_smoke.py at a tiny width on the card, after the phases they
+    build on: every hold passes."""
+    import dataclasses
+    import json
+
+    from repro_torch.core import engine as teng
+    from repro_torch.data import synthetic
+    widths = {k: v for k, v in TL_WIDTHS.items() if k != "min_len"}
+    for name, value in (("BUILD_DOCS", 400), ("BUILD_HOLD", 16),
+                        ("MIN_TRAIN_TOKENS", 1000), ("SWAP_DOCS", 64),
+                        ("ADD_DOCS", 32), ("DRIFT_DOCS", 300),
+                        ("BUILD", dict(n_centroids=widths["n_centroids"],
+                                       m=widths["m"], nbits=widths["nbits"],
+                                       plaid_b=2, list_cap=None,
+                                       kmeans_iters=3, pq_train_size=2000)),
+                        ("WIDTHS", widths), ("CAND_CAP", 600),
+                        ("DIST_DOCS", 2000), ("PLAID_SAMPLE_DOCS", 500),
+                        ("PLAID_CFG", dict(k=10, n_docs=32, nprobe=4)),
+                        ("INVARIANCE_WIDTHS", ())):
+        monkeypatch.setattr(smoke, name, value)
+    smoke._dist_rank(0, 1, str(tmp_path / "init"), str(tmp_path), "cuda")
+    rank = json.loads((tmp_path / "rank0.json").read_text())
+    assert all(rank["equal"].values())
+    index, meta = synthetic.make_packed_index(
+        0, min_len=TL_WIDTHS["min_len"], device=card, **widths)
+    queries, gt = synthetic.make_queries(index, 1, 64, TL_ENGINE["n_q"])
+    cfg = teng.EngineConfig(**TL_ENGINE, use_kernels=True)
+    ucfg = dataclasses.replace(cfg, fused_prefilter=False,
+                               fused_late_interaction=False)
+    full = dict(index=index, meta=meta, cfg=cfg, ucfg=ucfg, queries=queries,
+                gt=gt)
+    launches, results, _, _ = smoke.serve_lanes(
+        index, {"fused": cfg, "unfused": ucfg}, queries, gt)
+    full["held"], full["held_u"], _ = smoke.hold_lanes(
+        index, cfg, ucfg, queries, results)
+    full["token_hist"] = smoke.token_hist(index)
+    smoke.invariance_phase(full)
+    tlres = smoke.timeline_phase(full)
+    filt = {"index": index._replace(pred_words=smoke.predicate_words(
+        meta.n_docs, dict(enumerate(smoke.FILTER_PREDICATES.values())), 1,
+        card))}
+    build = smoke.index_build_phase(full)
+    serve = smoke.serving_phase(full, filt, tlres)
+    expl = smoke.explain_phase(full, filt, tlres, serve["fingerprints"])
+    distr = smoke.distributed_phase(full, tlres, serve["fingerprints"],
+                                    [rank])
+    pl = smoke.plaid_phase(full, build)
+    assert expl["launches"]["cinter"] == 9
+    assert distr["launches"]["b32"]["prefilter"] == 2
+    assert pl["launches"]["b32"]["cinter"] == 64

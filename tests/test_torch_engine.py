@@ -332,3 +332,31 @@ def test_fused_equals_unfused(small_corpus, port_index, th_r):
         assert torch.equal(got.doc_ids, fused.doc_ids), lane
         assert torch.equal(got.scores.view(torch.int32),
                            fused.scores.view(torch.int32)), lane
+
+
+@pytest.mark.parametrize("n_c,n_q", [(512, 16), (511, 15)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_query_products_are_batch_invariant(n_c, n_q, dtype):
+    """A query's CS and LUT rows have the same bits in a batch of 1, 16, 17
+    or 32: each query's product runs at one fixed shape (engine.centroid_scores),
+    on slices of the output at a 16-byte multiple (512 x 16) or through a
+    fresh result (511 x 15 floats a query is no 16-byte multiple)."""
+    from repro_torch.data import synthetic
+    index, _ = synthetic.make_packed_index(
+        0, n_docs=300, cap=16, min_len=6, d=32, n_centroids=n_c, m=4,
+        nbits=4, list_cap=None, device="cpu")
+    q, _ = synthetic.make_queries(index, 1, 32, n_q)
+    cs = teng.centroid_scores(q, index.centroids, dtype)
+    lut = teng._query_lut(index, q)
+    assert cs.shape == (32, n_q, n_c) and lut.shape == (32, n_q, 4, 16)
+    for b in (1, 16, 17):
+        for off in (0, 32 - b):
+            rows = slice(off, off + b)
+            assert torch.equal(teng.centroid_scores(
+                q[rows], index.centroids, dtype).view(torch.int16),
+                cs[rows].view(torch.int16)), (b, off)
+            assert torch.equal(teng._query_lut(index, q[rows]).view(
+                torch.int32), lut[rows].view(torch.int32)), (b, off)
+    # one query without a batch axis is the same row too
+    assert torch.equal(teng.centroid_scores(q[3], index.centroids, dtype)
+                       .view(torch.int16), cs[3].view(torch.int16))

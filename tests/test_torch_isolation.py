@@ -60,6 +60,9 @@ def test_every_module_imports_first():
     ``core/__init__.py``)."""
     modules = sorted(m.name for m in pkgutil.walk_packages(
         repro_torch.__path__, "repro_torch."))
+    for name in ("repro_torch.core.plaid", "repro_torch.obs.explain",
+                 "repro_torch.launch", "repro_torch.launch.serve"):
+        assert name in modules, name
     code = textwrap.dedent(f"""
         import importlib, sys
         sys.path[:0] = [{os.path.join(ROOT, "src")!r}]
@@ -98,7 +101,9 @@ def test_port_sources_import_no_jax_or_repro():
                for f in files)
     for sub in (("serving", "service.py"), ("serving", "maintenance.py"),
                 ("serving", "cache.py"), ("obs", "trace.py"),
-                ("obs", "registry.py")):
+                ("obs", "registry.py"), ("obs", "explain.py"),
+                ("core", "plaid.py"), ("launch", "__init__.py"),
+                ("launch", "serve.py")):
         assert any(f.endswith(os.path.join(*sub)) for f in files), sub
     bad = []
     for path in files:
@@ -178,6 +183,26 @@ def test_entry_points_refuse_the_cpu_unless_asked(monkeypatch, small_index,
                               m=2, nbits=2, device="cpu")[1].n_docs == 3
     assert RetrievalService(tl, cfg, device="cpu").query(
         q.numpy()).doc_ids.shape == (1, 10)
+    from repro_torch.core import plaid
+    from repro_torch.launch import serve
+    from repro_torch.obs import explain
+    pcfg = plaid.PlaidConfig(n_docs=16, k=10)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        plaid.retrieve(index, q, pcfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        explain.explain(index, q[0].numpy(), cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        explain.explain_timeline(tl, q[0].numpy(), cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.make_shardmap_retriever(None, cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.shard_index(index, 1)
+    assert plaid.retrieve(index, q, pcfg, device="cpu").doc_ids.shape == \
+        (1, 10)
+    assert explain.explain(index, q[0].numpy(), cfg, device="cpu").k == 10
+    assert explain.explain_timeline(tl, q[0].numpy(), cfg,
+                                    device="cpu").k == 10
+    assert serve.shard_index(index, 1, device="cpu").codes.shape[0] == 1
 
 
 TINY = dict(n_docs=700, cap=12, min_len=5, d=32, n_centroids=96, m=4,
