@@ -123,6 +123,20 @@ Phases:
                docs and every selected doc), planted Success@100 and
                MRR@10, ms per phase and end to end beside EMVB fused in
                turns; then PLAID and EMVB on the trained index, MRR@10
+  5i. encoder — the ColBERT encoder (colbert.make_config() defaults,
+               float32) trained 200 AdamW steps on token pairs over the
+               whole vocabulary (ENCODER), resumed from a checkpoint at
+               step 100 in a fresh Trainer and held against the
+               continuous run, then 20 JMPQ steps; 32,768 passages
+               encoded and indexed by build_index at the emvb-msmarco
+               widths (BUILD); 64 planted queries encoded and served on
+               both lanes at B = 32 and B = 1 with launch counts, each
+               kernel held against its plain version, MRR@10 beside exact
+               MaxSim; the encoder's ms, tokens/s, peak memory and FLOP/s
+               share at the default and ColBERTv2 widths (float32, bf16)
+               beside fused retrieve; the embedding elements that differ
+               between a batch of B in {1, 16, 17, 32} and of 32; a
+               profile of a B = 32 encode and a training step
   6. timing  — CUDA-event medians of every step of both lanes (the CS^T
                transpose a step of its own), end to end, each kernel
                beside its plain version and its bound, and the host ms of
@@ -2623,6 +2637,406 @@ def distributed_phase(full: dict, tlres: dict, fingerprints: tuple,
     return {"launches": launches, "two_ranks": two_ranks}
 
 
+# --- 5i. encoder: train, encode, index and retrieve on the card -------------
+
+# The encoder's run, at colbert.make_config()'s defaults: the token-pair
+# generator over the whole vocabulary (24 words a topic: 1,271 topics),
+# passages of the index's cap, queries of ENGINE's n_q terms.
+ENCODER = dict(
+    seed=11, words_per_topic=24, batch=32, steps=200, resume_at=100,
+    jmpq_steps=20, lr=3e-3, loss_window=20, docs=32_768, encode_batch=1024,
+    time_docs=1024, time_reps=10, variance_batches=(1, 16, 17, 32))
+# ColBERTv2's published encoder (BERT-base): 12 layers, d_model 768, 12
+# heads x 64, d_ff 3072, the BERT vocabulary, projected to 128.
+COLBERTV2 = dict(n_layers=12, d_model=768, n_heads=12, d_head=64, d_ff=3072,
+                 vocab=30_522, out_dim=128)
+BF16_OPS_PER_S = 989e12   # H100 SXM data sheet, dense bf16 tensor cores
+RESUME_RTOL = 1e-4        # the resumed run's losses, were it not bit-equal
+
+
+def _differing(a, b) -> int:
+    """Elements of two float32 tensors whose bits differ."""
+    import torch
+    return int((a.view(torch.int32) != b.view(torch.int32)).sum())
+
+
+def encode_flops(cfg, b: int, s: int) -> int:
+    """Model operations of encoding b sequences of s tokens: the weight
+    products, QK^T and PV over all s keys, and the projection."""
+    h, kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    d, f = cfg.d_model, cfg.d_ff
+    layer = (2 * d * h * dh + 4 * d * kv * dh + 2 * h * dh * d + 6 * d * f
+             + 4 * s * h * dh)
+    return b * s * (cfg.n_layers * layer + 2 * d * cfg.out_proj)
+
+
+def train_flops(cfg, b: int, sq: int, sd: int) -> int:
+    """A contrastive step's model operations: forward and backward (3x) of
+    both encodes and of the (b, b) MaxSim product."""
+    return 3 * (encode_flops(cfg, b, sq) + encode_flops(cfg, b, sd)
+                + 2 * b * b * sq * sd * cfg.out_proj)
+
+
+def _pairs(vocab: int, batch: int):
+    """The encoder's token-pair batches (synthetic.token_pairs)."""
+    from repro_torch.data import synthetic
+    w = ENCODER["words_per_topic"]
+    return synthetic.token_pairs(
+        ENCODER["seed"], n_topics=vocab // w, words_per_topic=w, vocab=vocab,
+        batch=batch, q_len=ENGINE["n_q"], d_len=WIDTHS["cap"])
+
+
+def _loss(pq_codebooks=None):
+    from repro_torch.models import colbert
+
+    def loss(p, b):
+        return colbert.contrastive_loss(p, b, p.cfg,
+                                        pq_codebooks=pq_codebooks)
+    return loss
+
+
+def _trainer(model, make_batch, ckpt_dir=None, pq_codebooks=None):
+    """AdamW at ENCODER's lr over ``make_batch``, logging every step."""
+    from repro_torch.train import optimizer
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    return Trainer(_loss(pq_codebooks),
+                   optimizer.make("adamw", lr=ENCODER["lr"]), make_batch,
+                   TrainerConfig(ckpt_dir=ckpt_dir,
+                                 ckpt_every=ENCODER["resume_at"],
+                                 log_every=1), model, device=model.device)
+
+
+def step_determinism(model, batch) -> dict:
+    """The training step's stages run twice from one state on one batch:
+    the elements of the loss, of each gradient leaf and of the AdamW
+    update that differ the second time (all 0: deterministic)."""
+    from repro_torch.core.precision import exact_matmuls
+    from repro_torch.models import transformer as ttr
+    from repro_torch.train import optimizer
+    from repro_torch.train import trainer as ttrainer
+    opt = optimizer.make("adamw", lr=ENCODER["lr"])
+    params = ttr.to_reference_layout(model)
+    runs = []
+    for _ in range(2):
+        with exact_matmuls():
+            loss, grads = ttrainer._value_and_grad(_loss(), model, batch)
+            new, _ = opt.update(grads, opt.init(params), params)
+        runs.append((loss, grads, new))
+    (l1, g1, n1), (l2, g2, n2) = runs
+    return {"loss": _differing(l1, l2),
+            "gradients": {"__".join(p): _differing(g1[p], g2[p])
+                          for p in g1 if _differing(g1[p], g2[p])},
+            "update": sum(_differing(n1[p], n2[p]) for p in n1)}
+
+
+def _encode_all(model, tokens, valid, batch: int):
+    """Embeddings of every row, ``batch`` rows an encode call."""
+    import torch
+    out = torch.empty((*tokens.shape, model.cfg.out_proj),
+                      dtype=model.cfg.dtype, device=model.device)
+    with torch.no_grad():
+        for s in range(0, tokens.shape[0], batch):
+            out[s:s + batch] = model(tokens[s:s + batch], valid[s:s + batch])
+    return out
+
+
+def exact_maxsim_top(queries, embs, valid, k: int):
+    """Each query's top-k docs by exact MaxSim over the whole corpus on the
+    card, one query at a time (``interaction.maxsim``: a (docs, n_q, cap)
+    product, where all queries at once would take ~11 GB) -> (n, k)."""
+    import torch
+    from repro_torch.core import interaction
+    return torch.stack([torch.topk(interaction.maxsim(q, embs, valid),
+                                   k).indices for q in queries])
+
+
+def _train_step_fn(model, batch):
+    """A function running one AdamW step of ``model`` (updated in place)
+    on ``batch`` per call."""
+    from repro_torch.models import transformer as ttr
+    from repro_torch.train import optimizer
+    from repro_torch.train.trainer import (TrainerConfig, TrainState,
+                                           make_train_step)
+    opt = optimizer.make("adamw", lr=ENCODER["lr"])
+    step = make_train_step(_loss(), opt, TrainerConfig())
+    state = [TrainState(0, model, opt.init(ttr.to_reference_layout(model)))]
+
+    def train_step():
+        state[0] = step(state[0], batch)[0]
+    return train_step
+
+
+def encoder_rates(kw: dict, dtype, qtok, dtok) -> dict:
+    """CUDA-event medians of an encoder at widths ``kw`` in ``dtype`` (its
+    weights drawn from a seed): B = 1 and 32 queries, ENCODER's time_docs
+    passages, one training step of ENCODER's batch; tokens/s, peak memory
+    and model FLOP/s against the data-sheet peak of ``dtype``."""
+    import torch
+    from repro_torch.models import colbert
+    cfg = colbert.make_config(**kw, dtype=dtype)
+    model = colbert.ColBERT(cfg, seed=ENCODER["seed"], device=qtok.device)
+    peak = F32_OPS_PER_S if dtype == torch.float32 else BF16_OPS_PER_S
+    nq, cap = ENGINE["n_q"], WIDTHS["cap"]
+    qv = torch.ones_like(qtok, dtype=torch.bool)
+    dv = torch.ones_like(dtok, dtype=torch.bool)
+    out = {"widths": kw, "dtype": str(dtype).split(".")[-1],
+           "params": sum(p.numel() for p in model.parameters())}
+
+    def rate(name, fn, flops, tokens):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms = statistics.median(time_samples(fn, n=ENCODER["time_reps"]))
+        out[name] = {"ms": ms, "tokens_per_second": tokens / ms * 1e3,
+                     "flop_per_second": flops / ms * 1e3,
+                     "peak_share": flops / ms * 1e3 / peak,
+                     "max_memory_allocated_gb":
+                         torch.cuda.max_memory_allocated() / 1e9}
+
+    with torch.no_grad():
+        for b in (1, 32):
+            rate(f"query_b{b}", lambda: model(qtok[:b], qv[:b]),
+                 encode_flops(cfg, b, nq), b * nq)
+        n = dtok.shape[0]
+        rate(f"passages_{n}", lambda: model(dtok, dv),
+             encode_flops(cfg, n, cap), n * cap)
+    b = ENCODER["batch"]
+    rate("train_step", _train_step_fn(model, {
+        "q_tokens": qtok[:b], "q_valid": qv[:b], "d_tokens": dtok[:b],
+        "d_valid": dv[:b]}), train_flops(cfg, b, nq, cap), b * (nq + cap))
+    out["peak_ops_per_second"] = peak
+    return out
+
+
+def encoder_profile(model, qtok, qv, batch) -> dict:
+    """torch.profiler over one B = 32 query encode and one training step:
+    the device's busy share of the window and its top kernels."""
+    import torch
+
+    def encode():
+        with torch.no_grad():
+            model(qtok[:32], qv[:32])
+    out = {}
+    smi = RECORD["device"]["nvidia_smi"]
+    os.makedirs(OUT_DIR, exist_ok=True)
+    for name, fn in (("query_b32", encode),
+                     ("train_step", _train_step_fn(model, batch))):
+        prof, wall_us = _profiled(fn, 1)
+        events = _device_events(prof)
+        if not events:
+            raise AssertionError("the profiler saw no device time")
+        busy_us = sum(_dev_us(e) for e in events)
+        with open(os.path.join(OUT_DIR, f"profile_encoder_{name}.txt"),
+                  "w") as f:
+            f.write(f"{smi}\n" + prof.key_averages().table(
+                sort_by="self_cuda_time_total", row_limit=40) + "\n")
+        out[name] = {
+            "wall_ms": wall_us / 1e3, "device_busy_ms": busy_us / 1e3,
+            "device_busy_share": busy_us / wall_us,
+            "device_launches": sum(e.count for e in events),
+            "top_kernels_ms": {e.key[:90]: _dev_us(e) / 1e3
+                               for e in events[:12]},
+            "top_kernels_launches": {e.key[:90]: e.count
+                                     for e in events[:12]}}
+    return out
+
+
+def encoder_phase(full: dict) -> dict:
+    """Phase 5i: the ColBERT encoder through the port on the card. Train it
+    (AdamW, ENCODER's steps) on token pairs over the whole vocabulary; stop
+    at resume_at with a checkpoint and resume in a fresh Trainer, equal to
+    the continuous run; then JMPQ steps with PQ codebooks trained on its
+    embeddings. Encode ENCODER's docs passages, build_index at the
+    emvb-msmarco widths (BUILD), encode 64 planted queries and serve them
+    on both lanes at B = 32 and B = 1 with launch counts, each kernel held
+    against its plain version; MRR@10 beside exact MaxSim. Then the
+    encoder's rates at the default and ColBERTv2 widths, its share of a
+    served query, its batch variance and its profile."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from repro_torch.core import engine as teng
+    from repro_torch.core import index as tindex
+    from repro_torch.core import pq as tpq
+    from repro_torch.data import synthetic
+    from repro_torch.models import colbert
+    t_phase = time.perf_counter()
+    dev = full["index"].device
+    enc_cfg = colbert.make_config()
+    make_batch = _pairs(enc_cfg.vocab, ENCODER["batch"])
+    init = colbert.ColBERT(enc_cfg, seed=ENCODER["seed"], device=dev)
+
+    # 1-2. train, and resume from a checkpoint half way
+    t0 = time.perf_counter()
+    cont = _trainer(init, make_batch)
+    log = cont.run(ENCODER["steps"])["log"]
+    train_s = time.perf_counter() - t0
+    losses = [m["loss"] for m in log]
+    # The untrained encoder already tells most in-batch pairs apart (random
+    # token embeddings match a query to its passage by their shared
+    # tokens), and the first AdamW steps disturb that before training
+    # lowers the loss again; so the loss is held over windows of steps.
+    w = ENCODER["loss_window"]
+    first_mean, last_mean = (statistics.fmean(losses[:w]),
+                             statistics.fmean(losses[-w:]))
+    if not last_mean < first_mean:
+        raise AssertionError(f"encoder training: the last {w} steps' mean "
+                             f"loss {last_mean} is not below the first "
+                             f"{w}'s {first_mean}")
+    with tempfile.TemporaryDirectory() as d:
+        _trainer(init, make_batch, ckpt_dir=d).run(ENCODER["resume_at"])
+        resumed = _trainer(init, make_batch, ckpt_dir=d)
+        rlog = resumed.run(ENCODER["steps"])["log"]
+    if rlog[0]["step"] != ENCODER["resume_at"] + 1:
+        raise AssertionError("the fresh Trainer did not resume")
+    pairs = list(zip(cont.state.params.parameters(),
+                     resumed.state.params.parameters()))
+    differing = sum(_differing(a, b) for a, b in pairs)
+    rlosses = [m["loss"] for m in rlog]
+    closs = losses[ENCODER["resume_at"]:]
+    bit_equal = differing == 0 and rlosses == closs
+    determinism = step_determinism(init, {
+        k: v.to(dev) for k, v in make_batch(0).items()})
+    if not bit_equal and not np.allclose(rlosses, closs, rtol=RESUME_RTOL,
+                                         atol=0):
+        raise AssertionError(f"resumed losses differ from the continuous "
+                             f"run's beyond rtol {RESUME_RTOL}: "
+                             f"{determinism}")
+    encoder = cont.state.params
+    probe = make_batch(ENCODER["steps"])
+    with torch.no_grad():
+        pde = encoder(probe["d_tokens"].to(dev), probe["d_valid"].to(dev))
+    books = tpq.train_pq(ENCODER["seed"], pde.reshape(-1, pde.shape[-1]),
+                         WIDTHS["m"], nbits=WIDTHS["nbits"], device=dev)
+    jmpq = _trainer(encoder, lambda s: make_batch(ENCODER["steps"] + s),
+                    pq_codebooks=books.codebooks)
+    jlog = jmpq.run(ENCODER["jmpq_steps"])["log"]
+    emit("encoder_train", config=dataclasses.asdict(enc_cfg) | {
+             "dtype": "float32"}, params=sum(
+             p.numel() for p in encoder.parameters()),
+         batch=ENCODER["batch"], steps=ENCODER["steps"], lr=ENCODER["lr"],
+         q_len=ENGINE["n_q"], d_len=WIDTHS["cap"],
+         topics=enc_cfg.vocab // ENCODER["words_per_topic"],
+         first_loss=losses[0], last_loss=losses[-1], max_loss=max(losses),
+         loss_window=w, first_window_mean=first_mean,
+         last_window_mean=last_mean, loss_every_10=losses[::10],
+         seconds=train_s,
+         ms_per_step=statistics.median(m["sec"] for m in log) * 1e3,
+         stragglers=cont.straggler_steps,
+         jmpq={"steps": ENCODER["jmpq_steps"], "m": WIDTHS["m"],
+               "nbits": WIDTHS["nbits"], "first_loss": jlog[0]["loss"],
+               "last_loss": jlog[-1]["loss"],
+               "losses": [m["loss"] for m in jlog]})
+    emit("encoder_resume", resume_at=ENCODER["resume_at"],
+         bit_equal=bit_equal, params_differing=differing,
+         losses_equal=rlosses == closs,
+         max_loss_rel_diff=max(abs(a - b) / abs(b)
+                               for a, b in zip(rlosses, closs)),
+         step_stages_differing=determinism)
+    del resumed, jmpq, pde
+
+    # 3. encode the corpus and build the index
+    tok_np, lens = synthetic.token_corpus(
+        ENCODER["seed"] + 1, n_docs=ENCODER["docs"],
+        n_topics=enc_cfg.vocab // ENCODER["words_per_topic"],
+        words_per_topic=ENCODER["words_per_topic"], vocab=enc_cfg.vocab,
+        cap=WIDTHS["cap"], min_len=MIN_LEN)
+    tokens = torch.from_numpy(tok_np).to(dev)
+    valid = torch.arange(WIDTHS["cap"], device=dev)[None] < \
+        torch.from_numpy(lens).to(dev)[:, None]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    embs = _encode_all(encoder, tokens, valid, ENCODER["encode_batch"])
+    torch.cuda.synchronize()
+    encode_s = time.perf_counter() - t0
+    n_tok = int(lens.sum())
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    index, meta = tindex.build_index(ENCODER["seed"], embs.cpu().numpy(),
+                                     lens, device=dev, **BUILD)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    emit("encoder_index", docs=ENCODER["docs"], real_tokens=n_tok,
+         encode_seconds=encode_s, encode_tokens_per_second=n_tok / encode_s,
+         build_seconds=build_s, build=BUILD, list_cap=meta.list_cap,
+         n_dropped=meta.n_dropped, train_quant_mse=meta.train_quant_mse,
+         max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9)
+
+    # 4. encode planted queries; retrieve on both lanes; exact MaxSim
+    q_np, qv_np, gt_np = synthetic.token_queries(
+        ENCODER["seed"] + 2, tok_np, lens, n_queries=N_QUERIES,
+        q_len=ENGINE["n_q"], vocab=enc_cfg.vocab)
+    qtok, qv = torch.from_numpy(q_np).to(dev), torch.from_numpy(qv_np).to(dev)
+    queries = _encode_all(encoder, qtok, qv, N_QUERIES)
+    gt = torch.from_numpy(gt_np)
+    cfg, ucfg = full["cfg"], full["ucfg"]
+    launches, results, quality, _ = serve_lanes(
+        index, {"fused": cfg, "unfused": ucfg}, queries, gt)
+    held, held_u, lanes_equal = hold_lanes(index, cfg, ucfg, queries,
+                                           results)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    exact = exact_maxsim_top(queries, embs, valid, ENGINE["k"])
+    torch.cuda.synchronize()
+    exact_s = time.perf_counter() - t0
+    ex = exact.cpu().numpy()
+    emit("encoder_serve", launches=launches, phases_exact=True,
+         unfused_equals_fused=lanes_equal, quality=quality,
+         exact_maxsim={"mrr_at_10": synthetic.mrr_at_k(ex, gt_np, 10),
+                       "success_at_100": synthetic.success_at_k(
+                           ex, gt_np, 100), "seconds": exact_s},
+         max_abs_err={b: {**held[b]["err"], **held_u[b]["err"]}
+                      for b in ("b32", "b1")})
+    del held, held_u, results
+
+    # 5-6. rates at two widths; the encoder beside retrieve
+    dtok = tokens[:ENCODER["time_docs"]]
+    rates = {"default_float32": encoder_rates(
+        {}, torch.float32, qtok, dtok)}
+    for name, dt in (("colbertv2_float32", torch.float32),
+                     ("colbertv2_bfloat16", torch.bfloat16)):
+        rates[name] = encoder_rates(COLBERTV2, dt, qtok, dtok)
+        torch.cuda.empty_cache()
+    served = {}
+    for b in (32, 1):
+        for name, idx, q in (("planted", full["index"], full["queries"]),
+                             ("encoded", index, queries)):
+            served[f"{name}_b{b}_ms"] = statistics.median(time_samples(
+                lambda: teng.retrieve(idx, q[:b], cfg),
+                n=ENCODER["time_reps"]))
+        served[f"encoder_share_b{b}"] = {
+            name: r[f"query_b{b}"]["ms"] / (
+                r[f"query_b{b}"]["ms"] + served[f"planted_b{b}_ms"])
+            for name, r in rates.items()}
+    emit("encoder_timing", rates=rates, retrieve_fused=served)
+
+    # 7. batch variance: a query's embedding in a batch of B vs of 32
+    with torch.no_grad():
+        e32 = encoder(qtok[:32], qv[:32])
+        r32 = teng.retrieve(index, e32, cfg)
+        variance = {}
+        for b in ENCODER["variance_batches"]:
+            first = encoder(qtok[:b], qv[:b])
+            last = encoder(qtok[32 - b:32], qv[32 - b:32])
+            rf = teng.retrieve(index, first, cfg)
+            rl = teng.retrieve(index, last, cfg)
+            variance[f"b{b}"] = {
+                "elements": 2 * b * ENGINE["n_q"] * enc_cfg.out_proj,
+                "differing_first": _differing(first, e32[:b]),
+                "differing_last": _differing(last, e32[32 - b:]),
+                "ids_differ": not (
+                    torch.equal(rf.doc_ids, r32.doc_ids[:b]) and
+                    torch.equal(rl.doc_ids, r32.doc_ids[32 - b:]))}
+    emit("encoder_variance", **variance)
+
+    # 8. profile
+    batch = {k: v.to(dev) for k, v in make_batch(0).items()}
+    prof = encoder_profile(encoder, qtok, qv, batch)
+    emit("encoder_profile", **prof)
+    emit("encoder_done", seconds=time.perf_counter() - t_phase)
+    return {"launches": launches}
+
+
 # --- 6. timing ---------------------------------------------------------------
 
 def time_samples(fn, n: int = 10, warmup: int = 2, flush=None) -> list:
@@ -3488,11 +3902,13 @@ def _plaid_form(pl: dict) -> dict:
 
 def kernels_line(small_err: dict, full: dict, timing: dict,
                  prof: dict, ftiming: dict, bf16: dict, build: dict,
-                 serve: dict, pl: dict, expl: dict, distr: dict) -> dict:
+                 serve: dict, pl: dict, expl: dict, distr: dict,
+                 enc: dict) -> dict:
     """Phase 9: one record per kernel, from this run's measurements. Each
     kernel's launches, time and profile come from the lane that runs it on
     the main path; ``launches_by_path`` adds its launches on the trained
-    index (``index_build``, B = 32 then B = 1), through the service
+    index (``index_build``, B = 32 then B = 1), on the index of the
+    trained encoder's embeddings (``encoder``, likewise), through the service
     (``serving``), and on the PLAID, explain and distributed paths
     (:func:`_path_launches`); ``forms`` holds its filtered and compact
     operand forms and its bf16 form, each from its own config's run, and
@@ -3514,6 +3930,8 @@ def kernels_line(small_err: dict, full: dict, timing: dict,
             "launches_by_path": {
                 "index_build": [build["launches"][lane][b][name]
                                 for b in ("b32", "b1")],
+                "encoder": [enc["launches"][lane][b][name]
+                            for b in ("b32", "b1")],
                 "serving": serve["launches"][name],
                 **_path_launches(name, pl, expl, distr)},
             "kernel_launches_per_call": prof[f"{lane}_b32"][
@@ -3573,13 +3991,14 @@ def main() -> None:
     pl = plaid_phase(full, build)
     for key in ("index", "queries", "gt"):
         del build[key]
+    enc = encoder_phase(full)
     timing = timing_phase(full)
     ftiming = filter_timing_phase(filt)
     bf16 = bf16_phase(dev, full, filt)
     limits_phase(full)
     prof = profile_phase(full)
     line = kernels_line(small_err, full, timing, prof, ftiming, bf16,
-                        build, serve, pl, expl, distr)
+                        build, serve, pl, expl, distr, enc)
     RECORD["kernels"] = line["kernels"]
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:

@@ -58,7 +58,7 @@ from ..obs import trace
 from . import bitvector, interaction
 from .index import PackedIndex
 from .pq import build_lut
-from .precision import CS_DTYPES, CS_TYPES
+from .precision import CS_DTYPES, CS_TYPES, exact_matmuls
 from .topk import topk
 
 
@@ -180,6 +180,7 @@ def _aligned(x: torch.Tensor) -> bool:
     return x.data_ptr() % 16 == 0
 
 
+@exact_matmuls()
 def centroid_scores(q: torch.Tensor, centroids: torch.Tensor,
                     dtype: str = "float32") -> torch.Tensor:
     """q (..., n_q, d), centroids (n_c, d) -> CS (..., n_q, n_c) in
@@ -197,10 +198,9 @@ def centroid_scores(q: torch.Tensor, centroids: torch.Tensor,
 
     TF32 stays off: a float32 product in TF32 keeps about three decimal
     digits and would change the bit vectors and every score. A bf16 product
-    may not reduce in bf16 (split-K GEMMs would round each partial sum)."""
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    may not reduce in bf16 (split-K GEMMs would round each partial sum).
+    Both flags are set only around these products
+    (:func:`~.precision.exact_matmuls`)."""
     dt = CS_DTYPES[dtype]
     table = centroids.T.to(dt)
     rows = q.to(dt).reshape(-1, *q.shape[-2:])
@@ -365,6 +365,7 @@ def _phase3(index: PackedIndex, cs_t: torch.Tensor, sel1: torch.Tensor,
     return torch.gather(sel1, 1, local)
 
 
+@exact_matmuls()
 def _exact_centroid_term(index: PackedIndex, queries: torch.Tensor,
                          codes: torch.Tensor) -> torch.Tensor:
     """The float32 centroid term of Eq. 5/6 under reduced-precision CS (ref
@@ -446,6 +447,7 @@ def _phase12_batch(index: PackedIndex, queries: torch.Tensor,
 LUT_CHUNK = 32   # queries one LUT product covers
 
 
+@exact_matmuls()
 def _query_lut(index: PackedIndex, queries: torch.Tensor) -> torch.Tensor:
     """The OPQ rotation, then the PQ inner-product LUT -> (B, n_q, m, K).
 

@@ -25,6 +25,7 @@ from ..device import resolve_device
 from .bitvector import PredicateSet
 from .kmeans import Seed, assign, kmeans_spherical, split
 from .pq import PQCodebooks, encode_pq, train_opq, train_pq
+from .precision import exact_matmuls
 from .residual import ResidualCodec, encode_residual, train_residual_codec
 
 IVF_BLOCK_DOCS = 1 << 20   # docs per step of build_ivf's pair dedup
@@ -284,6 +285,7 @@ def build_ivf(codes: torch.Tensor, n_centroids: int,
     return ivf, ivf_lens, list_cap, n_dropped
 
 
+@exact_matmuls()
 def build_index(seed: Seed, doc_embs: np.ndarray, doc_lens: np.ndarray, *,
                 n_centroids: int, m: int = 16, nbits: int = 8,
                 plaid_b: int = 2, list_cap: Optional[int] = None,
@@ -317,7 +319,6 @@ def build_index(seed: Seed, doc_embs: np.ndarray, doc_lens: np.ndarray, *,
     -> (PackedIndex on the device, IndexMeta)
     """
     dev = resolve_device(device)
-    torch.backends.cuda.matmul.allow_tf32 = False
     n_raw_tokens = int(np.asarray(doc_lens).sum())
     if doc_budget is not None:
         doc_embs, doc_lens = pool_documents(doc_embs, doc_lens, doc_budget)

@@ -27,6 +27,7 @@ from typing import Union
 import torch
 
 from ..device import resolve_device
+from .precision import exact_matmuls
 
 Seed = Union[int, torch.Generator]
 
@@ -45,9 +46,9 @@ NEAR_TIE_EPS = 768 * 2.0 ** -24
 
 def _pairwise_sq_dists(x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     """(n, d) x (k, d) -> (n, k) squared L2 distances up to a per-row
-    constant (ref ``kmeans.py:17``)."""
-    torch.backends.cuda.matmul.allow_tf32 = False
-    return torch.sum(c * c, dim=-1)[None, :] - 2.0 * (x @ c.T)
+    constant (ref ``kmeans.py:17``), TF32 off (:func:`exact_matmuls`)."""
+    with exact_matmuls():
+        return torch.sum(c * c, dim=-1)[None, :] - 2.0 * (x @ c.T)
 
 
 def assign(x: torch.Tensor, centroids: torch.Tensor) -> torch.Tensor:

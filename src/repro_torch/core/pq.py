@@ -1,8 +1,8 @@
 """Product quantization (counterpart of ``repro/core/pq.py``): the codebook
 view, training (per-subspace k-means, and OPQ's alternating rotation), the
 encoder against frozen codebooks, the decoder, the inner-product LUT and
-scoring against it. ``pq_ste`` (the straight-through quantizer) belongs with
-encoder training and is not here."""
+scoring against it, and ``pq_ste``, the straight-through quantizer the
+encoder's JMPQ training runs."""
 from __future__ import annotations
 
 from typing import NamedTuple
@@ -11,6 +11,7 @@ import torch
 
 from ..device import resolve_device
 from .kmeans import Seed, _pairwise_sq_dists, kmeans, split
+from .precision import exact_matmuls
 
 
 class PQCodebooks(NamedTuple):
@@ -93,6 +94,15 @@ def lut_score(lut: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def pq_ste(x: torch.Tensor, cb: PQCodebooks) -> torch.Tensor:
+    """Straight-through PQ quantization (ref ``pq.py:119``): the forward is
+    ``decode_pq(encode_pq(x))``, the backward the identity. The codes are
+    :func:`encode_pq`'s, so they equal the reference's except at near-ties
+    (``kmeans.NEAR_TIE_EPS``)."""
+    xq = decode_pq(encode_pq(x.detach(), cb), cb)
+    return x + (xq - x).detach()
+
+
 class OPQ(NamedTuple):
     """Optimized PQ (ref ``pq.py:130``): an orthonormal rotation plus the
     codebooks trained on the rotated residuals (Ge et al., 2013)."""
@@ -101,6 +111,7 @@ class OPQ(NamedTuple):
     cb: PQCodebooks
 
 
+@exact_matmuls()
 def train_opq(seed: Seed, x, m: int, *, nbits: int = 8,
               kmeans_iters: int = 6, opq_iters: int = 4,
               device=None) -> OPQ:
@@ -109,7 +120,6 @@ def train_opq(seed: Seed, x, m: int, *, nbits: int = 8,
     ``R = U V^T`` from the SVD of ``x^T x_hat``. Sign flips of paired
     singular vectors leave R unchanged."""
     dev = resolve_device(device)
-    torch.backends.cuda.matmul.allow_tf32 = False
     x = torch.as_tensor(x, dtype=torch.float32, device=dev)
     rot = torch.eye(x.shape[1], dtype=x.dtype, device=dev)
     cb = None

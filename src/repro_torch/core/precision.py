@@ -9,8 +9,14 @@ bf16 tensor against a numpy scalar or a 0-dim float32 tensor compares in
 bf16), so every threshold site of the port states its comparison dtype
 through :func:`greater`, and the kernels get the threshold rounded once on
 the host to the value they compare against (:func:`round_to`).
+
+The port's products state their matmul precision with
+:func:`exact_matmuls`, which sets torch's process-wide flags only while they
+run and puts the caller's values back afterwards.
 """
 from __future__ import annotations
+
+import contextlib
 
 import numpy as np
 import torch
@@ -53,3 +59,32 @@ def kernel_th(th, widen: bool = False):
     if th is None:
         return None
     return np.float32(th) if widen else float(np.float32(th))
+
+
+def _matmul_flags() -> tuple:
+    b = torch.backends
+    return (b.cuda.matmul.allow_tf32, b.cudnn.allow_tf32,
+            b.cuda.matmul.allow_bf16_reduced_precision_reduction)
+
+
+def _set_matmul_flags(flags: tuple) -> None:
+    b = torch.backends
+    (b.cuda.matmul.allow_tf32, b.cudnn.allow_tf32,
+     b.cuda.matmul.allow_bf16_reduced_precision_reduction) = flags
+
+
+@contextlib.contextmanager
+def exact_matmuls():
+    """Run the products inside with TF32 off (cuBLAS and cuDNN) and without
+    reduced-precision bf16 reductions (a split-K GEMM rounding each partial
+    sum to bf16), then restore the three flags the caller had; nested
+    entries restore in turn. A float32 product in TF32 keeps about three
+    decimal digits. Also a decorator. The flags are torch's and
+    process-wide: another thread's products see them changed while an
+    entry is open (the service loop is single-threaded)."""
+    saved = _matmul_flags()
+    _set_matmul_flags((False, False, False))
+    try:
+        yield
+    finally:
+        _set_matmul_flags(saved)

@@ -38,6 +38,7 @@ from .bitvector import MAX_PREDICATES, PredicateSet
 from .index import (IndexMeta, PackedIndex, build_ivf, bytes_per_embedding,
                     index_from_arrays, pool_documents, quantize_tokens)
 from .pq import encode_pq
+from .precision import exact_matmuls
 from .residual import encode_residual
 
 SCHEMA_VERSION = 4
@@ -263,6 +264,7 @@ def load_index(path: str, device=None) -> tuple[PackedIndex, IndexMeta]:
 # Growth: encode new passages against frozen codebooks (ref ``store.py:304``)
 # ---------------------------------------------------------------------------
 
+@exact_matmuls()
 def _encode_passages(index: PackedIndex, doc_embs: np.ndarray,
                      doc_lens: np.ndarray):
     """Encode new passages against an index's frozen codebooks on its device

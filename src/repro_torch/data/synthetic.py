@@ -309,3 +309,79 @@ def make_raw_queries(doc_embs: torch.Tensor, doc_lens: torch.Tensor,
     vec = doc_embs[gt[:, None], take] + QUERY_NOISE / d ** 0.5 * torch.randn(
         n_queries, n_q, d, generator=g, device=dev)
     return _unit(vec), gt
+
+
+# ---------------------------------------------------------------------------
+# Token pairs for the encoder (ref ``examples/train_colbert.py:29``)
+# ---------------------------------------------------------------------------
+
+def _check_topics(n_topics: int, words_per_topic: int, vocab: int) -> None:
+    if n_topics * words_per_topic > vocab:
+        raise ValueError(f"{n_topics} topics x {words_per_topic} words "
+                         f"exceed the vocabulary of {vocab}")
+
+
+def _corrupt(rng: np.random.Generator, tokens: np.ndarray, vocab: int,
+             rate: float) -> np.ndarray:
+    """``tokens`` with each one replaced by a uniform id at ``rate``."""
+    hit = rng.random(tokens.shape) < rate
+    return np.where(hit, rng.integers(0, vocab, tokens.shape), tokens)
+
+
+def token_pairs(seed: int, *, n_topics: int, words_per_topic: int,
+                vocab: int, batch: int, q_len: int, d_len: int,
+                corrupt: float = 0.15):
+    """The example's paired (query, positive passage) batches -> ``make(step)``
+    -> ``{"q_tokens", "q_valid", "d_tokens", "d_valid"}``, CPU tensors
+    (int64 ids, bool validity, every token valid). A passage draws its
+    ``d_len`` tokens from its topic's ``words_per_topic``-word slice of the
+    vocabulary; its query is the first ``q_len`` of them with each replaced
+    by a uniform id at ``corrupt``. A batch is a function of (seed, step)
+    alone, so a resumed trainer sees the batches a continuous one does.
+    ``n_topics=32, words_per_topic=24, vocab=1000, batch=16, q_len=12,
+    d_len=24`` is ``examples/train_colbert.py``'s generator (its numbers
+    come from numpy, not jax.random)."""
+    _check_topics(n_topics, words_per_topic, vocab)
+
+    def make(step: int) -> dict:
+        rng = np.random.default_rng([seed, step])
+        topic = rng.integers(0, n_topics, (batch, 1))
+        d = topic * words_per_topic + rng.integers(0, words_per_topic,
+                                                   (batch, d_len))
+        q = _corrupt(rng, d, vocab, corrupt)[:, :q_len]
+        return {"q_tokens": torch.from_numpy(q),
+                "q_valid": torch.ones((batch, q_len), dtype=torch.bool),
+                "d_tokens": torch.from_numpy(d),
+                "d_valid": torch.ones((batch, d_len), dtype=torch.bool)}
+    return make
+
+
+def token_corpus(seed: int, *, n_docs: int, n_topics: int,
+                 words_per_topic: int, vocab: int, cap: int, min_len: int
+                 ) -> tuple[np.ndarray, np.ndarray]:
+    """Passages of the :func:`token_pairs` kind with lengths uniform in
+    [min_len, cap] -> (tokens (n_docs, cap) int64, 0 past each length;
+    lens (n_docs,) int32)."""
+    _check_topics(n_topics, words_per_topic, vocab)
+    rng = np.random.default_rng(seed)
+    topic = rng.integers(0, n_topics, (n_docs, 1))
+    tokens = topic * words_per_topic + rng.integers(0, words_per_topic,
+                                                    (n_docs, cap))
+    lens = rng.integers(min_len, cap + 1, n_docs).astype(np.int32)
+    tokens[np.arange(cap)[None, :] >= lens[:, None]] = 0
+    return tokens, lens
+
+
+def token_queries(seed: int, tokens: np.ndarray, lens: np.ndarray, *,
+                  n_queries: int, q_len: int, vocab: int,
+                  corrupt: float = 0.15) -> tuple[np.ndarray, np.ndarray,
+                                                  np.ndarray]:
+    """Queries planted on passages of :func:`token_corpus`: the first
+    ``q_len`` tokens of a uniformly drawn passage (with replacement), each
+    replaced by a uniform id at ``corrupt`` -> (q_tokens (n, q_len) int64,
+    q_valid (n, q_len) bool: the passage's tokens, gt (n,) int64)."""
+    rng = np.random.default_rng(seed)
+    gt = rng.integers(0, tokens.shape[0], n_queries)
+    q = _corrupt(rng, tokens[gt][:, :q_len], vocab, corrupt)
+    valid = np.arange(q_len)[None, :] < lens[gt][:, None]
+    return np.where(valid, q, 0), valid, gt

@@ -931,3 +931,122 @@ def test_plaid_explain_distributed_phases_on_card(smoke, card, monkeypatch,
     assert expl["launches"]["cinter"] == 9
     assert distr["launches"]["b32"]["prefilter"] == 2
     assert pl["launches"]["b32"]["cinter"] == 64
+
+
+# --- the encoder and its trainer --------------------------------------------
+
+ENC_WIDTH = dict(n_layers=2, d_model=64, n_heads=4, d_head=16, d_ff=128,
+                 vocab=300, out_dim=32)
+
+
+def _enc_tokens(b: int, s: int, seed: int = 0):
+    rng = np.random.default_rng(seed)
+    tok = torch.from_numpy(rng.integers(0, ENC_WIDTH["vocab"], (b, s)))
+    valid = torch.arange(s)[None] < torch.from_numpy(
+        rng.integers(1, s + 1, b))[:, None]
+    return tok, valid
+
+
+@pytest.mark.cuda
+def test_encode_on_card_matches_cpu(card):
+    """One seed gives the same weights on both devices (CPU draws); the
+    card's encode equals the CPU's at rtol 1e-5 / atol 1e-6 (unit vectors;
+    float32 products in another order, TF32 off), zeros on padding."""
+    from repro_torch.models import colbert
+    cfg = colbert.make_config(**ENC_WIDTH)
+    cpu = colbert.ColBERT(cfg, seed=3, device="cpu")
+    gpu = colbert.ColBERT(cfg, seed=3, device=card)
+    tok, valid = _enc_tokens(8, 24)
+    with torch.no_grad():
+        want = cpu(tok, valid)
+        got = gpu(tok.to(card), valid.to(card)).cpu()
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5,
+                               atol=1e-6)
+    assert (got[~valid] == 0).all()
+
+
+@pytest.mark.cuda
+def test_encoder_batch_variance_on_card(card):
+    """The elements of a query's embedding that differ between a batch of
+    B and a batch of 32: printed (ROADMAP known limits), 0 for the same
+    batch run twice, and within 1e-5 wherever they differ."""
+    from repro_torch.models import colbert
+    model = colbert.ColBERT(colbert.make_config(**ENC_WIDTH), seed=3,
+                            device=card)
+    tok, valid = _enc_tokens(32, 32, seed=1)
+    tok, valid = tok.to(card), valid.to(card)
+    with torch.no_grad():
+        e32 = model(tok, valid)
+        assert torch.equal(model(tok, valid).view(torch.int32),
+                           e32.view(torch.int32))
+        for b in (1, 16, 17, 32):
+            e = model(tok[:b], valid[:b])
+            diff = int((e.view(torch.int32) !=
+                        e32[:b].view(torch.int32)).sum())
+            print(f"B={b}: {diff} of {e.numel()} elements differ")
+            assert float((e - e32[:b]).abs().max()) < 1e-5
+
+
+@pytest.mark.cuda
+def test_trainer_resume_on_card_is_bit_exact(card, tmp_path):
+    """Three steps, a checkpoint, three more in a fresh Trainer: the same
+    weights, bit for bit, as six steps in one run on the card."""
+    from repro_torch.data import synthetic
+    from repro_torch.models import colbert
+    from repro_torch.train import optimizer
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    cfg = colbert.make_config(**ENC_WIDTH)
+    init = colbert.ColBERT(cfg, seed=3, device=card)
+    pairs = synthetic.token_pairs(0, n_topics=12, words_per_topic=24,
+                                  vocab=ENC_WIDTH["vocab"], batch=8,
+                                  q_len=8, d_len=16)
+
+    def trainer(ckpt_dir=None):
+        return Trainer(lambda p, b: colbert.contrastive_loss(p, b, cfg),
+                       optimizer.make("adamw", lr=3e-3), pairs,
+                       TrainerConfig(ckpt_dir=ckpt_dir, ckpt_every=3,
+                                     log_every=1), init, device=card)
+    whole = trainer()
+    wlog = whole.run(6)["log"]
+    trainer(str(tmp_path)).run(3)
+    resumed = trainer(str(tmp_path))
+    rlog = resumed.run(6)["log"]
+    assert [m["loss"] for m in rlog] == [m["loss"] for m in wlog[3:]]
+    for a, b in zip(whole.state.params.parameters(),
+                    resumed.state.params.parameters()):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_encoder_phase_on_card(smoke, card, monkeypatch, tmp_path):
+    """chip_smoke.py's encoder phase at a tiny corpus and index, its
+    training at full length (the loss falls over 200 steps, not 60):
+    resume equals continuous, both lanes serve the encoded index with every
+    kernel held."""
+    import dataclasses
+
+    from repro_torch.core import engine as teng
+    from repro_torch.data import synthetic
+    widths = {k: v for k, v in TL_WIDTHS.items() if k != "min_len"}
+    monkeypatch.setattr(smoke, "ENCODER", {
+        **smoke.ENCODER, "jmpq_steps": 2, "docs": 400, "encode_batch": 128, "time_docs": 64, "time_reps": 2})
+    monkeypatch.setattr(smoke, "COLBERTV2", {
+        **smoke.COLBERTV2, "n_layers": 2})
+    monkeypatch.setattr(smoke, "BUILD", dict(
+        n_centroids=widths["n_centroids"], m=widths["m"],
+        nbits=widths["nbits"], plaid_b=2, list_cap=None, kmeans_iters=3,
+        pq_train_size=2000))
+    monkeypatch.setattr(smoke, "WIDTHS", widths)
+    monkeypatch.setitem(smoke.RECORD, "device", {"nvidia_smi": "test"})
+    monkeypatch.setattr(smoke, "OUT_DIR", str(tmp_path))
+    index, meta = synthetic.make_packed_index(
+        0, min_len=TL_WIDTHS["min_len"], device=card, **widths)
+    queries, gt = synthetic.make_queries(index, 1, 64, TL_ENGINE["n_q"])
+    cfg = teng.EngineConfig(**TL_ENGINE, use_kernels=True)
+    ucfg = dataclasses.replace(cfg, fused_prefilter=False,
+                               fused_late_interaction=False)
+    full = dict(index=index, meta=meta, cfg=cfg, ucfg=ucfg, queries=queries,
+                gt=gt)
+    enc = smoke.encoder_phase(full)
+    assert enc["launches"]["fused"]["b32"]["prefilter"] == 2
+    assert smoke.RECORD["encoder_resume"]["bit_equal"]

@@ -32,7 +32,12 @@ ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 def test_port_imports_without_jax_or_repro():
     modules = sorted(m.name for m in pkgutil.walk_packages(
         repro_torch.__path__, "repro_torch."))
-    assert "repro_torch.kernels.prefilter" in modules
+    for name in ("repro_torch.kernels.prefilter", "repro_torch.models.colbert",
+                 "repro_torch.models.transformer", "repro_torch.models.layers",
+                 "repro_torch.train.trainer", "repro_torch.train.optimizer",
+                 "repro_torch.train.checkpoint",
+                 "repro_torch.train.compression"):
+        assert name in modules, name
     code = textwrap.dedent(f"""
         import importlib, sys
         class Block:
@@ -80,9 +85,10 @@ def test_every_module_imports_first():
 
 
 def _port_sources() -> list:
-    """Every Python source of the port: the package, chip_smoke.py and the
-    card scripts beside it."""
-    files = [os.path.join(ROOT, "chip_smoke.py")]
+    """Every Python source of the port: the package, chip_smoke.py, the
+    card scripts beside it and the port's examples."""
+    files = [os.path.join(ROOT, "chip_smoke.py"),
+             os.path.join(ROOT, "examples", "train_colbert_torch.py")]
     for base, _, names in os.walk(os.path.join(ROOT, "src", "repro_torch")):
         files += [os.path.join(base, n) for n in names if n.endswith(".py")]
     scripts = os.path.join(ROOT, "scripts")
@@ -103,7 +109,10 @@ def test_port_sources_import_no_jax_or_repro():
                 ("serving", "cache.py"), ("obs", "trace.py"),
                 ("obs", "registry.py"), ("obs", "explain.py"),
                 ("core", "plaid.py"), ("launch", "__init__.py"),
-                ("launch", "serve.py")):
+                ("launch", "serve.py"), ("models", "colbert.py"),
+                ("models", "transformer.py"), ("models", "layers.py"),
+                ("train", "trainer.py"), ("train", "optimizer.py"),
+                ("train", "checkpoint.py"), ("train", "compression.py")):
         assert any(f.endswith(os.path.join(*sub)) for f in files), sub
     bad = []
     for path in files:
@@ -203,6 +212,26 @@ def test_entry_points_refuse_the_cpu_unless_asked(monkeypatch, small_index,
     assert explain.explain_timeline(tl, q[0].numpy(), cfg,
                                     device="cpu").k == 10
     assert serve.shard_index(index, 1, device="cpu").codes.shape[0] == 1
+    from repro_torch import models
+    from repro_torch.models import colbert, transformer
+    from repro_torch.train import optimizer
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    cfg_m = colbert.make_config(n_layers=1, d_model=16, n_heads=2, d_head=8,
+                                d_ff=32, vocab=50, out_dim=8)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        colbert.ColBERT(cfg_m)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        colbert.init_params(0, cfg_m)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        transformer.init_params(0, cfg_m)
+    enc = colbert.ColBERT(cfg_m, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        models.params_from_reference(models.params_to_reference(enc), cfg_m)
+    args = (lambda p, b: colbert.contrastive_loss(p, b, cfg_m),
+            optimizer.make("adamw"), lambda step: {}, TrainerConfig(), enc)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Trainer(*args)
+    assert Trainer(*args, device="cpu").state.params.device.type == "cpu"
 
 
 TINY = dict(n_docs=700, cap=12, min_len=5, d=32, n_centroids=96, m=4,
