@@ -45,8 +45,11 @@ Phases:
                (both of its forms), on an aligned CS^T and one element off,
                B in {1, 3, 32, 40} (a doc split over up to 8, 4, 2 and 1
                warps), cap in {10, 33, 80, 200} with lengths at the
-               split's and the rounds' edges); the filtered and
-               compact forms
+               split's and the rounds' edges; the nq4_cap1 cases of
+               each: MIND x EMVB's operands, n_q = 4 and one token a doc,
+               the 4-bit words' massive F ties, sparse, dense and shared
+               candidacy, n_filter 4096, n_docs 1024, th_r None); the
+               filtered and compact forms
                (FILTER_CASES: plans passing 0, 1, 50 and 100 % of docs and
                one with forbidden bits and bit 31; per-query codes at B in
                {1, 3, 32, 40}, cand_cap 4100 (no multiple of the 1024-doc
@@ -58,6 +61,25 @@ Phases:
                at B = 32 and B = 1 equal to the two-level top-k composed on
                the card from each shard's retrieve and topk; run while
                nothing else is resident
+  3c. recsys — the recommender and graph families at their configs'
+               widths, before the planted index loads (DCN's full-vocabulary
+               Adagrad step peaks at 65 GB), each model freed before the
+               next; every training's loss falls and a run resumed from a
+               checkpoint equals the continuous one bit for bit. MIND (1M
+               items x 64, 4 interests) trained 50 AdamW steps at batch
+               4,096, its item table indexed by build_index (2^14
+               centroids, PQ 16 x 8 bits, one token an item) and 32 users
+               and 8 single users served through EMVB at n_q = 4,
+               th_r = None on both lanes with launch counts, each of the
+               six kernels held against its plain version, beside exact
+               MaxSim (top-10 overlap, score ratio, ms); DCN-v2 at the full
+               Criteo-1TB vocabularies (187,767,399 rows x 16) trained 10
+               Adagrad steps at batch 65,536, forward ms at batch 512 and
+               262,144; DLRM with PQ tables at the full vocabularies
+               (forward ms) and trained on float32 tables capped at 2^21
+               rows a field; DIEN at its full config; GCN at minibatch_lg
+               (Reddit's sizes, the sampler on a synthetic neighbour table
+               on the card), full_graph_sm (Cora's) and molecule
   4. full    — the planted index on the card at MS MARCO width; retrieve at
                B = 32 and B = 1 on each lane (launch counts read around those
                runs only); each kernel held against its plain version on the
@@ -85,7 +107,7 @@ Phases:
                retrieve_timeline on both lanes, held per generation; a
                merge, a save/load round trip, ms per generation count
   5c. index_build — build_index on the card at the emvb-msmarco widths
-               (2^18 centroids, PQ 16 x 8 bits, k-means 8 iterations, a PQ
+               (2^18 centroids, PQ 16 x 8 bits, k-means 4 iterations, a PQ
                sample of 65,536) over BUILD_DOCS raw passages, each stage
                timed, k-means iterations beside their float32 floor; then
                retrieve on both lanes of the trained index at B = 32 and
@@ -290,27 +312,36 @@ def _quant(rng, shape, scale, levels):
 # 1024 docs.
 STRESS_LENS = {80: (0, 1, 31, 32, 33, 80), 200: (0, 127, 128, 129, 200)}
 PREFILTER_STRESS = (
-    # name, B, n_c, n_docs, cap, n_filter, bitmap density, kind
-    ("sparse_candidacy", 32, 700, 5003, 17, 300, 0.02, ""),
-    ("dense_candidacy", 32, 700, 3001, 17, 300, 0.9, ""),
-    ("dense_candidacy_odd_batch", 21, 700, 3001, 17, 300, 0.97, ""),
-    ("one_candidate_set", 32, 700, 3001, 17, 300, 0.3, "shared"),
-    ("cap80_edge_lengths", 3, 700, 2100, 80, 300, 0.3, ""),
-    ("ties_across_tiles", 3, 64, 4100, 12, 2500, 0.9, "flat"),
-    ("ties_sorted_cut", 32, 64, 4100, 12, 2500, 0.9, "flat"),
-    ("tile_plus_one_docs", 1, 700, 1025, 17, 1025, 0.3, ""),
-    ("cap200_two_chunks", 32, 700, 2100, 200, 300, 0.6, ""),
+    # name, B, n_c, n_docs, cap, n_filter, bitmap density, kind, n_q
+    ("sparse_candidacy", 32, 700, 5003, 17, 300, 0.02, "", 32),
+    ("dense_candidacy", 32, 700, 3001, 17, 300, 0.9, "", 32),
+    ("dense_candidacy_odd_batch", 21, 700, 3001, 17, 300, 0.97, "", 32),
+    ("one_candidate_set", 32, 700, 3001, 17, 300, 0.3, "shared", 32),
+    ("cap80_edge_lengths", 3, 700, 2100, 80, 300, 0.3, "", 32),
+    ("ties_across_tiles", 3, 64, 4100, 12, 2500, 0.9, "flat", 32),
+    ("ties_sorted_cut", 32, 64, 4100, 12, 2500, 0.9, "flat", 32),
+    ("tile_plus_one_docs", 1, 700, 1025, 17, 1025, 0.3, "", 32),
+    ("cap200_two_chunks", 32, 700, 2100, 200, 300, 0.6, "", 32),
+    # MIND x EMVB (recsys phase): 4 interest terms, one token an item
+    ("nq4_cap1_sparse", 32, 2048, 200_003, 1, 4096, 0.01, "", 4),
+    ("nq4_cap1_dense", 32, 2048, 20_003, 1, 4096, 0.6, "", 4),
+    ("nq4_cap1_shared", 32, 2048, 50_003, 1, 4096, 0.1, "shared", 4),
+    ("nq4_cap1_b1", 1, 2048, 200_003, 1, 4096, 0.01, "", 4),
+    ("nq4_cap1_flat_ties", 3, 64, 9001, 1, 4096, 0.9, "flat", 4),
 )
 PQINTER_STRESS = (
-    # name, B, n_c, n_filter, cap, m, K, n_docs, k, th_r values
+    # name, B, n_c, n_filter, cap, m, K, n_docs, k, th_r values, n_q
     ("m16_cap80_edge_lengths", 3, 700, 700, 80, 16, 256, 90, 25,
-     (None, 0.25)),
-    ("odd_m_and_K", 3, 700, 300, 17, 5, 7, 60, 20, (None, 0.25)),
-    ("m8_cap33", 2, 300, 200, 33, 8, 16, 50, 10, (0.25,)),
-    ("m4", 2, 300, 200, 12, 4, 16, 50, 10, (0.25,)),
-    ("m32", 2, 300, 200, 12, 32, 16, 50, 10, (0.25,)),
-    ("eq6_no_kept_token", 3, 700, 300, 17, 16, 256, 60, 20, (100.0,)),
-    ("sorted_cuts", 32, 300, 2100, 12, 4, 16, 2100, 50, (0.25,)),
+     (None, 0.25), 32),
+    ("odd_m_and_K", 3, 700, 300, 17, 5, 7, 60, 20, (None, 0.25), 32),
+    ("m8_cap33", 2, 300, 200, 33, 8, 16, 50, 10, (0.25,), 32),
+    ("m4", 2, 300, 200, 12, 4, 16, 50, 10, (0.25,), 32),
+    ("m32", 2, 300, 200, 12, 32, 16, 50, 10, (0.25,), 32),
+    ("eq6_no_kept_token", 3, 700, 300, 17, 16, 256, 60, 20, (100.0,), 32),
+    ("sorted_cuts", 32, 300, 2100, 12, 4, 16, 2100, 50, (0.25,), 32),
+    ("nq4_cap1_m16", 32, 2048, 4096, 1, 16, 256, 1024, 10, (None, 0.25),
+     4),
+    ("nq4_cap1_m16_b1", 1, 2048, 4096, 1, 16, 256, 1024, 10, (None,), 4),
 )
 # bitfilter's score pass gathers only the word rows with a bit set (its
 # occupancy bitmap: in shared memory up to n_c = 319,488 at B = 32 and
@@ -318,34 +349,39 @@ PQINTER_STRESS = (
 # codes 128 at a time. Lengths: a round's edges.
 ROUND_LENS = (0, 1, 31, 32, 33, 127, 128, 129, 192, 193, 200)
 BITFILTER_STRESS = (
-    # name, B, n_c, n_docs, cap, share of lit rows, lengths
-    ("lit_rows_2pct_b1", 1, 1001, 3001, 80, 0.02, STRESS_LENS[80]),
-    ("lit_rows_2pct_b3", 3, 1001, 3001, 80, 0.02, STRESS_LENS[80]),
-    ("lit_rows_2pct_b17", 17, 1001, 3001, 80, 0.02, STRESS_LENS[80]),
-    ("lit_rows_2pct_b32", 32, 1001, 3001, 80, 0.02, STRESS_LENS[80]),
-    ("lit_rows_2pct_b40", 40, 1001, 3001, 80, 0.02, STRESS_LENS[80]),
-    ("no_lit_row_b1", 1, 1001, 3001, 80, 0.0, None),
-    ("no_lit_row_b32", 32, 1001, 3001, 80, 0.0, None),
-    ("every_row_lit_b1", 1, 1001, 3001, 80, 1.0, None),
-    ("every_row_lit_b3", 3, 1001, 3001, 80, 1.0, None),
-    ("every_row_lit_b32", 32, 1001, 3001, 80, 1.0, None),
-    ("cap200_rounds", 32, 1001, 2100, 200, 0.3, ROUND_LENS),
-    ("cap200_rounds_b1", 1, 1001, 2100, 200, 0.3, ROUND_LENS),
-    ("occupancy_in_global_b1", 1, 1_500_001, 3001, 80, 0.02, None),
-    ("occupancy_in_global_b32", 32, 600_001, 3001, 80, 0.02, None),
+    # name, B, n_c, n_docs, cap, share of lit rows, lengths, n_q
+    ("lit_rows_2pct_b1", 1, 1001, 3001, 80, 0.02, STRESS_LENS[80], 32),
+    ("lit_rows_2pct_b3", 3, 1001, 3001, 80, 0.02, STRESS_LENS[80], 32),
+    ("lit_rows_2pct_b17", 17, 1001, 3001, 80, 0.02, STRESS_LENS[80], 32),
+    ("lit_rows_2pct_b32", 32, 1001, 3001, 80, 0.02, STRESS_LENS[80], 32),
+    ("lit_rows_2pct_b40", 40, 1001, 3001, 80, 0.02, STRESS_LENS[80], 32),
+    ("no_lit_row_b1", 1, 1001, 3001, 80, 0.0, None, 32),
+    ("no_lit_row_b32", 32, 1001, 3001, 80, 0.0, None, 32),
+    ("every_row_lit_b1", 1, 1001, 3001, 80, 1.0, None, 32),
+    ("every_row_lit_b3", 3, 1001, 3001, 80, 1.0, None, 32),
+    ("every_row_lit_b32", 32, 1001, 3001, 80, 1.0, None, 32),
+    ("cap200_rounds", 32, 1001, 2100, 200, 0.3, ROUND_LENS, 32),
+    ("cap200_rounds_b1", 1, 1001, 2100, 200, 0.3, ROUND_LENS, 32),
+    ("occupancy_in_global_b1", 1, 1_500_001, 3001, 80, 0.02, None, 32),
+    ("occupancy_in_global_b32", 32, 600_001, 3001, 80, 0.02, None, 32),
+    ("nq4_cap1_b32", 32, 16384, 100_003, 1, 0.02, None, 4),
+    ("nq4_cap1_b1", 1, 16384, 100_003, 1, 0.02, None, 4),
 )
 # pqscore splits a doc's tokens over 8 warps: lengths at that split's edges.
 SPLIT_LENS = (0, 1, 7, 8, 9, 79, 80)
 PQSCORE_STRESS = (
-    # name, B, n_c, docs, cap, m, K, lengths, th_r values
+    # name, B, n_c, docs, cap, m, K, lengths, th_r values, n_q
     ("m16_split_edges_b32", 32, 700, 300, 80, 16, 256, SPLIT_LENS,
-     (None, 0.25)),
-    ("m16_b1_4096_docs", 1, 700, 4096, 80, 16, 256, None, (0.25,)),
-    ("m16_cap200", 3, 700, 200, 200, 16, 256, None, (None, 0.25)),
-    ("m5_serial", 3, 700, 300, 80, 5, 256, SPLIT_LENS, (None, 0.25)),
-    ("m8_serial", 3, 700, 300, 80, 8, 16, SPLIT_LENS, (0.25,)),
+     (None, 0.25), 32),
+    ("m16_b1_4096_docs", 1, 700, 4096, 80, 16, 256, None, (0.25,), 32),
+    ("m16_cap200", 3, 700, 200, 200, 16, 256, None, (None, 0.25), 32),
+    ("m5_serial", 3, 700, 300, 80, 5, 256, SPLIT_LENS, (None, 0.25), 32),
+    ("m8_serial", 3, 700, 300, 80, 8, 16, SPLIT_LENS, (0.25,), 32),
     ("m16_eq6_no_kept_token", 3, 700, 300, 80, 16, 256, SPLIT_LENS,
-     (100.0,)),
+     (100.0,), 32),
+    ("nq4_cap1_m16_b32", 32, 2048, 1024, 1, 16, 256, None, (None, 0.25),
+     4),
+    ("nq4_cap1_m16_b1", 1, 2048, 1024, 1, 16, 256, None, (None,), 4),
 )
 # The S̄ pass (emvb::sbar_block), which cinter and pqinter's pass 1 both
 # run: n_q 1 and 7 run one lane per term; 4, 8, 12, 16 and 32 the 16-byte
@@ -434,16 +470,18 @@ def _stress_lens(rng, shape, cap: int):
     return rng.integers(0, cap + 1, size=shape).astype(np.int32)
 
 
-def lit_row_words(rng, nb: int, n_c: int, share: float):
-    """(B, n_c) int32 word table whose rows (a centroid's B words) are all
-    zero except a ``share`` of them, each lit row with at least one bit set
-    and bit 31 in use (int32-negative words)."""
+def lit_row_words(rng, nb: int, n_c: int, share: float, n_q: int = 32):
+    """(B, n_c) int32 word table of ``n_q``-bit words whose rows (a
+    centroid's B words) are all zero except a ``share`` of them, each lit
+    row with at least one bit set and, at n_q = 32, bit 31 in use
+    (int32-negative words)."""
     import numpy as np
     w = rng.integers(0, 1 << 32, size=(nb, n_c), dtype=np.uint64)
     w &= rng.integers(0, 1 << 32, size=(nb, n_c), dtype=np.uint64)
+    w &= np.uint64((1 << n_q) - 1)
     lit = rng.random(n_c) < share
     cols = np.flatnonzero(lit)
-    w[cols % nb, cols] |= np.uint64(1) << (cols % 32).astype(np.uint64)
+    w[cols % nb, cols] |= np.uint64(1) << (cols % n_q).astype(np.uint64)
     w[:, ~lit] = 0
     return w.astype(np.uint32).view(np.int32)
 
@@ -524,10 +562,9 @@ def small_phase(dev, cs_dtype: str = "float32") -> dict:
                     t(qm))
             hold("pqscore", (ops.pqscore_batched(*args),),
                  (kps.pqscore_batched_ref(*args),))
-    for name, nb, n_c, n_docs, cap, n_filter, density, kind in (
+    for name, nb, n_c, n_docs, cap, n_filter, density, kind, n_q in (
             PREFILTER_STRESS):
         rng = np.random.default_rng(len(name) * 1000 + nb)
-        n_q = 32
         cs = _quant(rng, (nb, n_q, n_c), 0.5, 4)
         if kind == "flat":           # one word per query: F ties everywhere
             cs = np.repeat(cs[:, :, :1], n_c, axis=2)
@@ -549,9 +586,9 @@ def small_phase(dev, cs_dtype: str = "float32") -> dict:
         args = (bits, t(codes), t(lens))
         hold("bitfilter", (ops.bitfilter_batched(*args),),
              (kbf.bitfilter_batched_ref(*args),))
-    for name, nb, n_c, nf, cap, m, ksub, n_docs2, k, th_rs in PQINTER_STRESS:
+    for name, nb, n_c, nf, cap, m, ksub, n_docs2, k, th_rs, n_q in (
+            PQINTER_STRESS):
         rng = np.random.default_rng(len(name) * 1000 + m)
-        n_q = 32
         cs_t = _quant(rng, (nb, n_c, n_q), 0.5, 2)
         lut = _quant(rng, (nb, n_q, m, ksub), 0.1, 8)
         pcodes = rng.integers(0, n_c, size=(nb, nf, cap)).astype(np.int32)
@@ -574,19 +611,19 @@ def small_phase(dev, cs_dtype: str = "float32") -> dict:
             args = (c(cs_t), t(pcodes), t(plens), q)
             hold("cinter", (ops.cinter_batched(*args),),
                  (kci.cinter_batched_ref(*args),))
-    for name, nb, n_c, n_docs, cap, share, lens in BITFILTER_STRESS:
+    for name, nb, n_c, n_docs, cap, share, lens, n_q in BITFILTER_STRESS:
         rng = np.random.default_rng(len(name) * 1000 + nb)
         codes = rng.integers(0, n_c, size=(n_docs, cap)).astype(np.int32)
         lens = (rng.choice(np.asarray(lens, np.int32), size=n_docs)
                 if lens else rng.integers(0, cap + 1, size=n_docs)
                 ).astype(np.int32)
         codes[np.arange(cap)[None, :] >= lens[:, None]] = n_c
-        args = (t(lit_row_words(rng, nb, n_c, share)), t(codes), t(lens))
+        args = (t(lit_row_words(rng, nb, n_c, share, n_q)), t(codes),
+                t(lens))
         hold("bitfilter", (ops.bitfilter_batched(*args),),
              (kbf.bitfilter_batched_ref(*args),))
-    for name, nb, n_c, nd, cap, m, ksub, lens, th_rs in PQSCORE_STRESS:
+    for name, nb, n_c, nd, cap, m, ksub, lens, th_rs, n_q in PQSCORE_STRESS:
         rng = np.random.default_rng(len(name) * 1000 + m)
-        n_q = 32
         cs_t = _quant(rng, (nb, n_c, n_q), 0.5, 2)
         lut = _quant(rng, (nb, n_q, m, ksub), 0.1, 8)
         pcodes = rng.integers(0, n_c, size=(nb, nd, cap)).astype(np.int32)
@@ -1657,9 +1694,12 @@ def timeline_phase(full: dict) -> dict:
 
 BUILD_DOCS = 32_768   # raw passages built over: a cut of MS MARCO's 8,841,823
 BUILD_SEED = 7        # the passages' seed and build_index's
+# The reference's defaults but 4 k-means iterations of its 8 (each ~8.5 s
+# at these widths on an H100; the depth cut keeps the script near 650 s
+# beside the recsys phase; every iteration is still timed).
 BUILD = dict(n_centroids=WIDTHS["n_centroids"], m=WIDTHS["m"],
              nbits=WIDTHS["nbits"], plaid_b=2, list_cap=WIDTHS["list_cap"],
-             kmeans_iters=8, pq_train_size=65_536)  # the reference's defaults
+             kmeans_iters=4, pq_train_size=65_536)
 BUILD_HOLD = 128      # docs encoded again on the CPU against the trained books
 MIN_TRAIN_TOKENS = 1 << 18   # real tokens the k-means must see at least
 
@@ -3037,6 +3077,551 @@ def encoder_phase(full: dict) -> dict:
     return {"launches": launches}
 
 
+# --- 3c. recsys: the recommender and graph families on the card -------------
+
+# MIND x EMVB: the example's EngineConfig (examples/mind_emvb_retrieval.py),
+# an interest a query term, one token an item.
+MIND_ENGINE = dict(n_q=4, k=10, nprobe=32, th=0.3, th_r=None, n_filter=4096,
+                   n_docs=1024)
+# Depths of the recsys phase; widths are the configs' (_recsys_configs).
+# MIND trains at batch 4,096, not the train_batch shape's 65,536, whose
+# in-batch (B, K, B) float32 logits would take 68.7 GB; its item index has
+# 2^14 centroids (PLAID's 16 sqrt(N) over 1M items, rounded to a power of
+# two). DLRM trains on float32 tables capped at dlrm_row_cap rows a field
+# (the full ones are 96 GB); its PQ tables serve at the full vocabularies.
+# Learning rates: the Criteo models' Adagrad at 1e-3, since its first steps
+# at the optimizer's default 1e-2 move every weight of the 1,024-wide MLPs
+# by 1e-2 and spike the loss (to 289 in a CPU rehearsal at these MLP
+# widths); the others at 1e-2.
+RECSYS = dict(
+    seed=22, mind_batch=4096, mind_steps=50, mind_resume=25,
+    mind_window=64, mind_centroids=1 << 14, mind_users=32, mind_singles=8,
+    steps=10, resume=5, loss_window=5, train_batch=65_536,
+    lr=dict(mind=1e-2, dcn=1e-3, dlrm=1e-3, dien=1e-2, gcn=1e-2),
+    serve=(512, 262_144), dlrm_row_cap=1 << 21, time_reps=5)
+# GCN minibatch_lg: Reddit's 232,965 nodes and 114,615,892 edges (mean
+# degree 492) as a synthetic padded neighbour table on the card, degrees
+# uniform in [1, max_degree]; 80 % of a node's neighbours in its class.
+GCN_GRAPH = dict(max_degree=984, homophily=0.8, seeds=1024,
+                 fanouts=(15, 10))
+
+
+def _recsys_configs() -> dict:
+    """The configs the phase runs: each arch's ``make_config()`` (GCN at
+    three of its shapes), DLRM's float32 tables capped at dlrm_row_cap
+    rows a field for training."""
+    from repro_torch.configs import dcn_v2, dien, dlrm_mlperf, gcn_cora, mind
+    cap = RECSYS["dlrm_row_cap"]
+    dlrm_train = dlrm_mlperf.make_config()
+    return {
+        "mind": mind.make_config(),
+        "dcn": dcn_v2.make_config(),
+        "dlrm_pq": dlrm_mlperf.make_config(use_pq_tables=True),
+        "dlrm_train": dataclasses.replace(dlrm_train, vocab_sizes=tuple(
+            min(v, cap) for v in dlrm_train.vocab_sizes)),
+        "dien": dien.make_config(),
+        "gcn": {s: gcn_cora.make_config(s) for s in (
+            "full_graph_sm", "minibatch_lg", "molecule")},
+        "gcn_dims": {s: gcn_cora.SHAPES[s].dims for s in (
+            "full_graph_sm", "minibatch_lg", "molecule")}}
+
+
+def _cuda_gen(dev, seed: int):
+    import torch
+    g = torch.Generator(device=dev)
+    g.manual_seed(int(seed))
+    return g
+
+
+def _tensor_bytes(model) -> int:
+    return sum(t.numel() * t.element_size()
+               for t in [*model.parameters(), *model.buffers()])
+
+
+def train_resume(make_model, loss, opt, make_batch, steps: int,
+                 resume_at: int, keep: bool = False) -> tuple:
+    """``steps`` steps of a Trainer from ``make_model()`` (weights from a
+    seed: the same every call), logging every step; then a Trainer that
+    stops with a checkpoint at ``resume_at`` and a fresh one resumed from
+    it, held against the continuous run (losses and parameter bits). The
+    loss must fall: the last ``loss_window`` steps' mean below the first's.
+    -> (record, the continuous run's model if ``keep``)."""
+    import gc
+    import tempfile
+
+    import torch
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    model = make_model()
+    dev = next(model.parameters()).device
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rec = {"params": sum(p.numel() for p in model.parameters()),
+           "bytes": _tensor_bytes(model), "steps": steps,
+           "resume_at": resume_at}
+
+    def trainer(init, **kw):
+        return Trainer(loss, opt, make_batch,
+                       TrainerConfig(log_every=1, **kw), init, device=dev)
+    cont = trainer(model)
+    del model
+    t0 = time.perf_counter()
+    log = cont.run(steps)["log"]
+    rec["seconds"] = time.perf_counter() - t0
+    losses = [m["loss"] for m in log]
+    w = RECSYS["loss_window"]
+    rec.update(losses=losses, loss_window=w,
+               first_window_mean=statistics.fmean(losses[:w]),
+               last_window_mean=statistics.fmean(losses[-w:]),
+               ms_per_step=statistics.median(m["sec"] for m in log) * 1e3)
+    kept = cont.state.params if keep else None
+    want = {n: p.detach().cpu() for n, p in
+            cont.state.params.named_parameters()}
+    del cont
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        trainer(make_model(), ckpt_dir=d, ckpt_every=resume_at).run(
+            resume_at)
+        gc.collect()
+        resumed = trainer(make_model(), ckpt_dir=d, ckpt_every=steps + 1)
+        rlog = resumed.run(steps)["log"]
+        rec["resume_seconds"] = time.perf_counter() - t0
+    if rlog[0]["step"] != resume_at + 1:
+        raise AssertionError("the fresh Trainer did not resume")
+    differing = sum(_differing(p.detach(), want[n].to(p.device))
+                    for n, p in resumed.state.params.named_parameters())
+    rlosses = [m["loss"] for m in rlog]
+    rec.update(params_differing=differing,
+               losses_equal=rlosses == losses[resume_at:],
+               bit_equal=differing == 0 and rlosses == losses[resume_at:],
+               max_memory_allocated_gb=torch.cuda.max_memory_allocated()
+               / 1e9)
+    del resumed, want
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not rec["last_window_mean"] < rec["first_window_mean"]:
+        raise AssertionError(f"the loss did not fall: {losses}")
+    if not rec["bit_equal"]:
+        raise AssertionError(f"resume differs from the continuous run: "
+                             f"{differing} parameter elements, losses "
+                             f"{rlosses} vs {losses[resume_at:]}")
+    return rec, kept
+
+
+def forward_ms(forward, model, make_batch, cfg) -> dict:
+    """CUDA-event median ms of ``forward`` at the serve_p99 and serve_bulk
+    batches (RECSYS["serve"]); each output finite."""
+    import torch
+    out = {}
+    with torch.no_grad():
+        for b in RECSYS["serve"]:
+            batch = make_batch(b)
+            y = forward(model, batch, cfg)
+            if y.shape != (b,) or not torch.isfinite(y).all():
+                raise AssertionError(f"forward at batch {b}: {y.shape}, "
+                                     "not finite")
+            out[f"b{b}_ms"] = statistics.median(time_samples(
+                lambda: forward(model, batch, cfg), n=RECSYS["time_reps"]))
+            del batch, y
+    return out
+
+
+def criteo_batches(cfg, dev, batch: int, seed: int):
+    """step -> a Criteo-shaped batch on ``dev``: 13 dense N(0, 1) features,
+    one uniform index a field, every slot valid, and a label planted by a
+    fixed linear rule on the dense features (so the loss can fall)."""
+    import torch
+    w_true = torch.randn(cfg.n_dense, generator=_cuda_gen(dev, seed),
+                         device=dev)
+    vocab = torch.tensor(cfg.vocab_sizes, dtype=torch.float64, device=dev)
+
+    def make(step: int):
+        g = _cuda_gen(dev, seed * 1_000_003 + step + 1)
+        dense = torch.randn((batch, cfg.n_dense), generator=g, device=dev)
+        u = torch.rand((batch, cfg.n_sparse, cfg.nnz), generator=g,
+                       device=dev, dtype=torch.float64)
+        idx = (u * vocab[:, None]).to(torch.int32)
+        return {"dense": dense, "sparse_idx": idx,
+                "sparse_valid": torch.ones(idx.shape, dtype=torch.bool,
+                                           device=dev),
+                "labels": (dense @ w_true > 0).to(torch.int32)}
+    return make
+
+
+def dien_batches(cfg, dev, batch: int, seed: int):
+    """step -> a DIEN batch on ``dev``: histories of uniform items and
+    categories with valid prefixes of 1..seq_len, a target, and a label
+    planted on the target's category (its lower half)."""
+    import torch
+
+    def make(step: int):
+        g = _cuda_gen(dev, seed * 1_000_003 + step + 1)
+        shape = (batch, cfg.seq_len)
+        lens = torch.randint(1, cfg.seq_len + 1, (batch, 1), generator=g,
+                             device=dev)
+        cats = torch.randint(0, cfg.vocab_cats, (batch,), generator=g,
+                             device=dev)
+        return {
+            "hist_items": torch.randint(0, cfg.vocab_items, shape,
+                                        generator=g, device=dev),
+            "hist_cats": torch.randint(0, cfg.vocab_cats, shape,
+                                       generator=g, device=dev),
+            "hist_valid": torch.arange(cfg.seq_len, device=dev)[None] < lens,
+            "target_item": torch.randint(0, cfg.vocab_items, (batch,),
+                                         generator=g, device=dev),
+            "target_cat": cats,
+            "labels": (cats < cfg.vocab_cats // 2).to(torch.int32)}
+    return make
+
+
+def mind_batches(cfg, dev, batch: int, seed: int):
+    """step -> MIND users on ``dev`` whose histories lie in a window of
+    mind_window neighbouring items around an anchor, the target its
+    middle (the example's popularity neighbourhoods)."""
+    import torch
+    w = RECSYS["mind_window"]
+
+    def make(step: int):
+        g = _cuda_gen(dev, seed * 1_000_003 + step + 1)
+        anchor = torch.randint(0, cfg.vocab_items - w, (batch, 1),
+                               generator=g, device=dev)
+        hist = anchor + torch.randint(0, w, (batch, cfg.seq_len),
+                                      generator=g, device=dev)
+        return {"hist_items": hist.to(torch.int32),
+                "hist_valid": torch.ones((batch, cfg.seq_len),
+                                         dtype=torch.bool, device=dev),
+                "target_item": (anchor[:, 0] + w // 2).to(torch.int32)}
+    return make
+
+
+def class_feats(g, dev, labels, n_cls: int, d_feat: int):
+    """Node features N(0, 1) plus half their class's centroid, and a row
+    of zeros at index n (the sampler's sentinel) -> (n + 1, d_feat)."""
+    import torch
+    n = labels.shape[0]
+    cent = torch.randn((n_cls, d_feat), generator=g, device=dev)
+    feats = torch.zeros((n + 1, d_feat), device=dev)
+    feats[:n] = torch.randn((n, d_feat), generator=g, device=dev) \
+        + 0.5 * cent[labels]
+    return feats
+
+
+def neighbours(g, dev, owners, labels, n_cls: int):
+    """One neighbour per entry of ``owners`` (classes in contiguous blocks
+    of ``labels``): in the owner's class with probability
+    GCN_GRAPH["homophily"], else any node."""
+    import torch
+    n = labels.shape[0]
+    start = torch.searchsorted(labels, torch.arange(n_cls, device=dev))
+    size = torch.bincount(labels, minlength=n_cls)
+    c = labels[owners]
+    same = start[c] + (torch.rand(owners.shape, generator=g, device=dev)
+                       * size[c]).long()
+    anyn = torch.randint(0, n, owners.shape, generator=g, device=dev)
+    keep = torch.rand(owners.shape, generator=g, device=dev) < \
+        GCN_GRAPH["homophily"]
+    return torch.where(keep, same, anyn)
+
+
+def gcn_full_batch(dev, cfg, dims: dict, seed: int, graphs: int = 1):
+    """A full-graph batch on ``dev`` at ``dims`` (n_nodes, n_edges), made
+    from ``seed``: classes in contiguous blocks and homophilous edges, or
+    with ``graphs`` > 1 a block diagonal of that many equal graphs
+    (molecule's), each of one class, each edge inside its graph -> step ->
+    that batch."""
+    import torch
+    n, e, k = dims["n_nodes"], dims["n_edges"], cfg.n_classes
+    g = _cuda_gen(dev, seed)
+    if graphs > 1:
+        per = n // graphs
+        labels = torch.arange(n, device=dev) // per % k
+        base = torch.randint(0, graphs, (e,), generator=g, device=dev) * per
+        src = base + torch.randint(0, per, (e,), generator=g, device=dev)
+        dst = base + torch.randint(0, per, (e,), generator=g, device=dev)
+    else:
+        labels = torch.arange(n, device=dev) * k // n
+        src = torch.randint(0, n, (e,), generator=g, device=dev)
+        dst = neighbours(g, dev, src, labels, k)
+    batch = {"feats": class_feats(g, dev, labels, k, cfg.d_feat)[:n],
+             "edges": torch.stack([src, dst]).to(torch.int32),
+             "edge_mask": torch.ones(e, dtype=torch.bool, device=dev),
+             "labels": labels.to(torch.int32)}
+    return lambda step: batch
+
+
+def gcn_sampled_batches(dev, cfg, dims: dict, seed: int):
+    """minibatch_lg on ``dev``: a padded neighbour table of dims' n_nodes
+    rows (GCN_GRAPH's degrees and homophily, the sentinel n past each
+    degree) -> (step -> GCN_GRAPH["seeds"] seeds drawn from the step and
+    their sampled blocks' batch, the table's bytes and edge count)."""
+    import torch
+    from repro_torch.models import sampler
+    n, k = dims["n_nodes"], cfg.n_classes
+    g = _cuda_gen(dev, seed)
+    labels = torch.arange(n, device=dev) * k // n
+    feats = class_feats(g, dev, labels, k, cfg.d_feat)
+    md = GCN_GRAPH["max_degree"]
+    deg = torch.randint(1, md + 1, (n,), generator=g, device=dev,
+                        dtype=torch.int32)
+    nbr = torch.empty((n, md), dtype=torch.int32, device=dev)
+    for s in range(0, n, 1 << 14):                # rows a block at a time
+        rows = torch.arange(s, min(s + (1 << 14), n), device=dev)
+        own = rows[:, None].expand(-1, md)
+        cols = neighbours(g, dev, own, labels, k)
+        pad = torch.arange(md, device=dev)[None] >= deg[rows, None]
+        nbr[rows] = torch.where(pad, n, cols).to(torch.int32)
+
+    def make(step: int):
+        gs = _cuda_gen(dev, seed * 1_000_003 + step + 1)
+        seeds = torch.randint(0, n, (GCN_GRAPH["seeds"],), generator=gs,
+                              device=dev, dtype=torch.int32)
+        hops, blocks = sampler.sample_blocks(gs, seeds, nbr, deg,
+                                             list(GCN_GRAPH["fanouts"]))
+        batch = {"labels": labels[seeds.long()].to(torch.int32)}
+        for i, h in enumerate(hops):
+            batch[f"feats{i}"] = feats[h.long()]
+        for i, blk in enumerate(blocks):
+            batch[f"edges{i}"] = blk["edges"]
+            batch[f"edge_mask{i}"] = blk["edge_mask"]
+        return batch
+    return make, {"table_bytes": nbr.numel() * 4,
+                  "edges": int(deg.sum()), "max_degree": md}
+
+
+def mind_emvb(model, cfg, dev) -> dict:
+    """MIND x EMVB: the EMVB index over the trained item table (one token
+    an item) built by ``build_index``; mind_users users' 4 interests served
+    on both lanes at B = 32 and one at a time (mind_singles), the launch
+    counts read around each; each of the six kernels held against its
+    plain version (:func:`hold_lanes`), unfused == fused on the same CS
+    and LUT; beside exact MaxSim (``score_candidates``, then ``topk``):
+    the top-10 overlap and score ratio, and ms per batch."""
+    import numpy as np
+    import torch
+    from repro_torch.core import engine as teng
+    from repro_torch.core import index as tindex
+    from repro_torch.core.topk import topk
+    from repro_torch.kernels import ops
+    from repro_torch.models.recsys import mind
+    seed, nu, n1 = RECSYS["seed"], RECSYS["mind_users"], \
+        RECSYS["mind_singles"]
+    with torch.no_grad():
+        items = model.item_emb.detach()
+        items = items / torch.clamp(torch.linalg.vector_norm(
+            items, dim=-1, keepdim=True), min=1e-9)
+    n_items = items.shape[0]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    index, meta = tindex.build_index(
+        seed, items.cpu().numpy()[:, None, :], np.ones(n_items, np.int32),
+        n_centroids=RECSYS["mind_centroids"], m=16, nbits=8, device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    users = mind_batches(cfg, dev, nu, seed + 1)(0)
+    with torch.no_grad():
+        q = mind.user_interests(model, users["hist_items"],
+                                users["hist_valid"], cfg)
+    ecfg = teng.EngineConfig(**MIND_ENGINE, use_kernels=True)
+    ucfg = dataclasses.replace(ecfg, fused_prefilter=False,
+                               fused_late_interaction=False)
+    launches, results = {}, {}
+    for lane, c in (("fused", ecfg), ("unfused", ucfg)):
+        ops.reset_launches()
+        r32 = teng.retrieve(index, q, c)
+        torch.cuda.synchronize()
+        launches[lane] = {"b32": ops.launch_counts()}
+        ops.reset_launches()
+        r1 = [teng.retrieve(index, q[i:i + 1], c) for i in range(n1)]
+        torch.cuda.synchronize()
+        launches[lane]["b1"] = ops.launch_counts()
+        for name, kern in KERNELS.items():
+            want = (1, n1) if kern["lane"] == lane else (0, 0)
+            got = (launches[lane]["b32"][name], launches[lane]["b1"][name])
+            if got != want:
+                raise AssertionError(f"mind_emvb {lane}: {name} launched "
+                                     f"{got}, expected {want}")
+        ids, sc = r32.doc_ids, r32.scores
+        if ids.shape != (nu, MIND_ENGINE["k"]) or not torch.isfinite(
+                sc).all() or not (sc[:, :-1] >= sc[:, 1:]).all() or not (
+                (ids >= 0) & (ids < n_items)).all():
+            raise AssertionError(f"mind_emvb {lane}: malformed results")
+        results[lane] = {"b32": r32, "b1": r1[0],
+                         "b1_rows_equal_b32": sum(
+                             torch.equal(r.doc_ids[0], ids[i])
+                             for i, r in enumerate(r1))}
+    held, held_u, lanes_equal = hold_lanes(index, ecfg, ucfg, q, results)
+    with torch.no_grad():
+        exact = mind.score_candidates(q, items)
+        exact_top = topk(exact, MIND_ENGINE["k"])[1]
+        top = results["fused"]["b32"].doc_ids.long()
+        overlap = float(np.mean([len(set(a) & set(b)) / MIND_ENGINE["k"]
+                                 for a, b in zip(exact_top.tolist(),
+                                                 top.tolist())]))
+        ratio = float((torch.gather(exact, 1, top).mean(1) / torch.gather(
+            exact, 1, exact_top).mean(1)).mean())
+        cand = held["b32"]["bitmap"].sum(1).float()
+        ms = {}
+        for b, qb in (("b32", q), ("b1", q[:1])):
+            for lane, c in (("fused", ecfg), ("unfused", ucfg)):
+                ms[f"{lane}_{b}"] = statistics.median(time_samples(
+                    lambda: teng.retrieve(index, qb, c),
+                    n=RECSYS["time_reps"]))
+            ms[f"exact_{b}"] = statistics.median(time_samples(
+                lambda: topk(mind.score_candidates(qb, items),
+                             MIND_ENGINE["k"]), n=RECSYS["time_reps"]))
+    return dict(
+        items=n_items, d=items.shape[1], engine=MIND_ENGINE,
+        n_centroids=RECSYS["mind_centroids"], m=16, nbits=8,
+        build_seconds=build_s, list_cap=meta.list_cap,
+        build_max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
+        launches=launches, phases_exact=True,
+        unfused_equals_fused=lanes_equal,
+        b1_rows_equal_b32={lane: r["b1_rows_equal_b32"]
+                           for lane, r in results.items()},
+        candidates_per_query={"mean": float(cand.mean()),
+                              "min": int(cand.min()), "max": int(cand.max())},
+        docs_some_query_candidate=int(held["b32"]["bitmap"].any(0).sum()),
+        top10_overlap_with_exact=overlap, score_ratio_to_exact=ratio,
+        ms_per_batch=ms,
+        max_abs_err={b: {**held[b]["err"], **held_u[b]["err"]}
+                     for b in ("b32", "b1")})
+
+
+def recsys_phase(dev) -> dict:
+    """Phase 3c: the recommender and graph families through the port on
+    the card, run while nothing else is resident, each model freed before
+    the next. MIND (config widths) trained, resumed and served through
+    EMVB (:func:`mind_emvb`); DCN-v2 at the full Criteo-1TB vocabularies
+    trained with Adagrad and timed forward at serve_p99 and serve_bulk;
+    DLRM with PQ tables at the full vocabularies timed forward, and
+    trained on capped float32 tables; DIEN at its full config; GCN at
+    minibatch_lg (the sampler on the card), full_graph_sm and molecule.
+    Every training: the loss falls and a resumed run equals the continuous
+    one bit for bit. -> the MIND x EMVB launch counts."""
+    import gc
+
+    import torch
+    from repro_torch.models import gcn
+    from repro_torch.models.recsys import dcn, dien, dlrm, mind
+    from repro_torch.train import optimizer
+    t_phase = time.perf_counter()
+    cfgs = _recsys_configs()
+    seed, steps, res = RECSYS["seed"], RECSYS["steps"], RECSYS["resume"]
+    tb, lr = RECSYS["train_batch"], RECSYS["lr"]
+
+    def done():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def loss_of(mod, cfg, name="loss_fn"):
+        fn = getattr(mod, name)
+        return lambda p, b: fn(p, b, cfg)
+
+    # MIND, then its items through EMVB
+    cfg = cfgs["mind"]
+    rec, model = train_resume(
+        lambda: mind.init_params(seed, cfg, dev), loss_of(mind, cfg),
+        optimizer.make("adamw", lr=lr["mind"]),
+        mind_batches(cfg, dev, RECSYS["mind_batch"], seed),
+        RECSYS["mind_steps"], RECSYS["mind_resume"], keep=True)
+    emit("recsys_mind_train", config=_cfg_record(cfg),
+         batch=RECSYS["mind_batch"], optimizer="adamw", lr=lr["mind"],
+         **rec)
+    mrec = mind_emvb(model, cfg, dev)
+    emit("recsys_mind_emvb", **mrec)
+    del model
+    done()
+
+    # DCN-v2 at the full vocabularies
+    cfg = cfgs["dcn"]
+    rec, _ = train_resume(
+        lambda: dcn.init_params(seed, cfg, dev), loss_of(dcn, cfg),
+        optimizer.make("adagrad", lr=lr["dcn"]),
+        criteo_batches(cfg, dev, tb, seed), steps, res)
+    done()
+    model = dcn.init_params(seed, cfg, dev)
+    fwd = forward_ms(dcn.forward, model, lambda b: criteo_batches(
+        cfg, dev, b, seed + 1)(0), cfg)
+    del model
+    done()
+    emit("recsys_dcn", config=_cfg_record(cfg), batch=tb,
+         optimizer="adagrad", lr=lr["dcn"], forward=fwd, **rec)
+
+    # DLRM: PQ tables at the full vocabularies (forward), capped float32
+    # tables (training)
+    cfg = cfgs["dlrm_pq"]
+    torch.cuda.reset_peak_memory_stats()
+    model = dlrm.init_params(seed, cfg, dev)
+    pq = {"params": sum(p.numel() for p in model.parameters()),
+          "bytes": _tensor_bytes(model),
+          "rows": sum(cfg.vocab_sizes),
+          "forward": forward_ms(dlrm.forward, model, lambda b: criteo_batches(
+              cfg, dev, b, seed + 1)(0), cfg),
+          "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9}
+    del model
+    done()
+    cfg = cfgs["dlrm_train"]
+    rec, _ = train_resume(
+        lambda: dlrm.init_params(seed, cfg, dev), loss_of(dlrm, cfg),
+        optimizer.make("adagrad", lr=lr["dlrm"]),
+        criteo_batches(cfg, dev, tb, seed), steps, res)
+    done()
+    emit("recsys_dlrm", pq_tables=pq, train_config=_cfg_record(cfg),
+         train_rows=sum(cfg.vocab_sizes), batch=tb, optimizer="adagrad",
+         lr=lr["dlrm"], **rec)
+
+    # DIEN
+    cfg = cfgs["dien"]
+    rec, _ = train_resume(
+        lambda: dien.init_params(seed, cfg, dev), loss_of(dien, cfg),
+        optimizer.make("adagrad", lr=lr["dien"]),
+        dien_batches(cfg, dev, tb, seed), steps, res)
+    done()
+    model = dien.init_params(seed, cfg, dev)
+    fwd = forward_ms(dien.forward, model, lambda b: dien_batches(
+        cfg, dev, b, seed + 1)(0), cfg)
+    del model
+    done()
+    emit("recsys_dien", config=_cfg_record(cfg), batch=tb,
+         optimizer="adagrad", lr=lr["dien"], forward=fwd, **rec)
+
+    # GCN at three shapes
+    gcn_rec = {}
+    for shape, cfg in cfgs["gcn"].items():
+        dims = cfgs["gcn_dims"][shape]
+        extra = {}
+        if shape == "minibatch_lg":
+            make_batch, extra = gcn_sampled_batches(dev, cfg, dims, seed)
+            loss = loss_of(gcn, cfg, "loss_fn_sampled")
+        else:
+            make_batch = gcn_full_batch(
+                dev, cfg, dims, seed, graphs=128 if shape == "molecule"
+                else 1)
+            loss = loss_of(gcn, cfg)
+        rec, _ = train_resume(
+            lambda: gcn.init_params(seed, cfg, dev), loss,
+            optimizer.make("adamw", lr=lr["gcn"]), make_batch, steps,
+            res)
+        gcn_rec[shape] = {"config": _cfg_record(cfg), "dims": dims,
+                          **extra, **rec}
+        del make_batch
+        done()
+    emit("recsys_gcn", optimizer="adamw", lr=lr["gcn"],
+         graph=GCN_GRAPH, **gcn_rec)
+    emit("recsys_done", seconds=time.perf_counter() - t_phase)
+    return {"launches": mrec["launches"]}
+
+
+def _cfg_record(cfg) -> dict:
+    """A config as JSON: its fields, the dtype by name."""
+    d = dataclasses.asdict(cfg)
+    d["dtype"] = str(d["dtype"]).split(".")[-1]
+    return d
+
+
+
 # --- 6. timing ---------------------------------------------------------------
 
 def time_samples(fn, n: int = 10, warmup: int = 2, flush=None) -> list:
@@ -3903,12 +4488,13 @@ def _plaid_form(pl: dict) -> dict:
 def kernels_line(small_err: dict, full: dict, timing: dict,
                  prof: dict, ftiming: dict, bf16: dict, build: dict,
                  serve: dict, pl: dict, expl: dict, distr: dict,
-                 enc: dict) -> dict:
+                 enc: dict, rec: dict) -> dict:
     """Phase 9: one record per kernel, from this run's measurements. Each
     kernel's launches, time and profile come from the lane that runs it on
     the main path; ``launches_by_path`` adds its launches on the trained
     index (``index_build``, B = 32 then B = 1), on the index of the
-    trained encoder's embeddings (``encoder``, likewise), through the service
+    trained encoder's embeddings (``encoder``, likewise), on MIND's item
+    index with n_q = 4 (``mind_emvb``, likewise), through the service
     (``serving``), and on the PLAID, explain and distributed paths
     (:func:`_path_launches`); ``forms`` holds its filtered and compact
     operand forms and its bf16 form, each from its own config's run, and
@@ -3932,6 +4518,8 @@ def kernels_line(small_err: dict, full: dict, timing: dict,
                                 for b in ("b32", "b1")],
                 "encoder": [enc["launches"][lane][b][name]
                             for b in ("b32", "b1")],
+                "mind_emvb": [rec["launches"][lane][b][name]
+                              for b in ("b32", "b1")],
                 "serving": serve["launches"][name],
                 **_path_launches(name, pl, expl, distr)},
             "kernel_launches_per_call": prof[f"{lane}_b32"][
@@ -3979,6 +4567,7 @@ def main() -> None:
     build_phase()
     small_err = small_phase(dev)
     two_ranks = two_ranks_phase()
+    rec = recsys_phase(dev)
     full = full_phase(dev)
     invariance_phase(full)
     filt = filter_phase(full)
@@ -3998,7 +4587,7 @@ def main() -> None:
     limits_phase(full)
     prof = profile_phase(full)
     line = kernels_line(small_err, full, timing, prof, ftiming, bf16,
-                        build, serve, pl, expl, distr, enc)
+                        build, serve, pl, expl, distr, enc, rec)
     RECORD["kernels"] = line["kernels"]
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:

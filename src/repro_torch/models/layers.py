@@ -23,7 +23,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-_LEFT_OUT = "left out of the port's encoder slice (ROADMAP Queue 1 item 3)"
+_LEFT_OUT = "not ported yet: the LM serving slice (ROADMAP Queue 1 item 3)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -33,7 +33,10 @@ class ModelConfig:
 
     ``n_experts``, ``attn_q_chunk``, ``attn_act_specs``, ``residual_spec``,
     ``moe_groups`` and ``moe_specs`` are kept only to refuse them: any value
-    but the default raises ``NotImplementedError``."""
+    but the default raises ``NotImplementedError`` naming the module that
+    is missing. ``top_k``, ``n_shared_experts``, ``capacity_factor``,
+    ``attn_kv_chunk`` and ``attn_chunk_min_seq`` go with them and are
+    unused."""
 
     name: str = "lm"
     n_layers: int = 2
@@ -54,24 +57,33 @@ class ModelConfig:
     # backward pass, "full" recomputes everything (forward_hidden's remat)
     remat_policy: str = "dots"
     n_experts: int = 0
+    top_k: int = 0
+    n_shared_experts: int = 0
+    capacity_factor: float = 1.25
     attn_q_chunk: int = 0
+    attn_kv_chunk: int = 0
+    attn_chunk_min_seq: int = 8192
     attn_act_specs: Any = None
     residual_spec: Any = None
     moe_groups: int = 0
     moe_specs: Any = None
 
     def __post_init__(self):
-        asked = [name for name, on in (
-            ("n_experts", self.n_experts > 0),
-            ("attn_q_chunk", self.attn_q_chunk > 0),
-            ("attn_act_specs", self.attn_act_specs is not None),
-            ("residual_spec", self.residual_spec is not None),
-            ("moe_groups", self.moe_groups > 0),
-            ("moe_specs", self.moe_specs is not None)) if on]
+        asked = [(name, module) for name, module, on in (
+            ("n_experts", "models/moe.py", self.n_experts > 0),
+            ("attn_q_chunk", "layers.chunked_causal_attention",
+             self.attn_q_chunk > 0),
+            ("attn_act_specs", "the sharding hooks",
+             self.attn_act_specs is not None),
+            ("residual_spec", "the sharding hooks",
+             self.residual_spec is not None),
+            ("moe_groups", "models/moe.py", self.moe_groups > 0),
+            ("moe_specs", "models/moe.py", self.moe_specs is not None)) if on]
         if asked:
             raise NotImplementedError(
-                f"ModelConfig({', '.join(asked)}): experts, chunked "
-                f"attention and sharding specs are {_LEFT_OUT}")
+                f"ModelConfig({', '.join(n for n, _ in asked)}) needs "
+                f"{', '.join(dict.fromkeys(m for _, m in asked))}, "
+                f"{_LEFT_OUT}")
         if self.remat_policy not in ("dots", "full"):
             raise ValueError(f"remat_policy {self.remat_policy!r}: 'dots' "
                              "or 'full'")

@@ -27,6 +27,7 @@ from torch.utils import checkpoint as ckpt
 
 from ..core.kmeans import Seed, generator
 from ..device import resolve_device
+from .flat import take_rows
 from .layers import (Block, ModelConfig, Norm, _dense_init, _param,
                      attention_block, init_layer_params, rms_norm, swiglu)
 
@@ -135,6 +136,16 @@ def load_reference_layout(model: nn.Module, flat: dict) -> None:
         p.copy_((src if i is None else src[i]).to(p.dtype))
 
 
+def to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A tensor's values as a numpy array of their own, copied once (off
+    the card, or on the CPU); bf16 as float32, which holds them exactly
+    (numpy has no bf16)."""
+    t = t.detach()
+    if t.dtype == torch.bfloat16:
+        return t.float().cpu().numpy()
+    return (t.clone() if t.device.type == "cpu" else t.cpu()).numpy()
+
+
 def as_tensor(a) -> torch.Tensor:
     """A numpy array (bf16 ones from jax included, by their bits) as a CPU
     tensor."""
@@ -189,14 +200,15 @@ def forward_hidden(params: Transformer, tokens: torch.Tensor,
                    remat: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
     """tokens (B, S) -> (hidden (B, S, d), aux scalar) (ref
     ``transformer.py:87``). Token ids must lie in [0, vocab): the
-    embedding lookup raises on others, where the reference's ``jnp.take``
-    does not. ``attn_mask`` broadcasts against the (B, KV, G, S, T)
+    embedding lookup (``flat.take_rows``: its backward sums each row in one
+    fixed order) raises on others, where the reference's ``jnp.take`` does
+    not. ``attn_mask`` broadcasts against the (B, KV, G, S, T)
     logits; by default a causal config masks the future and a
     bidirectional one nothing. With ``remat`` and autograd on, each layer's
     activations are recomputed in the backward pass
     (``torch.utils.checkpoint``)."""
     b, s = tokens.shape
-    x = torch.nn.functional.embedding(tokens, params.embed).to(cfg.dtype)
+    x = take_rows(params.embed, tokens).to(cfg.dtype)
     positions = torch.arange(s, dtype=torch.int32,
                              device=tokens.device)[None, :].expand(b, s)
     if attn_mask is not None:

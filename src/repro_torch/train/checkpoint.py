@@ -91,13 +91,14 @@ def restore(ckpt_dir: str, tree_like: Any, step: Optional[int] = None
     by_key = {}
     for leaf in manifest["leaves"]:
         key = leaf["key"]
-        if len(leaf["shape"]) == 0:
+        if len(leaf["shape"]) == 0 or n_chunks == 1:
             arr = np.load(os.path.join(d, f"{key}.c0.npy"))
         else:
             arr = np.concatenate(
                 [np.load(os.path.join(d, f"{key}.c{i}.npy"))
                  for i in range(n_chunks)], axis=0)
-        by_key[key] = arr.reshape(leaf["shape"]).astype(leaf["dtype"])
+        by_key[key] = arr.reshape(leaf["shape"]).astype(leaf["dtype"],
+                                                        copy=False)
     out = {}
     for path, _ in tree_lib.leaves(tree_like):
         key = _leaf_key(path)

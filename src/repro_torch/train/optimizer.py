@@ -21,7 +21,6 @@ from __future__ import annotations
 
 from typing import Any, Callable, NamedTuple, Tuple
 
-import numpy as np
 import torch
 
 from .. import tree
@@ -206,17 +205,12 @@ def make(name: str, **kw) -> Optimizer:
 # the reference's state trees
 # ---------------------------------------------------------------------------
 
-def _numpy(t: torch.Tensor) -> np.ndarray:
-    if t.dtype == torch.bfloat16:
-        t = t.float()
-    return np.array(t.detach().cpu().numpy())
-
-
 def state_to_reference(state: Any) -> Any:
     """A state as the reference's tree: nested dicts of numpy arrays (bf16
     leaves as float32), each flat ``{path: ...}`` dict nested."""
     if isinstance(state, torch.Tensor):
-        return _numpy(state)
+        from ..models.transformer import to_numpy
+        return to_numpy(state)
     if isinstance(state, dict):
         out = {k: state_to_reference(v) for k, v in state.items()}
         if out and all(isinstance(k, tuple) for k in out):

@@ -13,11 +13,14 @@
 Unlike the reference, ``run`` puts the SIGTERM handler it replaced back
 when it returns, so a process that trains and then serves keeps its own.
 
-The parameters are a module (``models.transformer.Transformer``) that the
-step updates in place; the optimizer sees them, their gradients and its
-state in the reference's layout (``transformer.to_reference_layout``). The
-step's products run under ``exact_matmuls`` (TF32 off), and on the card in
-a fixed order: the continuous run and a resumed one give the same bits.
+The parameters are a module (a ``Transformer``, a recommender or the GCN)
+that the step updates in place; the optimizer sees them, their gradients
+and its state in the reference's layout (``models.to_reference_layout``,
+each model by its own rule). A model whose tree holds integer leaves (DLRM's
+PQ codes) is refused with ``TypeError``, as ``jax.value_and_grad`` refuses
+it in the reference. The step's products run under ``exact_matmuls`` (TF32
+off), and on the card in a fixed order: the continuous run and a resumed one
+give the same bits.
 """
 from __future__ import annotations
 
@@ -33,8 +36,8 @@ from torch import nn
 from .. import tree
 from ..core.precision import exact_matmuls
 from ..device import resolve_device
-from ..models import params_to_reference
-from ..models.transformer import load_reference_layout, to_reference_layout
+from ..models import (flat, load_reference_layout, params_to_reference,
+                      reference_leaves, to_reference_layout)
 from . import checkpoint as ckpt_lib
 from .compression import compress_tree
 from .optimizer import Optimizer, state_from_reference, state_to_reference
@@ -64,7 +67,12 @@ class TrainerConfig:
 
 def _value_and_grad(loss_fn: Callable, model: nn.Module, batch) -> tuple:
     """(loss, gradients in the reference's layout); a parameter the loss
-    does not reach gets a zero gradient, as ``jax.grad`` gives it."""
+    does not reach gets a zero gradient, as ``jax.grad`` gives it. Integer
+    leaves raise ``TypeError``, as ``jax.grad`` does on them."""
+    ints = flat.integer_leaves(model)
+    if ints:
+        raise TypeError(f"grad requires floating-point leaves, but the "
+                        f"model's tree holds integer ones: {ints[:3]}")
     params = list(model.parameters())
     loss = loss_fn(model, batch)
     grads = torch.autograd.grad(loss, params, allow_unused=True)
@@ -89,7 +97,8 @@ def make_train_step(loss_fn: Callable, optimizer: Optimizer,
     def compute_grads(model, batch):
         if cfg.grad_accum == 1:
             return _value_and_grad(loss_fn, model, batch)
-        loss_sum = torch.zeros((), dtype=torch.float32, device=model.device)
+        loss_sum = torch.zeros((), dtype=torch.float32,
+                               device=next(model.parameters()).device)
         gsum = tree.map_leaves(
             lambda p: torch.zeros(p.shape, dtype=torch.float32,
                                   device=p.device), to_reference_layout(model))
@@ -114,6 +123,16 @@ def make_train_step(loss_fn: Callable, optimizer: Optimizer,
                 {"loss": loss, "grad_norm": gnorm})
 
     return train_step
+
+
+def _blank(state: Any) -> Any:
+    """An optimizer state's reference tree with None leaves."""
+    if isinstance(state, torch.Tensor):
+        return None
+    out = {k: _blank(v) for k, v in state.items()}
+    if out and all(isinstance(k, tuple) for k in out):
+        return tree.nest(out)
+    return out
 
 
 def _to(batch, device):
@@ -161,6 +180,14 @@ class Trainer:
         return {"params": params_to_reference(self.state.params),
                 "opt": state_to_reference(self.state.opt_state)}
 
+    def _structure(self) -> dict:
+        """The checkpoint tree's structure, its leaves None (what
+        ``checkpoint.restore`` reads of its template), without copying the
+        state to the host."""
+        params = reference_leaves(self.state.params)
+        return {"params": tree.nest(dict.fromkeys(params)),
+                "opt": _blank(self.state.opt_state)}
+
     def save(self):
         """Checkpoint the state at its step (nothing without a
         ``ckpt_dir``)."""
@@ -176,7 +203,7 @@ class Trainer:
             return 0
         if ckpt_lib.latest_step(self.cfg.ckpt_dir) is None:
             return 0
-        saved, step = ckpt_lib.restore(self.cfg.ckpt_dir, self._tree())
+        saved, step = ckpt_lib.restore(self.cfg.ckpt_dir, self._structure())
         params = self.state.params
         load_reference_layout(params, tree.flatten(saved["params"]))
         opt = state_from_reference(saved["opt"], self.state.opt_state)

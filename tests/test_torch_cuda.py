@@ -1050,3 +1050,160 @@ def test_encoder_phase_on_card(smoke, card, monkeypatch, tmp_path):
     enc = smoke.encoder_phase(full)
     assert enc["launches"]["fused"]["b32"]["prefilter"] == 2
     assert smoke.RECORD["encoder_resume"]["bit_equal"]
+
+
+# --- MIND x EMVB's operands and the recommender / graph steps ---------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nb", [1, 32])
+@pytest.mark.parametrize("th_r", [None, 0.25])
+def test_kernels_at_n_q_4_one_token_a_doc(card, nb, th_r):
+    """The six kernels == their plain versions on MIND x EMVB's operands:
+    n_q = 4 interest terms, one token a doc (cap 1, some docs empty),
+    PQ m = 16 x 256 (d = 64), n_filter 4096, n_docs 1024, k 10; the 4-bit
+    words tie F massively."""
+    n_c, n_docs, nf = 2048, 60_001, 4096
+    cs, codes, mask, bitmap, qm = _on(card, *prefilter_inputs(
+        7 + nb, nb, 4, n_c, n_docs, 1, density=0.05))
+    lens = mask.sum(-1, dtype=torch.int32)
+    _same(ops.prefilter_batched(cs, 0.25, codes, lens, bitmap, nf, qm),
+          kpf.prefilter_batched_ref(cs, 0.25, codes, lens, bitmap, nf, qm))
+    bits = ops.bitpack_batched(cs, 0.25, qm)
+    _same((bits,), (kbp.bitpack_batched_ref(cs, 0.25, qm),))
+    _same((ops.bitfilter_batched(bits, codes, lens),),
+          (kbf.bitfilter_batched_ref(bits, codes, lens),))
+    cs_t, lut, pcodes, res, pmask, qm = _on(card, *pqinter_inputs(
+        11 + nb, nb, 4, n_c, nf, 1, 16, 256))
+    plens = pmask.sum(-1, dtype=torch.int32)
+    _same(ops.pqinter_batched(cs_t, lut, pcodes, res, plens, th_r, 1024, 10,
+                              qm),
+          kpq.pqinter_batched_ref(cs_t, lut, pcodes, res, plens, th_r, 1024,
+                                  10, qm))
+    _same((ops.cinter_batched(cs_t, pcodes, plens, qm),),
+          (kci.cinter_batched_ref(cs_t, pcodes, plens, qm),))
+    _same((ops.pqscore_batched(cs_t, lut, pcodes, res, plens, th_r, qm),),
+          (kps.pqscore_batched_ref(cs_t, lut, pcodes, res, plens, th_r, qm),))
+
+
+def _step_bits(model, loss_fn, batch):
+    """Loss, gradients and an Adagrad update of one step from ``model``'s
+    state, as float32 bit patterns."""
+    from repro_torch import models
+    from repro_torch.core.precision import exact_matmuls
+    from repro_torch.train import optimizer
+    from repro_torch.train import trainer as ttrainer
+    opt = optimizer.make("adagrad")
+    params = models.to_reference_layout(model)
+    with exact_matmuls():
+        loss, grads = ttrainer._value_and_grad(loss_fn, model, batch)
+        new, _ = opt.update(grads, opt.init(params), params)
+    return [t.view(torch.int32).clone() for t in
+            (loss, *grads.values(), *new.values())]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["dlrm-mlperf", "dcn-v2", "dien", "mind"])
+def test_recsys_step_is_bit_equal_twice(card, arch):
+    """A recommender's training step run twice from one state on one batch
+    gives the same bits: the gathers' backward sorts, no float atomics."""
+    from repro_torch.configs import registry
+    from repro_torch.launch import train as tlaunch
+    cfg = registry.get(arch).make_smoke_config()
+    M = tlaunch._recsys_model(arch)
+    model = M.init_params(0, cfg, card)
+    batch = {k: v.to(card) for k, v in tlaunch.recsys_batch_fn(
+        arch, cfg, batch=4096)(3).items()}
+
+    def loss(p, b):
+        return M.loss_fn(p, b, cfg)
+    a, b = _step_bits(model, loss, batch), _step_bits(model, loss, batch)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.cuda
+def test_gcn_sampled_step_is_bit_equal_twice(card):
+    """A sampled GCN step (the sampler on the card, segment sums over a
+    stable sort) twice from one state on one batch: the same bits; and a
+    full-graph step likewise."""
+    from repro_torch.configs import gcn_cora
+    from repro_torch.models import gcn, sampler
+    cfg = gcn_cora.make_config("minibatch_lg")
+    g = torch.Generator(device=card)
+    g.manual_seed(0)
+    n, md = 5000, 64
+    nbr = torch.randint(0, n, (n, md), generator=g, device=card,
+                        dtype=torch.int32)
+    deg = torch.randint(0, md + 1, (n,), generator=g, device=card,
+                        dtype=torch.int32)
+    feats = torch.randn((n + 1, cfg.d_feat), generator=g, device=card)
+    seeds = torch.randint(0, n, (1024,), generator=g, device=card)
+    hops, blocks = sampler.sample_blocks(5, seeds, nbr, deg, [15, 10])
+    batch = {"labels": torch.randint(0, cfg.n_classes, (1024,), device=card)}
+    for i, h in enumerate(hops):
+        batch[f"feats{i}"] = feats[torch.clamp(h.long(), max=n)]
+    for i, blk in enumerate(blocks):
+        batch[f"edges{i}"] = blk["edges"]
+        batch[f"edge_mask{i}"] = blk["edge_mask"]
+    model = gcn.init_params(0, cfg, card)
+
+    def loss(p, b):
+        return gcn.loss_fn_sampled(p, b, cfg)
+    assert all(torch.equal(x, y) for x, y in zip(
+        _step_bits(model, loss, batch), _step_bits(model, loss, batch)))
+    cora = gcn_cora.make_config("full_graph_sm")
+    model = gcn.init_params(1, cora, card)
+    full = {"feats": torch.randn((2708, cora.d_feat), generator=g,
+                                 device=card),
+            "edges": torch.randint(0, 2708, (2, 10556), generator=g,
+                                   device=card, dtype=torch.int32),
+            "edge_mask": torch.ones(10556, dtype=torch.bool, device=card),
+            "labels": torch.randint(0, 7, (2708,), device=card)}
+
+    def full_loss(p, b):
+        return gcn.loss_fn(p, b, cora)
+    assert all(torch.equal(x, y) for x, y in zip(
+        _step_bits(model, full_loss, full), _step_bits(model, full_loss,
+                                                       full)))
+
+
+@pytest.mark.cuda
+def test_recsys_phase_on_card(smoke, card, monkeypatch):
+    """chip_smoke.py's recsys phase at small widths on the card: every
+    model's loss falls and resumes bit-equal; MIND x EMVB serves both lanes
+    with each kernel held."""
+    import dataclasses
+
+    from repro_torch.configs import (dcn_v2, dien, dlrm_mlperf, gcn_cora,
+                                     mind)
+    small = tuple(min(v, 5000) for v in dlrm_mlperf.CRITEO_1TB_VOCABS)
+    shapes = ("full_graph_sm", "minibatch_lg", "molecule")
+
+    def configs():
+        d = dlrm_mlperf.make_config()
+        return {
+            "mind": dataclasses.replace(mind.make_config(),
+                                        vocab_items=20_000),
+            "dcn": dataclasses.replace(dcn_v2.make_config(),
+                                       vocab_sizes=small),
+            "dlrm_pq": dataclasses.replace(dlrm_mlperf.make_config(
+                use_pq_tables=True), vocab_sizes=small),
+            "dlrm_train": dataclasses.replace(d, vocab_sizes=small),
+            "dien": dataclasses.replace(dien.make_config(),
+                                        vocab_items=20_000),
+            "gcn": {s: gcn_cora.make_config(s) for s in shapes},
+            "gcn_dims": {**{s: gcn_cora.SHAPES[s].dims for s in shapes},
+                         "minibatch_lg": dict(gcn_cora.SHAPES[
+                             "minibatch_lg"].dims, n_nodes=20_000)}}
+    monkeypatch.setattr(smoke, "_recsys_configs", configs)
+    monkeypatch.setattr(smoke, "RECSYS", {
+        **smoke.RECSYS, "mind_batch": 1024, "train_batch": 4096,
+        "serve": (512, 4096), "mind_centroids": 256, "time_reps": 2})
+    monkeypatch.setattr(smoke, "GCN_GRAPH", {**smoke.GCN_GRAPH,
+                                             "max_degree": 128})
+    out = smoke.recsys_phase(card)
+    assert out["launches"]["fused"]["b1"]["prefilter"] == \
+        smoke.RECSYS["mind_singles"]
+    for name in ("recsys_mind_train", "recsys_dcn", "recsys_dlrm",
+                 "recsys_dien"):
+        assert smoke.RECORD[name]["bit_equal"], name
+    assert all(smoke.RECORD["recsys_gcn"][s]["bit_equal"] for s in shapes)

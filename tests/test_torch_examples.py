@@ -2,7 +2,8 @@
 manner of ``tests/test_examples.py``. ``examples/train_colbert_torch.py``
 trains the encoder, encodes, builds and retrieves; its embeddings then go
 through the reference's ``build_index`` and ``retrieve`` with
-``examples/train_colbert.py``'s config.
+``examples/train_colbert.py``'s config. ``examples/mind_emvb_retrieval_torch.py``
+trains MIND, indexes its items and serves each user's 4 interests.
 
 Margin: the two packages' MRR@10 on the same embeddings within 0.15. The
 index builds draw their k-means and PQ from different generators
@@ -54,3 +55,21 @@ def test_train_colbert_torch_main(jmpq, capsys):
     assert abs(mrr_at_k(ids_exact, gt) - out["mrr_exact"]) < 1e-6
     assert abs(mrr_at_k(ids, gt) - out["mrr_emvb"]) <= MARGIN
     assert out["mrr_exact"] > 0.3     # the encoder learned something
+
+
+def test_mind_emvb_retrieval_torch_main(capsys):
+    """The MIND x EMVB example at a tiny size: training lowers the loss, the
+    fused lane's top-10 is well formed and close to exact MaxSim's."""
+    mod = _load("mind_emvb_retrieval_torch")
+    out = mod.main(n_items=5000, n_centroids=64, steps=20, n_users=16,
+                   device="cpu")
+    printed = capsys.readouterr().out
+    assert "top-10 overlap vs exact" in printed and "score quality" in printed
+    assert out["losses"][-1] < out["losses"][0]
+    assert out["emvb_top"].shape == out["exact_top"].shape == (16, 10)
+    ids = out["emvb_top"]
+    assert ((ids >= 0) & (ids < 5000)).all()
+    assert all(len(set(r.tolist())) == 10 for r in ids)
+    assert torch.isfinite(out["emvb_scores"]).all()
+    assert out["score_ratio"] > 0.8 and out["overlap"] > 0.3
+

@@ -36,7 +36,18 @@ def test_port_imports_without_jax_or_repro():
                  "repro_torch.models.transformer", "repro_torch.models.layers",
                  "repro_torch.train.trainer", "repro_torch.train.optimizer",
                  "repro_torch.train.checkpoint",
-                 "repro_torch.train.compression"):
+                 "repro_torch.train.compression",
+                 "repro_torch.models.flat", "repro_torch.models.gcn",
+                 "repro_torch.models.sampler",
+                 "repro_torch.models.recsys.embedding_bag",
+                 "repro_torch.models.recsys.mind",
+                 "repro_torch.models.recsys.dlrm",
+                 "repro_torch.models.recsys.dcn",
+                 "repro_torch.models.recsys.dien",
+                 "repro_torch.configs.registry", "repro_torch.configs.mind",
+                 "repro_torch.configs.emvb_msmarco",
+                 "repro_torch.configs.kimi_k2_1t",
+                 "repro_torch.launch.train"):
         assert name in modules, name
     code = textwrap.dedent(f"""
         import importlib, sys
@@ -66,7 +77,9 @@ def test_every_module_imports_first():
     modules = sorted(m.name for m in pkgutil.walk_packages(
         repro_torch.__path__, "repro_torch."))
     for name in ("repro_torch.core.plaid", "repro_torch.obs.explain",
-                 "repro_torch.launch", "repro_torch.launch.serve"):
+                 "repro_torch.launch", "repro_torch.launch.serve",
+                 "repro_torch.launch.train", "repro_torch.configs.dcn_v2",
+                 "repro_torch.models.recsys.dlrm", "repro_torch.models.gcn"):
         assert name in modules, name
     code = textwrap.dedent(f"""
         import importlib, sys
@@ -88,7 +101,8 @@ def _port_sources() -> list:
     """Every Python source of the port: the package, chip_smoke.py, the
     card scripts beside it and the port's examples."""
     files = [os.path.join(ROOT, "chip_smoke.py"),
-             os.path.join(ROOT, "examples", "train_colbert_torch.py")]
+             os.path.join(ROOT, "examples", "train_colbert_torch.py"),
+             os.path.join(ROOT, "examples", "mind_emvb_retrieval_torch.py")]
     for base, _, names in os.walk(os.path.join(ROOT, "src", "repro_torch")):
         files += [os.path.join(base, n) for n in names if n.endswith(".py")]
     scripts = os.path.join(ROOT, "scripts")
@@ -112,7 +126,14 @@ def test_port_sources_import_no_jax_or_repro():
                 ("launch", "serve.py"), ("models", "colbert.py"),
                 ("models", "transformer.py"), ("models", "layers.py"),
                 ("train", "trainer.py"), ("train", "optimizer.py"),
-                ("train", "checkpoint.py"), ("train", "compression.py")):
+                ("train", "checkpoint.py"), ("train", "compression.py"),
+                ("models", "flat.py"), ("models", "gcn.py"),
+                ("models", "sampler.py"), ("recsys", "embedding_bag.py"),
+                ("recsys", "mind.py"), ("recsys", "dlrm.py"),
+                ("recsys", "dcn.py"), ("recsys", "dien.py"),
+                ("configs", "registry.py"), ("configs", "dlrm_mlperf.py"),
+                ("configs", "qwen2p5_3b.py"), ("launch", "train.py"),
+                ("examples", "mind_emvb_retrieval_torch.py")):
         assert any(f.endswith(os.path.join(*sub)) for f in files), sub
     bad = []
     for path in files:
@@ -232,6 +253,27 @@ def test_entry_points_refuse_the_cpu_unless_asked(monkeypatch, small_index,
     with pytest.raises(RuntimeError, match="CUDA"):
         Trainer(*args)
     assert Trainer(*args, device="cpu").state.params.device.type == "cpu"
+    from repro_torch.configs import registry
+    from repro_torch.launch import train as tlaunch
+    from repro_torch.models import gcn, sampler
+    from repro_torch.models.recsys import dcn, dien, dlrm, mind
+    for mod, arch in ((mind, "mind"), (dlrm, "dlrm-mlperf"), (dcn, "dcn-v2"),
+                      (dien, "dien"), (gcn, "gcn-cora")):
+        small = registry.get(arch).make_smoke_config()
+        with pytest.raises(RuntimeError, match="CUDA"):
+            mod.init_params(0, small)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            tlaunch.build_smoke_trainer(arch)
+        model = mod.init_params(0, small, device="cpu")
+        with pytest.raises(RuntimeError, match="CUDA"):
+            models.params_from_reference(models.params_to_reference(model),
+                                         small)
+        assert tlaunch.build_smoke_trainer(arch, device="cpu").run(1)[
+            "final_step"] == 1
+    with pytest.raises(RuntimeError, match="CUDA"):
+        sampler.pad_adjacency(np.array([0, 1]), np.array([0]), 1, 2, 1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tlaunch.main(["--arch", "gcn-cora", "--steps", "1"])
 
 
 TINY = dict(n_docs=700, cap=12, min_len=5, d=32, n_centroids=96, m=4,
