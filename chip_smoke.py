@@ -80,6 +80,24 @@ Phases:
                rows a field; DIEN at its full config; GCN at minibatch_lg
                (Reddit's sizes, the sampler on a synthetic neighbour table
                on the card), full_graph_sm (Cora's) and molecule
+  3d. lm    — the LM serving path, no hand-written kernel on it (its
+               launch counts read around the phase: all 0), run while
+               nothing else is resident: granite-moe-1b-a400m at its full
+               config (24 layers, bf16, 32 experts top-8, weights from a
+               seed): prefill at B = 2 x 32,768 (the chunked attention and
+               the capacity gather), 32 greedy decode steps into a cache
+               padded to 32,800, decode at B = 32 over a 32,768-position
+               cache filled from a seed (51.5 GB); ms, tokens/s, FLOP/s
+               against the bf16 dense peak, decode ms beside its byte
+               bound, peak memory, the share of token-expert assignments
+               dropped by capacity; the prefill and the decode steps run
+               twice, bit-equal; qwen2.5-3b's widths at 4 layers, float32:
+               prefill at 8,192 (chunked) then 16 decode steps, each step's
+               logits == forward's at rtol 1e-4 with equal argmax; the
+               granite and kimi smoke configs on the card == on the CPU
+               (rtol 1e-5, the same routed expert ids), grouped == gather
+               dispatch at ample capacity; their smoke trainers 20 steps,
+               loss falling, resumed at step 10 bit-equal
   4. full    — the planted index on the card at MS MARCO width; retrieve at
                B = 32 and B = 1 on each lane (launch counts read around those
                runs only); each kernel held against its plain version on the
@@ -3621,6 +3639,494 @@ def _cfg_record(cfg) -> dict:
     return d
 
 
+# --- 3d. lm --------------------------------------------------------------------
+
+# The LM serving path at granite-moe-1b-a400m's full config
+# (src/repro/configs/granite_moe_1b.py) and the lengths of the LM shapes
+# prefill_32k and decode_32k (configs/registry.py::lm_shapes), their batches
+# cut: 32 sequences' cache alone would be 51.5 GB beside their 21 GB (E, C, d)
+# dispatch, and 128 sequences' cache 206 GB.
+LM = dict(
+    arch="granite-moe-1b-a400m", seed=23,
+    prefill_batch=2, prefill_seq=32_768,
+    decode_steps=32, cache_seq=32_800,
+    decode_batch=32, decode_seq=32_768, decode_reps=10, route_reps=4,
+    # dense consistency: qwen2.5-3b's widths, 4 of its 36 layers, float32
+    dense_arch="qwen2.5-3b", dense_layers=4, dense_seq=8192, dense_steps=16,
+    dense_rtol=1e-4,
+    # card against CPU: the smoke configs with the chunked path forced
+    smoke_archs=("granite-moe-1b-a400m", "kimi-k2-1t-a32b"), smoke_batch=2,
+    smoke_prompt=32, smoke_steps=4, smoke_rtol=1e-5,
+    smoke_chunks=dict(attn_q_chunk=8, attn_kv_chunk=16,
+                      attn_chunk_min_seq=16),
+    train_steps=20, train_resume=10, loss_window=5)
+# H100 SXM data-sheet peak (no measurement): bf16 on the tensor cores, dense.
+BF16_OPS_PER_S = 989e12
+
+
+def _lm_configs() -> dict:
+    """The phase's configs: granite at its full config, qwen2.5-3b's widths
+    at dense_layers layers in float32, and the two smoke configs with
+    experts, the chunked path forced."""
+    import torch
+    from repro_torch.configs import registry
+    return {
+        "full": registry.get(LM["arch"]).make_config(),
+        "dense": dataclasses.replace(
+            registry.get(LM["dense_arch"]).make_config(dtype=torch.float32),
+            n_layers=LM["dense_layers"]),
+        "smoke": {a: dataclasses.replace(registry.get(a).make_smoke_config(),
+                                         **LM["smoke_chunks"])
+                  for a in LM["smoke_archs"]}}
+
+
+class RouteLog:
+    """While open, wraps ``repro_torch.models.moe.route``: counts the
+    token-expert assignments routed and those the capacity gather drops
+    (an expert takes its top-C tokens by gate, so sum over experts of
+    max(routed - C, 0)), on the device without a sync; with ``keep``, every
+    call's expert ids on the host as well."""
+
+    def __init__(self, cfg, keep: bool = False):
+        self.cfg, self.keep = cfg, keep
+        self.routed, self.dropped, self.ids = 0, [], []
+
+    def __enter__(self):
+        import torch
+        from repro_torch.models import moe
+        self._moe, self._route = moe, moe.route
+
+        def route(router, x, k):
+            probs, topv, topi = self._route(router, x, k)
+            ids = topi.reshape(-1, k)
+            t = ids.shape[0]
+            counts = torch.zeros(self.cfg.n_experts, dtype=torch.int64,
+                                 device=ids.device).scatter_add_(
+                0, ids.reshape(-1), torch.ones_like(ids.reshape(-1)))
+            cap = moe.gather_capacity(t, self.cfg)
+            self.routed += t * k
+            self.dropped.append(torch.clamp(counts - cap, min=0).sum())
+            if self.keep:
+                self.ids.append(ids.cpu())
+            return probs, topv, topi
+        moe.route = route
+        return self
+
+    def __exit__(self, *exc):
+        self._moe.route = self._route
+
+    def record(self) -> dict:
+        dropped = int(sum(int(d) for d in self.dropped))
+        return {"assignments": self.routed, "dropped": dropped,
+                "dropped_share": dropped / max(self.routed, 1)}
+
+
+def _same_bits(a, b) -> bool:
+    """Two tensors of one dtype hold the same bits."""
+    import torch
+    ints = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    it = ints[a.element_size()]
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        a.contiguous().view(it), b.contiguous().view(it))
+
+
+def _scaled_err(got, want) -> dict:
+    """max |got - want|, beside max |want|, in float32."""
+    import torch
+    d = (got.float() - want.float()).abs().max()
+    return {"max_abs_err": float(d),
+            "max_abs_want": float(want.float().abs().max())}
+
+
+def _hold(got, want, rtol: float, what: str) -> dict:
+    """Raises unless got == want at rtol, with an atol of rtol times the
+    largest |want| (an element near zero carries the rounding of the large
+    terms it is a difference of)."""
+    import torch
+    err = _scaled_err(got, want)
+    atol = rtol * err["max_abs_want"]
+    if not torch.allclose(got.float().cpu(), want.float().cpu(), rtol=rtol,
+                          atol=atol):
+        raise AssertionError(f"{what}: {err} beyond rtol {rtol}")
+    return err
+
+
+def lm_prefill_flops(cfg, b: int, s: int, cap: int) -> int:
+    """Operations of a prefill of b sequences of s tokens as the port runs
+    it: the attention's weight products, QK^T and PV over the causal half,
+    the router, the experts' three products over the E·C rows the capacity
+    gather runs (padding rows included), and the head at the last
+    position."""
+    h, kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    d, f, e = cfg.d_model, cfg.d_ff, cfg.n_experts
+    t = b * s
+    proj = 2 * t * d * (2 * h * dh + 2 * kv * dh)
+    attn = 4 * b * h * dh * (s * (s + 1) // 2)
+    ffn = 2 * t * d * e + 6 * e * cap * d * f
+    return cfg.n_layers * (proj + attn + ffn) + 2 * b * d * cfg.vocab
+
+
+def lm_decode_bytes(model, cfg, b: int, s_cache: int) -> int:
+    """Bytes a decode step must read: the whole cache (attention runs over
+    every position, the future ones masked) and every weight but the
+    embedding table, of which b rows."""
+    el = model.embed.element_size()
+    cache = 2 * cfg.n_layers * b * s_cache * cfg.n_kv_heads * cfg.d_head * el
+    weights = sum(p.numel() * p.element_size()
+                  for n, p in model.named_parameters() if n != "embed")
+    return cache + weights + b * cfg.d_model * el
+
+
+def _event_ms(fn) -> tuple:
+    """(ms on CUDA events, fn's result)."""
+    import torch
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    out = fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b), out
+
+
+def _padded_cache(cache, s_max: int):
+    """A copy of a prefill's cache in a zero cache of s_max positions."""
+    import torch
+    from repro_torch.models.transformer import KVCache
+    shape = list(cache.k.shape)
+    shape[2] = s_max
+    out = KVCache(torch.zeros(shape, dtype=cache.k.dtype,
+                              device=cache.k.device),
+                  torch.zeros(shape, dtype=cache.v.dtype,
+                              device=cache.v.device))
+    s = cache.k.shape[2]
+    out.k[:, :, :s] = cache.k
+    out.v[:, :, :s] = cache.v
+    return out
+
+
+def _greedy(model, cfg, cache, logits, pos: int, steps: int) -> tuple:
+    """``steps`` greedy decode steps from ``logits`` at ``pos`` into
+    ``cache`` in place -> (per-step event ms, logits of each step)."""
+    from repro_torch.models import transformer
+    ms, outs = [], []
+    for i in range(steps):
+        tok = logits.argmax(-1)
+        t, logits = _event_ms(lambda: transformer.decode_step(
+            model, cache, tok, pos + i, cfg)[0])
+        ms.append(t)
+        outs.append(logits)
+    return ms, outs
+
+
+def lm_full_width(dev, smi: str) -> dict:
+    """(a) and (b): granite-moe-1b-a400m at its full config, weights from a
+    seed; prefill at B x S, twice (the second timed; both bit-equal), its
+    cache padded, LM["decode_steps"] greedy decode steps, twice (the first
+    timed; bit-equal), then decode at decode_32k's length over a cache
+    filled from a seed. Each time beside its bound; the share of
+    assignments the capacity gather drops."""
+    import gc
+
+    import torch
+    from repro_torch.models import moe, transformer
+    cfg = _lm_configs()["full"]
+    t0 = time.perf_counter()
+    model = transformer.init_params(LM["seed"], cfg, dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    w_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    b, s = LM["prefill_batch"], LM["prefill_seq"]
+    g = torch.Generator(device=dev)
+    g.manual_seed(LM["seed"])
+    tokens = torch.randint(0, cfg.vocab, (b, s), generator=g, device=dev)
+    torch.cuda.reset_peak_memory_stats()
+
+    with RouteLog(cfg) as route_pf:
+        t0 = time.perf_counter()
+        logits1, cache1 = transformer.prefill(model, tokens, cfg)
+        torch.cuda.synchronize()
+        cold_s = time.perf_counter() - t0
+    pf_ms, (logits2, cache2) = _event_ms(
+        lambda: transformer.prefill(model, tokens, cfg))
+    prefill_equal = (_same_bits(logits1, logits2)
+                     and _same_bits(cache1.k, cache2.k)
+                     and _same_bits(cache1.v, cache2.v))
+    del logits2
+    cap = moe.gather_capacity(b * s, cfg)
+    flops = lm_prefill_flops(cfg, b, s, cap)
+    prefill = {
+        "batch": b, "seq": s, "chunked": True, "capacity": cap,
+        "cold_seconds": cold_s, "ms": pf_ms,
+        "tokens_per_s": b * s / (pf_ms / 1e3), "flops": flops,
+        "tflops_per_s": flops / (pf_ms / 1e3) / 1e12,
+        "share_of_bf16_dense_peak": flops / (pf_ms / 1e3) / BF16_OPS_PER_S,
+        "routing": route_pf.record()}
+    if not torch.isfinite(logits1.float()).all():
+        raise AssertionError("prefill logits not finite")
+
+    # greedy decode at B = prefill_batch, twice from the same cache
+    caches = [_padded_cache(c, LM["cache_seq"]) for c in (cache1, cache2)]
+    del cache1, cache2
+    gc.collect()
+    steps = LM["decode_steps"]
+    ms, outs = _greedy(model, cfg, caches[0], logits1, s, steps)
+    with RouteLog(cfg) as route_d2:
+        _, outs2 = _greedy(model, cfg, caches[1], logits1, s, steps)
+    decode_equal = (all(_same_bits(x, y) for x, y in zip(outs, outs2))
+                    and _same_bits(caches[0].k, caches[1].k)
+                    and _same_bits(caches[0].v, caches[1].v))
+    if not all(torch.isfinite(x.float()).all() for x in outs):
+        raise AssertionError("decode logits not finite")
+    bytes_b2 = lm_decode_bytes(model, cfg, b, LM["cache_seq"])
+    decode_b2 = {
+        "batch": b, "cache_seq": LM["cache_seq"], "steps": steps,
+        "ms_per_step": ms, "median_ms": statistics.median(ms),
+        "bound_bytes": bytes_b2, "bound_ms": bytes_b2 / HBM_BYTES_PER_S * 1e3,
+        "tokens": [int(x.argmax(-1)[0]) for x in outs][:8],
+        "routing": route_d2.record()}
+    peak_prefill = torch.cuda.max_memory_allocated() / 1e9
+    del caches, outs, outs2, logits1
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # decode at decode_32k's length over a cache filled from a seed
+    bd, sd = LM["decode_batch"], LM["decode_seq"]
+    torch.cuda.reset_peak_memory_stats()
+    cache = transformer.init_cache(cfg, bd, sd, dev)
+    for t in (cache.k, cache.v):
+        for i in range(cfg.n_layers):
+            t[i].normal_(generator=g)
+    tok = torch.randint(0, cfg.vocab, (bd,), generator=g, device=dev)
+    pos = sd - 1
+
+    def step():
+        return transformer.decode_step(model, cache, tok, pos, cfg)[0]
+    times = time_samples(step, n=LM["decode_reps"], warmup=2)
+    with RouteLog(cfg) as route_d32:
+        for _ in range(LM["route_reps"]):
+            out = step()
+    torch.cuda.synchronize()
+    if not torch.isfinite(out.float()).all():
+        raise AssertionError("decode_32k logits not finite")
+    bytes_b32 = lm_decode_bytes(model, cfg, bd, sd)
+    decode_b32 = {
+        "batch": bd, "cache_seq": sd, "pos": pos,
+        "cache_gb": (cache.k.numel() + cache.v.numel())
+        * cache.k.element_size() / 1e9,
+        "ms_per_step": times, "median_ms": statistics.median(times),
+        "bound_bytes": bytes_b32, "bound_ms": bytes_b32 / HBM_BYTES_PER_S * 1e3,
+        "routing": route_d32.record(),
+        "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9}
+    decode_b2["share_of_bound"] = decode_b2["bound_ms"] / decode_b2["median_ms"]
+    decode_b32["share_of_bound"] = (decode_b32["bound_ms"]
+                                    / decode_b32["median_ms"])
+    del cache, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec = {"card": smi, "config": _cfg_record(cfg), "params": n_params,
+           "weight_bytes": w_bytes, "init_seconds": init_s,
+           "prefill": prefill, "decode_b2": decode_b2,
+           "decode_b32": decode_b32,
+           "max_memory_allocated_gb_prefill_decode_b2": peak_prefill}
+    det = {"card": smi, "prefill_bit_equal": prefill_equal,
+           "decode_steps_bit_equal": decode_equal, "decode_steps": steps}
+    if not (prefill_equal and decode_equal):
+        raise AssertionError(f"granite prefill/decode not deterministic: {det}")
+    return rec, det
+
+
+def lm_dense_consistency(dev, smi: str) -> dict:
+    """(c): qwen2.5-3b at its full widths, LM["dense_layers"] layers,
+    float32: prefill over dense_seq tokens (the chunked path), then
+    dense_steps decode steps fed the next tokens; each step's logits (and
+    the prefill's) equal ``forward``'s at that position over the same
+    tokens at dense_rtol, with the same argmax."""
+    import gc
+
+    import torch
+    from repro_torch.core.precision import exact_matmuls
+    from repro_torch.models import layers, transformer
+    cfg = _lm_configs()["dense"]
+    s, n = LM["dense_seq"], LM["dense_steps"]
+    model = transformer.init_params(LM["seed"], cfg, dev)
+    g = torch.Generator(device=dev)
+    g.manual_seed(LM["seed"] + 1)
+    tokens = torch.randint(0, cfg.vocab, (1, s + n), generator=g, device=dev)
+    t0 = time.perf_counter()
+    logits, cache = transformer.prefill(model, tokens[:, :s], cfg)
+    cache = _padded_cache(cache, s + n)
+    got = [logits]
+    for i in range(n):
+        got.append(transformer.decode_step(model, cache, tokens[:, s + i],
+                                           s + i, cfg)[0])
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    del cache
+    with torch.no_grad(), exact_matmuls():
+        want, _ = transformer.forward(model, tokens, cfg, remat=False)
+    errs, argmax_equal = [], True
+    for i, x in enumerate(got):
+        w = want[:, s - 1 + i]
+        errs.append(_hold(x, w, LM["dense_rtol"], f"dense decode {i}"))
+        argmax_equal &= bool(torch.equal(x.argmax(-1), w.argmax(-1)))
+    del want, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not argmax_equal:
+        raise AssertionError("dense decode argmax differs from forward's")
+    return {"card": smi, "config": _cfg_record(cfg),
+            "prefill_chunked": layers.uses_chunked(cfg, s),
+            "forward_chunked": layers.uses_chunked(cfg, s + n),
+            "seq": s, "steps": n, "rtol": LM["dense_rtol"],
+            "atol": "rtol x max |forward logits|",
+            "max_abs_err": max(e["max_abs_err"] for e in errs),
+            "max_abs_logit": max(e["max_abs_want"] for e in errs),
+            "argmax_equal": argmax_equal, "serve_seconds": serve_s}
+
+
+def lm_card_vs_cpu(dev, smi: str) -> dict:
+    """(d): the granite and kimi smoke configs (float32, chunked path
+    forced) from one seed on the card and on the CPU: the prefill and
+    LM["smoke_steps"] decode steps fed the CPU's greedy tokens give the
+    same logits and caches at smoke_rtol and the same routed expert ids;
+    on the card, the grouped dispatch equals the capacity gather at ample
+    capacity."""
+    import torch
+    from repro_torch.models import moe, transformer
+    out = {"card": smi, "rtol": LM["smoke_rtol"]}
+    for arch, cfg in _lm_configs()["smoke"].items():
+        b, s = LM["smoke_batch"], LM["smoke_prompt"]
+        tokens = torch.randint(0, cfg.vocab, (b, s),
+                               generator=torch.Generator().manual_seed(5))
+        runs = {}
+        for where in ("cpu", dev):
+            model = transformer.init_params(LM["seed"], cfg, where)
+            with RouteLog(cfg, keep=True) as log:
+                logits, cache = transformer.prefill(model, tokens.to(where),
+                                                    cfg)
+                cache = _padded_cache(cache, s + LM["smoke_steps"])
+                seq = [logits]
+                for i in range(LM["smoke_steps"]):
+                    nxt = (runs["cpu"]["logits"][i].argmax(-1) if runs
+                           else logits.argmax(-1))
+                    logits = transformer.decode_step(
+                        model, cache, nxt.to(where), s + i, cfg)[0]
+                    seq.append(logits)
+            runs[str(where)] = {"logits": [x.cpu() for x in seq],
+                                "k": cache.k.cpu(), "v": cache.v.cpu(),
+                                "ids": log.ids, "model": model}
+        cpu, card = runs["cpu"], runs[str(dev)]
+        errs = [_hold(x, y, LM["smoke_rtol"], f"{arch} step {i}")
+                for i, (x, y) in enumerate(zip(card["logits"],
+                                               cpu["logits"]))]
+        errs += [_hold(card[k], cpu[k], LM["smoke_rtol"], f"{arch} cache {k}")
+                 for k in ("k", "v")]
+        ids_equal = len(card["ids"]) == len(cpu["ids"]) and all(
+            torch.equal(x, y) for x, y in zip(card["ids"], cpu["ids"]))
+        if not ids_equal:
+            raise AssertionError(f"{arch}: routed expert ids differ")
+        ample = dataclasses.replace(cfg, capacity_factor=100.0)
+        x = torch.randn((2, 16, cfg.d_model), generator=torch.Generator(
+            ).manual_seed(6)).to(dev)
+        block = card["model"].layers[0].moe
+        with torch.no_grad():
+            base, aux = moe.moe_block(block, x, ample)
+            grouped = {}
+            for groups in (1, 2, 4):
+                og, ag = moe.moe_block(
+                    block, x, dataclasses.replace(ample, moe_groups=groups))
+                grouped[groups] = _hold(og, base, LM["smoke_rtol"],
+                                        f"{arch} grouped {groups}")
+                _hold(ag, aux, LM["smoke_rtol"], f"{arch} aux {groups}")
+        out[arch] = {"config": _cfg_record(cfg), "prompt": s,
+                     "steps": LM["smoke_steps"],
+                     "max_abs_err": max(e["max_abs_err"] for e in errs),
+                     "route_calls": len(card["ids"]),
+                     "routed_ids_equal": ids_equal,
+                     "grouped_vs_gather_max_abs_err": max(
+                         e["max_abs_err"] for e in grouped.values())}
+    return out
+
+
+def lm_train(dev, smi: str) -> dict:
+    """(e): the granite and kimi smoke configs, LM["train_steps"] steps
+    each through ``launch.train.build_smoke_trainer``: the loss falls (the
+    last loss_window steps' mean below the first's), and a fresh trainer
+    resumed from the checkpoint at train_resume equals the continuous run
+    bit for bit (losses and parameters)."""
+    import tempfile
+
+    from repro_torch.configs import registry
+    from repro_torch.launch.train import build_smoke_trainer
+    steps, at, w = LM["train_steps"], LM["train_resume"], LM["loss_window"]
+    out = {"card": smi}
+
+    def trainer(arch, **kw):
+        tr = build_smoke_trainer(arch, device=dev, **kw)
+        tr.cfg = dataclasses.replace(tr.cfg, log_every=1)
+        return tr
+    for arch in LM["smoke_archs"]:
+        cont = trainer(arch)
+        t0 = time.perf_counter()
+        log = cont.run(steps)["log"]
+        secs = time.perf_counter() - t0
+        losses = [m["loss"] for m in log]
+        want = {n: p.detach().clone()
+                for n, p in cont.state.params.named_parameters()}
+        with tempfile.TemporaryDirectory() as d:
+            trainer(arch, ckpt_dir=d, steps_per_ckpt=at).run(at)
+            resumed = trainer(arch, ckpt_dir=d, steps_per_ckpt=steps + 1)
+            rlog = resumed.run(steps)["log"]
+        if rlog[0]["step"] != at + 1:
+            raise AssertionError(f"{arch}: the fresh trainer did not resume")
+        differing = sum(int(not _same_bits(p.detach(), want[n]))
+                        for n, p in resumed.state.params.named_parameters())
+        rlosses = [m["loss"] for m in rlog]
+        first, last = statistics.fmean(losses[:w]), statistics.fmean(
+            losses[-w:])
+        rec = {"optimizer": registry.get(arch).optimizer, "losses": losses,
+               "first_window_mean": first, "last_window_mean": last,
+               "seconds": secs, "params_differing": differing,
+               "bit_equal": differing == 0 and rlosses == losses[at:]}
+        out[arch] = rec
+        if not last < first:
+            raise AssertionError(f"{arch}: the loss did not fall: {losses}")
+        if not rec["bit_equal"]:
+            raise AssertionError(f"{arch}: resume differs: {differing} "
+                                 f"tensors, {rlosses} vs {losses[at:]}")
+    return out
+
+
+def lm_phase(dev) -> dict:
+    """Phase 3d: the LM serving path on the card, run while nothing else is
+    resident: (a) granite-moe-1b-a400m at full width, prefill and decode
+    timed beside their bounds, with the share of assignments dropped by
+    capacity; (b) its prefill and decode run twice, bit-equal; (c) decode
+    == forward on qwen2.5-3b's widths, float32; (d) the smoke configs with
+    experts on the card == on the CPU, grouped == gather at ample
+    capacity; (e) their smoke trainers' losses fall and resume bit-equal.
+    No hand-written kernel runs on this path: the launch counts read
+    around the phase are all 0. -> those counts."""
+    import torch
+    from repro_torch.kernels import ops
+    smi = RECORD["device"]["nvidia_smi"]
+    t_phase = time.perf_counter()
+    ops.reset_launches()
+    full, det = lm_full_width(dev, smi)
+    emit("lm_granite", **full)
+    emit("lm_determinism", **det)
+    emit("lm_dense_consistency", **lm_dense_consistency(dev, smi))
+    emit("lm_card_vs_cpu", **lm_card_vs_cpu(dev, smi))
+    emit("lm_train", **lm_train(dev, smi))
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    emit("lm_done", card=smi, seconds=time.perf_counter() - t_phase,
+         kernel_launches=launches)
+    return {"launches": launches}
+
+
 
 # --- 6. timing ---------------------------------------------------------------
 
@@ -4488,15 +4994,16 @@ def _plaid_form(pl: dict) -> dict:
 def kernels_line(small_err: dict, full: dict, timing: dict,
                  prof: dict, ftiming: dict, bf16: dict, build: dict,
                  serve: dict, pl: dict, expl: dict, distr: dict,
-                 enc: dict, rec: dict) -> dict:
+                 enc: dict, rec: dict, lm: dict) -> dict:
     """Phase 9: one record per kernel, from this run's measurements. Each
     kernel's launches, time and profile come from the lane that runs it on
     the main path; ``launches_by_path`` adds its launches on the trained
     index (``index_build``, B = 32 then B = 1), on the index of the
     trained encoder's embeddings (``encoder``, likewise), on MIND's item
     index with n_q = 4 (``mind_emvb``, likewise), through the service
-    (``serving``), and on the PLAID, explain and distributed paths
-    (:func:`_path_launches`); ``forms`` holds its filtered and compact
+    (``serving``), on the PLAID, explain and distributed paths
+    (:func:`_path_launches`), and on the LM serving path (``lm``: 0, no
+    kernel of this table runs there); ``forms`` holds its filtered and compact
     operand forms and its bf16 form, each from its own config's run, and
     cinter's whole-corpus launch on PLAID's phase 2."""
     rows = []
@@ -4521,7 +5028,8 @@ def kernels_line(small_err: dict, full: dict, timing: dict,
                 "mind_emvb": [rec["launches"][lane][b][name]
                               for b in ("b32", "b1")],
                 "serving": serve["launches"][name],
-                **_path_launches(name, pl, expl, distr)},
+                **_path_launches(name, pl, expl, distr),
+                "lm": lm["launches"][name]},
             "kernel_launches_per_call": prof[f"{lane}_b32"][
                 "kernel_launches_per_wrapper_call"][name],
             "max_abs_err": max(small_err[name], *held_err),
@@ -4568,6 +5076,7 @@ def main() -> None:
     small_err = small_phase(dev)
     two_ranks = two_ranks_phase()
     rec = recsys_phase(dev)
+    lm = lm_phase(dev)
     full = full_phase(dev)
     invariance_phase(full)
     filt = filter_phase(full)
@@ -4587,7 +5096,7 @@ def main() -> None:
     limits_phase(full)
     prof = profile_phase(full)
     line = kernels_line(small_err, full, timing, prof, ftiming, bf16,
-                        build, serve, pl, expl, distr, enc, rec)
+                        build, serve, pl, expl, distr, enc, rec, lm)
     RECORD["kernels"] = line["kernels"]
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:

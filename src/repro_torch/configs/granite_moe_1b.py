@@ -1,8 +1,6 @@
 """granite-moe-1b-a400m [moe] 24L d_model=1024 16H (GQA kv=8) d_ff=512
 vocab=49155, MoE 32 experts top-8 [hf:ibm-granite/granite-3.0-1b-a400m-base]
-(counterpart of ``repro/configs/granite_moe_1b.py``). Both configs ask for
-experts (``models/moe.py``), not ported yet: they raise
-``NotImplementedError``."""
+(counterpart of ``repro/configs/granite_moe_1b.py``)."""
 import torch
 
 from ..models.layers import ModelConfig

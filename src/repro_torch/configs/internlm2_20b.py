@@ -1,8 +1,6 @@
 """internlm2-20b [dense] 48L d_model=6144 48H (GQA kv=8) d_ff=16384
 vocab=92544, GQA [arXiv:2403.17297] (counterpart of
-``repro/configs/internlm2_20b.py``). The full config asks for chunked
-attention, not ported yet: ``make_config()`` raises
-``NotImplementedError``; the smoke config trains."""
+``repro/configs/internlm2_20b.py``)."""
 import torch
 
 from ..models.layers import ModelConfig

@@ -1,8 +1,7 @@
 """kimi-k2-1t-a32b [moe] 61L d_model=7168 64H (GQA kv=8) d_ff=2048 (expert)
 vocab=163840, MoE 384 experts top-8 + 1 shared expert, trained with Muon
 [arXiv:2501 Kimi K2 tech report; unverified tier] (counterpart of
-``repro/configs/kimi_k2_1t.py``). Both configs ask for experts
-(``models/moe.py``), not ported yet: they raise ``NotImplementedError``."""
+``repro/configs/kimi_k2_1t.py``)."""
 import torch
 
 from ..models.layers import ModelConfig

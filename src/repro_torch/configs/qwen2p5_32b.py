@@ -1,8 +1,6 @@
 """qwen2.5-32b [dense] 64L d_model=5120 40H (GQA kv=8) d_ff=27648
 vocab=152064, GQA, QKV bias [hf:Qwen/Qwen2.5-32B] (counterpart of
-``repro/configs/qwen2p5_32b.py``). The full config asks for chunked
-attention, not ported yet: ``make_config()`` raises
-``NotImplementedError``; the smoke config trains."""
+``repro/configs/qwen2p5_32b.py``)."""
 import torch
 
 from ..models.layers import ModelConfig

@@ -1,8 +1,6 @@
 """qwen2.5-3b [dense] 36L d_model=2048 16H (GQA kv=2) d_ff=11008
 vocab=151936, GQA, QKV bias [hf:Qwen/Qwen2.5-3B] (counterpart of
-``repro/configs/qwen2p5_3b.py``). The full config asks for chunked
-attention, not ported yet: ``make_config()`` raises
-``NotImplementedError``; the smoke config trains."""
+``repro/configs/qwen2p5_3b.py``)."""
 import torch
 
 from ..models.layers import ModelConfig

@@ -5,8 +5,7 @@ entries.
 An ArchSpec bundles the full config, the reduced smoke config (CPU tests),
 the arch's shape set, each shape's step kind, the optimizer and the dry-run
 knobs, as the reference's. The configs are data on the port's config
-classes; where the port lacks a module a config asks for (the LM's experts
-and chunked attention), ``make_config()`` raises ``NotImplementedError``.
+classes.
 """
 from __future__ import annotations
 

@@ -1,14 +1,16 @@
-"""The model side of the port (counterpart of ``repro/models``): the dense
-transformer layers, the transformer and the ColBERT encoder; the
+"""The model side of the port (counterpart of ``repro/models``): the
+transformer layers, the experts (``moe.py``), the transformer with its
+prefill and decode over a KV cache, and the ColBERT encoder; the
 recommenders (``recsys``: MIND, DLRM, DCN-v2, DIEN) and the GCN with its
 neighbour sampler.
 
 :func:`params_from_reference` and :func:`params_to_reference` carry weights
 across, and :func:`to_reference_layout` / :func:`load_reference_layout` lay
 a module's parameters out as the reference's tree, each model by its own
-rule: the transformer's layers are stacked on a leading ``n_layers`` axis in
-the reference and held one by one in a ``ModuleList`` here
-(``transformer.py``); the recommenders and the GCN hold each leaf under its
+rule: the transformer's layers, experts included, are stacked on a leading
+``n_layers`` axis in the reference and held one by one in a ``ModuleList``
+here (``transformer.py``; each leaf keeps its dtype, the float32 router in
+a bf16 config too); the recommenders and the GCN hold each leaf under its
 reference name (``flat.py``).
 """
 from __future__ import annotations

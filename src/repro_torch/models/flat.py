@@ -81,6 +81,23 @@ def take_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return table[idx] if table.is_cuda else F.embedding(idx, table)
 
 
+def segment_sum(data: torch.Tensor, segment_ids: torch.Tensor,
+                num_segments: int) -> torch.Tensor:
+    """``jax.ops.segment_sum``: rows of ``data`` summed by segment, in row
+    order within a segment; empty segments are 0. ``segment_ids`` lie in
+    [0, num_segments). The rows go through a stable sort and
+    ``torch.segment_reduce``, not ``index_add_``, whose float atomics on the
+    card sum in arrival order, so a sum gives the same bits every run; the
+    sort's gather is a permutation, whose backward adds no two rows. The
+    lengths come from the sorted ids (``searchsorted``), not ``bincount``,
+    which waits on the card for the ids' maximum."""
+    ids, order = torch.sort(segment_ids.long(), stable=True)
+    bounds = torch.searchsorted(ids, torch.arange(num_segments + 1,
+                                                  device=ids.device))
+    return torch.segment_reduce(data[order], "sum",
+                                lengths=bounds[1:] - bounds[:-1], unsafe=True)
+
+
 def param(shape, dtype, device) -> nn.Parameter:
     return nn.Parameter(torch.empty(shape, dtype=dtype, device=device))
 

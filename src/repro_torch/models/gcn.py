@@ -24,7 +24,7 @@ from torch import nn
 from ..core.kmeans import Seed
 from ..core.precision import exact_matmuls
 from ..device import resolve_device
-from .flat import Dense, draw, generator, take_rows
+from .flat import Dense, draw, generator, segment_sum, take_rows
 
 
 @dataclasses.dataclass(frozen=True)
@@ -71,18 +71,6 @@ def init_params(seed: Seed, cfg: GCNConfig, device=None) -> GCN:
         draw(lp.w, gen, 1.0 / lp.w.shape[0] ** 0.5)
         lp.b.zero_()
     return model
-
-
-def segment_sum(data: torch.Tensor, segment_ids: torch.Tensor,
-                num_segments: int) -> torch.Tensor:
-    """``jax.ops.segment_sum``: rows of ``data`` summed by segment, in row
-    order within a segment; empty segments are 0. ``segment_ids`` lie in
-    [0, num_segments)."""
-    ids = segment_ids.long()
-    order = torch.sort(ids, stable=True).indices
-    counts = torch.bincount(ids, minlength=num_segments)
-    return torch.segment_reduce(data[order], "sum", lengths=counts,
-                                unsafe=True)
 
 
 def _gather(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

@@ -1,6 +1,7 @@
-"""Dense transformer over token ids with GQA, RoPE and SwiGLU (counterpart
-of ``repro/models/transformer.py``): the ColBERT encoder's body and the
-causal LM the trainer's contracts use.
+"""Decoder-only transformer over token ids, dense or with experts, with GQA,
+RoPE and SwiGLU (counterpart of ``repro/models/transformer.py``): the ColBERT
+encoder's body, the causal LM the trainer's contracts use, and its serving
+path, prefill and decode over a KV cache.
 
 The reference stacks the layers' parameters on a leading ``n_layers`` axis
 and runs them under ``lax.scan``; here a :class:`Transformer` holds them
@@ -11,14 +12,14 @@ reference leaf and :func:`to_reference_layout` / :func:`load_reference_layout`
 stack and unstack the layer axis.
 
 Entry points: :func:`init_params` (on ``resolve_device(device)``),
-:func:`forward_hidden`, :func:`forward` and :func:`loss_fn`. Left out (ROADMAP
-Queue 1 item 3): experts, ``prefill`` / ``decode_step`` / ``KVCache`` and
-``abstract_params``.
+:func:`abstract_params` (on the ``meta`` device), :func:`forward_hidden`,
+:func:`forward`, :func:`loss_fn`, :func:`prefill`, :func:`decode_step` and
+:func:`init_cache`.
 """
 from __future__ import annotations
 
 import functools
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -26,10 +27,20 @@ from torch import nn
 from torch.utils import checkpoint as ckpt
 
 from ..core.kmeans import Seed, generator
+from ..core.precision import exact_matmuls
 from ..device import resolve_device
 from .flat import take_rows
 from .layers import (Block, ModelConfig, Norm, _dense_init, _param,
-                     attention_block, init_layer_params, rms_norm, swiglu)
+                     attention_block, init_layer_params, rms_norm, swiglu,
+                     uses_chunked)
+from .moe import moe_block
+
+
+class KVCache(NamedTuple):
+    """Keys and values of every layer, (L, B, S, KV, Dh) each: the
+    reference's stacked layout (``transformer.py:26``)."""
+    k: torch.Tensor
+    v: torch.Tensor
 
 
 class Transformer(nn.Module):
@@ -85,6 +96,22 @@ def init_params(seed: Seed, cfg: ModelConfig, device=None) -> Transformer:
     """A :class:`Transformer` on ``resolve_device(device)`` with weights
     drawn from ``seed`` (:func:`fill_params`)."""
     return fill_params(Transformer(cfg, device), seed)
+
+
+def abstract_params(cfg: ModelConfig) -> Transformer:
+    """A :class:`Transformer` on the ``meta`` device: every parameter's
+    shape and dtype, no memory (ref ``transformer.py:50``)."""
+    return Transformer(cfg, "meta")
+
+
+def init_cache(cfg: ModelConfig, batch: int, seq: int, device=None
+               ) -> KVCache:
+    """A zero :class:`KVCache` of ``seq`` positions for ``batch`` sequences
+    in ``cfg.dtype`` on ``resolve_device(device)``."""
+    shape = (cfg.n_layers, batch, seq, cfg.n_kv_heads, cfg.d_head)
+    dev = resolve_device(device)
+    return KVCache(torch.zeros(shape, dtype=cfg.dtype, device=dev),
+                   torch.zeros(shape, dtype=cfg.dtype, device=dev))
 
 
 # ---------------------------------------------------------------------------
@@ -161,16 +188,25 @@ def as_tensor(a) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def _layer(lp: Block, x: torch.Tensor, cfg: ModelConfig,
-           positions: torch.Tensor, mask: Optional[torch.Tensor]
+           positions: torch.Tensor, mask: Optional[torch.Tensor], cache=None
            ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor],
                       torch.Tensor]:
-    """One dense block (ref ``transformer.py:59``) -> (x, (k, v), aux); aux
-    is the experts' loss, 0 for a dense block."""
+    """One block (ref ``transformer.py:59``) -> (x, (k, v), aux): attention
+    (over ``cache`` when given, ``layers.attention_block``), then the SwiGLU
+    MLP, or the experts plus the shared experts' SwiGLU; aux is the
+    experts' load-balance loss, 0 for a dense block."""
     h, kv = attention_block(lp.attn, rms_norm(x, lp.ln1.scale, cfg.norm_eps),
-                            cfg, positions, mask)
+                            cfg, positions, mask, cache)
     x = x + h
-    ff = swiglu(lp.mlp, rms_norm(x, lp.ln2.scale, cfg.norm_eps))
-    return x + ff, kv, torch.zeros((), dtype=torch.float32, device=x.device)
+    hin = rms_norm(x, lp.ln2.scale, cfg.norm_eps)
+    if cfg.is_moe:
+        ff, aux = moe_block(lp.moe, hin, cfg)
+        if cfg.n_shared_experts:
+            ff = ff + swiglu(lp.shared_mlp, hin)
+    else:
+        ff = swiglu(lp.mlp, hin)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x + ff, kv, aux
 
 
 def _saves_weight_products(ctx, op, *args, **kwargs):
@@ -195,6 +231,19 @@ def _remat_layer(lp, x, cfg, positions, mask):
     return x, aux
 
 
+def _positions(b: int, s: int, device) -> torch.Tensor:
+    return torch.arange(s, dtype=torch.int32, device=device)[None].expand(b, s)
+
+
+def _causal_mask(cfg: ModelConfig, s: int, device) -> Optional[torch.Tensor]:
+    """The (S, S) causal mask, or None where the chunked attention, which
+    masks by blocks, runs in its place (the reference builds the mask and
+    leaves it unused there)."""
+    if uses_chunked(cfg, s):
+        return None
+    return torch.tril(torch.ones((s, s), dtype=torch.bool, device=device))
+
+
 def forward_hidden(params: Transformer, tokens: torch.Tensor,
                    cfg: ModelConfig, attn_mask: Optional[torch.Tensor] = None,
                    remat: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -209,13 +258,11 @@ def forward_hidden(params: Transformer, tokens: torch.Tensor,
     (``torch.utils.checkpoint``)."""
     b, s = tokens.shape
     x = take_rows(params.embed, tokens).to(cfg.dtype)
-    positions = torch.arange(s, dtype=torch.int32,
-                             device=tokens.device)[None, :].expand(b, s)
+    positions = _positions(b, s, tokens.device)
     if attn_mask is not None:
         mask = attn_mask
     elif cfg.causal:
-        mask = torch.tril(torch.ones((s, s), dtype=torch.bool,
-                                     device=tokens.device))
+        mask = _causal_mask(cfg, s, tokens.device)
     else:
         mask = None
     aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
@@ -250,3 +297,57 @@ def loss_fn(params: Transformer, batch: dict, cfg: ModelConfig,
                           torch.clamp(labels, min=0)[..., None].long())[..., 0]
     nll = torch.where(valid, lse - picked, 0.0)
     return nll.sum() / torch.clamp(valid.sum(), min=1) + aux_weight * aux
+
+
+# ---------------------------------------------------------------------------
+# serving: prefill and decode over a KV cache
+# ---------------------------------------------------------------------------
+
+def _logits(params: Transformer, x: torch.Tensor, cfg: ModelConfig
+            ) -> torch.Tensor:
+    h = rms_norm(x, params.final_norm.scale, cfg.norm_eps)
+    return h @ (params.embed.T if cfg.tie_embeddings else params.lm_head)
+
+
+@torch.no_grad()
+@exact_matmuls()
+def prefill(params: Transformer, tokens: torch.Tensor, cfg: ModelConfig
+            ) -> Tuple[torch.Tensor, KVCache]:
+    """tokens (B, S) -> (the last position's logits (B, V), the
+    :class:`KVCache` of the S positions) (ref ``transformer.py:140``). A
+    long causal prompt runs the chunked attention (``layers.uses_chunked``);
+    each layer's keys and values are written into the cache as it runs."""
+    b, s = tokens.shape
+    x = take_rows(params.embed, tokens).to(cfg.dtype)
+    positions = _positions(b, s, tokens.device)
+    mask = _causal_mask(cfg, s, tokens.device)
+    cache = init_cache(cfg, b, s, tokens.device)
+    for i, lp in enumerate(params.layers):
+        x, (k, v), _ = _layer(lp, x, cfg, positions, mask)
+        cache.k[i].copy_(k)
+        cache.v[i].copy_(v)
+    return _logits(params, x[:, -1], cfg), cache
+
+
+@torch.no_grad()
+@exact_matmuls()
+def decode_step(params: Transformer, cache: KVCache, token: torch.Tensor,
+                pos, cfg: ModelConfig) -> Tuple[torch.Tensor, KVCache]:
+    """One decode step (ref ``transformer.py:158``): token (B,) at position
+    ``pos`` (an int or a 0-d tensor: the cache holds ``pos`` valid entries
+    before the call) -> (logits (B, V), cache). The new token's keys and
+    values are written into the caller's ``cache`` at ``pos`` in place, and
+    that cache is returned: the reference donates the decode cache to the
+    step (``launch/steps.py:428-436``), so its input is consumed there too.
+    Attention runs over the whole cache, positions after ``pos`` masked."""
+    b, s_max = token.shape[0], cache.k.shape[2]
+    pos = int(pos)
+    x = take_rows(params.embed, token[:, None]).to(cfg.dtype)
+    positions = torch.full((b, 1), pos, dtype=torch.int32,
+                           device=token.device)
+    mask = (torch.arange(s_max, device=token.device) <= pos)[
+        None, None, None, None, :]
+    for i, lp in enumerate(params.layers):
+        x, _, _ = _layer(lp, x, cfg, positions, mask,
+                         cache=(cache.k[i], cache.v[i], pos))
+    return _logits(params, x[:, 0], cfg), cache

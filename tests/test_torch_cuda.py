@@ -1207,3 +1207,88 @@ def test_recsys_phase_on_card(smoke, card, monkeypatch):
                  "recsys_dien"):
         assert smoke.RECORD[name]["bit_equal"], name
     assert all(smoke.RECORD["recsys_gcn"][s]["bit_equal"] for s in shapes)
+
+
+# --- the LM serving path -----------------------------------------------------
+
+def _lm_smoke_configs(smoke):
+    """chip_smoke's LM configs at a small width: granite's widths at two
+    layers with the chunked path at 1,024 tokens, qwen2.5-3b's widths cut to
+    one layer and a 4,096 vocabulary, the smoke configs as the script runs
+    them."""
+    import dataclasses
+    full = smoke._lm_configs()
+    return {
+        "full": dataclasses.replace(full["full"], n_layers=2,
+                                    attn_q_chunk=256, attn_kv_chunk=512,
+                                    attn_chunk_min_seq=1024),
+        "dense": dataclasses.replace(full["dense"], n_layers=1, vocab=4096,
+                                     attn_q_chunk=256, attn_kv_chunk=512,
+                                     attn_chunk_min_seq=1024),
+        "smoke": full["smoke"]}
+
+
+@pytest.mark.cuda
+def test_granite_prefill_and_decode_are_bit_equal_twice(card):
+    """granite-moe-1b-a400m's widths (bf16, 32 experts top-8) at two layers:
+    a chunked prefill of 2 x 8,192 tokens and a decode step over its cache,
+    each run twice, give the same bits (no atomics in the experts'
+    scatter-add back to tokens)."""
+    import dataclasses
+
+    from repro_torch.configs import registry
+    from repro_torch.models import transformer
+    cfg = dataclasses.replace(registry.get(
+        "granite-moe-1b-a400m").make_config(), n_layers=2)
+    model = transformer.init_params(0, cfg, card)
+    g = torch.Generator(device=card)
+    g.manual_seed(1)
+    tok = torch.randint(0, cfg.vocab, (2, 8192), generator=g, device=card)
+    runs = [transformer.prefill(model, tok, cfg) for _ in range(2)]
+    (la, ca), (lb, cb) = runs
+    assert torch.equal(la.view(torch.int16), lb.view(torch.int16))
+    assert torch.equal(ca.k.view(torch.int16), cb.k.view(torch.int16))
+    assert torch.equal(ca.v.view(torch.int16), cb.v.view(torch.int16))
+    nxt = la.argmax(-1)
+    steps = []
+    for c in (ca, cb):
+        cache = transformer.init_cache(cfg, 2, 8200, card)
+        cache.k[:, :, :8192] = c.k
+        cache.v[:, :, :8192] = c.v
+        steps.append(transformer.decode_step(model, cache, nxt, 8192, cfg))
+    (da, xa), (db, xb) = steps
+    assert torch.equal(da.view(torch.int16), db.view(torch.int16))
+    assert torch.equal(xa.k.view(torch.int16), xb.k.view(torch.int16))
+    assert torch.isfinite(da.float()).all()
+
+
+@pytest.mark.cuda
+def test_lm_smoke_configs_on_card_match_cpu(smoke, card):
+    """The granite and kimi smoke configs (float32, chunked path forced):
+    prefill and four decode steps on the card equal the CPU's at rtol 1e-5
+    with the same routed expert ids; the grouped dispatch equals the
+    capacity gather at ample capacity (chip_smoke's check (d))."""
+    out = smoke.lm_card_vs_cpu(card, "test")
+    for arch in smoke.LM["smoke_archs"]:
+        assert out[arch]["routed_ids_equal"]
+        assert out[arch]["route_calls"] == 2 * (1 + smoke.LM["smoke_steps"])
+
+
+@pytest.mark.cuda
+def test_lm_phase_on_card(smoke, card, monkeypatch):
+    """chip_smoke.py's lm phase at a small width on the card: every check
+    of (a)-(e) holds and no hand-written kernel launches."""
+    configs = _lm_smoke_configs(smoke)
+    monkeypatch.setattr(smoke, "_lm_configs", lambda: configs)
+    monkeypatch.setattr(smoke, "LM", {
+        **smoke.LM, "prefill_seq": 2048, "cache_seq": 2060,
+        "decode_steps": 4, "decode_batch": 8, "decode_seq": 2048,
+        "decode_reps": 2, "route_reps": 1, "dense_seq": 1024,
+        "dense_steps": 4})
+    monkeypatch.setitem(smoke.RECORD, "device", {"nvidia_smi": "test"})
+    out = smoke.lm_phase(card)
+    assert set(out["launches"].values()) == {0}
+    assert smoke.RECORD["lm_determinism"]["prefill_bit_equal"]
+    assert smoke.RECORD["lm_dense_consistency"]["argmax_equal"]
+    for arch in smoke.LM["smoke_archs"]:
+        assert smoke.RECORD["lm_train"][arch]["bit_equal"]

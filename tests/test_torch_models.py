@@ -193,11 +193,25 @@ def test_attention_block_and_swiglu(qkv_bias):
 
 
 def test_model_config_refuses_what_the_slice_leaves_out():
-    for kw in (dict(n_experts=4), dict(attn_q_chunk=128),
-               dict(attn_act_specs=("q", "kv")), dict(residual_spec="s"),
-               dict(moe_groups=2), dict(moe_specs=("t", "e"))):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
+    """The sharding hooks are refused; experts, chunked attention and the
+    grouped dispatch are accepted, with the reference's fields."""
+    for kw in (dict(attn_act_specs=("q", "kv")), dict(residual_spec="s"),
+               dict(moe_specs=("t", "e"))):
+        with pytest.raises(NotImplementedError, match="sharding hooks"):
             tlay.ModelConfig(**kw)
+    for kw in (dict(n_experts=4, top_k=2, n_shared_experts=1,
+                    capacity_factor=1.0),
+               dict(attn_q_chunk=128, attn_kv_chunk=256,
+                    attn_chunk_min_seq=512),
+               dict(n_experts=4, top_k=1, moe_groups=2)):
+        cfg = tlay.ModelConfig(**kw)
+        want = rlay.ModelConfig(**kw)
+        assert cfg.is_moe == want.is_moe
+        for k, v in kw.items():
+            assert getattr(cfg, k) == getattr(want, k) == v
+        block = tlay.Block(cfg, "cpu")
+        assert hasattr(block, "moe") == cfg.is_moe
+        assert hasattr(block, "mlp") != cfg.is_moe
     with pytest.raises(ValueError):
         tlay.ModelConfig(remat_policy="some")
 

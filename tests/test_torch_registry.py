@@ -1,11 +1,11 @@
 """The port's architecture registry (``repro_torch.configs``) and ``--arch``
 launcher (``repro_torch.launch.train``) against the reference's on the CPU:
-the same names, specs, shapes and configs (dtypes mapped jax -> torch); the
-LM configs that ask for modules not ported yet (experts, chunked attention)
-raise ``NotImplementedError``; ``build_smoke_trainer`` for every recsys
-arch, ``gcn-cora`` and the dense LM smoke configs follows the reference's
-losses over 8 steps when both start from the reference's weights and see the
-reference's batches; grad accumulation and ``main``.
+the same names, specs, shapes and configs (dtypes mapped jax -> torch),
+every LM config included; ``build_smoke_trainer`` for every recsys arch,
+``gcn-cora`` and every LM smoke config (the two with experts, kimi's with
+Muon and a shared expert, among them) follows the reference's losses over 8
+steps when both start from the reference's weights and see the reference's
+batches; grad accumulation and ``main``.
 
 Tolerance: losses at rtol 1e-4 over 8 steps (the gradients differ by ~1e-6
 relative, ``tests/test_torch_recsys.py``; Adam and Adagrad normalize them,
@@ -29,7 +29,8 @@ torch.set_num_threads(1)
 
 DTYPES = {jnp.float32: torch.float32, jnp.bfloat16: torch.bfloat16}
 TRAINED = ("mind", "dlrm-mlperf", "dcn-v2", "dien", "gcn-cora",
-           "qwen2.5-3b", "qwen2.5-32b", "internlm2-20b")
+           "qwen2.5-3b", "qwen2.5-32b", "internlm2-20b",
+           "granite-moe-1b-a400m", "kimi-k2-1t-a32b")
 EXPERTS = ("granite-moe-1b-a400m", "kimi-k2-1t-a32b")
 
 
@@ -67,10 +68,6 @@ def test_spec_and_smoke_config_equal_the_reference(name):
         assert getattr(got, f) == getattr(want, f), f
     assert {k: dataclasses.asdict(v) for k, v in got.shapes.items()} == \
         {k: dataclasses.asdict(v) for k, v in want.shapes.items()}
-    if name in EXPERTS:
-        with pytest.raises(NotImplementedError, match="models/moe.py"):
-            got.make_smoke_config()
-        return
     ref_cfg = want.make_smoke_config()
     cfg = got.make_smoke_config()
     assert _fields(cfg) == _fields(ref_cfg)
@@ -79,12 +76,8 @@ def test_spec_and_smoke_config_equal_the_reference(name):
 @pytest.mark.parametrize("name", rreg.names())
 def test_full_config_equals_the_reference_or_names_what_is_missing(name):
     spec = treg.get(name)
-    if spec.family == "lm":
-        missing = "models/moe.py" if name in EXPERTS else \
-            "chunked_causal_attention"
-        with pytest.raises(NotImplementedError, match=missing):
-            spec.make_config()
-        return
+    if name in EXPERTS:
+        assert spec.make_config().is_moe and spec.make_smoke_config().is_moe
     kw = [dict(shape=s) for s in spec.shapes] if name == "gcn-cora" else [{}]
     for k in kw:
         assert _fields(spec.make_config(**k)) == _fields(
@@ -138,7 +131,8 @@ def test_smoke_trainer_follows_the_reference(name):
 def test_smoke_trainer_starts_from_the_reference_init_distribution():
     """The port's own weights (seed 0, drawn with torch) have the
     reference's tree, dtypes and scales."""
-    for name in ("mind", "dlrm-mlperf", "dcn-v2", "dien", "gcn-cora"):
+    for name in ("mind", "dlrm-mlperf", "dcn-v2", "dien", "gcn-cora") + \
+            EXPERTS:
         port = tlaunch.build_smoke_trainer(name, device="cpu")
         ref = _ref_params(name, rreg.get(name).make_smoke_config())
         got = models.params_to_reference(port.state.params)
