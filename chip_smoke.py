@@ -98,6 +98,19 @@ Phases:
                (rtol 1e-5, the same routed expert ids), grouped == gather
                dispatch at ample capacity; their smoke trainers 20 steps,
                loss falling, resumed at step 10 bit-equal
+  3e. dryrun — every (architecture x shape) cell of the registry on both
+               production meshes reckoned a chip on meta (84 records:
+               argument, temporary and peak bytes, FLOPs, HBM and
+               collective bytes, the H100 roofline; FITS in the card's
+               memory), no card memory taken; then on the 1 x 1 mesh with
+               real tensors at full width, each held against its
+               reckoning (argument bytes exactly, FLOPs on the card == on
+               meta, peak and ms beside the reckoned peak and bound):
+               granite-moe-1b-a400m long_500k (one decode step over a
+               524,288-token cache), dcn-v2 serve_p99 at the Criteo-1TB
+               vocabularies, gcn-cora full_graph_sm (a train step), and
+               granite train_4k cut to the largest batch whose reckoned
+               peak is under TRAIN_PEAK_CAP, two steps run twice, bit-equal
   4. full    — the planted index on the card at MS MARCO width; retrieve at
                B = 32 and B = 1 on each lane (launch counts read around those
                runs only); each kernel held against its plain version on the
@@ -156,6 +169,11 @@ Phases:
                equal to retrieve at B = 32 and B = 1 (launch counts read
                around those calls), make_timeline_retriever equal to
                retrieve_timeline, make_service equal to RetrievalService
+  5h2. dryrun_retrieval — the emvb-msmarco cells serve_b32 and serve_b1
+               on the 1 x 1 mesh over the planted index: the cell's step
+               (the sharded plan at one NCCL rank, the fused kernels) equal
+               to retrieve in ids and score bits, launches counted, held
+               against the reckoning as in 3e
   5g. plaid  — 22.6 GB of b = 2 PLAID residuals made on the card for the
                full index; PLAID retrieve and its four phases at B = 32 and
                B = 1 (cinter launched once a query over all 8,841,823 docs,
@@ -207,6 +225,10 @@ Phases:
                CUDA kernel, and each hand-written kernel's __global__
                launches per wrapper call (tables in OUT_DIR, one
                profile_<lane>_b<B>.txt each)
+  8b. examples — the port's four examples (examples/quickstart_torch.py,
+               streaming_index_torch.py, retrieval_service_torch.py,
+               serve_retrieval_torch.py: eight gloo ranks on the card) at
+               their default sizes, each one's checks held
   9. kernels — one JSON line describing the six kernels, each with its
                operand forms and its launches on every path
 and last ``{"ok": true, "device": {...}}``.
@@ -4128,6 +4150,409 @@ def lm_phase(dev) -> dict:
 
 
 
+# --- 3e. dryrun: every cell reckoned a chip; the cells of one card run ------
+
+DRYRUN_SEED = 31
+TRAIN_PEAK_CAP = 60e9   # the cut train_4k cell's reckoned peak, at most
+TRAIN_SEQ = 4096        # ... at batch >= 1 of these
+DRYRUN_REPS = 3         # timed calls of a cell after its first
+
+
+def _storage_bytes(tree) -> int:
+    """Bytes of the distinct storages under a tree of real tensors."""
+    from repro_torch.launch.op_stats import tensors
+    return sum({t.untyped_storage().data_ptr(): t.untyped_storage().nbytes()
+                for t in tensors(tree)}.values())
+
+
+def _same_leaves(cell, args) -> None:
+    """Raises unless the real arguments have the meta cell's leaves, shapes
+    and dtypes."""
+    from repro_torch.launch import steps
+    want = {p: (tuple(t.shape), t.dtype)
+            for p, t in steps.leaves(cell.args).items()}
+    got = {p: (tuple(t.shape), t.dtype)
+           for p, t in steps.leaves(args).items()}
+    if got != want:
+        bad = sorted(set(got.items()) ^ set(want.items()), key=str)[:4]
+        raise AssertionError(f"{cell.spec.name} {cell.shape}: the real "
+                             f"arguments differ from the cell's: {bad}")
+
+
+def hold_cell(cell, make, reps: int = DRYRUN_REPS) -> dict:
+    """One cell on the card against its reckoning on the 1 x 1 mesh:
+    argument bytes (reckoned == the storages the arguments hold, exactly),
+    FLOPs counted on the card beside those counted on meta, the reckoned
+    temporaries and peak beside ``max_memory_allocated`` above what was
+    resident before the call, and the median of ``reps`` timed calls beside
+    the roofline bound. ``make()`` gives the call's arguments: the same
+    ones, or fresh ones where a call consumes them (a train step); no two
+    sets are alive at once."""
+    import torch
+    from repro_torch.launch import op_stats
+    args = make()
+    _same_leaves(cell, args)
+    meta = op_stats.global_counts(cell)
+    rec = op_stats.reckon(cell, meta)
+    alloc = _storage_bytes(args)
+    if alloc != rec["argument_bytes_per_chip"]:
+        raise AssertionError(f"{cell.spec.name} {cell.shape}: reckoned "
+                             f"argument bytes {rec['argument_bytes_per_chip']}"
+                             f" != {alloc} allocated")
+    del args
+    card = op_stats.count(cell.fn, make())
+    ms, temps = [], []
+    for _ in range(reps):
+        a = make()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t, out = _event_ms(lambda: cell.fn(*a))
+        ms.append(t)
+        temps.append(torch.cuda.max_memory_allocated() - base)
+        del a, out
+    temp = max(temps)
+    ms_med = statistics.median(ms)
+    return {
+        "argument_bytes_reckoned": rec["argument_bytes_per_chip"],
+        "argument_bytes_allocated": alloc,
+        "flops_card": card["flops"], "flops_meta": meta["flops"],
+        "flops_equal": card["flops"] == meta["flops"],
+        "temp_bytes_reckoned": rec["temp_bytes_per_chip"],
+        "temp_bytes_measured": temp,
+        "peak_bytes_reckoned": rec["peak_bytes_per_chip"],
+        "peak_bytes_measured": alloc + temp,
+        "peak_ratio": rec["peak_bytes_per_chip"] / (alloc + temp),
+        "ms": ms_med, "ms_all": ms, "bound_ms": rec["bound_s"] * 1e3,
+        "bound_by": rec["dominant"],
+        "ms_over_bound": ms_med / (rec["bound_s"] * 1e3),
+        "bytes_reckoned": rec["bytes_per_chip"],
+        "fits_80gb": rec["fits"], "card": RECORD["device"]["nvidia_smi"]}
+
+
+def _lm_fill(model, gen) -> None:
+    """Random weights on the card from ``gen``: norm scales 1, every other
+    parameter N(0, 0.02²)."""
+    import torch
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith("scale"):
+                p.fill_(1)
+            else:
+                p.normal_(0.0, 0.02, generator=gen)
+
+
+def _train_cut(spec, mesh) -> tuple:
+    """(the largest train_4k batch of TRAIN_SEQ tokens whose reckoned peak
+    on one card is under TRAIN_PEAK_CAP, never below 1, its cut cell, and
+    the peaks reckoned on the way): a bisection over the batch, the peak
+    growing with it."""
+    from repro_torch.launch import op_stats, steps
+    peaks, cells = {}, {}
+
+    def fits(b: int) -> bool:
+        shape = dataclasses.replace(spec.shapes["train_4k"],
+                                    dims={"seq": TRAIN_SEQ, "batch": b})
+        cells[b] = steps.build_cell(dataclasses.replace(
+            spec, shapes={**spec.shapes, "train_4k": shape}), "train_4k",
+            mesh)
+        peaks[b] = op_stats.reckon(cells[b])["peak_bytes_per_chip"]
+        return peaks[b] < TRAIN_PEAK_CAP
+    lo, hi = 1, spec.shapes["train_4k"].dims["batch"]
+    fits(lo)
+    if fits(hi):
+        lo = hi
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        lo, hi = (mid, hi) if fits(mid) else (lo, mid)
+    return lo, cells[lo], peaks
+
+
+def dryrun_card_cells(dev, smi: str) -> dict:
+    """The dry run's cells that fit one card, on the 1 x 1 mesh with real
+    tensors at full width (before the planted index loads): granite's
+    long_500k decode, dcn-v2's serve_p99 at the Criteo-1TB vocabularies,
+    gcn-cora's full_graph_sm train step, and granite's train_4k cut to the
+    batch of TRAIN_PEAK_CAP, two steps run twice, bit-equal."""
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.launch import op_stats, steps
+    from repro_torch.launch.mesh import single_card_mesh
+    from repro_torch.models import gcn, to_reference_layout
+    from repro_torch.models import transformer as T
+    from repro_torch.models.recsys import dcn
+    from repro_torch.train.trainer import TrainState
+    mesh = single_card_mesh()
+    gen = _cuda_gen(dev, DRYRUN_SEED)
+    out = {}
+
+    # granite long_500k: one decode step at batch 1 over 524,288 positions
+    cell = steps.build_cell("granite-moe-1b-a400m", "long_500k", mesh)
+    params, cache_m, tok_m, _ = cell.args
+    params = params.to_empty(device=dev)
+    _lm_fill(params, gen)
+    cache = T.KVCache(*(torch.randn(t.shape, generator=gen, device=dev,
+                                    dtype=t.dtype) for t in cache_m))
+    token = torch.randint(0, cell.cfg.vocab, tok_m.shape, generator=gen,
+                          device=dev, dtype=torch.int32)
+    pos = torch.tensor(cell.dims["seq"] - 1, dtype=torch.int32, device=dev)
+    rec = hold_cell(cell, lambda: (params, cache, token, pos))
+    rec["cache_gb"] = sum(t.numel() * t.element_size() for t in cache) / 1e9
+    out["granite_long_500k"] = rec
+    emit("dryrun_granite_long_500k", **rec)
+    del cache, token, pos
+    lm_params = params
+
+    # dcn-v2 serve_p99 at the full vocabularies
+    cell = steps.build_cell("dcn-v2", "serve_p99", mesh)
+    model = dcn.init_params(DRYRUN_SEED, cell.cfg, dev)
+    batch = criteo_batches(cell.cfg, dev, cell.dims["batch"],
+                           DRYRUN_SEED)(0)
+    batch.pop("labels")
+    out["dcn_serve_p99"] = hold_cell(cell, lambda: (model, batch))
+    emit("dryrun_dcn_serve_p99", **out["dcn_serve_p99"])
+    del model, batch
+
+    # gcn-cora full_graph_sm: one AdamW step on Cora's sizes
+    cell = steps.build_cell("gcn-cora", "full_graph_sm", mesh)
+    opt = steps._optimizer_for(cell.spec)
+    # each tensor its own storage (the generator's feats are a view)
+    batch = {k: v.clone() for k, v in gcn_full_batch(
+        dev, cell.cfg, cell.dims, DRYRUN_SEED)(0).items()}
+
+    def gcn_args():
+        m = gcn.init_params(DRYRUN_SEED, cell.cfg, dev)
+        return (TrainState(torch.zeros((), dtype=torch.int32, device=dev), m,
+                           opt.init(to_reference_layout(m))), batch)
+    out["gcn_full_graph_sm"] = hold_cell(cell, gcn_args)
+    emit("dryrun_gcn_full_graph_sm", **out["gcn_full_graph_sm"])
+    del batch
+    torch.cuda.empty_cache()
+
+    # granite train_4k, cut to the largest batch under TRAIN_PEAK_CAP; its
+    # steps free and take back blocks of many sizes, which fragment the
+    # caching allocator's fixed segments (22 GiB reserved but unallocated
+    # at an out-of-memory on the card), so its blocks come from expandable
+    # segments, for this cell only
+    torch.cuda.memory._set_allocator_settings("expandable_segments:True")
+    try:
+        out["granite_train_4k_cut"] = _train_cell(dev, mesh, lm_params)
+    finally:
+        del lm_params
+        torch.cuda.empty_cache()
+        torch.cuda.memory._set_allocator_settings("expandable_segments:False")
+    for name, r in out.items():
+        if not r["flops_equal"]:
+            raise AssertionError(f"{name}: FLOPs counted on the card "
+                                 f"{r['flops_card']} != on meta "
+                                 f"{r['flops_meta']}")
+    return out
+
+
+def _train_cell(dev, mesh, lm_params) -> dict:
+    """granite's train_4k cell cut by :func:`_train_cut`, held as
+    :func:`hold_cell` holds a cell, then two steps run twice from the same
+    weights and state, bit-equal; the weights are ``lm_params``'s."""
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.launch import steps
+    from repro_torch.models import to_reference_layout
+    from repro_torch.train.trainer import TrainState
+    spec = registry.get("granite-moe-1b-a400m")
+    b, cell, peaks = _train_cut(spec, mesh)
+    opt = steps._optimizer_for(cell.spec)
+    # the starting weights, kept on the host to restore each run
+    start = [p.detach().to("cpu", copy=True) for p in lm_params.parameters()]
+    g = _cuda_gen(dev, DRYRUN_SEED + 1)
+    tokens = torch.randint(0, cell.cfg.vocab, (b, TRAIN_SEQ), generator=g,
+                           device=dev, dtype=torch.int32)
+    batch = {"tokens": tokens, "labels": torch.roll(tokens, -1, dims=1)}
+
+    def train_args():
+        torch.cuda.empty_cache()
+        with torch.no_grad():
+            for p, s in zip(lm_params.parameters(), start):
+                p.copy_(s)
+        return (TrainState(torch.zeros((), dtype=torch.int32, device=dev),
+                           lm_params,
+                           opt.init(to_reference_layout(lm_params))), batch)
+    rec = hold_cell(cell, train_args, reps=2)
+
+    def two_steps():
+        state, _ = train_args()
+        losses = []
+        for _ in range(2):
+            state, metrics = cell.fn(state, batch)
+            losses.append(metrics["loss"])
+        # on the host, so the second run has the card to itself
+        return ([p.detach().to("cpu", copy=True)
+                 for p in lm_params.parameters()],
+                {k: v.to("cpu", copy=True)
+                 for k, v in steps.leaves(state.opt_state).items()},
+                [x.to("cpu", copy=True) for x in losses])
+    p1, o1, l1 = two_steps()
+    p2, o2, l2 = two_steps()
+    same = (all(torch.equal(a, c) for a, c in zip(p1, p2))
+            and all(torch.equal(o1[k], o2[k]) for k in o1)
+            and all(torch.equal(a, c) for a, c in zip(l1, l2)))
+    if not same:
+        raise AssertionError("granite train_4k: two runs of two steps differ")
+    rec.update(batch=b, seq=TRAIN_SEQ, cut_from=spec.shapes[
+        "train_4k"].dims["batch"], peaks_reckoned_by_batch=peaks,
+        bit_equal_twice=True, losses=[float(x) for x in l1])
+    emit("dryrun_granite_train_4k_cut", **rec)
+    return rec
+
+
+def dryrun_phase(dev) -> dict:
+    """Phase 3e: (a) every (architecture x shape) cell of the registry on
+    both production meshes reckoned a chip on meta (84 records, no card
+    memory, 0 failures; a line each, the records in
+    OUT_DIR/dryrun_records.json); (b) the cells that fit one card run on the
+    1 x 1 mesh at full width, each held against its reckoning
+    (:func:`dryrun_card_cells`); the retrieval cells follow in
+    :func:`dryrun_retrieval_phase`, on the planted index."""
+    import torch
+    from repro_torch.launch import analysis, dryrun
+    smi = RECORD["device"]["nvidia_smi"]
+    t0 = time.perf_counter()
+    before = torch.cuda.memory_allocated()
+    recs = dryrun.run(dryrun.cells(mesh="both", all_cells=True),
+                      verbose=False)
+    reckon_s = time.perf_counter() - t0
+    for r in recs:
+        print(dryrun.line(r) if "error" not in r else
+              f"[{r['arch']} x {r['shape']} @ {r['mesh']}] FAILED: "
+              f"{r['error']}", flush=True)
+    failures = [r for r in recs if "error" in r]
+    if failures or len(recs) != 84:
+        raise AssertionError(f"dry run: {len(recs)} records, "
+                             f"{len(failures)} failures")
+    if torch.cuda.memory_allocated() != before:
+        raise AssertionError("the dry run's reckoning took card memory")
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "dryrun_records.json"), "w") as f:
+        json.dump(recs, f, indent=1)
+    total = torch.cuda.get_device_properties(0).total_memory
+    emit("dryrun_reckoned", card=smi, records=len(recs), failures=0,
+         reckon_seconds=reckon_s, resident_before_gb=before / 1e9)
+    cards = dryrun_card_cells(dev, smi)
+    emit("dryrun", card=smi, records=len(recs), failures=0,
+         reckon_seconds=reckon_s,
+         card_total_memory=total,
+         hbm_capacity_constant=analysis.HBM_CAPACITY,
+         fits=sum(r["fits"] for r in recs),
+         dominant={k: sum(r["dominant"] == k for r in recs)
+                   for k in ("compute", "memory", "collective")},
+         cells=cards, seconds=time.perf_counter() - t0)
+    if total != analysis.HBM_CAPACITY:
+        raise AssertionError(f"the card reports {total} bytes, the dry run "
+                             f"reckons with {analysis.HBM_CAPACITY}")
+    return {"cards": cards}
+
+
+def dryrun_retrieval_phase(full: dict) -> dict:
+    """Phase 5h2: the emvb-msmarco cells serve_b32 and serve_b1 on the 1 x 1
+    mesh over the planted index: the cell's fn (make_shardmap_retriever at
+    one NCCL rank, then the fused kernels) equal to retrieve in ids and
+    score bits, the kernels' launches, and each held against its reckoning
+    as :func:`hold_cell` does. -> the launches of each."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import engine as teng
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve, steps
+    from repro_torch.launch.mesh import single_card_mesh
+    smi = RECORD["device"]["nvidia_smi"]
+    index, cfg, queries = full["index"], full["cfg"], full["queries"]
+    mesh = single_card_mesh()
+    out, launches = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/init",
+                                rank=0, world_size=1)
+        try:
+            stacked = serve.shard_index(index, 1)
+            for shape, b in (("serve_b32", 32), ("serve_b1", 1)):
+                q = queries[:b].clone()     # its own storage
+                cell = steps.build_cell("emvb-msmarco", shape, mesh)
+                ops.reset_launches()
+                got = cell.fn(stacked, q)
+                torch.cuda.synchronize()
+                launches[shape] = ops.launch_counts()
+                want = {"prefilter": 1, "pqinter": 1}
+                if {k: v for k, v in launches[shape].items() if v} != want:
+                    raise AssertionError(f"dryrun {shape}: launches "
+                                         f"{launches[shape]}, expected {want}")
+                if not _same_result(got, teng.retrieve(index, q, cfg)):
+                    raise AssertionError(f"dryrun {shape}: the cell differs "
+                                         "from retrieve")
+                rec = hold_cell(cell, lambda: (stacked, q), reps=5)
+                rec.update(equal_retrieve=True, launches=launches[shape])
+                out[shape] = rec
+            del stacked
+        finally:
+            dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    emit("dryrun_retrieval", card=smi, cells=out)
+    return {"launches": launches}
+
+
+# --- 8b. examples: the port's examples at their default sizes ---------------
+
+EXAMPLES = ("quickstart_torch", "streaming_index_torch",
+            "retrieval_service_torch", "serve_retrieval_torch")
+
+
+def examples_phase(sizes: dict = None) -> dict:
+    """Phase 8b: each of the four examples' ``main()`` at its defaults on
+    the card (``examples/*_torch.py``; ``sizes``, keyword arguments of
+    every ``main``, shrink them for a rehearsal), its checks held, the
+    kernels' launches of this process read around it (serve_retrieval's
+    ranks are processes of their own: its count is the unsharded retrieve
+    it is held against). -> the launches by example."""
+    import importlib.util
+
+    import torch
+    from repro_torch.kernels import ops
+    smi = RECORD["device"]["nvidia_smi"]
+    out, launches = {}, {}
+    for name in EXAMPLES:
+        spec = importlib.util.spec_from_file_location(
+            name, os.path.join(ROOT, "examples", f"{name}.py"))
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        res = mod.main(**(sizes or {}))
+        torch.cuda.synchronize()
+        launches[name] = ops.launch_counts()
+        rec = {"seconds": time.perf_counter() - t0,
+               "launches": launches[name]}
+        if name == "quickstart_torch":
+            rec.update(mrr_emvb=res["mrr_emvb"], mrr_plaid=res["mrr_plaid"],
+                       emvb_ms=res["emvb_s"] * 1e3,
+                       plaid_ms=res["plaid_s"] * 1e3)
+            ok = launches[name]["cinter"] > 0
+        elif name == "streaming_index_torch":
+            rec.update(mrr=res["mrr"])
+            ok = res["round_trip_exact"] and res["timeline_same"]
+        elif name == "retrieval_service_torch":
+            rec.update(hit_rate=res["stats"]["cache"]["hit_rate"])
+            ok = res["exact"] and res["padded_equals_prefix"]
+        else:
+            rec.update(top1_agreement=res["top1_agreement"],
+                       latency_ms=[x * 1e3 for x in res["latency_s"]])
+            ok = res["top1_agreement"] == 1.0
+        if not (ok and launches[name]["prefilter"]
+                and launches[name]["pqinter"]):
+            raise AssertionError(f"example {name}: {rec}")
+        out[name] = rec
+    emit("examples", card=smi, **out)
+    return {"launches": launches}
+
+
 # --- 6. timing ---------------------------------------------------------------
 
 def time_samples(fn, n: int = 10, warmup: int = 2, flush=None) -> list:
@@ -4994,7 +5419,8 @@ def _plaid_form(pl: dict) -> dict:
 def kernels_line(small_err: dict, full: dict, timing: dict,
                  prof: dict, ftiming: dict, bf16: dict, build: dict,
                  serve: dict, pl: dict, expl: dict, distr: dict,
-                 enc: dict, rec: dict, lm: dict) -> dict:
+                 enc: dict, rec: dict, lm: dict, drr: dict,
+                 ex: dict) -> dict:
     """Phase 9: one record per kernel, from this run's measurements. Each
     kernel's launches, time and profile come from the lane that runs it on
     the main path; ``launches_by_path`` adds its launches on the trained
@@ -5002,8 +5428,10 @@ def kernels_line(small_err: dict, full: dict, timing: dict,
     trained encoder's embeddings (``encoder``, likewise), on MIND's item
     index with n_q = 4 (``mind_emvb``, likewise), through the service
     (``serving``), on the PLAID, explain and distributed paths
-    (:func:`_path_launches`), and on the LM serving path (``lm``: 0, no
-    kernel of this table runs there); ``forms`` holds its filtered and compact
+    (:func:`_path_launches`), on the LM serving path (``lm``: 0, no
+    kernel of this table runs there), through the dry run's emvb-msmarco
+    cells on one card (``dryrun``, serve_b32 then serve_b1) and in the
+    examples' processes (``examples``, by example); ``forms`` holds its filtered and compact
     operand forms and its bf16 form, each from its own config's run, and
     cinter's whole-corpus launch on PLAID's phase 2."""
     rows = []
@@ -5029,7 +5457,10 @@ def kernels_line(small_err: dict, full: dict, timing: dict,
                               for b in ("b32", "b1")],
                 "serving": serve["launches"][name],
                 **_path_launches(name, pl, expl, distr),
-                "lm": lm["launches"][name]},
+                "lm": lm["launches"][name],
+                "dryrun": [drr["launches"][c][name]
+                           for c in ("serve_b32", "serve_b1")],
+                "examples": {e: ex["launches"][e][name] for e in EXAMPLES}},
             "kernel_launches_per_call": prof[f"{lane}_b32"][
                 "kernel_launches_per_wrapper_call"][name],
             "max_abs_err": max(small_err[name], *held_err),
@@ -5077,6 +5508,7 @@ def main() -> None:
     two_ranks = two_ranks_phase()
     rec = recsys_phase(dev)
     lm = lm_phase(dev)
+    dryrun_phase(dev)
     full = full_phase(dev)
     invariance_phase(full)
     filt = filter_phase(full)
@@ -5085,6 +5517,7 @@ def main() -> None:
     serve = serving_phase(full, filt, tlres)
     expl = explain_phase(full, filt, tlres, serve["fingerprints"])
     distr = distributed_phase(full, tlres, serve["fingerprints"], two_ranks)
+    drr = dryrun_retrieval_phase(full)
     del tlres
     pl = plaid_phase(full, build)
     for key in ("index", "queries", "gt"):
@@ -5095,8 +5528,9 @@ def main() -> None:
     bf16 = bf16_phase(dev, full, filt)
     limits_phase(full)
     prof = profile_phase(full)
+    ex = examples_phase()
     line = kernels_line(small_err, full, timing, prof, ftiming, bf16,
-                        build, serve, pl, expl, distr, enc, rec, lm)
+                        build, serve, pl, expl, distr, enc, rec, lm, drr, ex)
     RECORD["kernels"] = line["kernels"]
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:

@@ -3,8 +3,9 @@
 Two parts:
 
 * A numpy copy of the reference corpus generator and metrics
-  (``repro/data/synthetic.py``): :func:`make_corpus`, :func:`mrr_at_k`,
-  :func:`success_at_k`. The tests build the reference's index from it.
+  (``repro/data/synthetic.py``): :func:`make_corpus`,
+  :func:`make_ood_corpus`, :func:`mrr_at_k`, :func:`success_at_k`. The
+  tests build the reference's index from it.
 * :func:`make_packed_index` / :func:`make_queries`: a seeded, planted index
   built directly in index space on the device, at any width. This is the
   data of ``chip_smoke.py``, not a user feature: a real MS MARCO index
@@ -71,6 +72,16 @@ def make_corpus(seed: int, *, n_docs: int = 2000, cap: int = 48,
         queries[qi] = qtok / np.maximum(
             np.linalg.norm(qtok, axis=-1, keepdims=True), 1e-12)
     return Corpus(doc_embs, doc_lens, queries, gt)
+
+
+def make_ood_corpus(seed: int, **kw) -> Corpus:
+    """LoTTE-like (ref ``synthetic.py:59``): distribution-shifted topics,
+    longer documents: :func:`make_corpus` with ``cap`` 96, ``min_len`` 48
+    and ``topic_shift`` 0.8 unless given."""
+    kw.setdefault("cap", 96)
+    kw.setdefault("min_len", 48)
+    kw.setdefault("topic_shift", 0.8)
+    return make_corpus(seed, **kw)
 
 
 def mrr_at_k(ranked_ids: np.ndarray, gt: np.ndarray, k: int = 10) -> float:

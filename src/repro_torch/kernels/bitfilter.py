@@ -35,7 +35,7 @@ import ctypes
 
 import torch
 
-from . import _build
+from . import _build, _meta
 from .prefilter import filter_scores_ref, lengths_of
 
 MAX_BATCH = 32    # queries per launch: one lane group per query
@@ -88,6 +88,19 @@ def _launch(bits, codes, doc_lens):
     return f
 
 
+def _meta_outputs(bits, lead, cap: int):
+    """F on meta and the bound's bytes, dense (every token valid;
+    ``kernels/_meta.py``)."""
+    nb, n_c = bits.shape
+    docs = lead[-1] * (nb if len(lead) == 2 else 1)
+    tokens = docs * cap
+    rows = n_c * nb if len(lead) == 1 else _meta.rows_touched(nb, n_c,
+                                                              tokens)
+    _meta.account("bitfilter", docs * 4 + tokens * 4 + rows * 4
+                  + nb * lead[-1] * 4, nb * lead[-1] * cap)
+    return _meta.empty((nb, lead[-1]), torch.int32)
+
+
 def bitfilter_batched(bits: torch.Tensor, codes: torch.Tensor,
                       token_mask: torch.Tensor) -> torch.Tensor:
     """Batch-native Eq. 4 over shared corpus codes or per-query buffers.
@@ -107,6 +120,8 @@ def bitfilter_batched(bits: torch.Tensor, codes: torch.Tensor,
     if tuple(doc_lens.shape) != lead:
         raise ValueError(f"token validity covers {tuple(doc_lens.shape)}, "
                          f"expected {lead}")
+    if bits.is_meta:
+        return _meta_outputs(bits, lead, cap)
     if bits.device.type == "cpu":
         return bitfilter_batched_ref(bits, codes, doc_lens)
     if bits.device.type != "cuda":

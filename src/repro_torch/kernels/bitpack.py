@@ -27,7 +27,7 @@ import torch
 
 from ..core.bitvector import build_bitvectors
 from ..core.precision import CS_TYPES, kernel_th, round_to
-from . import _build
+from . import _build, _meta
 
 launches = 0      # kernel launches since the last reset
 
@@ -69,6 +69,10 @@ def bitpack_batched(cs: torch.Tensor, th: float,
     nb, n_q, n_c = cs.shape
     if n_q > 32:
         raise ValueError("stacked bitvector packs one query term per bit")
+    if cs.is_meta:
+        _meta.account("bitpack", _meta.nbytes(cs) + nb * n_q + nb * n_c * 4,
+                      nb * n_q * n_c)
+        return _meta.empty((nb, n_c), torch.int32)
     if cs.device.type == "cpu":
         return bitpack_batched_ref(cs, th, q_masks)
     if cs.device.type != "cuda":

@@ -25,7 +25,7 @@ import torch
 
 from ..core.interaction import centroid_interaction
 from ..core.precision import CS_TYPES
-from . import _build
+from . import _build, _meta
 from .prefilter import lengths_of
 
 launches = 0      # kernel launches since the last reset
@@ -73,6 +73,13 @@ def cinter_batched(cs_t: torch.Tensor, codes: torch.Tensor,
     if tuple(lens.shape) != (nb, nd):
         raise ValueError(f"token validity covers {tuple(lens.shape)}, "
                          f"expected {(nb, nd)}")
+    if cs_t.is_meta:
+        tokens = nb * nd * cap
+        _meta.account("cinter", nb * nd * 4 + tokens * 4
+                      + _meta.rows_touched(nb, n_c, tokens) * n_q
+                      * cs_t.element_size() + nb * n_q + nb * nd * 4,
+                      tokens * n_q)
+        return _meta.empty((nb, nd), torch.float32)
     if cs_t.device.type == "cpu":
         return cinter_batched_ref(cs_t, codes, lens, q_masks)
     if cs_t.device.type != "cuda":

@@ -37,7 +37,7 @@ import torch
 from ..core.interaction import centroid_interaction, late_interaction_pq
 from ..core.precision import CS_TYPES, kernel_th, round_to
 from ..core.topk import topk
-from . import _build
+from . import _build, _meta
 from .prefilter import lengths_of
 
 MAX_SORT = 4096   # n_filter and n_docs: a cut keeps its keys in shared memory
@@ -131,6 +131,27 @@ def _launch(cs_t, lut2, codes, res_codes, lens, qm, doc_pass, th_r, n_docs,
     return scores, pos, sel2, sbar
 
 
+def _meta_outputs(cs_t, lut, codes, n_docs: int, k: int, doc_pass):
+    """The kernel's outputs on meta and its bound's bytes, dense (every
+    survivor's tokens valid, every touched CS^T row distinct;
+    ``kernels/_meta.py``)."""
+    nb, nf, cap = codes.shape
+    n_c, n_q = cs_t.shape[1:]
+    m = lut.shape[2]
+    tokens, win_tokens = nb * nf * cap, nb * n_docs * cap
+    rows = _meta.rows_touched(nb, n_c, tokens)
+    _meta.account("pqinter",
+                  tokens * 4 + nb * nf * 4 + rows * n_q * cs_t.element_size()
+                  + _meta.nbytes(lut) + win_tokens * m + nb * n_q
+                  + nb * k * 8 + nb * n_docs * 8
+                  + (nb * nf if doc_pass is not None else 0),
+                  tokens * n_q + win_tokens * n_q * (m + 1))
+    return (_meta.empty((nb, k), torch.float32),
+            _meta.empty((nb, k), torch.int32),
+            _meta.empty((nb, n_docs), torch.int32),
+            _meta.empty((nb, n_docs), torch.float32))
+
+
 def pqinter_batched(cs_t: torch.Tensor, lut: torch.Tensor,
                     codes: torch.Tensor, res_codes: torch.Tensor,
                     token_mask: torch.Tensor, th_r, n_docs: int, k: int,
@@ -160,6 +181,8 @@ def pqinter_batched(cs_t: torch.Tensor, lut: torch.Tensor,
     if doc_pass is not None and tuple(doc_pass.shape) != (nb, nf):
         raise ValueError(f"doc_pass is {tuple(doc_pass.shape)}, expected "
                          f"{(nb, nf)}")
+    if cs_t.is_meta:
+        return _meta_outputs(cs_t, lut, codes, n_docs, k, doc_pass)
     if cs_t.device.type == "cpu":
         return pqinter_batched_ref(cs_t, lut, codes, res_codes, lens, th_r,
                                    n_docs, k, q_masks, doc_pass)

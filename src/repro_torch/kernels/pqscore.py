@@ -28,7 +28,7 @@ import torch
 
 from ..core.interaction import late_interaction_pq
 from ..core.precision import CS_TYPES, kernel_th, round_to
-from . import _build
+from . import _build, _meta
 from .pqinter import flat_lut
 from .prefilter import lengths_of
 
@@ -88,6 +88,13 @@ def pqscore_batched(cs_t: torch.Tensor, lut: torch.Tensor,
     if tuple(lens.shape) != (nb, nd):
         raise ValueError(f"token validity covers {tuple(lens.shape)}, "
                          f"expected {(nb, nd)}")
+    if cs_t.is_meta:
+        tokens, n_c = nb * nd * cap, cs_t.shape[1]
+        _meta.account("pqscore", nb * nd * 4 + tokens * (4 + m)
+                      + _meta.rows_touched(nb, n_c, tokens) * n_q
+                      * cs_t.element_size() + _meta.nbytes(lut) + nb * n_q
+                      + nb * nd * 4, tokens * n_q * (m + 1))
+        return _meta.empty((nb, nd), torch.float32)
     if cs_t.device.type == "cpu":
         return pqscore_batched_ref(cs_t, lut, codes, res_codes, lens, th_r,
                                    q_masks)

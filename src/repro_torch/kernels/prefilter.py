@@ -37,7 +37,7 @@ from ..core.bitvector import (apply_filter_plan, build_bitvectors,
                                or_reduce, popcount)
 from ..core.precision import CS_TYPES, kernel_th, round_to
 from ..core.topk import topk
-from . import _build
+from . import _build, _meta
 
 ID_BITS = 25
 MAX_ID = (1 << ID_BITS) - 1
@@ -56,6 +56,8 @@ def lengths_of(token_mask: torch.Tensor) -> torch.Tensor:
         return token_mask.to(torch.int32)
     lens = token_mask.sum(-1, dtype=torch.int32)
     cap = token_mask.shape[-1]
+    if token_mask.is_meta:       # no values to check
+        return lens
     prefix = torch.arange(cap, device=token_mask.device) < lens[..., None]
     if not torch.equal(prefix, token_mask):
         raise ValueError("token_mask must be a prefix mask (real tokens "
@@ -162,6 +164,22 @@ def _launch(cs, th, codes, doc_lens, bitmap, n_filter, qm, pred, clauses):
     return out[0], out[1], bits
 
 
+def _meta_outputs(cs, lead, cap: int, n_filter: int, q_masks, plan):
+    """The kernel's outputs on meta and its bound's bytes, dense (every doc
+    some query's candidate, every token valid; ``kernels/_meta.py``)."""
+    nb, n_q, n_c = cs.shape
+    docs = lead[-1] * (nb if len(lead) == 2 else 1)
+    tokens = docs * cap
+    words = docs * 4 if plan is not None else 0
+    _meta.account("prefilter",
+                  _meta.nbytes(cs) + nb * lead[-1] + nb * n_q + words
+                  + docs * 4 + tokens * 4 + nb * n_filter * 8 + nb * n_c * 4,
+                  nb * n_q * n_c + nb * tokens)
+    return (_meta.empty((nb, n_filter), torch.int32),
+            _meta.empty((nb, n_filter), torch.int32),
+            _meta.empty((nb, n_c), torch.int32))
+
+
 def prefilter_batched(cs: torch.Tensor, th: float, codes: torch.Tensor,
                       token_mask: torch.Tensor, bitmap: torch.Tensor,
                       n_filter: int, q_masks=None, *, pred_words=None,
@@ -200,6 +218,8 @@ def prefilter_batched(cs: torch.Tensor, th: float, codes: torch.Tensor,
         if pred_words is None or tuple(pred_words.shape) != (n_docs,):
             raise ValueError(f"a plan needs pred_words of shape ({n_docs},)")
         pred_words = pred_words.view(torch.int32)
+    if cs.is_meta:
+        return _meta_outputs(cs, lead, cap, n_filter, q_masks, plan)
     if cs.device.type == "cpu":
         return prefilter_batched_ref(cs, th, codes, doc_lens, bitmap,
                                      n_filter, q_masks,

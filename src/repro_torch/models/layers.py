@@ -12,8 +12,10 @@ Compute dtype policy, as the reference's: matmuls in ``cfg.dtype``, softmax
 and norm statistics in float32.
 
 The sharding hooks (``attn_act_specs``, ``residual_spec``, ``moe_specs``)
-are not ported (ROADMAP Queue 1 item 3.2): a config that sets one raises
-``NotImplementedError``.
+are specs of the logical mesh (``repro_torch.sharding``). One process holds
+every tensor whole, so they change no number, as the reference's
+``with_sharding_constraint`` changes none; the dry run
+(``launch/op_stats.py``) reads them from the config.
 """
 from __future__ import annotations
 
@@ -39,8 +41,11 @@ class ModelConfig:
     cache runs in ``attn_q_chunk`` x ``attn_kv_chunk`` blocks
     (:func:`chunked_causal_attention`) when ``attn_q_chunk`` > 0, the
     sequence is at least ``attn_chunk_min_seq`` long and both chunks divide
-    it. ``attn_act_specs``, ``residual_spec`` and ``moe_specs`` are the
-    reference's sharding hooks: kept only to refuse them."""
+    it. ``attn_act_specs`` ((qg_spec, kv_spec): context parallelism),
+    ``residual_spec`` (the residual stream's spec: sequence parallelism)
+    and ``moe_specs`` ((token spec, expert spec)) are the reference's
+    sharding hooks: specs as ``repro_torch.sharding.rules`` writes them,
+    which change no number."""
 
     name: str = "lm"
     n_layers: int = 2
@@ -73,13 +78,6 @@ class ModelConfig:
     moe_specs: Any = None
 
     def __post_init__(self):
-        asked = [name for name in ("attn_act_specs", "residual_spec",
-                                   "moe_specs")
-                 if getattr(self, name) is not None]
-        if asked:
-            raise NotImplementedError(
-                f"ModelConfig({', '.join(asked)}): the sharding hooks are "
-                "not ported yet (ROADMAP Queue 1 item 3.2)")
         if self.remat_policy not in ("dots", "full"):
             raise ValueError(f"remat_policy {self.remat_policy!r}: 'dots' "
                              "or 'full'")

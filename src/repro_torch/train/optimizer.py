@@ -14,8 +14,7 @@ layer leaves stacked on a leading axis), so a leaf's reductions (adafactor's
 RMS clip, muon's Frobenius norm) span the same elements as the reference's.
 ``update`` returns new tensors and changes none of its arguments.
 :func:`state_to_reference` and :func:`state_from_reference` convert a state
-to the reference's tree and back, leaf for leaf. Muon's ``mats_spec``, a
-sharding hook, is not ported.
+to the reference's tree and back, leaf for leaf.
 """
 from __future__ import annotations
 
@@ -158,13 +157,15 @@ def _newton_schulz(g: torch.Tensor, steps: int = 5,
 
 def muon(lr: float = 0.02, momentum: float = 0.95, ns_steps: int = 5,
          adamw_lr: float = 3e-4, state_dtype=torch.float32,
-         ns_dtype=torch.float32) -> Optimizer:
+         mats_spec=None, ns_dtype=torch.float32) -> Optimizer:
     """Muon for >=2-D leaves, an SGD-momentum step with ``adamw_lr`` for
     vectors and scalars (ref ``optimizer.py:144``). A stacked leaf's
     leading axes are batch axes: Newton–Schulz runs on each of its
     matrices in turn, as the reference's ``lax.map`` over the layer axis.
     Note that the stacked norm scales (n_layers, d) are 2-D there, and so
-    matrices here too."""
+    matrices here too. ``mats_spec`` (shape -> spec or None) is the
+    reference's sharding hook for the matrices: one process holds them
+    whole, so it changes no number and is not called."""
     def init(params):
         return {"mu": _zeros(params, state_dtype), "count": _count(params)}
 

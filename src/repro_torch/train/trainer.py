@@ -88,22 +88,31 @@ def _microbatch(batch, i: int):
 
 
 def make_train_step(loss_fn: Callable, optimizer: Optimizer,
-                    cfg: TrainerConfig) -> Callable:
+                    cfg: TrainerConfig,
+                    micro_param_layout: Optional[Callable] = None
+                    ) -> Callable:
     """``loss_fn(model, batch) -> scalar`` -> the step ``(state, batch) ->
     (state, metrics)`` (ref ``trainer.py:48``), which updates
     ``state.params`` in place. With ``grad_accum > 1`` every leaf of
-    ``batch`` has a leading (grad_accum, ...) microbatch axis."""
+    ``batch`` has a leading (grad_accum, ...) microbatch axis.
+
+    ``micro_param_layout``: an optional params -> params transform applied
+    once before the microbatch loop (the reference hoists the FSDP weight
+    gather out of the loop with it); the microbatches' gradients are taken
+    on what it returns, a module with the same parameters in the same
+    order, and accumulate and update ``state.params``."""
 
     def compute_grads(model, batch):
         if cfg.grad_accum == 1:
             return _value_and_grad(loss_fn, model, batch)
+        pfull = micro_param_layout(model) if micro_param_layout else model
         loss_sum = torch.zeros((), dtype=torch.float32,
                                device=next(model.parameters()).device)
         gsum = tree.map_leaves(
             lambda p: torch.zeros(p.shape, dtype=torch.float32,
                                   device=p.device), to_reference_layout(model))
         for i in range(cfg.grad_accum):
-            loss, g = _value_and_grad(loss_fn, model, _microbatch(batch, i))
+            loss, g = _value_and_grad(loss_fn, pfull, _microbatch(batch, i))
             loss_sum = loss_sum + loss
             gsum = tree.map_leaves(torch.add, gsum, g)
         inv = 1.0 / cfg.grad_accum

@@ -1292,3 +1292,122 @@ def test_lm_phase_on_card(smoke, card, monkeypatch):
     assert smoke.RECORD["lm_dense_consistency"]["argmax_equal"]
     for arch in smoke.LM["smoke_archs"]:
         assert smoke.RECORD["lm_train"][arch]["bit_equal"]
+
+
+def _small_emvb_spec(n_docs: int, cap: int, d: int, n_c: int, m: int,
+                     list_cap: int):
+    """The registry's emvb-msmarco entry at a small width."""
+    import dataclasses
+
+    from repro_torch.configs import registry
+    from repro_torch.configs.emvb_msmarco import EMVBProdConfig
+    spec = registry.get("emvb-msmarco")
+    engine = dataclasses.replace(spec.make_config().engine, n_filter=256,
+                                 n_docs=64, k=10)
+    return dataclasses.replace(spec, make_config=lambda: EMVBProdConfig(
+        n_docs=n_docs, doc_cap=cap, d=d, n_centroids=n_c, m=m, nbits=8,
+        list_cap=list_cap, engine=engine))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["serve_b32", "serve_b1"])
+def test_retrieval_cell_on_one_card_equals_retrieve(card, shape, tmp_path):
+    """The dry run's retrieval cell on the 1 x 1 mesh: its step (the
+    sharded plan at one NCCL rank) on a planted index equals retrieve in
+    ids and score bits through the fused kernels, one launch each; the
+    real arguments hold the reckoned argument bytes exactly and the cell's
+    leaves."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from repro_torch.core import engine as teng
+    from repro_torch.data import synthetic
+    from repro_torch.launch import op_stats, serve, steps
+    from repro_torch.launch.mesh import single_card_mesh
+    w = dict(n_docs=20_000, cap=40, d=64, n_centroids=1024, m=16,
+             list_cap=1024)
+    spec = _small_emvb_spec(w["n_docs"], w["cap"], w["d"], w["n_centroids"],
+                            w["m"], w["list_cap"])
+    index, _ = synthetic.make_packed_index(0, min_len=20, nbits=8,
+                                           device=card, **w)
+    queries, _ = synthetic.make_queries(index, 1, 32, 32)
+    cell = steps.build_cell(spec, shape, single_card_mesh())
+    q = queries[:cell.dims["query_batch"]].clone()
+    cfg = dataclasses.replace(spec.make_config().engine, use_kernels=True)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/init",
+                            rank=0, world_size=1)
+    try:
+        stacked = serve.shard_index(index, 1)
+        args = (stacked, q)
+        assert {p: (tuple(t.shape), t.dtype) for p, t in
+                steps.leaves(args).items()} == {
+            p: (tuple(t.shape), t.dtype)
+            for p, t in steps.leaves(cell.args).items()}
+        ops.reset_launches()
+        got = cell.fn(*args)
+        torch.cuda.synchronize()
+        assert {k: v for k, v in ops.launch_counts().items() if v} == {
+            "prefilter": 1, "pqinter": 1}
+        want = teng.retrieve(index, q, cfg)
+        assert torch.equal(got.doc_ids, want.doc_ids)
+        assert torch.equal(got.scores.view(torch.int32),
+                           want.scores.view(torch.int32))
+        held = {t.untyped_storage().data_ptr(): t.untyped_storage().nbytes()
+                for t in op_stats.tensors(args)}
+        assert sum(held.values()) == op_stats.argument_bytes(cell)
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_lm_cell_on_one_card_counts_as_on_meta(card):
+    """granite's decode cell at its smoke config on the 1 x 1 mesh: the
+    FLOPs counted on the card equal those counted on meta, the reckoned
+    argument bytes the bytes the real arguments hold, and a train cell's
+    step gives the same bits twice."""
+    import dataclasses
+
+    from repro_torch.configs import registry
+    from repro_torch.launch import op_stats, steps
+    from repro_torch.launch.mesh import single_card_mesh
+    from repro_torch.models import to_reference_layout
+    from repro_torch.models import transformer as T
+    from repro_torch.train.trainer import TrainState
+    spec = registry.get("granite-moe-1b-a400m")
+    shapes = {"long_500k": dataclasses.replace(
+        spec.shapes["long_500k"], dims={"seq": 4096, "batch": 1}),
+        "train_4k": dataclasses.replace(spec.shapes["train_4k"],
+                                        dims={"seq": 256, "batch": 4})}
+    spec = dataclasses.replace(spec, make_config=spec.make_smoke_config,
+                               shapes=shapes)
+    mesh = single_card_mesh()
+    cell = steps.build_cell(spec, "long_500k", mesh)
+    model = T.init_params(3, cell.cfg, card)
+    g = torch.Generator(device=card).manual_seed(5)
+    cache = T.KVCache(*(torch.randn(t.shape, generator=g, device=card,
+                                    dtype=t.dtype) for t in cell.args[1]))
+    token = torch.randint(0, cell.cfg.vocab, (1,), generator=g, device=card,
+                          dtype=torch.int32)
+    pos = torch.tensor(4095, dtype=torch.int32, device=card)
+    args = (model, cache, token, pos)
+    assert op_stats.count(cell.fn, args)["flops"] == \
+        op_stats.global_counts(cell)["flops"]
+    held = {t.untyped_storage().data_ptr(): t.untyped_storage().nbytes()
+            for t in op_stats.tensors(args)}
+    assert sum(held.values()) == op_stats.argument_bytes(cell)
+
+    cell = steps.build_cell(spec, "train_4k", mesh)
+    opt = steps._optimizer_for(cell.spec)
+    tok = torch.randint(0, cell.cfg.vocab, (4, 256), generator=g,
+                        device=card, dtype=torch.int32)
+    batch = {"tokens": tok, "labels": torch.roll(tok, -1, dims=1)}
+    runs = []
+    for _ in range(2):
+        m = T.init_params(3, cell.cfg, card)
+        state = TrainState(torch.zeros((), dtype=torch.int32, device=card),
+                           m, opt.init(to_reference_layout(m)))
+        state, metrics = cell.fn(state, batch)
+        runs.append((to_reference_layout(m), metrics["loss"]))
+    assert torch.equal(runs[0][1], runs[1][1])
+    assert all(torch.equal(runs[0][0][k], runs[1][0][k]) for k in runs[0][0])

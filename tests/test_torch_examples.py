@@ -3,7 +3,10 @@ manner of ``tests/test_examples.py``. ``examples/train_colbert_torch.py``
 trains the encoder, encodes, builds and retrieves; its embeddings then go
 through the reference's ``build_index`` and ``retrieve`` with
 ``examples/train_colbert.py``'s config. ``examples/mind_emvb_retrieval_torch.py``
-trains MIND, indexes its items and serves each user's 4 interests.
+trains MIND, indexes its items and serves each user's 4 interests. The
+counterparts of the reference's quickstart, serve_retrieval (two gloo
+ranks here), streaming_index and retrieval_service examples run at the
+reference examples test's tiny size.
 
 Margin: the two packages' MRR@10 on the same embeddings within 0.15. The
 index builds draw their k-means and PQ from different generators
@@ -73,3 +76,32 @@ def test_mind_emvb_retrieval_torch_main(capsys):
     assert torch.isfinite(out["emvb_scores"]).all()
     assert out["score_ratio"] > 0.8 and out["overlap"] > 0.3
 
+
+
+TINY = dict(n_docs=256, n_centroids=32, n_queries=8, device="cpu")
+
+
+@pytest.mark.parametrize("name", ["quickstart_torch", "serve_retrieval_torch",
+                                  "streaming_index_torch",
+                                  "retrieval_service_torch"])
+def test_port_example_main_runs_on_tiny_corpus(name, capsys):
+    """The counterparts of the reference's four examples run end to end on
+    the CPU at a tiny size: they narrate, and no bit-exactness check they
+    print fails (``tests/test_examples.py``'s manner). The sharded plan
+    runs on two gloo ranks here."""
+    mod = _load(name)
+    kw = dict(TINY, n_shards=2) if name == "serve_retrieval_torch" else TINY
+    out = mod.main(**kw)
+    printed = capsys.readouterr().out
+    assert printed.strip()
+    assert ": False" not in printed
+    if name == "quickstart_torch":
+        for ids in (out["emvb_ids"], out["plaid_ids"]):
+            assert ids.shape == (8, 10) and ((ids >= 0) & (ids < 256)).all()
+        assert out["mrr_emvb"] > 0.5 and out["mrr_plaid"] > 0.5
+    if name == "serve_retrieval_torch":
+        assert "top-1 agreement: 100%" in printed
+    if name == "streaming_index_torch":
+        assert out["round_trip_exact"] and out["timeline_same"]
+    if name == "retrieval_service_torch":
+        assert out["exact"] and out["padded_equals_prefix"]

@@ -47,7 +47,12 @@ def test_port_imports_without_jax_or_repro():
                  "repro_torch.configs.registry", "repro_torch.configs.mind",
                  "repro_torch.configs.emvb_msmarco",
                  "repro_torch.configs.kimi_k2_1t",
-                 "repro_torch.launch.train"):
+                 "repro_torch.launch.train", "repro_torch.launch.mesh",
+                 "repro_torch.launch.steps", "repro_torch.launch.modelflops",
+                 "repro_torch.launch.analysis", "repro_torch.launch.op_stats",
+                 "repro_torch.launch.dryrun", "repro_torch.kernels._meta",
+                 "repro_torch.sharding.rules",
+                 "repro_torch.sharding.recsys_rules"):
         assert name in modules, name
     code = textwrap.dedent(f"""
         import importlib, sys
@@ -100,9 +105,10 @@ def test_every_module_imports_first():
 def _port_sources() -> list:
     """Every Python source of the port: the package, chip_smoke.py, the
     card scripts beside it and the port's examples."""
-    files = [os.path.join(ROOT, "chip_smoke.py"),
-             os.path.join(ROOT, "examples", "train_colbert_torch.py"),
-             os.path.join(ROOT, "examples", "mind_emvb_retrieval_torch.py")]
+    files = [os.path.join(ROOT, "chip_smoke.py")]
+    files += [os.path.join(ROOT, "examples", f"{n}_torch.py") for n in (
+        "train_colbert", "mind_emvb_retrieval", "quickstart",
+        "serve_retrieval", "streaming_index", "retrieval_service")]
     for base, _, names in os.walk(os.path.join(ROOT, "src", "repro_torch")):
         files += [os.path.join(base, n) for n in names if n.endswith(".py")]
     scripts = os.path.join(ROOT, "scripts")
@@ -133,7 +139,16 @@ def test_port_sources_import_no_jax_or_repro():
                 ("recsys", "dcn.py"), ("recsys", "dien.py"),
                 ("configs", "registry.py"), ("configs", "dlrm_mlperf.py"),
                 ("configs", "qwen2p5_3b.py"), ("launch", "train.py"),
-                ("examples", "mind_emvb_retrieval_torch.py")):
+                ("examples", "mind_emvb_retrieval_torch.py"),
+                ("examples", "quickstart_torch.py"),
+                ("examples", "serve_retrieval_torch.py"),
+                ("examples", "streaming_index_torch.py"),
+                ("examples", "retrieval_service_torch.py"),
+                ("launch", "mesh.py"), ("launch", "steps.py"),
+                ("launch", "modelflops.py"), ("launch", "analysis.py"),
+                ("launch", "op_stats.py"), ("launch", "dryrun.py"),
+                ("kernels", "_meta.py"), ("sharding", "rules.py"),
+                ("sharding", "recsys_rules.py")):
         assert any(f.endswith(os.path.join(*sub)) for f in files), sub
     bad = []
     for path in files:

@@ -193,13 +193,16 @@ def test_attention_block_and_swiglu(qkv_bias):
 
 
 def test_model_config_refuses_what_the_slice_leaves_out():
-    """The sharding hooks are refused; experts, chunked attention and the
-    grouped dispatch are accepted, with the reference's fields."""
-    for kw in (dict(attn_act_specs=("q", "kv")), dict(residual_spec="s"),
-               dict(moe_specs=("t", "e"))):
-        with pytest.raises(NotImplementedError, match="sharding hooks"):
-            tlay.ModelConfig(**kw)
-    for kw in (dict(n_experts=4, top_k=2, n_shared_experts=1,
+    """Nothing of the reference's is left out any more: the sharding hooks
+    (specs as tuples of axis names), experts, chunked attention and the
+    grouped dispatch are accepted, with the reference's fields; only a
+    remat policy the reference does not know is refused."""
+    for kw in (dict(attn_act_specs=(("data", None, "model", None, None,
+                                     None), ("data", None, None, None,
+                                             None))),
+               dict(residual_spec=("data", "model", None)),
+               dict(moe_specs=(("data", None, None), None)),
+               dict(n_experts=4, top_k=2, n_shared_experts=1,
                     capacity_factor=1.0),
                dict(attn_q_chunk=128, attn_kv_chunk=256,
                     attn_chunk_min_seq=512),
