@@ -30,7 +30,10 @@ Phases:
                (PREFILTER_STRESS, PQINTER_STRESS: sparse, dense and shared
                candidacy (the prefilter's sparse and dense forms), cap 80
                and 200 with edge lengths, ties across tiles, a tile plus
-               one doc, cuts ranked and sorted, m in {4, 5, 8, 16, 32}
+               one doc, cuts ranked and sorted, cuts past the old caps
+               (n_filter 12,000 and the whole of 20,003 docs; pqinter's
+               radix select over 4,097 to 20,000 survivors keeping 1 to
+               10,000), m in {4, 5, 8, 16, 32}
                (all but 16 on the serial path), odd K, Eq. 6 with no kept
                token; each with and without a term mask;
                BITFILTER_STRESS: word tables whose rows are lit at 2 %,
@@ -216,10 +219,23 @@ Phases:
   7. limits  — kernels off the default config, each held against its plain
                version and timed by pass: the prefilter and pqinter
                megakernels on a B = 32 batch whose queries share candidates
-               and at the largest cuts their wrappers take (n_filter 4096
-               and 8192); bitfilter on dense word tables (th lowered until
-               rho is about 50 % and 100 %, B = 32 and B = 1); pqscore over
-               4096 winners a query
+               and at larger cuts (n_filter 1024 to 65,536; pqinter over
+               4096 survivors keeping 256 and 4096 and over 20,000 keeping
+               10,000: the radix select); bitfilter on
+               dense word tables (th lowered until rho is about 50 % and
+               100 %, B = 32 and B = 1); pqscore over 4096 winners a query
+  7b. budgets — the two configurations the reference's benchmarks run
+               past the old shared-memory caps, on the full-width index:
+               fig9's post-filter lane (n_filter 20,000, n_docs = k =
+               10,000) at B = 32 and 1, float32 and bf16 CS and with the
+               1 % filter, and fig2's no-prefilter baseline (n_filter = all
+               8,841,823 docs, n_docs 128, k 100, th -1, th_r None) at
+               B = 1: retrieve fused == unfused (finite entries with the
+               filter; bf16 differences traced to entries equal to
+               bf16(th)), each fused kernel == its plain version (pqinter
+               two queries at a time; not at fig2's survivors) and composed
+               to retrieve; ms, per-pass device ms, launches, peak memory
+               and bounds per case
   8. profile — torch.profiler over retrieve on both lanes at B = 32 and
                B = 1: the device's busy share, device time and launches by
                CUDA kernel, and each hand-written kernel's __global__
@@ -359,9 +375,12 @@ PREFILTER_STRESS = (
     ("one_candidate_set", 32, 700, 3001, 17, 300, 0.3, "shared", 32),
     ("cap80_edge_lengths", 3, 700, 2100, 80, 300, 0.3, "", 32),
     ("ties_across_tiles", 3, 64, 4100, 12, 2500, 0.9, "flat", 32),
-    ("ties_sorted_cut", 32, 64, 4100, 12, 2500, 0.9, "flat", 32),
+    ("ties_b32", 32, 64, 4100, 12, 2500, 0.9, "flat", 32),
     ("tile_plus_one_docs", 1, 700, 1025, 17, 1025, 0.3, "", 32),
     ("cap200_two_chunks", 32, 700, 2100, 200, 300, 0.6, "", 32),
+    # cuts past the old 8,192 cap: the whole corpus, and B = 32
+    ("whole_corpus_cut", 3, 700, 20_003, 12, 20_003, 0.5, "", 32),
+    ("past_old_cap_b32", 32, 700, 20_003, 12, 12_000, 0.5, "", 32),
     # MIND x EMVB (recsys phase): 4 interest terms, one token an item
     ("nq4_cap1_sparse", 32, 2048, 200_003, 1, 4096, 0.01, "", 4),
     ("nq4_cap1_dense", 32, 2048, 20_003, 1, 4096, 0.6, "", 4),
@@ -377,6 +396,13 @@ PQINTER_STRESS = (
     ("m8_cap33", 2, 300, 200, 33, 8, 16, 50, 10, (0.25,), 32),
     ("m4", 2, 300, 200, 12, 4, 16, 50, 10, (0.25,), 32),
     ("m32", 2, 300, 200, 12, 32, 16, 50, 10, (0.25,), 32),
+    # cuts of more than 4,096 keys: the radix select, ranked by one block's
+    # sort (B x n_keep > 65,536), by counting, and keeping one key
+    ("radix_select_sorted", 32, 700, 8192, 10, 16, 16, 5000, 4500, (0.25,),
+     32),
+    ("radix_select_counted", 3, 700, 20_000, 10, 16, 16, 10_000, 10_000,
+     (None, 0.25), 32),
+    ("radix_select_keep_one", 2, 700, 4097, 10, 16, 16, 1, 1, (0.25,), 32),
     ("eq6_no_kept_token", 3, 700, 300, 17, 16, 256, 60, 20, (100.0,), 32),
     ("sorted_cuts", 32, 300, 2100, 12, 4, 16, 2100, 50, (0.25,), 32),
     ("nq4_cap1_m16", 32, 2048, 4096, 1, 16, 256, 1024, 10, (None, 0.25),
@@ -807,15 +833,21 @@ def prefilter_query_bound(cs, lens, valid, n_filter) -> dict:
     return _bound(nbytes, nb * n_q * n_c + tokens)
 
 
-def _rows_touched(codes, lens, n_c: int) -> int:
+def _rows_touched(codes, lens, n_c: int, step: int = 1 << 20) -> int:
     """Distinct (query, centroid) rows of CS^T that the valid tokens of
-    codes (B, docs, cap) touch."""
+    codes (B, docs, cap) touch, marked ``step`` docs at a time (fig2's
+    baseline gives 8,841,823 survivors)."""
     import torch
-    nb, _, cap = codes.shape
-    valid = torch.arange(cap, device=codes.device) < lens[..., None]
-    rows = (torch.arange(nb, device=codes.device)[:, None, None] * n_c
-            + codes.clamp(0, n_c - 1).long())[valid]
-    return int(torch.unique(rows).numel())
+    nb, nd, cap = codes.shape
+    dev = codes.device
+    tok = torch.arange(cap, device=dev)
+    seen = torch.zeros(nb * n_c, dtype=torch.bool, device=dev)
+    base = torch.arange(nb, device=dev)[:, None, None] * n_c
+    for s in range(0, nd, step):
+        valid = tok < lens[:, s:s + step, None]
+        seen[(base + codes[:, s:s + step].clamp(0, n_c - 1).long())[valid]] \
+            = True
+    return int(seen.sum())
 
 
 def pqinter_bound(cs_t, lut, codes, lens, sel2, n_docs, k,
@@ -925,16 +957,16 @@ def _bound(nbytes: int, n_ops: int) -> dict:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
-def hold_phases(index, q, cfg) -> dict:
+def hold_phases(index, q, cfg, plain_step: int = None) -> dict:
     """One batch through the fused lane's own steps (as ``engine``'s
     ``_phase12_batch`` and ``_phase34_batch`` run them, filter and candidate
     mode included): each kernel against its plain version on the SAME CS,
-    bitmap, LUT and survivor operands, CS in ``cfg.cs_dtype``. Returns the
-    intermediates and the composed ids."""
+    bitmap, LUT and survivor operands, CS in ``cfg.cs_dtype``; pqinter's
+    ``plain_step`` queries at a time (None: the whole batch; 0: not held,
+    its error None). Returns the intermediates and the composed ids."""
     import torch
     from repro_torch.core import engine as teng
     from repro_torch.kernels import ops
-    from repro_torch.kernels import pqinter as kpq
     from repro_torch.kernels import prefilter as kpf
     cs = teng.centroid_scores(q, index.centroids, cfg.cs_dtype)
     bitmap = teng._candidates(index, cs, cfg)
@@ -961,7 +993,9 @@ def hold_phases(index, q, cfg) -> dict:
     pq_args = (*operands, cfg.th_r, cfg.n_docs, cfg.k)
     s1_pass = None if doc_pass is None else doc_pass[sel1]
     pq = ops.pqinter_batched(*pq_args, doc_pass=s1_pass)
-    err_pq = _exact(pq, kpq.pqinter_batched_ref(*pq_args, None, s1_pass))
+    err_pq = None if plain_step == 0 else _exact(pq, plain_pqinter(
+        operands, *pq_args[len(operands):], s1_pass,
+        step=plain_step or q.shape[0]))
     return dict(cs=cs, bitmap=bitmap, doc_pass=doc_pass, pf_args=pf_args,
                 pf_kw=pf_kw, pf=pf, sel1=sel1, lut=lut,
                 operands=operands, s1_pass=s1_pass, pq=pq,
@@ -1253,6 +1287,27 @@ FORMS = {"prefilter": {"plan": ("filter1pct", "fused"),
          "bitfilter": {"per_query": ("compact", "unfused")}}
 
 
+def _lanes_agree(a, z, what: str, finite_only: bool) -> int:
+    """Raise unless the fused result ``a`` and the unfused ``z`` agree in
+    ids and score bits (with ``finite_only``, on the entries finite in both,
+    which must sit in the same places: the lanes' fillers differ, as the
+    reference's do); -> the finite entries."""
+    import torch
+    fin = torch.isfinite(a.scores)
+    if finite_only:
+        same = (torch.equal(fin, torch.isfinite(z.scores))
+                and torch.equal(a.doc_ids[fin], z.doc_ids[fin])
+                and torch.equal(a.scores[fin].view(torch.int32),
+                                z.scores[fin].view(torch.int32)))
+    else:
+        same = (torch.equal(a.doc_ids, z.doc_ids) and torch.equal(
+            a.scores.view(torch.int32), z.scores.view(torch.int32)))
+    if not same:
+        raise AssertionError(f"{what}: unfused != fused" + (
+            " on the finite entries" if finite_only else ""))
+    return int(fin.sum())
+
+
 def check_filtered(ids, scores, passing) -> int:
     """Results (N, k) well formed: scores descending, no NaN, ids in the
     corpus, every finite-scored id passing the filter (``passing`` (n_docs,)
@@ -1348,13 +1403,7 @@ def filter_phase(full: dict) -> dict:
                                      lut=h["lut"])
             z = teng._retrieve_batch(index, q, cfgs["unfused"], cs=h["cs"],
                                      lut=h["lut"])
-            fin = torch.isfinite(a.scores)
-            if not (torch.equal(fin, torch.isfinite(z.scores))
-                    and torch.equal(a.doc_ids[fin], z.doc_ids[fin])
-                    and torch.equal(a.scores[fin].view(torch.int32),
-                                    z.scores[fin].view(torch.int32))):
-                raise AssertionError(f"{name} {b}: unfused != fused on the "
-                                     "finite entries")
+            _lanes_agree(a, z, f"{name} {b}", finite_only=True)
             cand = h["bitmap"] if ok is None else h["bitmap"] & ok
             passing_cands[b] = cand.sum(1).tolist()[:8]
             held[b] = {"h": h, "u": u, "q": q}
@@ -5124,14 +5173,37 @@ def th_for_rho(cs, hist, rho: float) -> float:
     return float((rowmax[order[k]] + rowmax[order[k + 1]]) / 2)
 
 
+# The limits phase's cuts: the prefilter's n_filter, and pqinter's
+# survivors -> the n_docs each case keeps (4096: the largest cut of the
+# shared-memory forms; 20,000 -> 10,000: the radix select).
+PREFILTER_LIMITS = (1024, 4096, 8192, 16384, 65536)
+PQINTER_LIMITS = {4096: (256, 4096), 20_000: (10_000,)}
+
+
+def plain_pqinter(operands, th_r, n_docs: int, k: int, doc_pass=None,
+                  step: int = 2):
+    """pqinter's plain version ``step`` queries at a time: its (docs, cap,
+    n_q) gathers take about 1 GB a query at 10,000 winners, too much for a
+    whole batch beside the index."""
+    import torch
+    from repro_torch.kernels import pqinter as kpq
+    nb = operands[0].shape[0]
+    parts = [kpq.pqinter_batched_ref(
+        *(x[s:s + step] for x in operands), th_r, n_docs, k, None,
+        None if doc_pass is None else doc_pass[s:s + step])
+        for s in range(0, nb, step)]
+    return tuple(torch.cat(p) for p in zip(*parts))
+
+
 def limits_phase(full: dict) -> dict:
     """Phase 6: kernels at full width on inputs the default config does not
     give them, each held exactly against its plain version. The two
     megakernels: the prefilter at B = 32 on batches whose queries share
     candidates (every query with query 0's candidates; each doc of the
     batch's union a candidate of queries 0..k-1, k in {8, 16, 24, 32}),
-    and the largest cuts the wrappers take (n_filter 4096 and 8192; pqinter
-    over 4096 survivors, keeping 256 and 4096), at B = 32 and B = 1.
+    and cuts larger than the default config's (n_filter 1024 to 65,536;
+    pqinter over 4096 survivors keeping 256 and 4096, and over 20,000
+    keeping 10,000: the radix select), at B = 32 and B = 1.
     bitfilter on dense word tables: the batch's CS packed at a th low enough
     that the lit rows hold about 50 % and 100 % of the corpus' valid tokens
     (a real index lights far more rows than the planted one), at B = 32 and
@@ -5142,7 +5214,6 @@ def limits_phase(full: dict) -> dict:
     from repro_torch.core import engine as teng
     from repro_torch.kernels import bitfilter as kbf
     from repro_torch.kernels import ops
-    from repro_torch.kernels import pqinter as kpq
     from repro_torch.kernels import pqscore as kps
     from repro_torch.kernels import prefilter as kpf
     index, cfg = full["index"], full["cfg"]
@@ -5176,32 +5247,31 @@ def limits_phase(full: dict) -> dict:
     for b in ("b32", "b1"):
         h = full["held"][b]
         q = full["queries"][:h["cs"].shape[0]]
-        for n_filter in (4096, 8192):
+        for n_filter in PREFILTER_LIMITS:
             args = (h["cs"], cfg.th, index.codes, index.doc_lens,
                     h["bitmap"], n_filter)
             case(f"prefilter_n_filter{n_filter}_{b}", "prefilter",
                  lambda: ops.prefilter_batched(*args),
                  lambda: kpf.prefilter_batched_ref(*args))
-        sel1 = ops.prefilter_batched(*args[:5], kpq.MAX_SORT)[1].long()
-        operands = teng._survivor_operands(index, h["cs"],
-                                           teng._query_lut(index, q), sel1)
-        for n_docs in (256, kpq.MAX_SORT):
-            def ref():
-                # four queries at a time: the plain version's (docs, cap,
-                # n_q, m) LUT gather would not fit at once
-                parts = [kpq.pqinter_batched_ref(
-                    *(x[s:s + 4] for x in operands), cfg.th_r, n_docs, cfg.k)
-                    for s in range(0, sel1.shape[0], 4)]
-                return tuple(torch.cat(p) for p in zip(*parts))
-            case(f"pqinter_nf{kpq.MAX_SORT}_n_docs{n_docs}_{b}", "pqinter",
-                 lambda: ops.pqinter_batched(*operands, cfg.th_r, n_docs,
-                                             cfg.k), ref)
+        winners = None
+        for nf, cuts in PQINTER_LIMITS.items():
+            sel1 = ops.prefilter_batched(*args[:5], nf)[1].long()
+            operands = teng._survivor_operands(index, h["cs"],
+                                               teng._query_lut(index, q), sel1)
+            for n_docs in cuts:
+                case(f"pqinter_nf{nf}_n_docs{n_docs}_{b}", "pqinter",
+                     lambda: ops.pqinter_batched(*operands, cfg.th_r, n_docs,
+                                                 cfg.k),
+                     lambda: plain_pqinter(operands, cfg.th_r, n_docs, cfg.k,
+                                           step=4))
+            winners = winners or operands   # pqscore over the first's
+        operands = winners
 
         def ps_ref():
             return (torch.cat([kps.pqscore_batched_ref(
                 *(x[s:s + 4] for x in operands), cfg.th_r)
-                for s in range(0, sel1.shape[0], 4)]),)
-        name = f"pqscore_winners{kpq.MAX_SORT}_{b}"
+                for s in range(0, operands[0].shape[0], 4)]),)
+        name = f"pqscore_winners{operands[0].shape[1]}_{b}"
         case(name, "pqscore",
              lambda: (ops.pqscore_batched(*operands, cfg.th_r),), ps_ref)
         out[name]["bound"] = pqscore_bound(operands[0], operands[1],
@@ -5220,15 +5290,144 @@ def limits_phase(full: dict) -> dict:
     return out
 
 
+# --- 7b. budgets: cuts past the old shared-memory caps --------------------
+
+# fig9's post-filter lane (benchmarks/fig9_selectivity.py:73-76) at
+# emvb-msmarco's k = 100 (src/repro/configs/emvb_msmarco.py:23) and the
+# sweep's s = 0.02: k_post = 2 * ceil(k / s) = 10,000 = n_docs, n_filter =
+# 2 * k_post.
+BUDGET_FIG9 = dict(ENGINE, k=10_000, n_docs=10_000, n_filter=20_000)
+# fig2's no-prefilter baseline (benchmarks/fig2_threshold.py:34-37): every
+# doc survives phase 2.
+BUDGET_FIG2 = dict(ENGINE, th=-1.0, th_r=None, n_filter=WIDTHS["n_docs"],
+                   n_docs=128, k=100)
+# case -> (config, CS dtype, B, filter predicate or None)
+BUDGET_CASES = {
+    "fig9_b32": (BUDGET_FIG9, "float32", 32, None),
+    "fig9_b1": (BUDGET_FIG9, "float32", 1, None),
+    "fig9_bf16_b32": (BUDGET_FIG9, "bfloat16", 32, None),
+    "fig9_bf16_b1": (BUDGET_FIG9, "bfloat16", 1, None),
+    "fig9_filter1pct_b32": (BUDGET_FIG9, "float32", 32, "p1"),
+    "fig2_b1": (BUDGET_FIG2, "float32", 1, None),
+}
+
+
+
+
+def budget_case(index, q, cfg, ucfg, flush) -> dict:
+    """One budgets case. retrieve on each lane (launches counted around one
+    call each, every kernel on its own lane only; ms; the fused call's peak
+    memory); the fused lane's steps held (:func:`hold_phases`: each kernel
+    against its plain version, pqinter's two queries at a time, or not at
+    fig2's 8,841,823 survivors, whose (docs, cap, n_q) gathers no card
+    holds) and composed to retrieve's result; each fused kernel's ms and
+    per-pass device ms beside its bound and its plain version's ms; the
+    unfused lane on the same CS and LUT equal to the fused one (on the
+    finite entries with a filter, whose fillers differ by lane; on bf16 CS
+    every difference traced to an entry equal to bf16(th),
+    :func:`lane_differences`)."""
+    import torch
+    from repro_torch.core import engine as teng
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import prefilter as kpf
+    launches, ms = {}, {}
+    for lane, c in (("fused", cfg), ("unfused", ucfg)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        res = teng.retrieve(index, q, c)
+        torch.cuda.synchronize()
+        launches[lane] = ops.launch_counts()
+        if lane == "fused":
+            fused, peak = res, torch.cuda.max_memory_allocated()
+        ms[lane] = time_ms(lambda: teng.retrieve(index, q, c), n=5, warmup=1)
+        for kname, kern in KERNELS.items():
+            if (launches[lane][kname] > 0) != (kern["lane"] == lane):
+                raise AssertionError(f"{lane} lane: {kname} launched "
+                                     f"{launches[lane][kname]} times")
+    plain_pq = cfg.n_filter < index.codes.shape[0]
+    h = hold_phases(index, q, cfg, plain_step=2 if plain_pq else 0)
+    if not (torch.equal(h["ids"], fused.doc_ids) and torch.equal(
+            h["pq"][0].view(torch.int32), fused.scores.view(torch.int32))):
+        raise AssertionError("the held kernels do not compose to retrieve")
+    ops_, tail = h["operands"], (cfg.th_r, cfg.n_docs, cfg.k)
+    kern = {}
+    for name, fn, plain, bound in (
+            ("prefilter",
+             lambda: ops.prefilter_batched(*h["pf_args"], **h["pf_kw"]),
+             lambda: kpf.prefilter_batched_ref(*h["pf_args"], **h["pf_kw"]),
+             lambda: prefilter_bound(h["cs"], index, h["bitmap"],
+                                     cfg.n_filter, h["doc_pass"])),
+            ("pqinter",
+             lambda: ops.pqinter_batched(*ops_, *tail, doc_pass=h["s1_pass"]),
+             (lambda: plain_pqinter(ops_, *tail, h["s1_pass"])) if plain_pq
+             else None,
+             lambda: pqinter_bound(ops_[0], ops_[1], ops_[2], ops_[4],
+                                   h["pq"][2], cfg.n_docs, cfg.k,
+                                   h["s1_pass"]))):
+        pass_ms, pass_launches = _passes(fn, name)
+        kern[name] = dict(
+            max_abs_err=h["err"][name],
+            ms=time_ms(fn, n=5, warmup=1, flush=flush),
+            plain_ms=None if plain is None else time_ms(plain, n=3,
+                                                        warmup=1),
+            pass_ms=pass_ms, pass_launches=pass_launches, bound=bound())
+    cs, lut, pf = h["cs"], h["lut"], h["pf"]
+    del h, ops_                         # fig2's 14.1 GB of survivor operands
+    if cfg.cs_dtype == "bfloat16":
+        lanes = lane_differences(index, q, cfg, ucfg,
+                                 {"cs": cs, "pf": pf, "lut": lut},
+                                 {"bits": ops.bitpack_batched(cs, cfg.th)})
+    else:
+        lanes = {"unfused_equals_fused": True, "finite": _lanes_agree(
+            teng._retrieve_batch(index, q, cfg, cs=cs, lut=lut),
+            teng._retrieve_batch(index, q, ucfg, cs=cs, lut=lut),
+            "budgets", finite_only=cfg.doc_filter is not None)}
+    return {"ms": ms["fused"], "unfused_ms": ms["unfused"],
+            "launches": launches, "max_memory_allocated_gb": peak / 1e9,
+            "kernels": kern, "lanes": lanes,
+            "finite_results": int(torch.isfinite(fused.scores).sum()),
+            "results": int(fused.scores.numel())}
+
+
+def budgets_phase(full: dict, filt: dict) -> dict:
+    """Phase 7b: the two configurations the reference's benchmarks run past
+    the old shared-memory caps, on the full-width planted index (with the
+    filter phase's predicate plane for the filtered case): fig9's
+    post-filter lane (n_filter 20,000, n_docs = k = 10,000) at B = 32 and 1,
+    float32 and bf16 CS and with the 1 % filter, and fig2's baseline
+    (n_filter = all 8,841,823 docs, n_docs 128, k 100, th = -1, th_r None) at
+    B = 1; per case :func:`budget_case`, the card's name and power limit
+    beside the numbers."""
+    import torch
+    from repro_torch.core import engine as teng
+    index = filt["index"]
+    plan = filt["configs"]["filter1pct"]["cfgs"]["fused"].doc_filter
+    flush = torch.empty(64 << 20, dtype=torch.int32, device=index.device)
+    out = {"nvidia_smi": RECORD["device"]["nvidia_smi"]}
+    for name, (kw, dt, nb, pred) in BUDGET_CASES.items():
+        t0 = time.perf_counter()
+        cfg = teng.EngineConfig(**kw, use_kernels=True, cs_dtype=dt,
+                                doc_filter=None if pred is None else plan)
+        ucfg = dataclasses.replace(cfg, fused_prefilter=False,
+                                   fused_late_interaction=False)
+        out[name] = budget_case(index, full["queries"][:nb], cfg, ucfg,
+                                flush)
+        out[name]["seconds"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+    emit("budgets", **out)
+    return out
+
+
 # --- 8. device time by kernel ------------------------------------------------
 
 # The __global__ functions each wrapper launches, in launch order.
 KERNEL_FUNCTIONS = {
     "prefilter": ("pack_kernel", "transpose_kernel", "score_kernel",
-                  "score_query_kernel", "threshold_kernel", "collect_kernel",
-                  "sort_kernel"),
-    "pqinter": ("sbar_kernel", "select1_kernel", "eq56_kernel",
-                "select2_kernel"),
+                  "score_query_kernel", "bin_rank_kernel", "place_kernel"),
+    "pqinter": ("sbar_kernel", "select1_kernel", "select_pass_kernel",
+                "select_compact_kernel", "rank_sort_kernel",
+                "rank_count_kernel", "eq56_kernel", "select2_kernel"),
     "bitpack": ("bitpack_kernel",),
     "bitfilter": ("bitfilter_rows_kernel", "bitfilter_score_kernel",
                   "bitfilter_query_kernel"),
@@ -5416,11 +5615,31 @@ def _plaid_form(pl: dict) -> dict:
             "plain_ms_sample": c["plain_ms_sample"]}
 
 
+def _budget_forms(bud: dict) -> dict:
+    """The cuts of any size as forms of the kernels line, from fig9's
+    post-filter cases (float32, B = 32 and B = 1): the prefilter's counting
+    rank and pqinter's radix select."""
+    a, z = bud["fig9_b32"], bud["fig9_b1"]
+    forms = {}
+    for name, form in (("prefilter", "count_rank"),
+                       ("pqinter", "radix_select")):
+        ka, kz = a["kernels"][name], z["kernels"][name]
+        forms[name] = {form: {
+            "config": "budget_fig9", "launches": a["launches"]["fused"][name],
+            "launches_b1": z["launches"]["fused"][name],
+            "max_abs_err": ka["max_abs_err"],
+            "max_abs_err_b1": kz["max_abs_err"], "ms": ka["ms"],
+            "plain_ms": ka["plain_ms"], "bound": ka["bound"],
+            "ms_b1": kz["ms"], "plain_ms_b1": kz["plain_ms"],
+            "bound_b1": kz["bound"]}}
+    return forms
+
+
 def kernels_line(small_err: dict, full: dict, timing: dict,
                  prof: dict, ftiming: dict, bf16: dict, build: dict,
                  serve: dict, pl: dict, expl: dict, distr: dict,
                  enc: dict, rec: dict, lm: dict, drr: dict,
-                 ex: dict) -> dict:
+                 ex: dict, bud: dict) -> dict:
     """Phase 9: one record per kernel, from this run's measurements. Each
     kernel's launches, time and profile come from the lane that runs it on
     the main path; ``launches_by_path`` adds its launches on the trained
@@ -5431,13 +5650,16 @@ def kernels_line(small_err: dict, full: dict, timing: dict,
     (:func:`_path_launches`), on the LM serving path (``lm``: 0, no
     kernel of this table runs there), through the dry run's emvb-msmarco
     cells on one card (``dryrun``, serve_b32 then serve_b1) and in the
-    examples' processes (``examples``, by example); ``forms`` holds its filtered and compact
-    operand forms and its bf16 form, each from its own config's run, and
-    cinter's whole-corpus launch on PLAID's phase 2."""
+    examples' processes (``examples``, by example) and in the budgets
+    phase's cases (``budgets``, by case); ``forms`` holds its filtered and
+    compact operand forms, its bf16 form and its cut of any size (fig9's
+    budgets), each from its own config's run, and cinter's whole-corpus
+    launch on PLAID's phase 2."""
     rows = []
+    bforms = _budget_forms(bud)
     for name, info in KERNELS.items():
         kforms = {**ftiming["forms"].get(name, {}),
-                  **bf16["forms"].get(name, {})}
+                  **bf16["forms"].get(name, {}), **bforms.get(name, {})}
         lane = info["lane"]
         key = "held" if lane == "fused" else "held_u"
         held_err = [h[key][b]["err"][name] for h in (full, build)
@@ -5460,7 +5682,9 @@ def kernels_line(small_err: dict, full: dict, timing: dict,
                 "lm": lm["launches"][name],
                 "dryrun": [drr["launches"][c][name]
                            for c in ("serve_b32", "serve_b1")],
-                "examples": {e: ex["launches"][e][name] for e in EXAMPLES}},
+                "examples": {e: ex["launches"][e][name] for e in EXAMPLES},
+                "budgets": {case: bud[case]["launches"][lane][name]
+                            for case in BUDGET_CASES}},
             "kernel_launches_per_call": prof[f"{lane}_b32"][
                 "kernel_launches_per_wrapper_call"][name],
             "max_abs_err": max(small_err[name], *held_err),
@@ -5527,10 +5751,12 @@ def main() -> None:
     ftiming = filter_timing_phase(filt)
     bf16 = bf16_phase(dev, full, filt)
     limits_phase(full)
+    bud = budgets_phase(full, filt)
     prof = profile_phase(full)
     ex = examples_phase()
     line = kernels_line(small_err, full, timing, prof, ftiming, bf16,
-                        build, serve, pl, expl, distr, enc, rec, lm, drr, ex)
+                        build, serve, pl, expl, distr, enc, rec, lm, drr, ex,
+                        bud)
     RECORD["kernels"] = line["kernels"]
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:

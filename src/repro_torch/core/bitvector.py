@@ -84,6 +84,13 @@ def filter_score(bits: torch.Tensor, codes: torch.Tensor,
     return popcount(or_reduce(words, -1))
 
 
+def filter_score_batch(bits: torch.Tensor, codes: torch.Tensor,
+                       token_mask: torch.Tensor) -> torch.Tensor:
+    """Eq. 4 batched over queries (ref ``:80``): bits (B, n_c) int32 words,
+    codes and token_mask (n_docs, cap) shared -> (B, n_docs) int32."""
+    return torch.stack([filter_score(b, codes, token_mask) for b in bits])
+
+
 def masked_topk_centroids(cs: torch.Tensor, th: float, nprobe: int,
                           q_mask: Optional[torch.Tensor] = None
                           ) -> torch.Tensor:

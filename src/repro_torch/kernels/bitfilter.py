@@ -36,7 +36,7 @@ import ctypes
 import torch
 
 from . import _build, _meta
-from .prefilter import filter_scores_ref, lengths_of
+from .prefilter import filter_scores_ref, valid_first
 
 MAX_BATCH = 32    # queries per launch: one lane group per query
 
@@ -107,8 +107,9 @@ def bitfilter_batched(bits: torch.Tensor, codes: torch.Tensor,
 
     bits (B, n_c) int32 words (masked terms already 0 bits); codes
     (n_docs, cap) int32 shared by the batch or (B, n_docs, cap) per query;
-    token_mask the codes' shape in bool (a prefix mask) or their leading
-    shape in int32 lengths. -> F (B, n_docs) int32.
+    token_mask the codes' shape in bool (any mask:
+    ``prefilter.valid_first``) or their leading shape in int32 lengths.
+    -> F (B, n_docs) int32.
     """
     nb, n_c = bits.shape
     n_docs, cap = codes.shape[-2:]
@@ -116,7 +117,7 @@ def bitfilter_batched(bits: torch.Tensor, codes: torch.Tensor,
     if codes.dim() not in (2, 3) or tuple(codes.shape[:-1]) != lead:
         raise ValueError(f"codes is {tuple(codes.shape)}: expected (n_docs, "
                          f"cap) or ({nb}, n_docs, cap)")
-    doc_lens = lengths_of(token_mask)
+    doc_lens, codes = valid_first(token_mask, codes)
     if tuple(doc_lens.shape) != lead:
         raise ValueError(f"token validity covers {tuple(doc_lens.shape)}, "
                          f"expected {lead}")

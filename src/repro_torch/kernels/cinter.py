@@ -26,7 +26,7 @@ import torch
 from ..core.interaction import centroid_interaction
 from ..core.precision import CS_TYPES
 from . import _build, _meta
-from .prefilter import lengths_of
+from .prefilter import valid_first
 
 launches = 0      # kernel launches since the last reset
 
@@ -61,15 +61,16 @@ def cinter_batched(cs_t: torch.Tensor, codes: torch.Tensor,
     """Batch-native centroid interaction.
 
     cs_t (B, n_c, n_q <= 32) float32 or bf16; codes (B, docs, cap) int32;
-    token_mask (B, docs, cap) bool prefix mask or (B, docs) int32 lengths;
-    q_masks optional (B, n_q) bool. -> S̄ (B, docs) float32.
+    token_mask (B, docs, cap) bool mask (any: ``prefilter.valid_first``)
+    or (B, docs) int32 lengths; q_masks optional (B, n_q) bool.
+    -> S̄ (B, docs) float32.
     """
     nb, nd, cap = codes.shape
     n_c, n_q = cs_t.shape[1:]
     if n_q > 32:
         raise ValueError(f"cs_t {tuple(cs_t.shape)}: n_q must be <= 32 (one "
                          "lane per query term)")
-    lens = lengths_of(token_mask)
+    lens, codes = valid_first(token_mask, codes)
     if tuple(lens.shape) != (nb, nd):
         raise ValueError(f"token validity covers {tuple(lens.shape)}, "
                          f"expected {(nb, nd)}")

@@ -148,6 +148,208 @@ __device__ __forceinline__ void cut_keys(T* s, int n, int P, bool sort,
   if (i < n && part == 0) emit(key, r);
 }
 
+// A cut of any size: of a query's n unique 64-bit keys, the n_keep largest,
+// each written to its rank. cut_launch's forms hold all n keys in shared
+// memory, so they run while n <= CUT_SHARED_MAX; above that a cut is three
+// steps over global scratch, each a kernel of its own (the __global__
+// wrappers live in the .cu that launches them; the bodies are here):
+//  1. select (select_pass, SELECT_PASSES launches): a radix select of the
+//     n_keep-th largest key, SELECT_BITS of the key a pass from the top.
+//     Each pass histograms the digit of the keys whose higher bits equal
+//     the prefix found so far, over several blocks a query (shared-memory
+//     bins added to the query's global bins); the last block of a query to
+//     finish picks the digit that holds the key and clears the bins for
+//     the next pass. When that digit's bucket holds exactly the keys still
+//     wanted, the threshold is final (its lower bits zero) and the later
+//     passes return at once. The keys are unique, so the last pass always
+//     ends there.
+//  2. compact (select_compact): the keys at or above the threshold, exactly
+//     n_keep of them, to a buffer, in no order (one atomic a warp).
+//  3. rank, in the form cut_launch would pick: while B x n_keep is small
+//     (<= CUT_SORT_ABOVE) or the kept keys do not fit one block's opt-in
+//     shared memory (P = next_pow2(n_keep) > CUT_SORT_MAX), every kept key
+//     counts the kept keys above it, streamed through shared memory
+//     RANK_CHUNK at a time (n_keep^2 compares a query over many blocks);
+//     else one block a query sorts them (bitonic) and the key at position r
+//     has rank r: 0.25 ms a cut of 10,000 keys on one SM at B = 32, where
+//     the counted ranks of a B = 1 query's two cuts take 0.09 ms
+//     (chip_smoke.py's limits phase, pqinter_nf20000_n_docs10000).
+// The keys come from a functor key(b, i) -> the 64-bit key of element i of
+// query b, and each kept key goes out through emit(b, key, rank).
+constexpr int CUT_SHARED_MAX = 4096;   // keys a cut_launch form holds
+constexpr int SELECT_BITS = 11;
+constexpr int SELECT_BINS = 1 << SELECT_BITS;
+constexpr int SELECT_PASSES = (64 + SELECT_BITS - 1) / SELECT_BITS;
+constexpr int SELECT_THREADS = 256;
+constexpr int SELECT_PER_THREAD = 16;  // keys a select thread takes at least
+constexpr int CUT_SORT_MAX = 16384;    // 128 KiB of keys in one block
+constexpr int RANK_THREADS = 256;
+constexpr int RANK_CHUNK = 2048;       // keys a counting block stages a step
+static_assert(SELECT_BINS % SELECT_THREADS == 0, "whole bins a thread");
+
+// A query's select state; zero before its cut.
+struct SelectState {
+  unsigned long long prefix;  // the threshold's bits fixed so far
+  int above;                  // keys above the prefix's bucket
+  int done;                   // the threshold is final
+  unsigned blocks;            // blocks of the current pass that finished
+  int kept;                   // keys the compaction wrote
+};
+
+// Scratch of a cut of any size for B queries keeping n_keep keys each:
+// the states, the bins and the kept keys, 256-byte aligned pieces of base
+// (null: only the size). -> the bytes.
+struct CutScratch {
+  SelectState* state;         // (B)
+  int* bins;                  // (B, SELECT_BINS)
+  unsigned long long* kept;   // (B, n_keep)
+};
+
+inline size_t cut_scratch(void* base, int B, int n_keep, CutScratch* s) {
+  auto up = [](size_t n) { return (n + 255) & ~size_t(255); };
+  const size_t a = up((size_t)B * sizeof(SelectState));
+  const size_t c = up((size_t)B * SELECT_BINS * 4);
+  if (s != nullptr) {
+    char* p = static_cast<char*>(base);
+    *s = {reinterpret_cast<SelectState*>(p), reinterpret_cast<int*>(p + a),
+          reinterpret_cast<unsigned long long*>(p + a + c)};
+  }
+  return a + c + up((size_t)B * n_keep * 8);
+}
+
+// Blocks a query of one select or compact launch: enough for the card at
+// small B, SELECT_PER_THREAD keys a thread at least.
+inline int select_blocks(int B, int n, int sms) {
+  const int want = (n + SELECT_THREADS * SELECT_PER_THREAD - 1) /
+                   (SELECT_THREADS * SELECT_PER_THREAD);
+  const int fill = (2 * sms + B - 1) / B;
+  return want < 1 ? 1 : (want < fill ? want : fill);
+}
+
+// Pass `pass` of the select; grid (select_blocks, B), SELECT_THREADS.
+template <typename Key>
+__device__ __forceinline__ void select_pass(Key key, int n, int n_keep,
+                                            int pass, SelectState* state,
+                                            int* bins) {
+  __shared__ int sh[SELECT_BINS];
+  __shared__ int sw[32];
+  __shared__ bool s_last;
+  const int b = blockIdx.y;
+  SelectState* st = state + b;
+  if (st->done) return;                               // block-uniform
+  const int fixed = SELECT_BITS * pass;               // bits above the digit
+  const int shift = fixed + SELECT_BITS < 64 ? 64 - fixed - SELECT_BITS : 0;
+  const unsigned dmask = (1u << (64 - fixed - shift)) - 1u;
+  const unsigned long long hi = fixed == 0 ? 0ull : ~0ull << (64 - fixed);
+  const unsigned long long prefix = st->prefix;
+  const int need = n_keep - st->above;                // >= 1
+  for (int d = threadIdx.x; d < SELECT_BINS; d += blockDim.x) sh[d] = 0;
+  __syncthreads();
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += gridDim.x * blockDim.x) {
+    const unsigned long long k = key(b, i);
+    if ((k & hi) == prefix) atomicAdd(&sh[(unsigned)(k >> shift) & dmask], 1);
+  }
+  __syncthreads();
+  int* gb = bins + (size_t)b * SELECT_BINS;
+  for (int d = threadIdx.x; d < SELECT_BINS; d += blockDim.x)
+    if (sh[d]) atomicAdd(&gb[d], sh[d]);
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) s_last = atomicAdd(&st->blocks, 1u) == gridDim.x - 1;
+  __syncthreads();
+  if (!s_last) return;                                // block-uniform
+  __threadfence();
+  // The last block: thread t holds digits top - PER t - j, j < PER, so one
+  // scan in descending digit order finds the bucket of the need-th key.
+  constexpr int PER = SELECT_BINS / SELECT_THREADS;
+  int c[PER], sum = 0;
+#pragma unroll
+  for (int j = 0; j < PER; ++j) {
+    c[j] = __ldcg(&gb[SELECT_BINS - 1 - PER * threadIdx.x - j]);
+    sum += c[j];
+  }
+  int total;
+  int cum = block_excl_scan(sum, sw, &total);
+  if (cum < need && cum + sum >= need) {              // one thread
+#pragma unroll
+    for (int j = 0; j < PER; ++j) {
+      if (cum + c[j] >= need) {
+        const unsigned d = SELECT_BINS - 1 - PER * threadIdx.x - j;
+        st->prefix = prefix | ((unsigned long long)d << shift);
+        st->above += cum;
+        st->done = cum + c[j] == need;
+        break;
+      }
+      cum += c[j];
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < PER; ++j) gb[SELECT_BINS - 1 - PER * threadIdx.x - j] = 0;
+  if (threadIdx.x == 0) st->blocks = 0;
+}
+
+// The compaction: every key at or above the threshold to the query's kept
+// buffer; grid (select_blocks, B), SELECT_THREADS.
+template <typename Key>
+__device__ __forceinline__ void select_compact(Key key, int n, int n_keep,
+                                               SelectState* state,
+                                               unsigned long long* kept) {
+  const int b = blockIdx.y, lane = threadIdx.x & 31;
+  SelectState* st = state + b;
+  const unsigned long long t = st->prefix;
+  unsigned long long* out = kept + (size_t)b * n_keep;
+  for (int i0 = blockIdx.x * blockDim.x; i0 < n; i0 += gridDim.x * blockDim.x) {
+    const int i = i0 + threadIdx.x;
+    const unsigned long long k = i < n ? key(b, i) : 0ull;
+    const bool take = i < n && k >= t;
+    const unsigned ball = __ballot_sync(FULL_MASK, take);
+    if (ball == 0u) continue;                         // warp-uniform
+    int at = 0;
+    if (lane == 0) at = atomicAdd(&st->kept, __popc(ball));
+    at = __shfl_sync(FULL_MASK, at, 0);
+    const int pos = at + __popc(ball & ((1u << lane) - 1u));
+    if (take && pos < n_keep) out[pos] = k;
+  }
+}
+
+// Rank by one block's sort: grid (1, B), 1024 threads, P * 8 bytes of
+// dynamic shared memory, P = next_pow2(n_keep) <= CUT_SORT_MAX.
+template <typename Emit>
+__device__ __forceinline__ void rank_sorted(
+    const unsigned long long* __restrict__ kept, int n_keep, int P,
+    Emit emit) {
+  extern __shared__ unsigned long long skept[];
+  const int b = blockIdx.y;
+  for (int i = threadIdx.x; i < P; i += blockDim.x)
+    skept[i] = i < n_keep ? kept[(size_t)b * n_keep + i] : 0ull;
+  __syncthreads();
+  bitonic_sort_desc(skept, P);
+  for (int r = threadIdx.x; r < n_keep; r += blockDim.x) emit(b, skept[r], r);
+}
+
+// Rank by counting: grid (ceil(n_keep / RANK_THREADS), B), RANK_THREADS; a
+// thread's key's rank is the number of kept keys above it.
+template <typename Emit>
+__device__ __forceinline__ void rank_counted(
+    const unsigned long long* __restrict__ kept, int n_keep, Emit emit) {
+  __shared__ unsigned long long s[RANK_CHUNK];
+  const int b = blockIdx.y;
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const unsigned long long* kb = kept + (size_t)b * n_keep;
+  const unsigned long long mine = i < n_keep ? kb[i] : 0ull;
+  int r = 0;
+  for (int c0 = 0; c0 < n_keep; c0 += RANK_CHUNK) {
+    const int len = min(RANK_CHUNK, n_keep - c0);
+    __syncthreads();
+    for (int j = threadIdx.x; j < len; j += blockDim.x) s[j] = kb[c0 + j];
+    __syncthreads();
+#pragma unroll 8
+    for (int j = 0; j < len; ++j) r += s[j] > mine;
+  }
+  if (i < n_keep) emit(b, mine, r);
+}
+
 // float -> uint32 with the same order as the floats under XLA's total order
 // (-0.0 < 0.0), so (score desc, position asc) packs into one unique key.
 __device__ __forceinline__ uint32_t ordered_bits(float x) {

@@ -44,10 +44,20 @@
 //  * Both cuts pack (score, position) into unique 64-bit keys —
 //    (S̄ desc, survivor position asc) for phase 3 and (score desc, phase-3
 //    rank asc) for phase 4, the order the reference's running merges give —
-//    and write each kept key to its rank among the keys (common.cuh's
-//    cut_keys): counted over lanes and several blocks a query while B x n
-//    is small, so at B = 1 a cut runs on many SMs; sorted in one block a
-//    query above that.
+//    and write each kept key to its rank among the keys. While a cut's n
+//    keys fit shared memory (n <= CUT_SHARED_MAX = 4096, every default
+//    config) that is common.cuh's cut_keys (select1 and select2): counted
+//    over lanes and several blocks a query while B x n is small, so at B = 1
+//    a cut runs on many SMs; sorted in one block a query above that. Larger
+//    cuts, up to the whole corpus (fig2's baseline keeps 128 of 8,841,823
+//    survivors; fig9's post-filter lane 10,000 of 20,000), take common.cuh's
+//    cut of any size: a radix select of the n_keep-th key over global
+//    scratch (select_pass, SELECT_PASSES launches of several blocks a
+//    query), the kept keys compacted (select_compact) and ranked by
+//    counting over many blocks while B x n_keep is small (rank_count), by
+//    one block's sort in opt-in shared memory above that, up to 16,384
+//    kept keys (rank_sort), and by counting again past that. The keys are
+//    read from S̄ (or the Eq. 5/6 scores) in every pass, never stored whole.
 //  * The S̄ pass is the unfused cinter.cu's and the Eq. 5/6 pass is
 //    emvb::eq56_block, which the unfused pqscore.cu runs too. So the two
 //    lanes agree to the bit.
@@ -58,11 +68,12 @@
 // entries first on ties, so when fewer than n_docs survivors pass, the
 // phase-3 cut ends in (-inf, position -1) fillers, never in a failing
 // survivor, and when fewer than k pass the final cut ends in (-inf,
-// position 0). Here select1 ranks a failing survivor below every passing
-// one and writes each of its slots as (position -1, S̄ -inf); the Eq. 5/6
-// pass scores a position -1 slot as -inf without reading a row; select2
-// writes each -inf slot as (score -inf, position 0). Without doc_pass no
-// step reads it, and the cuts are the unfiltered ones.
+// position 0). Here cut 1 (Cut1Key, Cut1Emit, in either form of a cut)
+// ranks a failing survivor below every passing one and writes each of its
+// slots as (position -1, S̄ -inf); the Eq. 5/6 pass scores a position -1
+// slot as -inf without reading a row; cut 2 (Cut2Emit) writes each -inf
+// slot as (score -inf, position 0). Without doc_pass no step reads it, and
+// the cuts are the unfiltered ones.
 //
 // CS^T is float32 or bf16 (sbar_kernel<LP, T>, eq56_kernel<M, T>), the
 // reference's pqinter.py:115-118 and :279. On bf16 S̄ is the bf16 sum
@@ -93,29 +104,83 @@ sbar_kernel(const T* __restrict__ cs_t, const int32_t* __restrict__ codes,
                        sbar_all);
 }
 
-// Pass 1 cut: top-n_docs by (S̄ desc, position asc); a cut_launch grid.
-__global__ void __launch_bounds__(1024)
-select1_kernel(const float* __restrict__ sbar_all,
-               const uint8_t* __restrict__ doc_pass, int nf, int P, bool sort,
-               int n_docs, int32_t* __restrict__ sel2,
-               float* __restrict__ sbar) {
-  extern __shared__ unsigned long long k1[];
-  const int b = blockIdx.y;
-  const float* sb = sbar_all + (size_t)b * nf;
-  const uint8_t* ok = doc_pass == nullptr ? nullptr : doc_pass + (size_t)b * nf;
-  for (int i = threadIdx.x; i < P; i += blockDim.x)
-    k1[i] = i < nf ? ((unsigned long long)ordered_bits(
-                          ok == nullptr || ok[i] ? sb[i] : -INFINITY) << 32) |
-                         (0xffffffffu - (unsigned)i)
-                   : 0ull;
-  __syncthreads();
-  cut_keys(k1, nf, P, sort, [&](unsigned long long key, int r) {
-    if (r >= n_docs) return;
+// The keys and the writes of the two cuts, for either form of a cut.
+// Cut 1: S̄ of survivor i, -inf when it fails doc_pass, and i.
+struct Cut1Key {
+  const float* sb;
+  const uint8_t* ok;
+  int nf;
+  __device__ unsigned long long operator()(int b, int i) const {
+    const size_t at = (size_t)b * nf + i;
+    const float v = ok == nullptr || ok[at] ? sb[at] : -INFINITY;
+    return ((unsigned long long)ordered_bits(v) << 32) |
+           (0xffffffffu - (unsigned)i);
+  }
+};
+struct Cut1Emit {
+  const float* sb;
+  const uint8_t* ok;
+  int nf, n_docs;
+  int32_t* sel2;
+  float* sbar;
+  __device__ void operator()(int b, unsigned long long key, int r) const {
     const int i = (int)(0xffffffffu - (unsigned)key);
-    const bool filler = ok != nullptr && !ok[i];
+    const size_t at = (size_t)b * nf + i;
+    const bool filler = ok != nullptr && !ok[at];
     sel2[(size_t)b * n_docs + r] = filler ? -1 : i;
-    sbar[(size_t)b * n_docs + r] = filler ? -INFINITY : sb[i];
+    sbar[(size_t)b * n_docs + r] = filler ? -INFINITY : sb[at];
+  }
+};
+// Cut 2: the Eq. 5/6 score of phase-3 rank i, and i.
+struct Cut2Key {
+  const float* sc;
+  int n_docs;
+  __device__ unsigned long long operator()(int b, int i) const {
+    return ((unsigned long long)ordered_bits(sc[(size_t)b * n_docs + i])
+            << 32) | (0xffffffffu - (unsigned)i);
+  }
+};
+struct Cut2Emit {
+  const float* sc;
+  const int32_t* sel2;
+  int n_docs, k, filtered;
+  float* scores;
+  int32_t* pos;
+  __device__ void operator()(int b, unsigned long long key, int j) const {
+    const int i = (int)(0xffffffffu - (unsigned)key);
+    const float v = sc[(size_t)b * n_docs + i];
+    scores[(size_t)b * k + j] = v;
+    pos[(size_t)b * k + j] =
+        filtered && v == -INFINITY ? 0 : sel2[(size_t)b * n_docs + i];
+  }
+};
+
+// A cut of at most CUT_SHARED_MAX keys: the n keys in shared memory, each
+// of the n_keep largest written to its rank (common.cuh's cut_keys); a
+// cut_launch grid.
+template <typename Key, typename Emit>
+__device__ __forceinline__ void cut_shared(Key key, int n, int P, bool sort,
+                                           int n_keep, Emit emit) {
+  extern __shared__ unsigned long long skeys[];
+  const int b = blockIdx.y;
+  for (int i = threadIdx.x; i < P; i += blockDim.x)
+    skeys[i] = i < n ? key(b, i) : 0ull;
+  __syncthreads();
+  cut_keys(skeys, n, P, sort, [&](unsigned long long k, int r) {
+    if (r < n_keep) emit(b, k, r);
   });
+}
+
+// Pass 1 cut: top-n_docs by (S̄ desc, position asc).
+__global__ void __launch_bounds__(1024)
+select1_kernel(Cut1Key key, int P, bool sort, Cut1Emit emit) {
+  cut_shared(key, key.nf, P, sort, emit.n_docs, emit);
+}
+
+// Pass 2 cut: top-k by (score desc, phase-3 rank asc).
+__global__ void __launch_bounds__(1024)
+select2_kernel(Cut2Key key, int P, bool sort, Cut2Emit emit) {
+  cut_shared(key, key.n_docs, P, sort, emit.k, emit);
 }
 
 // Pass 2: Eq. 5/6 score of each phase-3 winner, in rank order; M is m when
@@ -143,27 +208,92 @@ eq56_kernel(const T* __restrict__ cs_t, const float* __restrict__ lut2,
                                use_filter, score2);
 }
 
-// Pass 2 cut: top-k by (score desc, phase-3 rank asc); a cut_launch grid.
+// A cut of any size, the passes of common.cuh's select and rank.
+template <typename Key>
+__global__ void __launch_bounds__(SELECT_THREADS)
+select_pass_kernel(Key key, int n, int n_keep, int pass, SelectState* state,
+                   int* bins) {
+  select_pass(key, n, n_keep, pass, state, bins);
+}
+
+template <typename Key>
+__global__ void __launch_bounds__(SELECT_THREADS)
+select_compact_kernel(Key key, int n, int n_keep, SelectState* state,
+                      unsigned long long* kept) {
+  select_compact(key, n, n_keep, state, kept);
+}
+
+template <typename Emit>
 __global__ void __launch_bounds__(1024)
-select2_kernel(const float* __restrict__ score2,
-               const int32_t* __restrict__ sel2, int n_docs, int P, bool sort,
-               int k, int filtered, float* __restrict__ scores,
-               int32_t* __restrict__ pos) {
-  extern __shared__ unsigned long long k2[];
-  const int b = blockIdx.y;
-  const float* sc = score2 + (size_t)b * n_docs;
-  for (int i = threadIdx.x; i < P; i += blockDim.x)
-    k2[i] = i < n_docs ? ((unsigned long long)ordered_bits(sc[i]) << 32) |
-                             (0xffffffffu - (unsigned)i)
-                       : 0ull;
-  __syncthreads();
-  cut_keys(k2, n_docs, P, sort, [&](unsigned long long key, int j) {
-    if (j >= k) return;
-    const int i = (int)(0xffffffffu - (unsigned)key);
-    const int p = sel2[(size_t)b * n_docs + i];
-    scores[(size_t)b * k + j] = sc[i];
-    pos[(size_t)b * k + j] = filtered && sc[i] == -INFINITY ? 0 : p;
-  });
+rank_sort_kernel(const unsigned long long* kept, int n_keep, int P,
+                 Emit emit) {
+  rank_sorted(kept, n_keep, P, emit);
+}
+
+template <typename Emit>
+__global__ void __launch_bounds__(RANK_THREADS)
+rank_count_kernel(const unsigned long long* kept, int n_keep, Emit emit) {
+  rank_counted(kept, n_keep, emit);
+}
+
+// Keep the n_keep largest of each query's n keys, each written to its rank
+// by emit; scratch holds cut_scratch(nullptr, B, n_keep, nullptr) bytes.
+template <typename Key, typename Emit>
+cudaError_t cut_any(Key key, int B, int n, int n_keep, Emit emit,
+                    void* scratch, cudaStream_t st) {
+  CutScratch cs;
+  cut_scratch(scratch, B, n_keep, &cs);
+  cudaError_t err = cudaMemsetAsync(
+      scratch, 0, reinterpret_cast<char*>(cs.kept) -
+                      static_cast<char*>(scratch), st);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(select_blocks(B, n, sm_count()), B);
+  for (int pass = 0; pass < SELECT_PASSES; ++pass) {
+    select_pass_kernel<<<grid, SELECT_THREADS, 0, st>>>(key, n, n_keep, pass,
+                                                        cs.state, cs.bins);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
+  select_compact_kernel<<<grid, SELECT_THREADS, 0, st>>>(key, n, n_keep,
+                                                         cs.state, cs.kept);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  const int P = next_pow2(n_keep);
+  if (P <= CUT_SORT_MAX && (long long)B * n_keep > CUT_SORT_ABOVE) {
+    const size_t smem = (size_t)P * sizeof(unsigned long long);
+    if (smem > 48 * 1024 &&
+        (err = cudaFuncSetAttribute(
+             rank_sort_kernel<Emit>,
+             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem)) !=
+            cudaSuccess)
+      return err;
+    rank_sort_kernel<<<dim3(1, B), 1024, smem, st>>>(cs.kept, n_keep, P,
+                                                      emit);
+  } else {
+    rank_count_kernel<<<dim3((n_keep + RANK_THREADS - 1) / RANK_THREADS, B),
+                        RANK_THREADS, 0, st>>>(cs.kept, n_keep, emit);
+  }
+  return cudaGetLastError();
+}
+
+// Scratch of run(): S̄ of every survivor, the Eq. 5/6 scores, and a cut of
+// any size's scratch when a cut exceeds the shared-memory forms.
+struct RunScratch {
+  float* sbar_all;   // (B, nf)
+  float* score2;     // (B, n_docs)
+  void* cut;         // cut_scratch bytes for the largest such cut
+};
+
+size_t run_scratch(void* base, int B, int nf, int n_docs, int k,
+                   RunScratch* s) {
+  auto up = [](size_t n) { return (n + 255) & ~size_t(255); };
+  const int keep = max(nf > CUT_SHARED_MAX ? n_docs : 0,
+                       n_docs > CUT_SHARED_MAX ? k : 0);
+  const size_t a = up((size_t)B * nf * 4), c = up((size_t)B * n_docs * 4);
+  if (s != nullptr) {
+    char* p = static_cast<char*>(base);
+    *s = {reinterpret_cast<float*>(p), reinterpret_cast<float*>(p + a),
+          keep ? p + a + c : nullptr};
+  }
+  return a + c + (keep ? cut_scratch(nullptr, B, keep, nullptr) : 0);
 }
 
 // All passes on cs_t (B, n_c, n_q) of T; the operands as in
@@ -175,39 +305,49 @@ int run(const T* cs_t, const float* lut2, const int32_t* codes,
         int m, int ksub, float th_r, int use_filter, int n_docs, int k,
         float* scores, int32_t* pos, int32_t* sel2, float* sbar,
         void* scratch, cudaStream_t st) {
-  float* sbar_all = static_cast<float*>(scratch);
-  float* score2 = reinterpret_cast<float*>(
-      static_cast<char*>(scratch) +
-      (((size_t)B * nf * 4 + 255) & ~size_t(255)));
+  RunScratch rs;
+  run_scratch(scratch, B, nf, n_docs, k, &rs);
   cudaError_t err;
   const emvb::SbarLaunch s = emvb::sbar_launch(cs_t, B, nf, cap, n_q);
   emvb::with_sbar_lanes(s.lanes, [&](auto lp) {
     sbar_kernel<decltype(lp)::value>
         <<<s.grid, emvb::SBAR_WARPS * 32, 0, st>>>(
-            cs_t, codes, lens, qmask, nf, cap, n_c, n_q, s.split, sbar_all);
+            cs_t, codes, lens, qmask, nf, cap, n_c, n_q, s.split, rs.sbar_all);
   });
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  const CutLaunch c1 = cut_launch(B, nf);
-  select1_kernel<<<c1.grid, c1.threads, c1.P * sizeof(unsigned long long),
-                   st>>>(sbar_all, doc_pass, nf, c1.P, c1.sort, n_docs, sel2,
-                         sbar);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  const Cut1Key key1{rs.sbar_all, doc_pass, nf};
+  const Cut1Emit emit1{rs.sbar_all, doc_pass, nf, n_docs, sel2, sbar};
+  if (nf <= CUT_SHARED_MAX) {
+    const CutLaunch c1 = cut_launch(B, nf);
+    select1_kernel<<<c1.grid, c1.threads,
+                     c1.P * sizeof(unsigned long long), st>>>(key1, c1.P,
+                                                              c1.sort, emit1);
+    err = cudaGetLastError();
+  } else {
+    err = cut_any(key1, B, nf, n_docs, emit1, rs.cut, st);
+  }
+  if (err != cudaSuccess) return err;
   const dim3 grid(n_docs, B);
   const int filtered = doc_pass != nullptr;
   if (emvb::eq56_vector_m16(m, res))
     eq56_kernel<16, T><<<grid, WARPS * 32, 0, st>>>(
         cs_t, lut2, codes, res, lens, qmask, sel2, nf, cap, n_c, n_q, m, ksub,
-        th_r, use_filter, n_docs, filtered, score2);
+        th_r, use_filter, n_docs, filtered, rs.score2);
   else
     eq56_kernel<0, T><<<grid, WARPS * 32, 0, st>>>(
         cs_t, lut2, codes, res, lens, qmask, sel2, nf, cap, n_c, n_q, m, ksub,
-        th_r, use_filter, n_docs, filtered, score2);
+        th_r, use_filter, n_docs, filtered, rs.score2);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  const CutLaunch c2 = cut_launch(B, n_docs);
-  select2_kernel<<<c2.grid, c2.threads, c2.P * sizeof(unsigned long long),
-                   st>>>(score2, sel2, n_docs, c2.P, c2.sort, k, filtered,
-                         scores, pos);
-  return cudaGetLastError();
+  const Cut2Key key2{rs.score2, n_docs};
+  const Cut2Emit emit2{rs.score2, sel2, n_docs, k, filtered, scores, pos};
+  if (n_docs <= CUT_SHARED_MAX) {
+    const CutLaunch c2 = cut_launch(B, n_docs);
+    select2_kernel<<<c2.grid, c2.threads,
+                     c2.P * sizeof(unsigned long long), st>>>(key2, c2.P,
+                                                              c2.sort, emit2);
+    return cudaGetLastError();
+  }
+  return cut_any(key2, B, n_docs, k, emit2, rs.cut, st);
 }
 
 }  // namespace
@@ -215,8 +355,8 @@ int run(const T* cs_t, const float* lut2, const int32_t* codes,
 extern "C" {
 
 // Bytes of device scratch pqinter_batched needs.
-size_t pqinter_scratch_bytes(int B, int nf, int n_docs) {
-  return (((size_t)B * nf * 4 + 255) & ~size_t(255)) + (size_t)B * n_docs * 4;
+size_t pqinter_scratch_bytes(int B, int nf, int n_docs, int k) {
+  return run_scratch(nullptr, B, nf, n_docs, k, nullptr);
 }
 
 // All pointers are device pointers; qmask may be null (every term live),

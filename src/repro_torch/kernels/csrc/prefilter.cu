@@ -53,19 +53,22 @@
 //    emvb-msmarco index at B = 32, in a sweep of the constant on the card;
 //    chip_smoke.py's limits phase times docs on both sides of it (16 and
 //    24 candidate queries).
-//  * Selection needs no running merge: the keys are unique, so any exact
-//    selection equals lax.top_k's. F takes 34 values (-1..32). The score
-//    pass adds each tile's histogram to corpus totals per (query, bin),
-//    which give the threshold f*, and stores per (query, bin, tile) the
-//    tile's docs at bin >= x, so pass `threshold` reads two numbers a tile
-//    to give each tile, in ascending tile order, its prefix counts: the
-//    slots of every selected doc (docs with f > f*, then the lowest ids with
-//    f == f*). Pass `collect` gives a warp a few tiles of one query and
-//    walks the tiles that hold a selected doc, its lanes over ascending
-//    32-doc runs, so the slots of tied docs follow ascending ids. Pass
-//    `sort` writes each key to its rank among the n_filter keys
-//    (common.cuh's cut_keys: counted over lanes and blocks while B x
-//    n_filter is small, sorted in one block a query above).
+//  * Selection needs no running merge and no sort: the keys are unique, so
+//    any exact selection equals lax.top_k's, and F takes 34 values (-1..32),
+//    so a selected doc's rank is a sum of counts: the docs in higher bins,
+//    plus the docs of its bin in earlier tiles, plus those before it in its
+//    tile. The score pass adds each tile's histogram to corpus totals per
+//    (query, bin), which give the threshold f*, and stores per (query, bin,
+//    tile) the tile's docs at bin >= x. Pass `bin_rank` (a block per (bin,
+//    query), the bins at or above f*'s) scans each bin's tile counts into
+//    the rank of the tile's first doc of that bin; pass `place` walks the
+//    tiles that hold a selected doc, only their 32-doc runs holding one,
+//    ranks a doc among its run's docs of its bin with __match_any_sync, and
+//    writes (f, id) straight into its slot. Any n_filter up to the whole
+//    corpus takes the same two passes (fig2's no-prefilter baseline keeps
+//    all 8,841,823 docs). An earlier form sorted the selected keys in one
+//    block's shared memory, which capped n_filter at 8,192 and was no
+//    faster from n_filter 1,024 to 8,192 (PERF.md, row 1d).
 //    Only F (B x n_docs int8, rows padded to whole tiles) goes through
 //    device memory between the passes.
 //  * The column pack and a doc's word OR are the functions of doc_math.cuh
@@ -101,14 +104,13 @@ constexpr int SCORE_THREADS = 256;    // 8 warps; 4 docs a thread in the list
 constexpr int CHUNK = 128;            // tokens a warp stages per step
 constexpr int ROUNDS = CHUNK / 32;
 constexpr int PACK_THREADS = 256;
-constexpr int COLLECT_WARPS = 8;
-constexpr int COLLECT_TILES = 8;      // tiles a collect warp checks, at most
-constexpr int SCAN_THREADS = 1024;    // threshold: a block per query
+constexpr int PLACE_WARPS = 8;        // place: warps a block
+constexpr int PLACE_TILES = 8;        // tiles a place warp checks, at most
+constexpr int SCAN_THREADS = 1024;    // bin_rank: a block per (bin, query)
 constexpr int QSCORE_THREADS = 1024;  // score_query: 32 warps, 32 slots each
 constexpr int DENSE_MIN = 20;         // candidate queries for the dense form
-constexpr int KEY_PAD = -1;           // below every key: f + 1 >= 0
 static_assert(TILE == 4 * SCORE_THREADS, "score lists 4 docs a thread");
-static_assert(TILE == 32 * 32, "collect gives each lane 32 docs of a tile");
+static_assert(TILE == 32 * 32, "place gives each lane 32 docs of a tile");
 
 constexpr size_t align256(size_t n) { return (n + 255) & ~size_t(255); }
 
@@ -117,25 +119,23 @@ struct Scratch {
   int8_t* F;          // (B, n_tiles * TILE): F, -1 off the bitmap, -2 pads
   int32_t* tot;       // (B, NBINS) docs per bin over the corpus
   int32_t* cum;       // (B, NBINS, n_tiles) a tile's docs at bin >= x
-  int32_t* off_hi;    // (B, n_tiles + 1) slots before each tile, f > f*
-  int32_t* off_eq;    // (B, n_tiles + 1) docs before each tile at f*
-  int32_t* params;    // (B, 4): f* + 1, docs above f*, slots left at f*
-  int32_t* keys;      // (B, n_filter) the selected keys, in slot order
+  int32_t* rk;        // (B, NBINS, n_tiles) rank of a tile's first doc of
+                      // bin x, for the bins at or above f* + 1
+  int32_t* fbin;      // (B) the threshold bin f* + 1
   uint32_t* bitsT;    // (n_c, B) the transposed words; null below DENSE_MIN
 };
 
-size_t carve(void* base, int B, int n_c, int n_docs, int n_filter,
-             int per_query, Scratch* s) {
+size_t carve(void* base, int B, int n_c, int n_docs, int per_query,
+             Scratch* s) {
   const size_t n_tiles = (n_docs + TILE - 1) / TILE;
-  const size_t sizes[8] = {
+  const size_t sizes[6] = {
       (size_t)B * n_tiles * TILE, (size_t)B * NBINS * 4,
-      (size_t)B * NBINS * n_tiles * 4, (size_t)B * (n_tiles + 1) * 4,
-      (size_t)B * (n_tiles + 1) * 4, (size_t)B * 4 * 4,
-      (size_t)B * n_filter * 4,
+      (size_t)B * NBINS * n_tiles * 4, (size_t)B * NBINS * n_tiles * 4,
+      (size_t)B * 4,
       B >= DENSE_MIN && !per_query ? (size_t)n_c * B * 4 : 0};
   char* p = static_cast<char*>(base);
-  size_t off[8], total = 0;
-  for (int i = 0; i < 8; ++i) {
+  size_t off[6], total = 0;
+  for (int i = 0; i < 6; ++i) {
     off[i] = total;
     total += align256(sizes[i]);
   }
@@ -143,11 +143,9 @@ size_t carve(void* base, int B, int n_c, int n_docs, int n_filter,
     s->F = reinterpret_cast<int8_t*>(p + off[0]);
     s->tot = reinterpret_cast<int32_t*>(p + off[1]);
     s->cum = reinterpret_cast<int32_t*>(p + off[2]);
-    s->off_hi = reinterpret_cast<int32_t*>(p + off[3]);
-    s->off_eq = reinterpret_cast<int32_t*>(p + off[4]);
-    s->params = reinterpret_cast<int32_t*>(p + off[5]);
-    s->keys = reinterpret_cast<int32_t*>(p + off[6]);
-    s->bitsT = sizes[7] ? reinterpret_cast<uint32_t*>(p + off[7]) : nullptr;
+    s->rk = reinterpret_cast<int32_t*>(p + off[3]);
+    s->fbin = reinterpret_cast<int32_t*>(p + off[4]);
+    s->bitsT = sizes[5] ? reinterpret_cast<uint32_t*>(p + off[5]) : nullptr;
   }
   return total;
 }
@@ -400,7 +398,7 @@ score_kernel(const int32_t* __restrict__ codes,
 
   // Bin 0 counts the valid docs that are not the query's candidate. Thread
   // b adds query b's counts to the corpus totals and turns them into the
-  // tile's counts at bin >= x, which is what the threshold pass reads.
+  // tile's counts at bin >= x, which is what bin_rank and place read.
   if (tid < B) {
     int* hb = sh + tid * NBINS;
     int cand = 0;
@@ -495,97 +493,95 @@ score_query_kernel(const int32_t* __restrict__ codes,
   if (tid < NBINS) cum[((size_t)b * NBINS + tid) * n_tiles + tile] = sh[tid];
 }
 
-// Pass 3, one block per query: the threshold bin from the corpus totals,
-// and per tile the exclusive prefix counts, in ascending tile order, of docs
-// above it (hi) and on it (eq). Thread i takes a run of neighbouring tiles.
-// params[b] = {f* + 1, c_hi, need}.
+// The threshold bin f* + 1 of a query from its bin totals tb (read by
+// every thread): the highest bin at which the docs at or above it reach
+// n_filter.
+__device__ __forceinline__ int threshold_bin(const int32_t* tb,
+                                             int n_filter) {
+  int cum_hi = 0, bin = NBINS - 1;
+  for (; bin > 0; --bin) {
+    if (cum_hi + tb[bin] >= n_filter) break;
+    cum_hi += tb[bin];
+  }
+  return bin;
+}
+
+// Pass 3: block (x, b) for a bin x at or above query b's
+// threshold bin writes, per tile in ascending order, the rank of the tile's
+// first doc at bin x: the docs in bins above x over the corpus plus the
+// docs at x in the tiles before (a bin no doc is in is skipped: no rank of
+// it is read). The threshold bin's block writes fbin[b] = f* + 1. grid
+// (NBINS, B).
 __global__ void __launch_bounds__(SCAN_THREADS)
-threshold_kernel(const int32_t* __restrict__ tot,
-                 const int32_t* __restrict__ cum, int n_tiles, int n_filter,
-                 int32_t* __restrict__ off_hi, int32_t* __restrict__ off_eq,
-                 int32_t* __restrict__ params) {
+bin_rank_kernel(const int32_t* __restrict__ tot,
+                const int32_t* __restrict__ cum, int n_tiles, int n_filter,
+                int32_t* __restrict__ rk, int32_t* __restrict__ fbins) {
   __shared__ int sw[32];
-  __shared__ int tb[NBINS];
-  __shared__ int s_fbin;
-  const int b = blockIdx.x;
-  if (threadIdx.x < NBINS) tb[threadIdx.x] = tot[b * NBINS + threadIdx.x];
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    int cum_hi = 0, bin = NBINS - 1;
-    for (; bin > 0; --bin) {
-      if (cum_hi + tb[bin] >= n_filter) break;
-      cum_hi += tb[bin];
-    }
-    s_fbin = bin;
-    params[b * 4 + 0] = bin;
-    params[b * 4 + 1] = cum_hi;
-    params[b * 4 + 2] = n_filter - cum_hi;
-  }
-  __syncthreads();
-  const int fbin = s_fbin;
-  const int32_t* at_f = cum + ((size_t)b * NBINS + fbin) * n_tiles;
-  const int32_t* above_f = fbin + 1 < NBINS ? at_f + n_tiles : nullptr;
-  const int per = (n_tiles + blockDim.x - 1) / blockDim.x;
-  const int t0 = min(n_tiles, (int)threadIdx.x * per);
-  const int t1 = min(n_tiles, t0 + per);
-  int hi = 0, eq = 0;
-#pragma unroll 8
-  for (int tl = t0; tl < t1; ++tl) {
-    const int h = above_f ? above_f[tl] : 0;
-    hi += h;
-    eq += at_f[tl] - h;
-  }
-  int tot_hi, tot_eq;
-  int ph = block_excl_scan(hi, sw, &tot_hi);
-  int pe = block_excl_scan(eq, sw, &tot_eq);
-  int32_t* oh = off_hi + (size_t)b * (n_tiles + 1);
-  int32_t* oe = off_eq + (size_t)b * (n_tiles + 1);
-  for (int tl = t0; tl < t1; ++tl) {
-    const int h = above_f ? above_f[tl] : 0;
-    oh[tl] = ph;
-    oe[tl] = pe;
-    ph += h;
-    pe += at_f[tl] - h;
-  }
-  if (threadIdx.x == 0) {
-    oh[n_tiles] = tot_hi;
-    oe[n_tiles] = tot_eq;
+  const int x = blockIdx.x, b = blockIdx.y;
+  const int32_t* tb = tot + b * NBINS;
+  const int fbin = threshold_bin(tb, n_filter);
+  if (x < fbin || (x > fbin && tb[x] == 0)) return;   // block-uniform
+  int base = 0;
+  for (int y = x + 1; y < NBINS; ++y) base += tb[y];
+  if (x == fbin && threadIdx.x == 0) fbins[b] = fbin;
+  const int32_t* at_x = cum + ((size_t)b * NBINS + x) * n_tiles;
+  const int32_t* above_x = x + 1 < NBINS ? at_x + n_tiles : nullptr;
+  int32_t* out = rk + ((size_t)b * NBINS + x) * n_tiles;
+  // blockDim.x tiles a step, thread t tile t of the step (coalesced reads
+  // and writes), the step's scan carried into the next
+  for (int t0 = 0; t0 < n_tiles; t0 += blockDim.x) {
+    const int tl = t0 + threadIdx.x;
+    const int c = tl < n_tiles ? at_x[tl] - (above_x ? above_x[tl] : 0) : 0;
+    int total;
+    const int r = block_excl_scan(c, sw, &total);
+    if (tl < n_tiles) out[tl] = base + r;
+    base += total;
   }
 }
 
-// Pass 4: write every selected doc's key into its slot. A warp takes
-// `per_warp` (at most 32) neighbouring tiles of one query, finds with one
-// read per lane which of them hold a selected doc, and walks those; grid
-// (ceil(n_tiles / (COLLECT_WARPS * per_warp)), B). In a tile lane l reads
-// docs 32l..32l+31, so a warp scan orders the tile's docs by id.
-__global__ void __launch_bounds__(COLLECT_WARPS * 32)
-collect_kernel(const int8_t* __restrict__ F, int n_tiles, int n_filter,
-               int per_warp, const int32_t* __restrict__ off_hi,
-               const int32_t* __restrict__ off_eq,
-               const int32_t* __restrict__ params,
-               int32_t* __restrict__ keys) {
-  const int lane = threadIdx.x & 31;
-  const int first = (blockIdx.x * COLLECT_WARPS + (threadIdx.x >> 5)) *
-                    per_warp;
+// Pass 4: every selected doc's (f, id) written straight into
+// its rank. A warp takes `per_warp` (at most 32) neighbouring tiles of one
+// query and walks those that hold a doc above f* or a doc at f* ranked below
+// n_filter: it copies the tile's F to shared memory, lane l reading docs
+// 32l..32l+31, and visits only the runs of 32 docs holding one at or above
+// f*, in ascending order, lane j doc j of the run; a doc's rank is its
+// tile's first rank of its bin (kept per warp in shared memory, advanced
+// after each run) plus the lanes below it in the run with its bin
+// (__match_any_sync). grid (ceil(n_tiles / (PLACE_WARPS * per_warp)), B).
+__global__ void __launch_bounds__(PLACE_WARPS * 32)
+place_kernel(const int8_t* __restrict__ F, const int32_t* __restrict__ cum,
+             int n_tiles, int n_filter, int per_warp,
+             const int32_t* __restrict__ rk,
+             const int32_t* __restrict__ fbins, int32_t* __restrict__ scores,
+             int32_t* __restrict__ ids) {
+  __shared__ int first_rank[PLACE_WARPS][NBINS];
+  __shared__ __align__(16) int8_t tile_f[PLACE_WARPS][TILE];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int first = (blockIdx.x * PLACE_WARPS + warp) * per_warp;
   const int b = blockIdx.y;
   if (first >= n_tiles) return;                       // warp-uniform
-  const int fstar = params[b * 4 + 0] - 1;
-  const int c_hi = params[b * 4 + 1], need = params[b * 4 + 2];
-  const int32_t* oh = off_hi + (size_t)b * (n_tiles + 1);
-  const int32_t* oe = off_eq + (size_t)b * (n_tiles + 1);
-  int h0 = 0, e0 = 0;
+  const int fbin = fbins[b];
+  const int32_t* cb = cum + (size_t)b * NBINS * n_tiles;
+  const int32_t* rb = rk + (size_t)b * NBINS * n_tiles;
   bool busy = false;
   if (lane < per_warp && first + lane < n_tiles) {
     const int tile = first + lane;
-    h0 = oh[tile];
-    e0 = oe[tile];
-    busy = oh[tile + 1] != h0 || (oe[tile + 1] != e0 && e0 < need);
+    const int ge = cb[(size_t)fbin * n_tiles + tile];
+    const int gt = fbin + 1 < NBINS ? cb[(size_t)(fbin + 1) * n_tiles + tile]
+                                    : 0;
+    busy = gt > 0 || (ge > gt && rb[(size_t)fbin * n_tiles + tile] < n_filter);
   }
-  int32_t* kb = keys + (size_t)b * n_filter;
+  int* nx = first_rank[warp];
+  int8_t* tf = tile_f[warp];
+  int32_t* sb = scores + (size_t)b * n_filter;
+  int32_t* ib = ids + (size_t)b * n_filter;
   for (uint32_t todo = __ballot_sync(FULL_MASK, busy); todo;
        todo &= todo - 1) {
-    const int j = __ffs(todo) - 1;
-    const int tile = first + j;
+    const int tile = first + __ffs(todo) - 1;
+    for (int x = fbin + lane; x < NBINS; x += 32)
+      nx[x] = rb[(size_t)x * n_tiles + tile];
+    // lane l copies docs 32l..32l+31 of the tile to the warp's shared copy
+    // and says whether one of them is at or above the threshold bin
     union {
       uint4 u[2];
       int8_t f[32];
@@ -594,66 +590,56 @@ collect_kernel(const int8_t* __restrict__ F, int n_tiles, int n_filter,
         F + (size_t)b * n_tiles * TILE + (size_t)tile * TILE + lane * 32);
     run.u[0] = src[0];
     run.u[1] = src[1];
-    int nh = 0, ne = 0;
+    reinterpret_cast<uint4*>(tf + lane * 32)[0] = run.u[0];
+    reinterpret_cast<uint4*>(tf + lane * 32)[1] = run.u[1];
+    bool any = false;
 #pragma unroll
-    for (int k = 0; k < 32; ++k) {
-      nh += run.f[k] > fstar;
-      ne += run.f[k] == fstar;
-    }
-    int ph = __shfl_sync(FULL_MASK, h0, j) + warp_excl_scan(nh);
-    int pe = __shfl_sync(FULL_MASK, e0, j) + warp_excl_scan(ne);
-    const int dbase = tile * TILE + lane * 32;
-#pragma unroll
-    for (int k = 0; k < 32; ++k) {
-      const int f = run.f[k];
-      if (f > fstar) {
-        kb[ph++] = ((f + 1) << ID_BITS) + (MAX_ID - (dbase + k));
-      } else if (f == fstar) {
-        if (pe < need)
-          kb[c_hi + pe] = ((f + 1) << ID_BITS) + (MAX_ID - (dbase + k));
-        ++pe;
+    for (int k = 0; k < 32; ++k) any |= run.f[k] + 1 >= fbin;
+    __syncwarp();
+    // the runs of 32 docs that hold one, in ascending order, lane j doc j
+    for (uint32_t runs = __ballot_sync(FULL_MASK, any); runs;
+         runs &= runs - 1) {
+      const int d0 = 32 * (__ffs(runs) - 1);
+      const int x = tf[d0 + lane] + 1;                // -1 on a pad
+      const bool mine = x >= fbin;
+      const uint32_t act = __ballot_sync(FULL_MASK, mine);
+      uint32_t same = 0u;
+      int r = 0;
+      if (mine) {
+        same = __match_any_sync(act, x);
+        r = nx[x] + __popc(same & ((1u << lane) - 1u));
       }
+      __syncwarp();
+      if (mine) {
+        if (r < n_filter) {
+          sb[r] = x - 1;
+          ib[r] = tile * TILE + d0 + lane;
+        }
+        if (lane == 31 - __clz(same)) nx[x] += __popc(same);
+      }
+      __syncwarp();
     }
   }
 }
 
-// Pass 5: each key to its rank, decoded to (f, id); a cut_launch grid.
-__global__ void __launch_bounds__(1024)
-sort_kernel(const int32_t* __restrict__ keys, int n_filter, int P, bool sort,
-            int32_t* __restrict__ scores, int32_t* __restrict__ ids) {
-  extern __shared__ int skeys[];
-  const int b = blockIdx.y;
-  for (int i = threadIdx.x; i < P; i += blockDim.x)
-    skeys[i] = i < n_filter ? keys[(size_t)b * n_filter + i] : KEY_PAD;
-  __syncthreads();
-  cut_keys(skeys, n_filter, P, sort, [&](int key, int r) {
-    scores[(size_t)b * n_filter + r] = (key >> ID_BITS) - 1;
-    ids[(size_t)b * n_filter + r] = MAX_ID - (key & MAX_ID);
-  });
-}
-
-// Passes 3-5 on the score pass's F, histogram and tile counts: the
-// threshold, the collect of the selected keys and their ranking.
+// Passes 3-4 on the score pass's F, histogram and tile counts: each bin's
+// tile ranks, then every selected doc placed at its rank.
 int select_keys(const Scratch& s, int B, int n_tiles, int n_filter,
                 int32_t* scores, int32_t* ids, cudaStream_t st) {
   cudaError_t err;
-  threshold_kernel<<<B, SCAN_THREADS, 0, st>>>(
-      s.tot, s.cum, n_tiles, n_filter, s.off_hi, s.off_eq, s.params);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
   // Several tiles a warp only where the (tile, query) pairs are many enough
   // to fill the card (64 warps an SM) twice over: 8 at B = 32, 1 at B = 1
   // on emvb-msmarco.
-  const int per_warp = max(1, min(COLLECT_TILES, (int)((size_t)B * n_tiles /
+  const int per_warp = max(1, min(PLACE_TILES, (int)((size_t)B * n_tiles /
                                                        (128 * sm_count()))));
-  const int per_block = COLLECT_WARPS * per_warp;
-  collect_kernel<<<dim3((n_tiles + per_block - 1) / per_block, B),
-                   COLLECT_WARPS * 32, 0, st>>>(s.F, n_tiles, n_filter,
-                                                per_warp, s.off_hi, s.off_eq,
-                                                s.params, s.keys);
+  const int per_block = PLACE_WARPS * per_warp;
+  bin_rank_kernel<<<dim3(NBINS, B), SCAN_THREADS, 0, st>>>(
+      s.tot, s.cum, n_tiles, n_filter, s.rk, s.fbin);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  const CutLaunch c = cut_launch(B, n_filter);
-  sort_kernel<<<c.grid, c.threads, c.P * sizeof(int), st>>>(
-      s.keys, n_filter, c.P, c.sort, scores, ids);
+  place_kernel<<<dim3((n_tiles + per_block - 1) / per_block, B),
+                 PLACE_WARPS * 32, 0, st>>>(s.F, s.cum, n_tiles, n_filter,
+                                              per_warp, s.rk, s.fbin, scores,
+                                              ids);
   return cudaGetLastError();
 }
 
@@ -662,9 +648,8 @@ int select_keys(const Scratch& s, int B, int n_tiles, int n_filter,
 extern "C" {
 
 // Bytes of device scratch prefilter_batched needs.
-size_t prefilter_scratch_bytes(int B, int n_c, int n_docs, int n_filter,
-                               int per_query) {
-  return carve(nullptr, B, n_c, n_docs, n_filter, per_query, nullptr);
+size_t prefilter_scratch_bytes(int B, int n_c, int n_docs, int per_query) {
+  return carve(nullptr, B, n_c, n_docs, per_query, nullptr);
 }
 
 // All pointers are device pointers; qmask may be null (every term live).
@@ -673,8 +658,9 @@ size_t prefilter_scratch_bytes(int B, int n_c, int n_docs, int n_filter,
 // per_query: codes (B, n_docs, cap) and doc_lens (B, n_docs); bitmap
 // (B, n_docs) u8; B <= 32. pred (n_docs,) u32 predicate
 // words, or null for no plan; clauses (n_clauses, 2) u32 (required,
-// forbidden). Outputs: bits (B, n_c) u32, scores/ids (B, n_filter) i32.
-// scratch: the bytes prefilter_scratch_bytes gives, 256-byte aligned.
+// forbidden); 1 <= n_filter <= n_docs. Outputs: bits (B, n_c) u32,
+// scores/ids (B, n_filter) i32. scratch: the bytes prefilter_scratch_bytes
+// gives, 256-byte aligned.
 int prefilter_batched(const void* cs, int cs_bf16, float th,
                       const uint8_t* qmask, const int32_t* codes,
                       const int32_t* doc_lens,
@@ -686,7 +672,7 @@ int prefilter_batched(const void* cs, int cs_bf16, float th,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int n_tiles = (n_docs + TILE - 1) / TILE;
   Scratch s;
-  carve(scratch, B, n_c, n_docs, n_filter, per_query, &s);
+  carve(scratch, B, n_c, n_docs, per_query, &s);
   cudaError_t err = with_cs(cs, cs_bf16, [&](auto p) {
     return launch_pack(p, th, qmask, B, n_q, n_c, bits, s.tot, st);
   });

@@ -8,8 +8,10 @@ kernel is bit-identical to the single-query kernel by the reference's own
 tested contract.
 
 Every operand form of the reference is taken: the predicate filter
-(``pred_words``/``plan`` in the prefilter, ``doc_pass`` in pqinter) and
-per-query (compact-mode) candidate codes in the prefilter and bitfilter.
+(``pred_words``/``plan`` in the prefilter, ``doc_pass`` in pqinter),
+per-query (compact-mode) candidate codes in the prefilter and bitfilter, any
+bool token mask (``prefilter.valid_first``) and any cut the reference takes
+(``1 <= n_filter <= n_docs``; ``k <= n_docs <= n_filter``).
 """
 from __future__ import annotations
 

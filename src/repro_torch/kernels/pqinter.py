@@ -10,7 +10,10 @@ source note says what bounds it on the H100 and how the design answers.
 
 Both cuts match the reference's running merges exactly: phase 3 keeps the
 top ``n_docs`` survivors by (S̄ desc, survivor position asc), phase 4 the
-top ``k`` of those by (score desc, phase-3 rank asc).
+top ``k`` of those by (score desc, phase-3 rank asc). The kernel takes any
+``k <= n_docs <= n_filter``: a cut of up to 4,096 keys runs in shared
+memory, a larger one as a radix select over global scratch
+(``csrc/common.cuh``).
 
 With ``doc_pass`` (B, n_filter), the predicate verdict per survivor, a
 failing survivor is -inf in both cuts, and the fillers are the reference's:
@@ -38,9 +41,7 @@ from ..core.interaction import centroid_interaction, late_interaction_pq
 from ..core.precision import CS_TYPES, kernel_th, round_to
 from ..core.topk import topk
 from . import _build, _meta
-from .prefilter import lengths_of
-
-MAX_SORT = 4096   # n_filter and n_docs: a cut keeps its keys in shared memory
+from .prefilter import valid_first
 
 launches = 0      # kernel launches since the last reset
 
@@ -92,7 +93,7 @@ def flat_lut(lut: torch.Tensor) -> torch.Tensor:
 
 _VP, _CI = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "pqinter_scratch_bytes": (ctypes.c_size_t, [_CI, _CI, _CI]),
+    "pqinter_scratch_bytes": (ctypes.c_size_t, [_CI, _CI, _CI, _CI]),
     "pqinter_batched": (_CI, [_VP, _CI, _VP, _VP, _VP, _VP, _VP, _VP, _CI,
                               _CI, _CI, _CI, _CI, _CI, _CI, ctypes.c_float,
                               _CI, _CI, _CI, _VP, _VP, _VP, _VP, _VP, _VP]),
@@ -117,7 +118,7 @@ def _launch(cs_t, lut2, codes, res_codes, lens, qm, doc_pass, th_r, n_docs,
     scores, pos, sel2, sbar = (x.view(nb, -1) for x in out.split(
         (nb * k, nb * k, nb * n_docs, nb * n_docs)))
     scores, sbar = scores.view(torch.float32), sbar.view(torch.float32)
-    scratch = torch.empty(_fn("pqinter_scratch_bytes")(nb, nf, n_docs),
+    scratch = torch.empty(_fn("pqinter_scratch_bytes")(nb, nf, n_docs, k),
                           dtype=torch.uint8, device=dev)
     p = _build.ptr
     err = _fn("pqinter_batched")(
@@ -160,8 +161,8 @@ def pqinter_batched(cs_t: torch.Tensor, lut: torch.Tensor,
 
     cs_t (B, n_c, n_q <= 32) float32 or bf16; lut (B, n_q, m, K) float32; codes
     (B, n_filter, cap) int32; res_codes (B, n_filter, cap, m) uint8;
-    token_mask (B, n_filter, cap) bool prefix mask or (B, n_filter) int32
-    lengths; th_r None (Eq. 5) or a float (Eq. 6); q_masks optional
+    token_mask (B, n_filter, cap) bool mask (any:
+    ``prefilter.valid_first``) or (B, n_filter) int32 lengths; th_r None (Eq. 5) or a float (Eq. 6); q_masks optional
     (B, n_q) bool; doc_pass optional (B, n_filter) bool.
     -> (scores (B, k) f32, pos (B, k) i32, sel2 (B, n_docs) i32,
         sbar (B, n_docs) f32); ``pos``/``sel2`` index the survivor axis.
@@ -174,7 +175,8 @@ def pqinter_batched(cs_t: torch.Tensor, lut: torch.Tensor,
     if cs_t.shape[-1] != n_q or n_q > 32:
         raise ValueError(f"cs_t {tuple(cs_t.shape)} and lut "
                          f"{tuple(lut.shape)} disagree on n_q (<= 32)")
-    lens = lengths_of(token_mask)
+    lens, codes, res_codes = valid_first(token_mask, codes,
+                                         res_codes)
     if tuple(lens.shape) != (nb, nf):
         raise ValueError(f"token validity covers {tuple(lens.shape)}, "
                          f"expected {(nb, nf)}")
@@ -188,9 +190,6 @@ def pqinter_batched(cs_t: torch.Tensor, lut: torch.Tensor,
                                    n_docs, k, q_masks, doc_pass)
     if cs_t.device.type != "cuda":
         raise ValueError(f"pqinter: unsupported device {cs_t.device}")
-    if nf > MAX_SORT:
-        raise ValueError(f"n_filter={nf} > {MAX_SORT}: the kernel's cuts "
-                         "hold their keys in shared memory")
     lut2 = flat_lut(lut)
     n_c = cs_t.shape[1]
     operands = [("cs_t", cs_t, CS_TYPES, (nb, n_c, n_q)),

@@ -30,7 +30,7 @@ from ..core.interaction import late_interaction_pq
 from ..core.precision import CS_TYPES, kernel_th, round_to
 from . import _build, _meta
 from .pqinter import flat_lut
-from .prefilter import lengths_of
+from .prefilter import valid_first
 
 launches = 0      # kernel launches since the last reset
 
@@ -75,8 +75,9 @@ def pqscore_batched(cs_t: torch.Tensor, lut: torch.Tensor,
 
     cs_t (B, n_c, n_q <= 32) float32 or bf16; lut (B, n_q, m, K) float32; codes
     (B, docs, cap) int32; res_codes (B, docs, cap, m) uint8; token_mask
-    (B, docs, cap) bool prefix mask or (B, docs) int32 lengths; th_r None
-    (Eq. 5) or a float (Eq. 6); q_masks optional (B, n_q) bool.
+    (B, docs, cap) bool mask (any: ``prefilter.valid_first``) or (B, docs)
+    int32 lengths; th_r None (Eq. 5) or a float (Eq. 6); q_masks optional
+    (B, n_q) bool.
     -> scores (B, docs) float32.
     """
     nb, nd, cap = codes.shape
@@ -84,7 +85,8 @@ def pqscore_batched(cs_t: torch.Tensor, lut: torch.Tensor,
     if cs_t.shape[-1] != n_q or n_q > 32:
         raise ValueError(f"cs_t {tuple(cs_t.shape)} and lut "
                          f"{tuple(lut.shape)} disagree on n_q (<= 32)")
-    lens = lengths_of(token_mask)
+    lens, codes, res_codes = valid_first(token_mask, codes,
+                                         res_codes)
     if tuple(lens.shape) != (nb, nd):
         raise ValueError(f"token validity covers {tuple(lens.shape)}, "
                          f"expected {(nb, nd)}")

@@ -9,7 +9,9 @@ source note says what bounds it on the H100 and how the design answers.
 Selection is ``lax.top_k(where(bitmap, F, -1), n_filter)`` exactly: scores
 and doc ids pack into the unique int32 key ``(f + 1) << 25 | (2^25 - 1 -
 id)``, so "higher f, then lower id" is integer order and any exact
-selection over the keys is the reference's, tie order included.
+selection over the keys is the reference's, tie order included. The kernel
+ranks the selected keys by counting (F takes 34 values), so it takes any
+``1 <= n_filter <= n_docs``, up to the keys' 2^25 docs.
 
 Two operand forms, as in the reference: the corpus' codes shared by the
 batch (score_all mode), with an optional predicate filter (``pred_words``
@@ -42,28 +44,49 @@ from . import _build, _meta
 ID_BITS = 25
 MAX_ID = (1 << ID_BITS) - 1
 MAX_BATCH = 32          # queries per launch: one lane group per query
-MAX_N_FILTER = 8192     # the final ranking holds its keys in shared memory
 REF_BLOCK_D = 1 << 17   # docs per step of the plain version
 
 launches = 0            # kernel launches since the last reset
 
 
-def lengths_of(token_mask: torch.Tensor) -> torch.Tensor:
-    """Token validity as lengths. Accepts (..., cap) bool prefix masks (real
-    tokens first, what ``PackedIndex.token_mask()`` builds) or (...) int
-    lengths; returns int32 lengths."""
+def valid_first(token_mask: torch.Tensor, *operands):
+    """Token validity as lengths, and the per-token operands laid out so
+    that each row's valid tokens come first. ``token_mask`` is (..., cap)
+    bool or (...) int lengths; each operand has the mask's (..., cap) shape
+    ahead of any trailing axes (codes (..., cap), res_codes (..., cap, m)).
+    -> (int32 lengths, *operands).
+
+    Lengths and prefix masks (real tokens first, what
+    ``PackedIndex.token_mask()`` builds) return the operands as they are. A
+    mask with holes moves each row's valid tokens, in their order, to the
+    front, and its invalid ones after them: every per-doc reduction over
+    tokens (Eq. 4's OR, S̄'s per-term max, Eq. 5/6's per-term max and Eq.
+    6's kept max and count) is free of order, so the kernels' results are
+    the reference's on the mask as given. Signed zeros are not covered: a
+    max of -0.0 and 0.0 depends on the order in both packages."""
     if token_mask.dtype != torch.bool:
-        return token_mask.to(torch.int32)
+        return (token_mask.to(torch.int32), *operands)
     lens = token_mask.sum(-1, dtype=torch.int32)
+    if token_mask.is_meta:       # no values to look at
+        return (lens, *operands)
     cap = token_mask.shape[-1]
-    if token_mask.is_meta:       # no values to check
-        return lens
-    prefix = torch.arange(cap, device=token_mask.device) < lens[..., None]
-    if not torch.equal(prefix, token_mask):
-        raise ValueError("token_mask must be a prefix mask (real tokens "
-                         "first, padding after), as PackedIndex.token_mask() "
-                         "builds it")
-    return lens
+    slot = torch.arange(cap, device=token_mask.device)
+    if torch.equal(slot < lens[..., None], token_mask):
+        return (lens, *operands)
+    # a valid token's slot is its rank among the row's valid tokens, an
+    # invalid one's comes after all of them, in its rank among the invalid
+    valid = token_mask.to(torch.int32)
+    dest = torch.where(token_mask, valid.cumsum(-1) - 1,
+                       lens[..., None] + (1 - valid).cumsum(-1) - 1).long()
+    moved = []
+    for x in operands:
+        if tuple(x.shape[:token_mask.dim()]) != tuple(token_mask.shape):
+            raise ValueError(f"token_mask {tuple(token_mask.shape)} does not "
+                             f"lead operand {tuple(x.shape)}")
+        d = dest.reshape(*dest.shape, *(1,) * (x.dim() - dest.dim()))
+        moved.append(torch.empty_like(x).scatter_(
+            dest.dim() - 1, d.expand_as(x), x))
+    return (lens, *moved)
 
 
 def filter_scores_ref(bits: torch.Tensor, codes: torch.Tensor,
@@ -118,7 +141,7 @@ def prefilter_batched_ref(cs: torch.Tensor, th: float, codes: torch.Tensor,
 
 _VP, _CI = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "prefilter_scratch_bytes": (ctypes.c_size_t, [_CI, _CI, _CI, _CI, _CI]),
+    "prefilter_scratch_bytes": (ctypes.c_size_t, [_CI, _CI, _CI, _CI]),
     "prefilter_batched": (_CI, [_VP, _CI, ctypes.c_float, _VP, _VP, _VP, _VP,
                                 _CI, _CI, _CI, _CI, _CI, _CI, _CI, _VP, _VP,
                                 _CI, _VP, _VP, _VP, _VP, _VP]),
@@ -151,12 +174,12 @@ def _launch(cs, th, codes, doc_lens, bitmap, n_filter, qm, pred, clauses):
     bits = torch.empty((nb, n_c), dtype=torch.int32, device=dev)
     out = torch.empty((2, nb, n_filter), dtype=torch.int32, device=dev)
     scratch = torch.empty(_fn("prefilter_scratch_bytes")(
-        nb, n_c, n_docs, n_filter, per_query), dtype=torch.uint8, device=dev)
+        nb, n_c, n_docs, per_query), dtype=torch.uint8, device=dev)
     p = _build.ptr
     err = _fn("prefilter_batched")(
         p(cs), _build.cs_flag(cs), round_to(th, cs.dtype), p(qm),
-        p(codes), p(doc_lens), p(bitmap), nb, n_q,
-        n_c, n_docs, cap, n_filter, per_query, p(pred), p(clauses),
+        p(codes), p(doc_lens), p(bitmap), nb, n_q, n_c, n_docs, cap,
+        n_filter, per_query, p(pred), p(clauses),
         0 if clauses is None else clauses.shape[0], p(bits), p(out[0]),
         p(out[1]), p(scratch), _build.stream())
     _build.check(err, "prefilter_batched")
@@ -188,8 +211,8 @@ def prefilter_batched(cs: torch.Tensor, th: float, codes: torch.Tensor,
 
     cs (B, n_q <= 32, n_c) float32 or bf16; codes (n_docs, cap) int32 shared by the
     batch or (B, n_docs, cap) per query; token_mask the codes' shape in
-    bool (a prefix mask) or their leading shape in int32 lengths; bitmap
-    (B, n_docs) bool; q_masks optional (B, n_q) bool; plan optional
+    bool (any mask: :func:`valid_first`) or their leading shape in int32
+    lengths; bitmap (B, n_docs) bool; q_masks optional (B, n_q) bool; plan optional
     ``FilterPlan.clauses`` (None reads no predicate word) over pred_words
     (n_docs,) uint32 or int32.
     -> (scores (B, n_filter) int32, doc_ids (B, n_filter) int32,
@@ -210,7 +233,7 @@ def prefilter_batched(cs: torch.Tensor, th: float, codes: torch.Tensor,
     if tuple(bitmap.shape) != (nb, n_docs):
         raise ValueError(f"bitmap is {tuple(bitmap.shape)}, expected "
                          f"{(nb, n_docs)}")
-    doc_lens = lengths_of(token_mask)
+    doc_lens, codes = valid_first(token_mask, codes)
     if tuple(doc_lens.shape) != lead:
         raise ValueError(f"token validity covers {tuple(doc_lens.shape)}, "
                          f"expected {lead}")
@@ -226,10 +249,6 @@ def prefilter_batched(cs: torch.Tensor, th: float, codes: torch.Tensor,
                                      pred_words=pred_words, plan=plan)
     if cs.device.type != "cuda":
         raise ValueError(f"prefilter: unsupported device {cs.device}")
-    if n_filter > MAX_N_FILTER:
-        raise ValueError(f"n_filter={n_filter} > {MAX_N_FILTER}: the "
-                         "kernel's final ranking holds its keys in shared "
-                         "memory")
     operands = [("cs", cs, CS_TYPES, (nb, n_q, n_c)),
                 ("codes", codes, torch.int32, (*lead, cap)),
                 ("token lengths", doc_lens, torch.int32, lead),

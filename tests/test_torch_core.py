@@ -80,6 +80,24 @@ def test_popcount_and_filter_score():
     _bits_eq(port, ref)
 
 
+def test_filter_score_batch():
+    """Eq. 4 over a batch of queries' words, shared codes and a mask with
+    holes (real ids in them), with a row of no valid token."""
+    rng = np.random.default_rng(2)
+    n_c, n_docs, cap = 150, 90, 9
+    cs = _cs(rng, (5, 32, n_c), 4)
+    bits = rbv.build_bitvectors(jnp.asarray(cs), 0.25)      # (5, n_c)
+    codes = rng.integers(0, n_c, size=(n_docs, cap)).astype(np.int32)
+    mask = rng.random((n_docs, cap)) < 0.5
+    mask[0] = False
+    ref = rbv.filter_score_batch(bits, jnp.asarray(codes), jnp.asarray(mask))
+    port = tbv.filter_score_batch(
+        torch.from_numpy(np.array(bits).view(np.int32)),
+        torch.from_numpy(codes), torch.from_numpy(mask))
+    assert port.shape == (5, n_docs)
+    _bits_eq(port, ref)
+
+
 @pytest.mark.parametrize("levels", [None, 3])
 @pytest.mark.parametrize("masked", [False, True])
 def test_masked_topk_centroids(levels, masked):

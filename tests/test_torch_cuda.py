@@ -551,6 +551,156 @@ def test_wrappers_refuse_other_cs_dtypes_on_the_card(card):
 SBAR_DOCS = {1: 300, 3: 400, 32: 300, 40: 60}
 
 
+# Cuts of any size: the prefilter's counting rank and pqinter's
+# radix-select cuts above the shared-memory forms, on every operand form,
+# held exactly: at the old edges (n_filter 8,192 / 8,193, n 4,096 / 4,097),
+# at one block's sort's edge (16,384 / 16,385 kept keys), keeping every key
+# and keeping one.
+CUT_DOCS = 20_000
+PREFILTER_FORMS = ("shared", "ties", "plan", "per_query")
+
+
+def _prefilter_form(dev, form, nb, dtype, n_docs=CUT_DOCS):
+    """A prefilter operand form's operands: codes shared by the batch (with
+    F ties in every tile: one word a query), with a plan, or per query
+    (compact mode, holes in the valid slots); float32 or bf16 CS."""
+    if form == "per_query":
+        cs, codes, mask, bitmap, qm = compact_inputs(nb, nb, 32, 304, n_docs,
+                                                     12)
+    else:
+        cs, codes, mask, bitmap, qm = prefilter_inputs(
+            nb, nb, 32, 304, n_docs, 12, density=0.5)
+    if form == "ties":
+        cs = np.repeat(cs[:, :, :1], cs.shape[2], axis=2)
+    extra = {}
+    if form == "plan":
+        words, = _on(dev, plan_words(nb, n_docs))
+        extra = dict(pred_words=words, plan=CARD_PLANS["pass50pct"])
+    if dtype == "bfloat16":
+        cs = _bf16(dev, bf16_edges(nb, cs))
+    else:
+        cs, = _on(dev, cs)
+    codes, mask, bitmap, qm = _on(dev, codes, mask, bitmap, qm)
+    return cs, codes, mask.sum(-1, dtype=torch.int32), bitmap, qm, extra
+
+
+def _hold_prefilter(cs, codes, lens, bitmap, n_filter, qm, extra):
+    th = BF16_TH if cs.dtype == torch.bfloat16 else 0.25
+    got = ops.prefilter_batched(cs, th, codes, lens, bitmap, n_filter, qm,
+                                **extra)
+    torch.cuda.synchronize()
+    if "pred_words" in extra:
+        extra = dict(extra, pred_words=extra["pred_words"].view(torch.int32))
+    _same(got, kpf.prefilter_batched_ref(cs, th, codes, lens, bitmap,
+                                         n_filter, qm, **extra))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nb", [1, 3, 32])
+@pytest.mark.parametrize("form", PREFILTER_FORMS)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n_filter", [1, 200, 1024, 4096, 8192, 8193, 16384,
+                                      CUT_DOCS])
+def test_prefilter_any_n_filter_equals_plain(card, nb, form, dtype,
+                                             n_filter):
+    """Up to the whole corpus: n_filter = n_docs keeps every candidate and
+    then the lowest ids of the rest (F = -1)."""
+    cs, codes, lens, bitmap, qm, extra = _prefilter_form(card, form, nb,
+                                                         dtype)
+    _hold_prefilter(cs, codes, lens, bitmap, n_filter, qm, extra)
+
+
+PQ_CUTS = (
+    # n_filter, n_docs, k
+    (4096, 4096, 4096),      # the shared-memory forms' edge, every key kept
+    (4097, 4097, 4097),      # the cut of any size, every key kept
+    (4097, 1, 1),            # one key kept
+    (4097, 4096, 100),       # cut 1 of any size, cut 2 in shared memory
+    (20000, 10000, 10000),   # fig9's post-filter lane
+    (20000, 16384, 16384),   # one block's sort at its edge (B >= 5)
+    (20000, 16385, 16385),   # ranked by counting past it
+    (20000, 16385, 1),
+)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nb", [1, 5, 32])   # the rank counted; sorted
+@pytest.mark.parametrize("cut", PQ_CUTS, ids=lambda c: "_".join(map(str, c)))
+@pytest.mark.parametrize("form", ["float32", "bfloat16", "doc_pass",
+                                  "doc_pass_few"])
+def test_pqinter_any_cut_equals_plain(card, nb, cut, form):
+    """S̄ ties everywhere (a CS and LUT of two levels), so both cuts break
+    ties by position in the keys' low bits."""
+    nf, n_docs, k = cut
+    cs_t, lut, codes, res, mask, qm = pqinter_inputs(nf + nb, nb, 32, 200,
+                                                     nf, 10, 16, 16)
+    lut, codes, res, mask, qm = _on(card, lut, codes, res, mask, qm)
+    cs_t = (_bf16(card, bf16_edges(nf, cs_t)) if form == "bfloat16"
+            else _on(card, cs_t)[0])
+    th_r = BF16_TH_R if form == "bfloat16" else 0.25
+    dp = None
+    if form.startswith("doc_pass"):
+        dp, = _on(card, doc_pass_rows(nf, nb, nf, "sparse" if form ==
+                                      "doc_pass" else "few", n_docs, k))
+    lens = mask.sum(-1, dtype=torch.int32)
+    before = kpq.launches
+    got = ops.pqinter_batched(cs_t, lut, codes, res, lens, th_r, n_docs, k,
+                              qm, doc_pass=dp)
+    torch.cuda.synchronize()
+    assert kpq.launches == before + 1
+    _same(got, kpq.pqinter_batched_ref(cs_t, lut, codes, res, lens, th_r,
+                                       n_docs, k, qm, dp))
+
+
+@pytest.mark.cuda
+def test_masks_with_holes_equal_compacted_on_card(card):
+    """Every wrapper given a token mask with holes (arbitrary codes in the
+    holes) returns what it returns on the operands compacted by hand."""
+    rng = np.random.default_rng(7)
+    nb, nd, cap, m = 3, 500, 8, 16
+    cs, codes, _, bitmap, qm = prefilter_inputs(3, nb, 32, 300, nd, cap)
+    cs_t, lut, pcodes, res, _, _ = pqinter_inputs(3, nb, 32, 300, nd, cap, m,
+                                                  16)
+    holes = rng.random((nd, cap)) < 0.6
+    pholes = rng.random((nb, nd, cap)) < 0.6
+
+    def packed(mask, *xs):
+        order = np.argsort(~mask, axis=-1, kind="stable")
+        return (mask.sum(-1).astype(np.int32),
+                *(np.take_along_axis(x, order.reshape(
+                    *order.shape, *(1,) * (x.ndim - order.ndim)), -1 -
+                    (x.ndim - order.ndim)) for x in xs))
+
+    lens, pk = packed(holes, codes)
+    plens, ppk, pres = packed(pholes, pcodes, res)
+    (cs, codes, holes, bitmap, qm, lens, pk, cs_t, lut, pcodes, res, pholes,
+     plens, ppk, pres) = _on(card, cs, codes, holes, bitmap, qm, lens, pk,
+                             cs_t, lut, pcodes, res, pholes, plens, ppk, pres)
+    bits = ops.bitpack_batched(cs, 0.25, qm)
+    pairs = [
+        (lambda t, c: ops.prefilter_batched(cs, 0.25, c, t, bitmap, 200, qm),
+         (holes, codes), (lens, pk)),
+        (lambda t, c: ops.prefilter(cs[0], 0.25, c, t, bitmap[0], 200,
+                                    qm[0]), (holes, codes), (lens, pk)),
+        (lambda t, c: (ops.bitfilter_batched(bits, c, t),),
+         (holes, codes), (lens, pk)),
+        (lambda t, c: (ops.cinter_batched(cs_t, c, t, qm),),
+         (pholes, pcodes), (plens, ppk)),
+        (lambda t, c, r: (ops.pqscore_batched(cs_t, lut, c, r, t, 0.25, qm),),
+         (pholes, pcodes, res), (plens, ppk, pres)),
+        (lambda t, c, r: ops.pqinter_batched(cs_t, lut, c, r, t, 0.25, 60, 20,
+                                             qm),
+         (pholes, pcodes, res), (plens, ppk, pres)),
+        (lambda t, c, r: ops.pqinter(cs_t[0], lut[0], c[0], r[0], t[0], 0.25,
+                                     60, 20, qm[0]),
+         (pholes, pcodes, res), (plens, ppk, pres)),
+    ]
+    for fn, holey, compacted in pairs:
+        got = fn(*holey)
+        torch.cuda.synchronize()
+        _same(got, fn(*compacted))
+
+
 def _off_alignment(x):
     """A contiguous copy of x whose storage starts one element past a
     16-byte boundary."""

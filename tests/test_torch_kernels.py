@@ -180,11 +180,19 @@ def test_wrappers_refuse_out_of_slice_operands():
 
 
 def test_token_mask_must_be_a_prefix():
-    cs, codes, mask, bitmap, _ = _t(*_prefilter_inputs(1, 1, 8, 32, 40, 4))
-    holey = mask.clone()
+    """A prefix mask is no longer required: a mask with holes is taken, its
+    valid tokens moved to the front (``prefilter.valid_first``), and the
+    result is the reference's on the mask as given."""
+    cs, codes, mask, bitmap, _ = _prefilter_inputs(1, 1, 8, 32, 40, 4)
+    holey = mask.copy()
     holey[0, 0], holey[0, -1] = False, True
-    with pytest.raises(ValueError, match="prefix"):
-        tops.prefilter_batched(cs, 0.2, codes, holey, bitmap, 8)
+    ref = rops.prefilter_batched(*_j(cs), 0.2, *_j(codes, holey, bitmap), 8,
+                                 interpret=True)
+    _eq(tops.prefilter_batched(*_t(cs), 0.2, *_t(codes, holey, bitmap), 8),
+        ref)
+    with pytest.raises(ValueError, match="does not lead"):
+        tops.prefilter_batched(*_t(cs), 0.2, *_t(codes[:, :3], holey,
+                                                 bitmap), 8)
 
 
 def _no_launch(fn):
@@ -335,10 +343,10 @@ def test_unfused_wrappers_refuse_out_of_slice_operands():
                                mask[0])
     holey = mask.clone()
     holey[0, 0, 0], holey[0, 0, -1] = False, True
-    with pytest.raises(ValueError, match="prefix"):
-        tops.cinter_batched(cs_t, codes, holey)
-    with pytest.raises(ValueError, match="prefix"):
-        tops.pqscore_batched(cs_t, lut, codes, res, holey, 0.1)
+    with pytest.raises(ValueError, match="does not lead"):
+        tops.cinter_batched(cs_t, codes[..., :3], holey)
+    with pytest.raises(ValueError, match="does not lead"):
+        tops.pqscore_batched(cs_t, lut, codes, res[..., :3, :], holey, 0.1)
     with pytest.raises(ValueError, match="n_q"):
         tops.pqscore_batched(cs_t, lut[:, :4], codes, res, mask, 0.1)
     with pytest.raises(ValueError, match="expected"):
