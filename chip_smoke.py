@@ -43,12 +43,18 @@ Phases:
                bitmap's shared-memory limit; PQSCORE_STRESS: lengths at
                the edges of the 8-warp token split, one query over 4096
                docs, cap 200, m = 16 and the serial m = 5 and 8, Eq. 6
-               with no kept token; CINTER_STRESS: the S̄ pass that cinter
-               and pqinter share, at n_q in {1, 4, 7, 8, 12, 16, 32}
-               (both of its forms), on an aligned CS^T and one element off,
-               B in {1, 3, 32, 40} (a doc split over up to 8, 4, 2 and 1
-               warps), cap in {10, 33, 80, 200} with lengths at the
-               split's and the rounds' edges; the nq4_cap1 cases of
+               with no kept token; in both PQ stress sets the Eq. 5/6
+               cluster pass's edges: n_q 1 to 32 (clusters of 1 to 4
+               CTAs of 8 terms, ragged last groups), T = 4 (m 32, a
+               cluster of 8) and T = 2 (m 64, two groups a CTA), the L2
+               form (m 256), caps 33 and 200, lengths at the token slots'
+               edges, one doc, 10,000 docs, B up to 40; CINTER_STRESS:
+               the S̄ pass that cinter and pqinter share, at n_q in
+               {1, 4, 7, 8, 12, 16, 32} (both of its forms), on an
+               aligned CS^T and one element off, B in {1, 3, 32, 40}
+               (a doc split over up to 8, 4, 2 and 1 warps), cap in
+               {10, 33, 80, 200} with lengths at the split's and the
+               rounds' edges; the nq4_cap1 cases of
                each: MIND x EMVB's operands, n_q = 4 and one token a doc,
                the 4-bit words' massive F ties, sparse, dense and shared
                candidacy, n_filter 4096, n_docs 1024, th_r None); the
@@ -120,8 +126,10 @@ Phases:
                same operands; unfused == fused ids and score bits on the same
                CS and LUT; the candidate funnel, with the word table's lit
                rows (rho: the share of the corpus' valid tokens whose
-               centroid's row has a bit set) at B = 32 and B = 1; the planted
-               docs' Success@100 and MRR@10 on both lanes
+               centroid's row has a bit set) and Eq. 6's term filter over
+               the phase-3 winners (scored_term_fraction and the share of
+               (doc, term) pairs keeping a token) at B = 32 and B = 1;
+               the planted docs' Success@100 and MRR@10 on both lanes
   4b. invariance — the CS and LUT elements that differ between B rows of
                a batch of B and the same rows of a batch of 32 (its first
                and its last B), B in {1, 2, 4, 8, 16, 17}, at 512, 4,096 and
@@ -223,7 +231,10 @@ Phases:
                4096 survivors keeping 256 and 4096 and over 20,000 keeping
                10,000: the radix select); bitfilter on
                dense word tables (th lowered until rho is about 50 % and
-               100 %, B = 32 and B = 1); pqscore over 4096 winners a query
+               100 %, B = 32 and B = 1); pqscore over 4096 winners a query;
+               each pqinter and pqscore case with its Eq. 5/6 plan
+               (eq56_plan: form, T, cluster size, runs a query and docs a
+               run, clusters, LUT bytes staged)
   7b. budgets — the two configurations the reference's benchmarks run
                past the old shared-memory caps, on the full-width index:
                fig9's post-filter lane (n_filter 20,000, n_docs = k =
@@ -235,11 +246,13 @@ Phases:
                bf16(th)), each fused kernel == its plain version (pqinter
                two queries at a time; not at fig2's survivors) and composed
                to retrieve; ms, per-pass device ms, launches, peak memory
-               and bounds per case
+               and bounds per case, pqinter's Eq. 5/6 plan and the term
+               filter's shares over the winners (term_filter_shares)
   8. profile — torch.profiler over retrieve on both lanes at B = 32 and
                B = 1: the device's busy share, device time and launches by
                CUDA kernel, and each hand-written kernel's __global__
-               launches per wrapper call (tables in OUT_DIR, one
+               launches per wrapper call, with the Eq. 5/6 plan of the
+               lane's pqinter or pqscore (tables in OUT_DIR, one
                profile_<lane>_b<B>.txt each)
   8b. examples — the port's four examples (examples/quickstart_torch.py,
                streaming_index_torch.py, retrieval_service_torch.py,
@@ -408,6 +421,20 @@ PQINTER_STRESS = (
     ("nq4_cap1_m16", 32, 2048, 4096, 1, 16, 256, 1024, 10, (None, 0.25),
      4),
     ("nq4_cap1_m16_b1", 1, 2048, 4096, 1, 16, 256, 1024, 10, (None,), 4),
+    # the Eq. 5/6 cluster pass: T = 8 terms a CTA in clusters of 1 to 4
+    # (multicast rings), one term (T = 1), ragged last groups, codes read
+    # from global memory (cap 33 and 200), T = 4 (C = 8), T = 2 (two groups
+    # a CTA in turn), the L2 form (m * K past shared memory), one doc
+    ("cluster_nq1", 3, 700, 300, 80, 16, 256, 60, 20, (None, 0.25), 1),
+    ("cluster_nq7_b40", 40, 700, 300, 80, 16, 256, 256, 20, (0.25,), 7),
+    ("cluster_nq9_b32", 32, 700, 300, 80, 16, 256, 256, 20, (0.25,), 9),
+    ("cluster_nq17_m5", 3, 700, 300, 80, 5, 256, 60, 20, (None, 0.25), 17),
+    ("cluster_nq24_cap33", 3, 700, 300, 33, 16, 256, 60, 20, (0.25,), 24),
+    ("cluster_cap200", 3, 700, 300, 200, 16, 256, 60, 20, (0.25,), 32),
+    ("cluster_m32_t4", 3, 700, 300, 80, 32, 256, 60, 20, (0.25,), 32),
+    ("cluster_m64_t2_passes", 2, 700, 200, 80, 64, 256, 50, 10, (0.25,), 32),
+    ("l2_form_m256", 2, 700, 100, 10, 256, 256, 30, 10, (0.25,), 32),
+    ("cluster_one_doc_b1", 1, 700, 300, 80, 16, 256, 1, 1, (0.25,), 32),
 )
 # bitfilter's score pass gathers only the word rows with a bit set (its
 # occupancy bitmap: in shared memory up to n_c = 319,488 at B = 32 and
@@ -433,8 +460,12 @@ BITFILTER_STRESS = (
     ("nq4_cap1_b32", 32, 16384, 100_003, 1, 0.02, None, 4),
     ("nq4_cap1_b1", 1, 16384, 100_003, 1, 0.02, None, 4),
 )
-# pqscore splits a doc's tokens over 8 warps: lengths at that split's edges.
+# pqscore's L2 form splits a doc's tokens over 8 warps: lengths at that
+# split's edges; its cluster pass reads 32 / T tokens a warp load, two loads
+# a round: lengths at those edges for T = 8, 4, 2 and 1.
 SPLIT_LENS = (0, 1, 7, 8, 9, 79, 80)
+SLOT_LENS = (0, 1, 3, 4, 5, 7, 8, 9, 15, 16, 17, 31, 32, 33, 63, 64, 65, 79,
+             80)
 PQSCORE_STRESS = (
     # name, B, n_c, docs, cap, m, K, lengths, th_r values, n_q
     ("m16_split_edges_b32", 32, 700, 300, 80, 16, 256, SPLIT_LENS,
@@ -448,6 +479,23 @@ PQSCORE_STRESS = (
     ("nq4_cap1_m16_b32", 32, 2048, 1024, 1, 16, 256, None, (None, 0.25),
      4),
     ("nq4_cap1_m16_b1", 1, 2048, 1024, 1, 16, 256, None, (None,), 4),
+    # the Eq. 5/6 cluster pass, as in PQINTER_STRESS
+    ("cluster_nq1", 3, 700, 300, 80, 16, 256, SLOT_LENS, (None, 0.25), 1),
+    ("cluster_nq7_b40", 40, 700, 256, 80, 16, 256, SLOT_LENS, (0.25,), 7),
+    ("cluster_nq8", 3, 700, 300, 80, 16, 256, SLOT_LENS, (None,), 8),
+    ("cluster_nq9_b32", 32, 700, 256, 80, 16, 256, SLOT_LENS, (0.25,), 9),
+    ("cluster_nq16_m8", 3, 700, 300, 80, 8, 256, SLOT_LENS, (0.25,), 16),
+    ("cluster_nq17_m5", 3, 700, 300, 80, 5, 256, SLOT_LENS, (None, 0.25),
+     17),
+    ("cluster_nq24_cap33", 3, 700, 300, 33, 16, 256, None, (0.25,), 24),
+    ("cluster_cap200", 3, 700, 200, 200, 16, 256, None, (0.25,), 32),
+    ("cluster_m32_t4", 3, 700, 300, 80, 32, 256, SLOT_LENS, (0.25,), 32),
+    ("cluster_m64_t2_passes", 2, 700, 60, 80, 64, 256, SLOT_LENS, (0.25,),
+     32),
+    ("l2_form_m256", 2, 700, 40, 10, 256, 256, None, (0.25,), 32),
+    ("cluster_one_doc", 1, 700, 1, 80, 16, 256, None, (0.25,), 32),
+    ("cluster_10000_docs_b32", 32, 700, 10_000, 12, 16, 256, None, (0.25,),
+     32),
 )
 # The S̄ pass (emvb::sbar_block), which cinter and pqinter's pass 1 both
 # run: n_q 1 and 7 run one lane per term; 4, 8, 12, 16 and 32 the 16-byte
@@ -874,7 +922,12 @@ def pqinter_bound(cs_t, lut, codes, lens, sel2, n_docs, k,
               + win_tokens * m + nb * n_q + nb * k * 8 + nb * n_docs * 8
               + verdicts)
     ops_ = tokens * n_q + win_tokens * n_q * (m + 1)   # maxes + LUT adds
-    return _bound(nbytes, ops_)
+    out = _bound(nbytes, ops_)
+    # the rows its Eq. 5/6 pass reads, as the L2 form gathers them: per
+    # winner's valid token a CS^T row and m LUT rows of n_q floats
+    out["eq56_row_bytes"] = win_tokens * (
+        _sectors(n_q * cs_t.element_size()) + m * _sectors(n_q * 4))
+    return out
 
 
 def bitpack_bound(cs) -> dict:
@@ -947,6 +1000,21 @@ def pqscore_bound(cs_t, lut, codes, lens) -> dict:
     out["l2_gather_bytes"] = tokens * (_sectors(n_q * cs_t.element_size())
                                        + m * _sectors(n_q * 4))
     return out
+
+
+def eq56_plan_of(kern: str, operands, n_docs: int = None) -> dict:
+    """How the Eq. 5/6 pass of ``kern`` (pqinter over ``n_docs`` winners of
+    its survivor operands, or pqscore over its winner operands) runs on
+    these operands: its form (cluster or L2), T, cluster size, runs a query,
+    docs a run, clusters, the LUT bytes it stages (``eq56_plan``)."""
+    from repro_torch.kernels import pqinter as kpq
+    from repro_torch.kernels import pqscore as kps
+    cs_t, lut, codes, res = operands[:4]
+    n_q, m, ksub = lut.shape[1:]
+    if kern == "pqscore":
+        return kps.plan(cs_t, codes, res, n_q, m, ksub)
+    return kpq.eq56_plan("pqinter", "pqinter_eq56_plan", cs_t, res, n_docs,
+                         n_q, m, ksub)
 
 
 def _bound(nbytes: int, n_ops: int) -> dict:
@@ -1122,6 +1190,38 @@ def funnel(index, h, cfg) -> dict:
             "score_kth_mean": float(h["pq"][0][:, -1].mean())}
 
 
+def term_filter_shares(h, cfg) -> dict:
+    """What Eq. 6's term filter leaves to score over a held batch's phase-3
+    winners (:func:`hold_phases`' ``h``), per query:
+    ``interaction.scored_term_fraction`` (the share of (token, term) pairs
+    whose centroid score beats th_r) and the share of (winner, term) pairs
+    that keep some token (n_keep > 0, where Eq. 6 does not fall back to
+    Eq. 5). None without th_r."""
+    import torch
+    from repro_torch.core import interaction
+    from repro_torch.core.precision import greater
+    if cfg.th_r is None:
+        return None
+    cs_t, _, codes, _, lens = h["operands"]
+    sel2 = h["pq"][2].long()
+    tok = torch.arange(codes.shape[2], device=codes.device)
+    scored, kept = [], []
+    for b in range(codes.shape[0]):
+        rows = sel2[b][sel2[b] >= 0]
+        c, valid = codes[b, rows], tok < lens[b, rows, None]
+        scored.append(float(interaction.scored_term_fraction(
+            cs_t[b], c, valid, cfg.th_r)))
+        keep = greater(interaction.gather_centroid_scores(cs_t[b], c),
+                       cfg.th_r) & valid[..., None]
+        kept.append(float(keep.any(1).float().mean()))
+    return {"scored_term_fraction_mean": sum(scored) / len(scored),
+            "scored_term_fraction_min": min(scored),
+            "scored_term_fraction_max": max(scored),
+            "doc_term_pairs_kept_mean": sum(kept) / len(kept),
+            "doc_term_pairs_kept_min": min(kept),
+            "doc_term_pairs_kept_max": max(kept)}
+
+
 def full_phase(dev) -> dict:
     """Phase 4: the planted index at full width, the main path at B = 32
     and B = 1 with its launch counts, the held phases, funnel and
@@ -1151,6 +1251,8 @@ def full_phase(dev) -> dict:
     held, held_u, lanes_equal = hold_lanes(
         index, cfg, ucfg, queries, results)
     fun = funnel(index, held["b32"], cfg)
+    fun["term_filter"] = {b: term_filter_shares(held[b], cfg)
+                          for b in ("b32", "b1")}
     hist = token_hist(index)
     fun["lit_rows"] = {b: lit_shares(held_u[b]["bits"], hist)
                        for b in ("b32", "b1")}
@@ -5259,11 +5361,14 @@ def limits_phase(full: dict) -> dict:
             operands = teng._survivor_operands(index, h["cs"],
                                                teng._query_lut(index, q), sel1)
             for n_docs in cuts:
-                case(f"pqinter_nf{nf}_n_docs{n_docs}_{b}", "pqinter",
+                name = f"pqinter_nf{nf}_n_docs{n_docs}_{b}"
+                case(name, "pqinter",
                      lambda: ops.pqinter_batched(*operands, cfg.th_r, n_docs,
                                                  cfg.k),
                      lambda: plain_pqinter(operands, cfg.th_r, n_docs, cfg.k,
                                            step=4))
+                out[name]["eq56_plan"] = eq56_plan_of("pqinter", operands,
+                                                      n_docs)
             winners = winners or operands   # pqscore over the first's
         operands = winners
 
@@ -5276,6 +5381,7 @@ def limits_phase(full: dict) -> dict:
              lambda: (ops.pqscore_batched(*operands, cfg.th_r),), ps_ref)
         out[name]["bound"] = pqscore_bound(operands[0], operands[1],
                                            operands[2], operands[4])
+        out[name]["eq56_plan"] = eq56_plan_of("pqscore", operands)
         for rho in (0.5, 1.0):
             th = th_for_rho(h["cs"], full["token_hist"], rho)
             args = (ops.bitpack_batched(h["cs"], th), index.codes,
@@ -5372,6 +5478,8 @@ def budget_case(index, q, cfg, ucfg, flush) -> dict:
             plain_ms=None if plain is None else time_ms(plain, n=3,
                                                         warmup=1),
             pass_ms=pass_ms, pass_launches=pass_launches, bound=bound())
+    kern["pqinter"]["eq56_plan"] = eq56_plan_of("pqinter", ops_, cfg.n_docs)
+    term_filter = term_filter_shares(h, cfg)
     cs, lut, pf = h["cs"], h["lut"], h["pf"]
     del h, ops_                         # fig2's 14.1 GB of survivor operands
     if cfg.cs_dtype == "bfloat16":
@@ -5385,7 +5493,7 @@ def budget_case(index, q, cfg, ucfg, flush) -> dict:
             "budgets", finite_only=cfg.doc_filter is not None)}
     return {"ms": ms["fused"], "unfused_ms": ms["unfused"],
             "launches": launches, "max_memory_allocated_gb": peak / 1e9,
-            "kernels": kern, "lanes": lanes,
+            "kernels": kern, "lanes": lanes, "term_filter": term_filter,
             "finite_results": int(torch.isfinite(fused.scores).sum()),
             "results": int(fused.scores.numel())}
 
@@ -5427,12 +5535,13 @@ KERNEL_FUNCTIONS = {
                   "score_query_kernel", "bin_rank_kernel", "place_kernel"),
     "pqinter": ("sbar_kernel", "select1_kernel", "select_pass_kernel",
                 "select_compact_kernel", "rank_sort_kernel",
-                "rank_count_kernel", "eq56_kernel", "select2_kernel"),
+                "rank_count_kernel", "eq56_kernel", "eq56_l2_kernel",
+                "select2_kernel"),
     "bitpack": ("bitpack_kernel",),
     "bitfilter": ("bitfilter_rows_kernel", "bitfilter_score_kernel",
                   "bitfilter_query_kernel"),
     "cinter": ("cinter_kernel",),
-    "pqscore": ("pqscore_kernel",),
+    "pqscore": ("pqscore_kernel", "pqscore_l2_kernel"),
 }
 
 
@@ -5537,8 +5646,12 @@ def profile_phase(full: dict, calls: int = 5) -> dict:
         with open(os.path.join(OUT_DIR, f"profile_{name}.txt"), "w") as f:
             f.write(f"{smi}\n" + averages.table(
                 sort_by="self_cuda_time_total", row_limit=40) + "\n")
+        b = name.rsplit("_", 1)[1]
+        eq56 = (eq56_plan_of("pqinter", full["held"][b]["operands"],
+                             cfg.n_docs) if name.startswith("fused")
+                else eq56_plan_of("pqscore", full["held_u"][b]["ps_args"]))
         out[name] = {
-            "calls": calls, "attempts": attempt,
+            "calls": calls, "attempts": attempt, "eq56_plan": eq56,
             "wall_ms_per_call": wall_us / calls / 1e3,
             "device_busy_ms_per_call": busy_us / calls / 1e3,
             "device_busy_share": busy_us / wall_us,

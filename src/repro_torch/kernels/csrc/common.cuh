@@ -1,6 +1,7 @@
 // Device helpers shared by the kernels: block-wide exclusive scan, a warp
 // exclusive scan, the cuts (each of n unique keys to its rank), order-
-// preserving float bits and cp.async (plain and zero-filling).
+// preserving float bits, cp.async (plain and zero-filling), and Hopper's
+// mbarriers and bulk copies.
 #pragma once
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -393,4 +394,66 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// --- mbarriers and bulk copies (Hopper) -------------------------------------
+// A phase wait that has not completed after about ten seconds traps: a
+// protocol fault then fails its launch instead of hanging the card.
+constexpr long long MBAR_TIMEOUT_CYCLES = 1ll << 34;
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+// After the inits, before another thread uses the barriers.
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+// One arrival that also expects `bytes` more of bulk-copy transactions.
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+// Wait until the barrier's phase of parity `parity` completes.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  const uint32_t a = smem_addr(bar);
+  long long start = 0;
+  for (;;) {
+    uint32_t done;
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+    if (done) return;
+    const long long now = clock64();
+    if (start == 0)
+      start = now;
+    else if (now - start > MBAR_TIMEOUT_CYCLES)
+      __trap();
+  }
+}
+// Order this thread's earlier shared-memory accesses before later bulk
+// copies into shared memory (the async proxy).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// Bulk copy of `bytes` (a multiple of 16; both addresses 16-byte aligned)
+// from global to this CTA's shared memory, completing on `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          unsigned bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
 }

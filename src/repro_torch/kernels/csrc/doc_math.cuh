@@ -32,6 +32,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <cooperative_groups.h>
+#include <mutex>
 #include <type_traits>
 
 #include "common.cuh"
@@ -572,6 +574,50 @@ inline void with_sbar_lanes(int lanes, F&& f) {
 }
 
 // --- Eq. 5/6 -----------------------------------------------------------------------
+//
+// The Eq. 5/6 pass scores a doc's valid tokens against each query term: the
+// centroid score from CS^T plus the residual lut[s=0] + ... + lut[s=m-1],
+// each a read of the query's (n_q, m, K) LUT at the token's residual code of
+// subspace s (512 KiB a query at n_q 32, m 16, K 256). Per (doc, token,
+// term) that is m + 1 reads, so what bounds the pass on the H100 is where
+// those reads are served, not the card's memory: a doc's codes and residual
+// codes are ~1.6 KB, the LUT and CS^T rows its ~67 tokens read ~146 KB.
+//
+// Two forms, chosen on the host from the shape (eq56_plan):
+//  * the cluster pass (eq56_cluster), wherever one term's LUT slice fits a
+//    CTA's shared memory (m * K up to ~54,000). The flattened LUT is
+//    term-group-major, (B, G, rows, T) (pqinter.py's flat_lut): T terms a
+//    group (8 while m * K * 32 bytes fits beside the pass's 16 KB of merge
+//    buffers, as at emvb-msmarco and MIND, else 4, 2 or 1), G = ceil(n_q /
+//    T), each group's slice one contiguous block. A thread-block cluster of
+//    C = min(G, 8) CTAs scores runs of one query's docs; CTA r holds the
+//    slice of group r (and r + C, ... in turn when G > 8) in shared memory,
+//    staged by bulk copies on an mbarrier. A warp scores one doc at a time
+//    with lanes (token slot, term quad): 16 tokens a warp load at T = 8,
+//    each lane reading 4 terms of a LUT row in one 16-byte shared-memory
+//    read, its m reads issued before the first add and added in the
+//    reference's order s = 0 .. m-1, then the widened centroid scores from
+//    CS^T (one 16-byte global read a token and lane where rows allow). The
+//    doc's codes and residual codes are read from global memory one warp
+//    load ahead of the LUT reads that need them, with the next CS^T
+//    entries. Per term, the token slots' Eq56Part states merge by shuffles
+//    (order-free); each CTA finishes its terms (eq56_finish) into its
+//    shared memory, and after a cluster barrier every CTA term-sums a share
+//    of the docs, reading each group's column maxima through distributed
+//    shared memory, in lane order: one float a doc. What bounds it then is
+//    the SM's issue of those reads and adds and its shared-memory
+//    wavefronts: a 16-byte read by 8 lanes (4 tokens) hits bank group
+//    code mod 4 of each token, so random codes cost about two wavefronts a
+//    quarter warp.
+//  * the L2 form (eq56_block), kept for larger slices: one block a doc, one
+//    lane a term, every LUT read a 128-byte row gathered through L2, which
+//    bounds it at L2's line rate (~6.6 TB/s of rows on the H100, PERF.md).
+// A ring of doc slots filled by bulk copies (multicast to the cluster, or
+// per CTA) or by cp.async was measured no faster than the direct reads, so
+// the pass has none.
+//
+// Both forms compute what the reference's eq56_block and
+// eq56_block_batched compute (repro/kernels/pqscore.py:33, :74), to the bit.
 
 // One term's Eq. 5/6 state over some of a doc's tokens.
 struct Eq56Part {
@@ -602,20 +648,20 @@ __device__ __forceinline__ void load_code_words(const uint8_t* __restrict__ p,
 
 // The full score of one (token, term): the centroid score plus the residual
 // lut[s=0] + lut[s=1] + ... + lut[s=m-1], in that order. lb points at this
-// lane's term in row 0 of the query's (m*ksub, n_q) LUT; rt at the token's
-// m residual codes. M = m known at compile time (a multiple of 16): the
-// codes arrive in vector loads and all m LUT reads are issued before the
-// first add. M = 0: any m, read in series.
+// lane's term in row 0 of the query's LUT, whose rows are `stride` floats
+// apart; rt at the token's m residual codes. M = m known at compile time (a
+// multiple of 16): the codes arrive in vector loads and all m LUT reads are
+// issued before the first add. M = 0: any m, read in series.
 template <int M>
 __device__ __forceinline__ float eq56_full(float cen,
                                            const float* __restrict__ lb,
                                            const uint8_t* __restrict__ rt,
-                                           int m, int ksub, int n_q) {
+                                           int m, int ksub, int stride) {
   float resid;
   if constexpr (M == 0) {
-    resid = lb[(size_t)rt[0] * n_q];
+    resid = lb[(size_t)rt[0] * stride];
     for (int s = 1; s < m; ++s)
-      resid = resid + lb[((size_t)s * ksub + rt[s]) * n_q];
+      resid = resid + lb[((size_t)s * ksub + rt[s]) * stride];
   } else {
     uint32_t w[M / 4];
     load_code_words<M>(rt, w);
@@ -623,7 +669,7 @@ __device__ __forceinline__ float eq56_full(float cen,
 #pragma unroll
     for (int s = 0; s < M; ++s) {
       const uint32_t code = (w[s >> 2] >> (8 * (s & 3))) & 0xffu;
-      v[s] = lb[((size_t)s * ksub + code) * n_q];
+      v[s] = lb[((size_t)s * ksub + code) * stride];
     }
     resid = v[0];
 #pragma unroll
@@ -642,7 +688,7 @@ __device__ __forceinline__ void eq56_token(Eq56Part& p, float cen, float full,
   }
 }
 
-// Merge another warp's state of the same term and doc into p.
+// Merge another part's state of the same term and doc into p.
 __device__ __forceinline__ void eq56_merge(Eq56Part& p, const Eq56Part& o) {
   p.full_max = o.full_max > p.full_max ? o.full_max : p.full_max;
   p.kept_max = o.kept_max > p.kept_max ? o.kept_max : p.kept_max;
@@ -664,23 +710,23 @@ __device__ __forceinline__ float eq56_finish(const Eq56Part& p, int len,
   return live ? colmax : 0.0f;
 }
 
-// Eq. 5/6 score of one document by a block of SPLIT warps: the body of
-// pqinter.cu's Eq. 5/6 pass and of pqscore.cu, which differ only in how a
-// block finds its row. Block (r, b) scores row b * nf + sel2[b * n_docs +
-// r] of codes (B, nf, cap) when sel2 is not null (pqinter: the phase-3
-// winners), else row b * nf + r, and writes out[b * n_docs + r]. Warp w
-// takes tokens w, w + SPLIT, ..., lane i = query term i; the warps' states
-// merge through shared memory, and warp 0 finishes and term-sums. cs_t
-// (B, n_c, n_q) of T; lut2 (B, m*ksub, n_q); res (B, nf, cap, m); qmask
-// (B, n_q) or null; M as in eq56_full; th_r the value the reference
-// compares a T centroid score with. Every thread of the block must call it.
+// The L2 form: Eq. 5/6 score of one document by a block of SPLIT warps.
+// Block (r, b) scores row b * nf + sel2[b * n_docs + r] of codes (B, nf,
+// cap) when sel2 is not null (pqinter: the phase-3 winners), else row b * nf
+// + r, and writes out[b * n_docs + r]. Warp w takes tokens w, w + SPLIT,
+// ..., lane i = query term i; the warps' states merge through shared
+// memory, and warp 0 finishes and term-sums. cs_t (B, n_c, n_q) of T; lut2
+// the (B, 1, rows, n_q) LUT of flat_lut with one group of n_q terms; res
+// (B, nf, cap, m); qmask (B, n_q) or null; M as in eq56_full; th_r the value
+// the reference compares a T centroid score with. Every thread of the block
+// must call it.
 template <int M, int SPLIT, typename T>
 __device__ __forceinline__ void eq56_block(
     const T* __restrict__ cs_t, const float* __restrict__ lut2,
     const int32_t* __restrict__ codes, const uint8_t* __restrict__ res,
     const int32_t* __restrict__ lens, const uint8_t* __restrict__ qmask,
     const int32_t* __restrict__ sel2, int nf, int n_docs, int cap, int n_c,
-    int n_q, int m, int ksub, float th_r, int use_filter,
+    int n_q, int m, int ksub, int rows, float th_r, int use_filter,
     float* __restrict__ out) {
   __shared__ Eq56Part part[SPLIT][32];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -693,7 +739,7 @@ __device__ __forceinline__ void eq56_block(
     const int32_t* cd = codes + row * cap;
     const uint8_t* rs = res + row * cap * m;
     const T* cb = cs_t + (size_t)b * n_c * n_q + lane;
-    const float* lb = lut2 + (size_t)b * m * ksub * n_q + lane;
+    const float* lb = lut2 + (size_t)b * rows * n_q + lane;
 #pragma unroll 2
     for (int t = warp; t < len; t += SPLIT) {
       const int c = min(max(cd[t], 0), n_c - 1);
@@ -714,10 +760,568 @@ __device__ __forceinline__ void eq56_block(
   if (lane == 0) out[(size_t)b * n_docs + r] = s;
 }
 
-// Whether eq56_block<16> may run: m = 16 and the residual codes 16-byte
-// aligned (each token's 16 codes are one vector load).
+// Whether the m = 16 vector form may run: m = 16 and the residual codes
+// 16-byte aligned (each token's 16 codes are one vector load).
 inline bool eq56_vector_m16(int m, const uint8_t* res) {
   return m == 16 && reinterpret_cast<uintptr_t>(res) % 16 == 0;
+}
+
+// --- Eq. 5/6, the cluster pass ---------------------------------------------------
+
+constexpr int E56_WARPS = 16;          // warps a CTA, each a doc at a time
+constexpr int E56_THREADS = E56_WARPS * 32;
+constexpr int E56_ITEM = 256;          // docs merged at one cluster barrier
+constexpr int E56_TERMS_MAX = 8;       // T, at most
+constexpr int E56_CLUSTER_MAX = 8;     // C: the portable cluster size
+constexpr int E56_CHUNK = 1 << 15;     // bytes a bulk copy of the slice
+// column maxima a CTA keeps: two items (one being merged while the next is
+// scored) of T * passes <= 8 terms a doc
+constexpr int E56_MERGE_BYTES = 2 * E56_ITEM * E56_TERMS_MAX * 4;
+constexpr int E56_BAR_BYTES = 16;      // the slice's mbarrier
+constexpr int E56_RESERVED = E56_MERGE_BYTES + E56_BAR_BYTES;
+// The schedule's cost model (eq56_runs), in units of the time a full SM
+// takes for one doc's LUT reads at emvb-msmarco's shape.
+constexpr int E56_STAGE_COST = 8;      // staging a query's slices
+constexpr int E56_LONE_COST = 8;       // one doc on a warp that runs alone
+
+// The cluster pass's operands and plan (eq56_plan), passed by value.
+// Query b's rows are b * nf + row; row = sel2[b * n_docs + d] (pqinter:
+// the phase-3 winners, -1 a filler that scores -inf and reads nothing) or
+// d (sel2 null, pqscore); out (B, n_docs).
+template <typename T>
+struct Eq56Args {
+  const T* cs_t;          // (B, n_c, n_q)
+  const float* lut;       // (B, groups, rows, terms)
+  const int32_t* codes;   // (B, nf, cap)
+  const uint8_t* res;     // (B, nf, cap, m)
+  const int32_t* lens;    // (B, nf)
+  const uint8_t* qmask;   // (B, n_q) or null
+  const int32_t* sel2;    // (B, n_docs) or null
+  float* out;             // (B, n_docs)
+  int nb, nf, n_docs, cap, n_c, n_q, m, ksub;
+  float th_r;
+  int use_filter;
+  int terms, groups, passes, rows, runs;
+};
+
+// Rows of a group's slice: m * K, padded so that a slice is a whole number
+// of 16-byte pieces (rows * terms a multiple of 4).
+__host__ __device__ inline int e56_rows(int mk, int terms) {
+  const int q = terms >= 4 ? 1 : 4 / terms;
+  return (mk + q - 1) / q * q;
+}
+
+// Run r = run % runs of query b = run / runs: the query's docs r, r +
+// runs, r + 2 * runs, ..., its positions 0 .. *count - 1. Dealt in turns,
+// a run's docs spread over the query's ranks, so pqinter's fillers (the
+// last ranks when few survivors pass doc_pass) fall on every run alike.
+__device__ __forceinline__ void e56_run(int run, int runs, int n_docs, int* b,
+                                        int* r, int* count) {
+  *b = run / runs;
+  *r = run % runs;
+  *count = *r < n_docs ? (n_docs - *r + runs - 1) / runs : 0;
+}
+
+__device__ __forceinline__ int e56_row(const int32_t* __restrict__ sel2,
+                                       int b, int n_docs, int d) {
+  return sel2 == nullptr ? d : sel2[(size_t)b * n_docs + d];
+}
+
+// Four CS^T entries at p (16-byte aligned in float32, 8 in bf16), widened:
+// one global load.
+__device__ __forceinline__ void cs_load4(const float* p, float (&x)[4]) {
+  const float4 f = *reinterpret_cast<const float4*>(p);
+  x[0] = f.x;
+  x[1] = f.y;
+  x[2] = f.z;
+  x[3] = f.w;
+}
+__device__ __forceinline__ void cs_load4(const __nv_bfloat16* p,
+                                         float (&x)[4]) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  x[0] = __uint_as_float(u.x << 16);
+  x[1] = __uint_as_float(u.x & 0xffff0000u);
+  x[2] = __uint_as_float(u.y << 16);
+  x[3] = __uint_as_float(u.y & 0xffff0000u);
+}
+
+// V floats of the staged slice at p (4 * V-byte aligned): one
+// shared-memory load of 4, 8 or 16 bytes.
+template <int V>
+__device__ __forceinline__ void lut_load(const float* p, float (&x)[V]) {
+  if constexpr (V == 4) {
+    const float4 f = *reinterpret_cast<const float4*>(p);
+    x[0] = f.x;
+    x[1] = f.y;
+    x[2] = f.z;
+    x[3] = f.w;
+  } else if constexpr (V == 2) {
+    const float2 f = *reinterpret_cast<const float2*>(p);
+    x[0] = f.x;
+    x[1] = f.y;
+  } else {
+    x[0] = *p;
+  }
+}
+
+// The lane mapping of a group of TT terms: V = min(TT, 4) terms a lane
+// (one 4-, 8- or 16-byte LUT read), TT / V lanes a token, SL token slots
+// a warp load.
+template <int TT>
+struct E56Lanes {
+  static constexpr int V = TT < 4 ? TT : 4;
+  static constexpr int L = TT / V;
+  static constexpr int SL = 32 / L;
+};
+
+// One doc's Eq. 5/6 states for the lane's V terms: lane (slot, quad) takes
+// tokens slot, slot + SL, ... and terms quad * V .. quad * V + V - 1 of
+// its CTA's group. cs_row points at the lane's first term in row 0 of the
+// query's CS^T; lut_q at the lane's first term in row 0 of the staged
+// slice; cd, rs the doc's codes and residual codes; bit v of lv: term v is
+// live (its state is computed). Per (token, subspace) one shared-memory
+// read of V terms; a token's m reads are issued before the first add, each
+// term's adds run s = 0 .. m-1. The next warp load's codes, CS^T entries
+// and residual code words are read before this one's LUT reads. All 32
+// lanes call it; the token slots' states are merged on return.
+template <int M, int TT, typename T>
+__device__ __forceinline__ void eq56_lane_tokens(
+    Eq56Part (&acc)[E56Lanes<TT>::V], const T* __restrict__ cs_row,
+    const float* lut_q, const int32_t* __restrict__ cd,
+    const uint8_t* __restrict__ rs, int len, int n_c, int n_q, int m,
+    int ksub, int slot, unsigned lv, bool cs_vec, float th_r,
+    int use_filter) {
+  constexpr int V = E56Lanes<TT>::V, SL = E56Lanes<TT>::SL;
+  constexpr int W = M > 0 ? M / 4 : 1;
+  auto centroid = [&](int t, float (&cen)[V]) {
+    const int c = min(max(cd[t], 0), n_c - 1);
+    if constexpr (V == 4) {
+      if (cs_vec) {
+        cs_load4(cs_row + (size_t)c * n_q, cen);
+        return;
+      }
+    }
+#pragma unroll
+    for (int v = 0; v < V; ++v)
+      cen[v] = (lv >> v) & 1u ? Cs<T>::widen(cs_row[(size_t)c * n_q + v])
+                              : 0.0f;
+  };
+  auto words = [&](int t, uint32_t (&w)[W]) {
+    if constexpr (M > 0) load_code_words<M>(rs + (size_t)t * M, w);
+  };
+  const int stride = ksub * TT;          // floats between subspaces
+#pragma unroll
+  for (int v = 0; v < V; ++v) acc[v] = eq56_start();
+  float cen_next[V];
+  uint32_t w_next[W];
+  if (slot < len) {
+    centroid(slot, cen_next);
+    words(slot, w_next);
+  }
+  for (int t = slot; t < len; t += SL) {
+    float cen[V];
+    uint32_t w[W];
+#pragma unroll
+    for (int v = 0; v < V; ++v) cen[v] = cen_next[v];
+#pragma unroll
+    for (int k = 0; k < W; ++k) w[k] = w_next[k];
+    if (t + SL < len) {
+      centroid(t + SL, cen_next);
+      words(t + SL, w_next);
+    }
+    float resid[V];
+    if constexpr (M == 0) {
+      const uint8_t* rt = rs + (size_t)t * m;
+      lut_load<V>(lut_q + rt[0] * TT, resid);
+      for (int s = 1; s < m; ++s) {
+        float x[V];
+        lut_load<V>(lut_q + s * stride + rt[s] * TT, x);
+#pragma unroll
+        for (int v = 0; v < V; ++v) resid[v] = resid[v] + x[v];
+      }
+    } else {
+      float x[M][V];
+#pragma unroll
+      for (int s = 0; s < M; ++s) {
+        const int code = (w[s >> 2] >> (8 * (s & 3))) & 0xff;
+        lut_load<V>(lut_q + s * stride + code * TT, x[s]);
+      }
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        resid[v] = x[0][v];
+#pragma unroll
+        for (int s = 1; s < M; ++s) resid[v] = resid[v] + x[s][v];
+      }
+    }
+#pragma unroll
+    for (int v = 0; v < V; ++v)
+      if ((lv >> v) & 1u)
+        eq56_token(acc[v], cen[v], cen[v] + resid[v], th_r, use_filter);
+  }
+  // merge the token slots: a term's lanes are L apart
+#pragma unroll
+  for (int o = E56Lanes<TT>::L; o < 32; o <<= 1)
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      Eq56Part x;
+      x.full_max = __shfl_xor_sync(FULL_MASK, acc[v].full_max, o);
+      x.kept_max = __shfl_xor_sync(FULL_MASK, acc[v].kept_max, o);
+      x.n_keep = __shfl_xor_sync(FULL_MASK, acc[v].n_keep, o);
+      eq56_merge(acc[v], x);
+    }
+}
+
+// A warp's docs of an item of run r for its CTA's group g (TT terms): the
+// docs at run positions ilo + warp, + E56_WARPS, ... below ihi (doc r +
+// runs * position), each doc's column maxima finished (eq56_finish) into
+// col_base + (position - ilo) * TP by the lanes of slot 0; fillers
+// skipped. Each doc's row and length are read for all of the
+// warp's docs at once, a lane each, before the wait for a slice being
+// staged (`staging`, parity `phase`; null: none). All 32 lanes call it.
+template <int M, int TT, typename T>
+__device__ __forceinline__ void eq56_warp_docs(const Eq56Args<T>& a,
+                                               const float* lut_s,
+                                               float* col_base, int TP, int b,
+                                               int g, int r, int ilo,
+                                               int ihi,
+                                               uint64_t* staging,
+                                               unsigned phase) {
+  using Ln = E56Lanes<TT>;
+  constexpr int V = Ln::V;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int slot = lane / Ln::L, quad = lane % Ln::L;
+  const int t0 = g * TT + quad * V;          // the lane's first term
+  const uint8_t* qm = mask_row(a.qmask, b, a.n_q);
+  unsigned lv = 0;
+#pragma unroll
+  for (int v = 0; v < V; ++v)
+    if (t0 + v < a.n_q && (qm == nullptr || qm[t0 + v])) lv |= 1u << v;
+  // one load of the lane's 4 CS^T entries when the row holds them aligned
+  const bool cs_vec =
+      a.n_q % 4 == 0 &&
+      reinterpret_cast<uintptr_t>(a.cs_t) % (4 * sizeof(T)) == 0;
+  const T* cs_row = a.cs_t + (size_t)b * a.n_c * a.n_q + (lv ? t0 : 0);
+  int my_row = -1, my_len = 0;
+  const int pl = ilo + warp + E56_WARPS * lane;
+  if (lane < E56_ITEM / E56_WARPS && pl < ihi) {
+    my_row = e56_row(a.sel2, b, a.n_docs, r + a.runs * pl);
+    if (my_row >= 0)
+      my_len = min(max(a.lens[(size_t)b * a.nf + my_row], 0), a.cap);
+  }
+  if (staging != nullptr) mbar_wait(staging, phase);
+  for (int i = 0; i < E56_ITEM / E56_WARPS; ++i) {       // warp-uniform
+    const int pos = ilo + warp + E56_WARPS * i;
+    if (pos >= ihi) break;
+    const int row = __shfl_sync(FULL_MASK, my_row, i);
+    const int len = __shfl_sync(FULL_MASK, my_len, i);
+    if (row < 0) continue;
+    const size_t rw = (size_t)b * a.nf + row;
+    Eq56Part acc[V];
+    eq56_lane_tokens<M, TT, T>(acc, cs_row, lut_s + quad * V,
+                               a.codes + rw * a.cap, a.res + rw * a.cap * a.m,
+                               lv ? len : 0, a.n_c, a.n_q, a.m, a.ksub, slot,
+                               lv, cs_vec, a.th_r, a.use_filter);
+    if (slot == 0) {
+      float* col = col_base + (pos - ilo) * TP + quad * V;
+#pragma unroll
+      for (int v = 0; v < V; ++v)
+        col[v] = eq56_finish(acc[v], len, a.cap, a.use_filter, (lv >> v) & 1u);
+    }
+  }
+}
+
+// The cluster pass's body (see the section note): the eq56_kernel of
+// pqinter.cu and the pqscore_kernel of pqscore.cu, launched by eq56_launch
+// with eq56_plan's grid, cluster and shared memory. The clusters are
+// persistent: cluster cid takes runs cid, cid + ncl, ... (eq56_runs), each
+// cut into items of E56_ITEM docs; an item is scored once per group a CTA
+// holds, then merged. Every thread of every CTA of the cluster must call
+// it.
+template <int M, typename T>
+__device__ __forceinline__ void eq56_cluster(const Eq56Args<T>& a) {
+  extern __shared__ __align__(128) unsigned char e56_smem[];
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
+  const int cid = blockIdx.x / C, ncl = gridDim.x / C;
+  const int n_runs = a.runs * a.nb;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int TT = a.terms;
+  const int TP = TT * a.passes;                   // column maxima a doc
+  // shared memory: the slice | two items' column maxima | its mbarrier
+  const size_t slice_bytes = (size_t)a.rows * TT * 4;
+  float* lut_s = reinterpret_cast<float*>(e56_smem);
+  float* merge = reinterpret_cast<float*>(e56_smem + slice_bytes);
+  uint64_t* slice_bar =
+      reinterpret_cast<uint64_t*>(e56_smem + slice_bytes + E56_MERGE_BYTES);
+  if (threadIdx.x == 0) {
+    mbar_init(slice_bar, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  int staged_b = -1, staged_g = -1, stagings = 0, items = 0;
+  for (int run = cid; run < n_runs; run += ncl) {
+    int b, r, count;
+    e56_run(run, a.runs, a.n_docs, &b, &r, &count);
+    for (int ilo = 0; ilo < count; ilo += E56_ITEM) {
+      const int ihi = min(count, ilo + E56_ITEM);
+      float* mbuf = merge + (size_t)(items & 1) * E56_ITEM * TP;
+      for (int p = 0; p < a.passes; ++p) {
+        const int g = rank + p * C;
+        if (g >= a.groups) continue;                   // block-uniform
+        uint64_t* staging = nullptr;      // a slice to wait for
+        if (b != staged_b || g != staged_g) {
+          __syncthreads();            // every warp is done with the slice
+          if (threadIdx.x == 0) {
+            fence_proxy_async();
+            mbar_expect_tx(slice_bar, (unsigned)slice_bytes);
+            const char* src = reinterpret_cast<const char*>(
+                a.lut + ((size_t)b * a.groups + g) * a.rows * TT);
+            for (size_t off = 0; off < slice_bytes; off += E56_CHUNK)
+              bulk_load(e56_smem + off, src + off,
+                        slice_bytes - off < E56_CHUNK
+                            ? (unsigned)(slice_bytes - off)
+                            : (unsigned)E56_CHUNK,
+                        slice_bar);
+          }
+          staging = slice_bar;
+          ++stagings;
+          staged_b = b;
+          staged_g = g;
+        }
+        float* col = mbuf + p * TT;
+        const unsigned phase = (stagings - 1) & 1;
+        switch (TT) {
+          case 8:
+            eq56_warp_docs<M, 8>(a, lut_s, col, TP, b, g, r, ilo, ihi,
+                                 staging, phase);
+            break;
+          case 4:
+            eq56_warp_docs<M, 4>(a, lut_s, col, TP, b, g, r, ilo, ihi,
+                                 staging, phase);
+            break;
+          case 2:
+            eq56_warp_docs<M, 2>(a, lut_s, col, TP, b, g, r, ilo, ihi,
+                                 staging, phase);
+            break;
+          default:
+            eq56_warp_docs<M, 1>(a, lut_s, col, TP, b, g, r, ilo, ihi,
+                                 staging, phase);
+        }
+      }
+      cluster.sync();               // every CTA's column maxima are in
+      // each CTA term-sums every C-th doc, lane i = term i from the CTA
+      // holding its group (distributed shared memory), in lane order
+      for (int j = rank * E56_WARPS + warp; j < ihi - ilo;
+           j += C * E56_WARPS) {                             // warp-uniform
+        const int d = r + a.runs * (ilo + j);
+        const int row = e56_row(a.sel2, b, a.n_docs, d);
+        float v = 0.0f;
+        if (row >= 0 && lane < a.n_q) {
+          const int g = lane / TT;
+          const float* src = cluster.map_shared_rank(mbuf, g % C);
+          v = src[j * TP + (g / C) * TT + lane % TT];
+        }
+        const float sum = term_sum_lanes(v, a.n_q);
+        if (lane == 0)
+          a.out[(size_t)b * a.n_docs + d] = row < 0 ? -INFINITY : sum;
+      }
+      ++items;
+    }
+  }
+  cluster.sync();   // no CTA leaves while another reads its column maxima
+}
+
+// How the cluster pass runs a launch: its form, the slice and the
+// schedule. (For the L2 form only `cluster_form` = 0 and `terms` = n_q,
+// the LUT's one group, are set.)
+struct Eq56Plan {
+  int cluster_form;   // 1: eq56_cluster; 0: the L2 form (eq56_block)
+  int terms;          // T: terms a group (the LUT's last dimension)
+  int groups;         // G = ceil(n_q / T)
+  int cluster;        // C = min(G, E56_CLUSTER_MAX) CTAs a cluster
+  int passes;         // ceil(G / C): groups a CTA holds in turn
+  int rows;           // rows of a slice
+  int runs;           // runs a query: a query's docs over that many clusters
+  int clusters;       // clusters launched (persistent, at most one wave)
+  int smem;           // dynamic shared bytes a CTA
+  long long staged_bytes;   // LUT bytes all CTAs stage in the launch
+};
+
+// The current card's opt-in shared memory a block, read once a device.
+inline int e56_smem_max() {
+  static int cached[16] = {};
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev < 16 && cached[dev] > 0) return cached[dev];
+  int v = 232448;
+  cudaDeviceGetAttribute(&v, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (dev < 16) cached[dev] = v;
+  return v;
+}
+
+// T for a query of n_q terms over m subspaces of ksub centroids: the most
+// terms (a power of two up to E56_TERMS_MAX, no more than n_q needs) whose
+// slice fits a CTA's shared memory beside the merge buffers; 0 when not even
+// one term's does (the L2 form).
+inline int eq56_terms(int n_q, int m, int ksub) {
+  const int smax = e56_smem_max();
+  for (int t = min(E56_TERMS_MAX, next_pow2(n_q)); t >= 1; t >>= 1)
+    if ((long long)e56_rows(m * ksub, t) * t * 4 + E56_RESERVED <= smax)
+      return t;
+  return 0;
+}
+
+// Clusters of `cluster` CTAs of `kernel` that fit the card at once, each CTA
+// with `smem` dynamic shared bytes; the kernel's shared-memory limit raised
+// on first use. Cached per (kernel, device, cluster, smem).
+inline int e56_slots(const void* kernel, int cluster, int smem) {
+  struct Entry {
+    const void* kernel;
+    int dev, cluster, smem, slots;
+  };
+  static std::mutex mu;
+  static Entry cache[64];
+  static int used = 0;
+  int dev = 0;
+  cudaGetDevice(&dev);
+  std::lock_guard<std::mutex> lock(mu);
+  for (int i = 0; i < used; ++i)
+    if (cache[i].kernel == kernel && cache[i].dev == dev &&
+        cache[i].cluster == cluster && cache[i].smem == smem)
+      return cache[i].slots;
+  if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           e56_smem_max()) != cudaSuccess)
+    return 0;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cluster * E56_CLUSTER_MAX, 1, 1);
+  cfg.blockDim = dim3(E56_THREADS, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cudaLaunchAttribute at[1];
+  at[0].id = cudaLaunchAttributeClusterDimension;
+  at[0].val.clusterDim.x = cluster;
+  at[0].val.clusterDim.y = 1;
+  at[0].val.clusterDim.z = 1;
+  cfg.attrs = at;
+  cfg.numAttrs = 1;
+  int n = 0;
+  if (cudaOccupancyMaxActiveClusters(&n, kernel, &cfg) != cudaSuccess) n = 0;
+  if (n > 0 && used < 64) cache[used++] = {kernel, dev, cluster, smem, n};
+  return n;
+}
+
+// Runs a query (the schedule): the query's docs are dealt to `runs` runs
+// in turns (e56_run), a cluster each, and the clusters, at most S at once
+// (one wave; 30 clusters of 4 on the H100), take the B * runs runs in
+// query-major turns, so that the clusters at work at one time share one or
+// two queries' CS^T in L2 (32 MB a query at emvb-msmarco's shape). The rule picks the runs,
+// 1 .. min(n_docs, S), that minimise the modelled time of the busiest
+// cluster: ceil(B * runs / S) runs, each costing its docs (a full SM's time
+// a doc), or E56_LONE_COST a doc a warp when it has fewer docs than warps,
+// plus a staging of its query's slices (E56_STAGE_COST). On the H100 it
+// gives 6 runs of 43 docs a query at B = 32 and 256 docs, 29 runs of 9
+// docs at B = 1, and 15 runs of 667 docs at fig9's 10,000 docs and
+// B = 32. Measured (scripts/chip_eq56_pass.py's sweep of pqscore's runs a
+// query, device ms, NVIDIA H100 80GB HBM3, 700 W), the rule's choice is
+// within 3 % of the best of 1, 2, 4, 8, 16, 32, 64 at B = 32 and 1, under
+// the default config and fig9's: at B = 32 and 256 docs 1 run takes 0.237,
+// 4 0.167, 6 0.167, 8 0.163, 32 0.285; at B = 1, 16 runs 0.0121, 29 0.0099,
+// 32 0.0160; at fig9 and B = 32 1 run 8.82, 4 5.51, 15 4.71, 64 4.85.
+inline int eq56_runs(int B, int n_docs, int S) {
+  int best = 1;
+  long long best_cost = -1;
+  for (int r = 1; r <= min(n_docs, S); ++r) {
+    const long long turns = ((long long)B * r + S - 1) / S;
+    const long long docs = (n_docs + r - 1) / r;
+    const long long lone =
+        E56_LONE_COST * ((docs + E56_WARPS - 1) / E56_WARPS);
+    const long long cost =
+        turns * ((docs > lone ? docs : lone) + E56_STAGE_COST);
+    if (best_cost < 0 || cost < best_cost) {
+      best_cost = cost;
+      best = r;
+    }
+  }
+  return best;
+}
+
+// The plan of one launch of `kernel` (an instantiation of a kernel running
+// eq56_cluster) over B queries of n_docs docs; runs > 0 overrides the
+// schedule's runs a query (chip measurements of the rule). Fails when no
+// cluster of the plan fits the card.
+inline cudaError_t eq56_plan(const void* kernel, int B, int n_docs, int n_q,
+                             int m, int ksub, int runs, Eq56Plan* p) {
+  *p = Eq56Plan{};
+  p->terms = eq56_terms(n_q, m, ksub);
+  if (p->terms == 0) {
+    p->terms = n_q;
+    return cudaSuccess;
+  }
+  p->cluster_form = 1;
+  p->groups = (n_q + p->terms - 1) / p->terms;
+  p->cluster = min(p->groups, E56_CLUSTER_MAX);
+  p->passes = (p->groups + p->cluster - 1) / p->cluster;
+  p->rows = e56_rows(m * ksub, p->terms);
+  const long long slice = (long long)p->rows * p->terms * 4;
+  p->smem = (int)(slice + E56_RESERVED);
+  const int S = e56_slots(kernel, p->cluster, p->smem);
+  if (S <= 0) return cudaErrorInvalidConfiguration;
+  p->runs = runs > 0 ? min(runs, n_docs) : eq56_runs(B, n_docs, S);
+  const int n_runs = B * p->runs;
+  p->clusters = min(S, n_runs);
+  // the stagings: per cluster, once per query while a CTA holds one group,
+  // else once per item and group
+  long long st = 0;
+  for (int c = 0; c < p->clusters; ++c) {
+    int prev = -1;
+    for (int run = c; run < n_runs; run += p->clusters) {
+      const int b = run / p->runs, r = run % p->runs;
+      const long long docs = (n_docs - r + p->runs - 1) / p->runs;
+      if (p->passes == 1) {
+        if (b != prev) st += p->cluster;
+      } else {
+        st += (docs + E56_ITEM - 1) / E56_ITEM * p->groups;
+      }
+      prev = b;
+    }
+  }
+  p->staged_bytes = st * slice;
+  return cudaSuccess;
+}
+
+// One launch of the cluster pass on plan p: clusters * C CTAs, a cluster
+// of C, p.smem dynamic shared bytes.
+template <typename T>
+inline cudaError_t eq56_launch(void (*kernel)(const Eq56Args<T>),
+                               const Eq56Plan& p, const Eq56Args<T>& args,
+                               cudaStream_t st) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(p.clusters * p.cluster, 1, 1);
+  cfg.blockDim = dim3(E56_THREADS, 1, 1);
+  cfg.dynamicSmemBytes = p.smem;
+  cfg.stream = st;
+  cudaLaunchAttribute at[1];
+  at[0].id = cudaLaunchAttributeClusterDimension;
+  at[0].val.clusterDim.x = p.cluster;
+  at[0].val.clusterDim.y = 1;
+  at[0].val.clusterDim.z = 1;
+  cfg.attrs = at;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, args);
+}
+
+// The Eq56Args of a launch on plan p.
+template <typename T>
+inline Eq56Args<T> eq56_args(const T* cs_t, const float* lut,
+                             const int32_t* codes, const uint8_t* res,
+                             const int32_t* lens, const uint8_t* qmask,
+                             const int32_t* sel2, float* out, int B, int nf,
+                             int n_docs, int cap, int n_c, int n_q, int m,
+                             int ksub, float th_r, int use_filter,
+                             const Eq56Plan& p) {
+  return Eq56Args<T>{cs_t, lut, codes, res, lens, qmask, sel2, out,
+                     B, nf, n_docs, cap, n_c, n_q, m, ksub, th_r, use_filter,
+                     p.terms, p.groups, p.passes, p.rows, p.runs};
 }
 
 }  // namespace emvb

@@ -10,8 +10,10 @@
 // What bounds it on the H100: the bytes it must move are small — the
 // survivors' codes, residual codes and lengths, the LUT (512 KiB per query
 // at n_q = 32, m = 16, K = 256) and the rows of CS^T the survivors' tokens
-// touch. What costs time is latency: per (doc, token) a chain of m LUT
-// reads addressed by the token's residual codes, and two cuts per query.
+// touch. What costs time is where the Eq. 5/6 pass's m + 1 reads of every
+// (winner, token, term) are served — gathered as 128-byte LUT rows through
+// L2 they ran at L2's line rate, ~6.6 TB/s (83 % of fig9's call at B = 32,
+// PERF.md) — then the S̄ pass's CS^T gathers and two cuts per query.
 //
 // What the design does about it:
 //  * Pass 1 (S̄) is emvb::sbar_block (doc_math.cuh), the one S̄ pass that
@@ -23,24 +25,25 @@
 //    doc's tokens are split over as many warps (up to 8) as the card holds
 //    in one wave with the batch's survivors (emvb::sbar_launch): one at
 //    B = 32, four at B = 1.
-//  * The Eq. 5/6 pass runs one lane per query term (n_q <= 32): a row of
-//    CS^T and a row of the flattened (m*K, n_q) LUT are n_q contiguous
-//    floats, so every gather is one coalesced 128-byte load at n_q = 32.
-//    The LUT is read through L2, not narrowed (narrowing changes bits). A
-//    doc's tokens are split over E_SPLIT warps, each over tokens w, w +
-//    E_SPLIT, ....
-//    The per-term max, Eq. 6's kept max and its kept count are order-free,
-//    so the warps' partial states merge exactly through shared memory; the
-//    -1e9 floor, Eq. 6's fallback, the masked terms and term_sum (lane 0 +
-//    lane 1 + ... in serial shuffles) run once per doc after the merge. At
-//    B = 1 that puts 2,048 warps on the 256 winners, not 256. At B = 32 the
-//    Eq. 5/6 pass reads ~1.1 GB of 128-byte LUT rows through L2 (each token
-//    reads m rows): L2's rate, not the card's memory, bounds it there.
-//  * For emvb-msmarco's m = 16, m is a compile-time constant: a token's 16
-//    residual codes arrive in one vector load and its 16 LUT reads are all
-//    issued before the first add, which keeps the reference's order
-//    s = 0, 1, ..., m-1. Any other m (emvb-smoke's 8 among them) runs the
-//    serial form.
+//  * The Eq. 5/6 pass is doc_math.cuh's cluster pass (emvb::eq56_cluster,
+//    whose section note has the whole design): a thread-block cluster of up
+//    to 8 CTAs holds a query's LUT in shared memory, a slice of T terms a
+//    CTA (4 CTAs of 8 terms at emvb-msmarco's shape), staged by bulk copies;
+//    a warp scores a winner at a time with lanes (token slot, term quad), so
+//    the LUT reads are 16-byte shared-memory reads (about two wavefronts a
+//    quarter warp) instead of 128-byte L2 lines; the per-term states merge
+//    exactly (order-free maxima and counts) by shuffles, each CTA finishes
+//    its terms (the -1e9 floor, Eq. 6's fallback, masked terms 0.0) and the
+//    cluster's CTAs term-sum the winners through distributed shared memory
+//    in lane order. emvb::eq56_plan picks T and how many clusters share a
+//    query from the shape; only a LUT whose one-term slice does not fit
+//    shared memory runs the L2 form (eq56_l2_kernel: one block a winner,
+//    every LUT read a 128-byte row through L2). The LUT is not narrowed
+//    (narrowing changes bits). For emvb-msmarco's m = 16, m is a
+//    compile-time constant: a token's 16 residual codes arrive in one
+//    vector load and its 16 LUT reads are all issued before the first add,
+//    which keeps the reference's order s = 0, 1, ..., m-1. Any other m
+//    (emvb-smoke's 8 among them) runs the serial form.
 //  * Both cuts pack (score, position) into unique 64-bit keys —
 //    (S̄ desc, survivor position asc) for phase 3 and (score desc, phase-3
 //    rank asc) for phase 4, the order the reference's running merges give —
@@ -58,9 +61,8 @@
 //    one block's sort in opt-in shared memory above that, up to 16,384
 //    kept keys (rank_sort), and by counting again past that. The keys are
 //    read from S̄ (or the Eq. 5/6 scores) in every pass, never stored whole.
-//  * The S̄ pass is the unfused cinter.cu's and the Eq. 5/6 pass is
-//    emvb::eq56_block, which the unfused pqscore.cu runs too. So the two
-//    lanes agree to the bit.
+//  * The S̄ pass is the unfused cinter.cu's and the Eq. 5/6 pass is the one
+//    the unfused pqscore.cu runs too. So the two lanes agree to the bit.
 //
 // Filtered retrieval (doc_pass (B, nf), the predicate verdict per survivor,
 // the reference's pqinter.py:265-279 and :309): a survivor that fails is
@@ -70,8 +72,8 @@
 // survivor, and when fewer than k pass the final cut ends in (-inf,
 // position 0). Here cut 1 (Cut1Key, Cut1Emit, in either form of a cut)
 // ranks a failing survivor below every passing one and writes each of its
-// slots as (position -1, S̄ -inf); the Eq. 5/6 pass scores a position -1
-// slot as -inf without reading a row; cut 2 (Cut2Emit) writes each -inf
+// slots as (position -1, S̄ -inf); the Eq. 5/6 pass (either form) scores a
+// position -1 slot as -inf without reading a row; cut 2 (Cut2Emit) writes each -inf
 // slot as (score -inf, position 0). Without doc_pass no step reads it, and
 // the cuts are the unfiltered ones.
 //
@@ -88,8 +90,7 @@
 
 namespace {
 
-constexpr int WARPS = 8;       // 256 threads a block in the Eq. 5/6 pass
-constexpr int E_SPLIT = 8;     // warps per doc in the Eq. 5/6 pass
+constexpr int E_SPLIT = 8;     // warps a doc in the L2 form of Eq. 5/6
 
 // Pass 1: S̄ of every survivor row (emvb::sbar_block, the pass cinter.cu
 // runs); grid and split from emvb::sbar_launch, LP its form.
@@ -183,29 +184,80 @@ select2_kernel(Cut2Key key, int P, bool sort, Cut2Emit emit) {
   cut_shared(key, key.n_docs, P, sort, emit.k, emit);
 }
 
-// Pass 2: Eq. 5/6 score of each phase-3 winner, in rank order; M is m when
-// known at compile time, else 0. grid (n_docs, B), one doc a block
-// (emvb::eq56_block, which pqscore.cu runs on its rows too, with the same
-// bound of three blocks an SM). Filtered (`filtered`), a filler slot
-// (position -1) scores -inf.
+// Pass 2: Eq. 5/6 score of each phase-3 winner, in rank order: the cluster
+// pass (emvb::eq56_cluster, which pqscore.cu runs on its rows too) over
+// sel2, a filler slot (position -1) scoring -inf; M is m when known at
+// compile time, else 0.
 template <int M, typename T>
-__global__ void __launch_bounds__(WARPS * 32, 3)
-eq56_kernel(const T* __restrict__ cs_t, const float* __restrict__ lut2,
-            const int32_t* __restrict__ codes,
-            const uint8_t* __restrict__ res, const int32_t* __restrict__ lens,
-            const uint8_t* __restrict__ qmask,
-            const int32_t* __restrict__ sel2, int nf, int cap, int n_c,
-            int n_q, int m, int ksub, float th_r, int use_filter, int n_docs,
-            int filtered, float* __restrict__ score2) {
-  static_assert(WARPS == E_SPLIT, "one doc a block");
+__global__ void __launch_bounds__(emvb::E56_THREADS, 1)
+eq56_kernel(const emvb::Eq56Args<T> a) {
+  emvb::eq56_cluster<M>(a);
+}
+
+// Its L2 form, for LUTs whose one-term slice does not fit shared memory:
+// grid (n_docs, B), one doc a block (emvb::eq56_block, as pqscore.cu's L2
+// form, with the same bound of three blocks an SM).
+template <int M, typename T>
+__global__ void __launch_bounds__(E_SPLIT * 32, 3)
+eq56_l2_kernel(const T* __restrict__ cs_t, const float* __restrict__ lut2,
+               const int32_t* __restrict__ codes,
+               const uint8_t* __restrict__ res,
+               const int32_t* __restrict__ lens,
+               const uint8_t* __restrict__ qmask,
+               const int32_t* __restrict__ sel2, int nf, int cap, int n_c,
+               int n_q, int m, int ksub, int rows, float th_r, int use_filter,
+               int n_docs, float* __restrict__ score2) {
   const size_t slot = (size_t)blockIdx.y * n_docs + blockIdx.x;
-  if (filtered && sel2[slot] < 0) {                  // block-uniform
+  if (sel2[slot] < 0) {                              // block-uniform
     if (threadIdx.x == 0) score2[slot] = -INFINITY;
     return;
   }
   emvb::eq56_block<M, E_SPLIT>(cs_t, lut2, codes, res, lens, qmask, sel2, nf,
-                               n_docs, cap, n_c, n_q, m, ksub, th_r,
+                               n_docs, cap, n_c, n_q, m, ksub, rows, th_r,
                                use_filter, score2);
+}
+
+// The plan of the Eq. 5/6 pass (emvb::eq56_plan) for the instantiation it
+// runs.
+template <typename T>
+cudaError_t eq56_plan(const uint8_t* res, int B, int n_docs, int n_q, int m,
+                      int ksub, int runs, emvb::Eq56Plan* p) {
+  const void* kern = emvb::eq56_vector_m16(m, res)
+                         ? (const void*)eq56_kernel<16, T>
+                         : (const void*)eq56_kernel<0, T>;
+  return emvb::eq56_plan(kern, B, n_docs, n_q, m, ksub, runs, p);
+}
+
+// The Eq. 5/6 pass over sel2's winners on plan p (lut2 in its layout).
+template <typename T>
+cudaError_t eq56_pass(const emvb::Eq56Plan& p, const T* cs_t,
+                      const float* lut2, const int32_t* codes,
+                      const uint8_t* res, const int32_t* lens,
+                      const uint8_t* qmask, const int32_t* sel2, int B,
+                      int nf, int cap, int n_c, int n_q, int m, int ksub,
+                      float th_r, int use_filter, int n_docs, float* score2,
+                      cudaStream_t st) {
+  const bool m16 = emvb::eq56_vector_m16(m, res);
+  if (!p.cluster_form) {
+    const dim3 grid(n_docs, B);
+    const int rows = emvb::e56_rows(m * ksub, n_q);
+    if (m16)
+      eq56_l2_kernel<16, T><<<grid, E_SPLIT * 32, 0, st>>>(
+          cs_t, lut2, codes, res, lens, qmask, sel2, nf, cap, n_c, n_q, m,
+          ksub, rows, th_r, use_filter, n_docs, score2);
+    else
+      eq56_l2_kernel<0, T><<<grid, E_SPLIT * 32, 0, st>>>(
+          cs_t, lut2, codes, res, lens, qmask, sel2, nf, cap, n_c, n_q, m,
+          ksub, rows, th_r, use_filter, n_docs, score2);
+    return cudaGetLastError();
+  }
+  const emvb::Eq56Args<T> a = emvb::eq56_args(
+      cs_t, lut2, codes, res, lens, qmask, sel2, score2, B, nf, n_docs, cap,
+      n_c, n_q, m, ksub, th_r, use_filter, p);
+  const cudaError_t err =
+      m16 ? emvb::eq56_launch(eq56_kernel<16, T>, p, a, st)
+          : emvb::eq56_launch(eq56_kernel<0, T>, p, a, st);
+  return err != cudaSuccess ? err : cudaGetLastError();
 }
 
 // A cut of any size, the passes of common.cuh's select and rank.
@@ -299,7 +351,7 @@ size_t run_scratch(void* base, int B, int nf, int n_docs, int k,
 // All passes on cs_t (B, n_c, n_q) of T; the operands as in
 // pqinter_batched.
 template <typename T>
-int run(const T* cs_t, const float* lut2, const int32_t* codes,
+int run(const T* cs_t, const float* lut2, int terms, const int32_t* codes,
         const uint8_t* res, const int32_t* lens, const uint8_t* qmask,
         const uint8_t* doc_pass, int B, int nf, int cap, int n_c, int n_q,
         int m, int ksub, float th_r, int use_filter, int n_docs, int k,
@@ -307,7 +359,11 @@ int run(const T* cs_t, const float* lut2, const int32_t* codes,
         void* scratch, cudaStream_t st) {
   RunScratch rs;
   run_scratch(scratch, B, nf, n_docs, k, &rs);
-  cudaError_t err;
+  emvb::Eq56Plan plan;
+  cudaError_t err =
+      eq56_plan<T>(res, B, n_docs, n_q, m, ksub, 0, &plan);
+  if (err != cudaSuccess) return err;
+  if (terms != plan.terms) return cudaErrorInvalidValue;  // the LUT's layout
   const emvb::SbarLaunch s = emvb::sbar_launch(cs_t, B, nf, cap, n_q);
   emvb::with_sbar_lanes(s.lanes, [&](auto lp) {
     sbar_kernel<decltype(lp)::value>
@@ -327,17 +383,11 @@ int run(const T* cs_t, const float* lut2, const int32_t* codes,
     err = cut_any(key1, B, nf, n_docs, emit1, rs.cut, st);
   }
   if (err != cudaSuccess) return err;
-  const dim3 grid(n_docs, B);
+  if ((err = eq56_pass(plan, cs_t, lut2, codes, res, lens, qmask, sel2, B,
+                       nf, cap, n_c, n_q, m, ksub, th_r, use_filter, n_docs,
+                       rs.score2, st)) != cudaSuccess)
+    return err;
   const int filtered = doc_pass != nullptr;
-  if (emvb::eq56_vector_m16(m, res))
-    eq56_kernel<16, T><<<grid, WARPS * 32, 0, st>>>(
-        cs_t, lut2, codes, res, lens, qmask, sel2, nf, cap, n_c, n_q, m, ksub,
-        th_r, use_filter, n_docs, filtered, rs.score2);
-  else
-    eq56_kernel<0, T><<<grid, WARPS * 32, 0, st>>>(
-        cs_t, lut2, codes, res, lens, qmask, sel2, nf, cap, n_c, n_q, m, ksub,
-        th_r, use_filter, n_docs, filtered, rs.score2);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
   const Cut2Key key2{rs.score2, n_docs};
   const Cut2Emit emit2{rs.score2, sel2, n_docs, k, filtered, scores, pos};
   if (n_docs <= CUT_SHARED_MAX) {
@@ -359,15 +409,41 @@ size_t pqinter_scratch_bytes(int B, int nf, int n_docs, int k) {
   return run_scratch(nullptr, B, nf, n_docs, k, nullptr);
 }
 
+// T, the terms a group of the LUT layout flat_lut makes: the Eq. 5/6
+// cluster pass's, or n_q (one group) where its L2 form runs.
+int pqinter_lut_terms(int n_q, int m, int ksub) {
+  const int t = emvb::eq56_terms(n_q, m, ksub);
+  return t > 0 ? t : n_q;
+}
+
+// The plan of the Eq. 5/6 pass of a pqinter_batched launch over B queries'
+// n_docs winners with these residual codes, as 10 numbers: cluster_form,
+// terms, groups, cluster, passes, rows, runs, clusters, smem, staged_bytes
+// (emvb::Eq56Plan).
+int pqinter_eq56_plan(int cs_bf16, const uint8_t* res, int B, int n_docs,
+                      int n_q, int m, int ksub, int runs, long long* out) {
+  emvb::Eq56Plan p;
+  const cudaError_t err =
+      cs_bf16 ? eq56_plan<__nv_bfloat16>(res, B, n_docs, n_q, m, ksub, runs,
+                                         &p)
+              : eq56_plan<float>(res, B, n_docs, n_q, m, ksub, runs, &p);
+  const long long v[10] = {p.cluster_form, p.terms,  p.groups,
+                           p.cluster,      p.passes, p.rows,
+                           p.runs,         p.clusters, p.smem,
+                           p.staged_bytes};
+  for (int i = 0; i < 10; ++i) out[i] = v[i];
+  return err;
+}
+
 // All pointers are device pointers; qmask may be null (every term live),
 // doc_pass too (every survivor passes). cs_t (B, n_c, n_q) f32, or bf16
-// when cs_bf16; th_r rounded to the CS type; lut2 (B, m*ksub, n_q) f32;
-// codes (B, nf, cap) i32; res (B, nf, cap, m) u8; lens (B, nf) i32; qmask
-// (B, n_q) u8; doc_pass (B, nf) u8.
-// Outputs: scores/pos (B, k), sel2/sbar (B, n_docs). scratch: the bytes
-// pqinter_scratch_bytes gives, 256-byte aligned.
+// when cs_bf16; th_r rounded to the CS type; lut2 (B, G, rows, terms) f32,
+// flat_lut's layout of `terms` (pqinter_lut_terms); codes (B, nf, cap) i32;
+// res (B, nf, cap, m) u8; lens (B, nf) i32; qmask (B, n_q) u8; doc_pass
+// (B, nf) u8. Outputs: scores/pos (B, k), sel2/sbar (B, n_docs).
+// scratch: the bytes pqinter_scratch_bytes gives, 256-byte aligned.
 int pqinter_batched(const void* cs_t, int cs_bf16, const float* lut2,
-                    const int32_t* codes, const uint8_t* res,
+                    int terms, const int32_t* codes, const uint8_t* res,
                     const int32_t* lens, const uint8_t* qmask,
                     const uint8_t* doc_pass, int B, int nf, int cap, int n_c,
                     int n_q, int m, int ksub, float th_r, int use_filter,
@@ -375,9 +451,9 @@ int pqinter_batched(const void* cs_t, int cs_bf16, const float* lut2,
                     int32_t* sel2, float* sbar, void* scratch, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return with_cs(cs_t, cs_bf16, [&](auto p) {
-    return run(p, lut2, codes, res, lens, qmask, doc_pass, B, nf, cap, n_c,
-               n_q, m, ksub, th_r, use_filter, n_docs, k, scores, pos, sel2,
-               sbar, scratch, st);
+    return run(p, lut2, terms, codes, res, lens, qmask, doc_pass, B, nf, cap,
+               n_c, n_q, m, ksub, th_r, use_filter, n_docs, k, scores, pos,
+               sel2, sbar, scratch, st);
   });
 }
 

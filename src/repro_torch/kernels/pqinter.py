@@ -6,6 +6,9 @@ Replaces ``repro/kernels/pqinter.py::pqinter_batched`` (Pallas body
 and ``pqscore.py::eq56_block_batched``) and, at B = 1, ``pqinter``
 (``_pqinter_kernel``, :87). The CUDA kernel is ``csrc/pqinter.cu``; its
 source note says what bounds it on the H100 and how the design answers.
+Its Eq. 5/6 pass holds each query's LUT in the shared memory of a
+thread-block cluster, in the term-group-major layout :func:`flat_lut`
+makes; :func:`eq56_plan` reports how a launch runs it.
 :func:`pqinter_batched_ref` is its plain PyTorch version.
 
 Both cuts match the reference's running merges exactly: phase 3 keeps the
@@ -34,6 +37,7 @@ through float32 to bf16).
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -84,30 +88,78 @@ def pqinter_batched_ref(cs_t: torch.Tensor, lut: torch.Tensor,
     return scores, pos.to(torch.int32), sel2.to(torch.int32), sbar
 
 
-def flat_lut(lut: torch.Tensor) -> torch.Tensor:
-    """(B, n_q, m, K) -> the (B, m*K, n_q) table the Eq. 5/6 kernels read:
-    one LUT row is n_q contiguous floats."""
+def lut_rows(mk: int, terms: int) -> int:
+    """Rows of a group of :func:`flat_lut`'s layout: m*K, padded for the
+    cluster pass's T = 1 and 2 so that a group is a whole number of 16-byte
+    pieces (``csrc/doc_math.cuh``'s ``e56_rows``)."""
+    q = 1 if terms >= 4 else 4 // terms
+    return -(-mk // q) * q
+
+
+def flat_lut(lut: torch.Tensor, terms: int) -> torch.Tensor:
+    """(B, n_q, m, K) -> the term-group-major (B, G, rows, terms) table the
+    Eq. 5/6 kernels read: G = ceil(n_q / terms) groups of ``terms`` terms,
+    ``lut[b, i, s, k]`` at ``[b, i // terms, s * K + k, i % terms]``; the
+    last group's missing terms and the rows past m*K are 0. The cluster pass
+    stages one group a CTA; the L2 form reads one group of all n_q terms."""
     nb, n_q, m, ksub = lut.shape
-    return lut.permute(0, 2, 3, 1).reshape(nb, m * ksub, n_q).contiguous()
+    groups, rows = -(-n_q // terms), lut_rows(m * ksub, terms)
+    flat = lut.reshape(nb, n_q, m * ksub)
+    if groups * terms != n_q or rows != m * ksub:   # pad with zeros
+        flat = flat.new_zeros((nb, groups * terms, rows))
+        flat[:, :n_q, :m * ksub] = lut.reshape(nb, n_q, m * ksub)
+    return flat.view(nb, groups, terms, rows).transpose(2, 3).contiguous()
 
 
 _VP, _CI = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "pqinter_scratch_bytes": (ctypes.c_size_t, [_CI, _CI, _CI, _CI]),
-    "pqinter_batched": (_CI, [_VP, _CI, _VP, _VP, _VP, _VP, _VP, _VP, _CI,
-                              _CI, _CI, _CI, _CI, _CI, _CI, ctypes.c_float,
-                              _CI, _CI, _CI, _VP, _VP, _VP, _VP, _VP, _VP]),
+    "pqinter_batched": (_CI, [_VP, _CI, _VP, _CI, _VP, _VP, _VP, _VP, _VP,
+                              _CI, _CI, _CI, _CI, _CI, _CI, _CI,
+                              ctypes.c_float, _CI, _CI, _CI, _VP, _VP, _VP,
+                              _VP, _VP, _VP]),
 }
+PLAN_FIELDS = ("cluster_form", "terms", "groups", "cluster", "passes", "rows",
+               "runs", "clusters", "smem", "staged_bytes")
 
 
 def _fn(name: str):
     return _build.function("pqinter", name, *_SIGNATURES[name])
 
 
-def _launch(cs_t, lut2, codes, res_codes, lens, qm, doc_pass, th_r, n_docs,
-            k, m, ksub):
-    """One launch of ``csrc/pqinter.cu``; qm None means every term is live,
-    doc_pass None that every survivor passes."""
+@functools.lru_cache(maxsize=None)
+def lut_terms(lib: str, n_q: int, m: int, ksub: int) -> int:
+    """The terms a group of the LUT layout the Eq. 5/6 pass of ``lib``
+    (pqinter or pqscore) reads at this shape on the current card."""
+    return _build.function(lib, f"{lib}_lut_terms", _CI,
+                           [_CI, _CI, _CI])(n_q, m, ksub)
+
+
+def eq56_plan(lib: str, fn: str, cs_t, res_codes, n_docs: int, n_q: int,
+              m: int, ksub: int, runs: int = 0) -> dict:
+    """The plan of the Eq. 5/6 pass (``csrc/doc_math.cuh``'s
+    ``eq56_plan``) that ``lib``'s C entry ``fn`` reports for these CUDA
+    operands over B = ``res_codes.shape[0]`` queries' ``n_docs`` docs: its
+    form (``cluster`` or ``L2``), T, groups, cluster size, passes, runs a
+    query, clusters, shared bytes a CTA, the LUT bytes it stages, docs a
+    run."""
+    out = (ctypes.c_longlong * len(PLAN_FIELDS))()
+    err = _build.function(lib, fn, _CI, [_CI, _VP, _CI, _CI, _CI, _CI, _CI,
+                                         _CI, _VP])(
+        _build.cs_flag(cs_t), _build.ptr(res_codes), res_codes.shape[0],
+        n_docs, n_q, m, ksub, runs, ctypes.cast(out, _VP))
+    _build.check(err, fn)
+    plan = dict(zip(PLAN_FIELDS, (int(v) for v in out)))
+    plan["form"] = "cluster" if plan.pop("cluster_form") else "L2"
+    plan["docs_per_run"] = -(-n_docs // plan["runs"]) if plan["runs"] else 0
+    return plan
+
+
+def _launch(cs_t, lut2, terms, codes, res_codes, lens, qm, doc_pass, th_r,
+            n_docs, k, m, ksub):
+    """One launch of ``csrc/pqinter.cu`` on lut2, the LUT in flat_lut's
+    layout of ``terms``; qm None means every term is live, doc_pass None
+    that every survivor passes."""
     global launches
     nb, nf, cap = codes.shape
     n_c, n_q = cs_t.shape[1:]
@@ -122,7 +174,7 @@ def _launch(cs_t, lut2, codes, res_codes, lens, qm, doc_pass, th_r, n_docs,
                           dtype=torch.uint8, device=dev)
     p = _build.ptr
     err = _fn("pqinter_batched")(
-        p(cs_t), _build.cs_flag(cs_t), p(lut2), p(codes),
+        p(cs_t), _build.cs_flag(cs_t), p(lut2), terms, p(codes),
         p(res_codes), p(lens), p(qm), p(doc_pass), nb, nf, cap, n_c, n_q, m,
         ksub, 0.0 if th_r is None else round_to(th_r, cs_t.dtype),
         int(th_r is not None), n_docs, k, p(scores), p(pos), p(sel2),
@@ -190,10 +242,13 @@ def pqinter_batched(cs_t: torch.Tensor, lut: torch.Tensor,
                                    n_docs, k, q_masks, doc_pass)
     if cs_t.device.type != "cuda":
         raise ValueError(f"pqinter: unsupported device {cs_t.device}")
-    lut2 = flat_lut(lut)
+    terms = lut_terms("pqinter", n_q, m, ksub)
+    lut2 = flat_lut(lut, terms)
     n_c = cs_t.shape[1]
     operands = [("cs_t", cs_t, CS_TYPES, (nb, n_c, n_q)),
-                ("lut", lut2, torch.float32, (nb, m * ksub, n_q)),
+                ("lut", lut2, torch.float32, (nb, -(-n_q // terms),
+                                              lut_rows(m * ksub, terms),
+                                              terms)),
                 ("codes", codes, torch.int32, (nb, nf, cap)),
                 ("res_codes", res_codes, torch.uint8, (nb, nf, cap, m)),
                 ("token lengths", lens, torch.int32, (nb, nf))]
@@ -202,5 +257,5 @@ def pqinter_batched(cs_t: torch.Tensor, lut: torch.Tensor,
     if doc_pass is not None:
         operands.append(("doc_pass", doc_pass, torch.bool, (nb, nf)))
     _build.check_operands("pqinter", cs_t.device, operands)
-    return _launch(cs_t, lut2, codes, res_codes, lens, q_masks, doc_pass,
-                   th_r, n_docs, k, m, ksub)
+    return _launch(cs_t, lut2, terms, codes, res_codes, lens, q_masks,
+                   doc_pass, th_r, n_docs, k, m, ksub)

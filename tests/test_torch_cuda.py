@@ -80,6 +80,16 @@ ROUND_LENS = (0, 127, 128, 129, 192, 193, 200)  # bitfilter's rounds
 SPLIT_LENS = (0, 1, 7, 8, 9, 79, 80)  # pqscore's 8-warp token split
 
 
+def slot_lens(cap):
+    """Token counts at the Eq. 5/6 cluster pass's edges: a warp load covers
+    32 / T token slots (T = 8, 4, 2, 1 terms a CTA) and a round two loads,
+    so 0, 1 and each multiple of 4 up to 64 and its neighbours, and cap."""
+    edges = {0, 1, cap - 1, cap}
+    for w in (4, 8, 16, 32, 64):
+        edges |= {w - 1, w, w + 1}
+    return tuple(sorted(n for n in edges if 0 <= n <= cap))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", [
     # B, n_c, n_docs, cap, n_filter, density, lens, kind
@@ -116,21 +126,37 @@ def test_prefilter_kernel_stress(card, case, masked):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", [
-    # B, nf, cap, m, K, n_docs, k, lens, th_r
-    (3, 300, 80, 16, 256, 60, 20, EDGE_LENS, 0.25),    # cap 80, m = 16
-    (3, 300, 17, 5, 7, 60, 20, None, 0.25),            # odd m and K
-    (2, 200, 33, 8, 16, 50, 10, None, None),           # m = 8, serial form
-    (2, 200, 12, 4, 16, 50, 10, None, 0.25),           # m = 4, serial form
-    (2, 200, 12, 32, 16, 50, 10, None, 0.25),          # m = 32, serial form
-    (3, 300, 17, 16, 256, 60, 20, None, 100.0),        # Eq. 6 keeps no token
-    (32, 2100, 12, 4, 16, 2100, 50, None, 0.25),       # both cuts sorted
+    # B, nf, cap, m, K, n_docs, k, lens, th_r, n_q
+    (3, 300, 80, 16, 256, 60, 20, EDGE_LENS, 0.25, 32),    # cap 80, m = 16
+    (3, 300, 17, 5, 7, 60, 20, None, 0.25, 32),            # odd m and K
+    (2, 200, 33, 8, 16, 50, 10, None, None, 32),           # m = 8, serial
+    (2, 200, 12, 4, 16, 50, 10, None, 0.25, 32),           # m = 4, serial
+    (2, 200, 12, 32, 16, 50, 10, None, 0.25, 32),          # m = 32, serial
+    (3, 300, 17, 16, 256, 60, 20, None, 100.0, 32),        # Eq. 6 keeps none
+    (32, 2100, 12, 4, 16, 2100, 50, None, 0.25, 32),       # both cuts sorted
+    # the Eq. 5/6 cluster pass: T = 8 terms a CTA, clusters of 1 to 4
+    # (multicast rings), one term (T = 1), ragged last groups
+    (3, 300, 80, 16, 256, 60, 20, slot_lens(80), 0.25, 1),
+    (40, 300, 80, 16, 256, 256, 20, slot_lens(80), 0.25, 7),
+    (3, 300, 80, 16, 256, 60, 20, slot_lens(80), None, 8),
+    (32, 300, 80, 16, 256, 256, 20, slot_lens(80), 0.25, 9),
+    (3, 300, 80, 8, 256, 60, 20, slot_lens(80), 0.25, 16),   # serial m
+    (3, 300, 80, 5, 256, 60, 20, slot_lens(80), None, 17),   # serial m
+    (1, 300, 33, 16, 256, 1, 1, slot_lens(33), 0.25, 24),    # codes read
+    (3, 300, 200, 16, 256, 60, 20, slot_lens(200), 0.25, 32),  # directly
+    (3, 300, 80, 32, 256, 60, 20, slot_lens(80), 0.25, 32),  # T = 4, C = 8
+    (2, 200, 80, 64, 256, 50, 10, slot_lens(80), 0.25, 32),  # T = 2: 2 passes
+    (2, 100, 10, 256, 256, 30, 10, None, 0.25, 32),          # the L2 form
 ], ids=["cap80_m16", "odd_m_K", "m8", "m4", "m32", "eq6_none_kept",
-        "sorted_cuts"])
+        "sorted_cuts", "cluster_nq1", "cluster_nq7_b40", "cluster_nq8",
+        "cluster_nq9_b32", "cluster_nq16_m8", "cluster_nq17_m5",
+        "cluster_nq24_cap33_one_doc", "cluster_cap200", "cluster_m32_t4",
+        "cluster_m64_t2_passes", "l2_form_m256"])
 @pytest.mark.parametrize("masked", [False, True])
 def test_pqinter_kernel_stress(card, case, masked):
-    nb, nf, cap, m, ksub, n_docs, k, lens, th_r = case
+    nb, nf, cap, m, ksub, n_docs, k, lens, th_r, n_q = case
     cs_t, lut, codes, res, mask, qm = _on(card, *pqinter_inputs(
-        nf + m, nb, 32, 200, nf, cap, m, ksub, lens=lens))
+        nf + m, nb, n_q, 200, nf, cap, m, ksub, lens=lens))
     lens = mask.sum(-1, dtype=torch.int32)
     qm = qm if masked else None
     got = ops.pqinter_batched(cs_t, lut, codes, res, lens, th_r, n_docs, k,
@@ -216,21 +242,44 @@ def test_bitfilter_kernel_stress(card, case):
     _same((f,), (kbf.bitfilter_batched_ref(bits, codes, lens),))
 
 
+# The Eq. 5/6 pass's shapes: cap, m, K, lens, n_q, docs a query. m = 16
+# compiled in, m = 5 and 8 the serial form; n_q 1 to 32 (T = 8 terms a CTA,
+# clusters of 1 to 4 CTAs, ragged last groups); m = 32 forces T = 4 (C = 8)
+# and m = 64 T = 2 (two groups a CTA in turn); m = 256 the L2 form; cap 33
+# and 200 read the codes from global memory, cap 80 through multicast rings.
+PQ_SHAPES = {
+    "cap10_m16": (10, 16, 256, None, 32, 150),
+    "cap80_m16": (80, 16, 256, SPLIT_LENS, 32, 150),
+    "cap80_m5": (80, 5, 256, SPLIT_LENS, 32, 150),
+    "cap80_m8": (80, 8, 16, SPLIT_LENS, 32, 150),
+    "cap80_m16_nq1": (80, 16, 256, slot_lens(80), 1, 150),
+    "cap80_m16_nq7": (80, 16, 256, slot_lens(80), 7, 150),
+    "cap80_m16_nq8": (80, 16, 256, slot_lens(80), 8, 150),
+    "cap80_m16_nq9": (80, 16, 256, slot_lens(80), 9, 150),
+    "cap80_m8_nq16": (80, 8, 256, slot_lens(80), 16, 150),
+    "cap80_m5_nq17": (80, 5, 256, slot_lens(80), 17, 150),
+    "cap33_m16_nq24": (33, 16, 256, slot_lens(33), 24, 150),
+    "cap200_m16": (200, 16, 256, slot_lens(200), 32, 150),
+    "cap80_m32_t4": (80, 32, 256, slot_lens(80), 32, 150),
+    "cap80_m64_t2": (80, 64, 256, slot_lens(80), 32, 60),
+    "cap10_m256_l2": (10, 256, 256, None, 32, 40),
+    "one_doc": (80, 16, 256, slot_lens(80), 32, 1),
+    "docs256": (80, 16, 256, None, 32, 256),
+    "docs10000": (12, 16, 256, None, 32, 10_000),
+}
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("nb", [1, 3, 32])
+@pytest.mark.parametrize("nb", [1, 3, 32, 40])
 @pytest.mark.parametrize("th_r", [None, 0.25])
-@pytest.mark.parametrize("shape", [
-    # cap, m, K, lens: m = 16 compiled in, m = 5 and 8 the serial form;
-    # lengths at the edges of the 8-warp token split
-    (10, 16, 256, None), (80, 16, 256, SPLIT_LENS), (80, 5, 256, SPLIT_LENS),
-    (80, 8, 16, SPLIT_LENS)], ids=["cap10_m16", "cap80_m16", "cap80_m5",
-                                   "cap80_m8"])
+@pytest.mark.parametrize("shape", list(PQ_SHAPES.values()),
+                         ids=list(PQ_SHAPES))
 @pytest.mark.parametrize("masked", [True, False])
 def test_cinter_and_pqscore_kernels_equal_plain(card, nb, th_r, shape,
                                                 masked):
-    cap, m, ksub, lens = shape
+    cap, m, ksub, lens, n_q, nd = shape
     cs_t, lut, codes, res, mask, qm = _on(card, *pqinter_inputs(
-        nb, nb, 32, 200, 150, cap, m, ksub, lens=lens))
+        nb, nb, n_q, 200, nd, cap, m, ksub, lens=lens))
     lens = mask.sum(-1, dtype=torch.int32)
     qm = qm if masked else None
     before = (kci.launches, kps.launches)
@@ -241,6 +290,34 @@ def test_cinter_and_pqscore_kernels_equal_plain(card, nb, th_r, shape,
     _same((sbar, score), (
         kci.cinter_batched_ref(cs_t, codes, lens, qm),
         kps.pqscore_batched_ref(cs_t, lut, codes, res, lens, th_r, qm)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_q,m,form,terms,cluster,passes", [
+    (32, 16, "cluster", 8, 4, 1),     # emvb-msmarco: 4 CTAs of 8 terms
+    (4, 16, "cluster", 4, 1, 1),      # MIND's 4 interests: one CTA
+    (32, 32, "cluster", 4, 8, 1),     # a slice of 8 terms would not fit
+    (32, 64, "cluster", 2, 8, 2),     # 16 groups over 8 CTAs, in turn
+    (32, 256, "L2", 32, 0, 0),        # not even one term's slice fits
+])
+def test_eq56_plan_follows_the_shape(card, n_q, m, form, terms, cluster,
+                                     passes):
+    """Both kernels plan the Eq. 5/6 pass from the shape alone: the cluster
+    form wherever one term's LUT slice fits shared memory, its slice staged
+    there (K = 256), else the L2 form."""
+    _, _, codes, res, _, _ = pqinter_inputs(0, 3, n_q, 64, 40, 12, m, 256)
+    cs_t = torch.zeros((3, 64, n_q), device=card)
+    codes, res = _on(card, codes, res)
+    for plan in (kps.plan(cs_t, codes, res, n_q, m, 256),
+                 kpq.eq56_plan("pqinter", "pqinter_eq56_plan", cs_t, res, 40,
+                               n_q, m, 256)):
+        assert (plan["form"], plan["terms"], plan["cluster"],
+                plan["passes"]) == (form, terms, cluster, passes)
+        assert kpq.lut_terms("pqscore", n_q, m, 256) == terms
+        if form == "cluster":
+            assert plan["smem"] >= plan["rows"] * terms * 4 >= m * 256 * 4
+            assert 1 <= plan["runs"] <= 40 and plan["clusters"] >= 1
+            assert plan["staged_bytes"] > 0
 
 
 @pytest.mark.cuda
@@ -318,7 +395,7 @@ def test_prefilter_per_query_kernel_equals_plain(card, nb, cand_cap, cap,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("nb", [1, 3, 32])
+@pytest.mark.parametrize("nb", [1, 3, 32, 40])
 @pytest.mark.parametrize("passing", ["all", "none", "sparse", "few"])
 @pytest.mark.parametrize("th_r", [None, 0.25])
 def test_pqinter_doc_pass_kernel_equals_plain(card, nb, passing, th_r):
@@ -448,8 +525,8 @@ def test_bf16_bitfilter_on_bitpack_words(card, nb):
         kbp.bitpack_batched_ref(cs, BF16_TH, qm), codes, lens),))
 
 
-def _bf16_pq(dev, seed, nb, nf, cap, m, ksub, lens=None):
-    cs_t, lut, codes, res, mask, qm = pqinter_inputs(seed, nb, 32, 200, nf,
+def _bf16_pq(dev, seed, nb, nf, cap, m, ksub, lens=None, n_q=32):
+    cs_t, lut, codes, res, mask, qm = pqinter_inputs(seed, nb, n_q, 200, nf,
                                                      cap, m, ksub, lens=lens)
     lut, codes, res, mask, qm = _on(dev, lut, codes, res, mask, qm)
     return (_bf16(dev, bf16_edges(seed, cs_t)), lut, codes, res,
@@ -457,16 +534,19 @@ def _bf16_pq(dev, seed, nb, nf, cap, m, ksub, lens=None):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("nb", [1, 3, 32])
+@pytest.mark.parametrize("nb", [1, 3, 32, 40])
 @pytest.mark.parametrize("th_r", [None, BF16_TH_R])
 @pytest.mark.parametrize("shape", [
-    (10, 16, 256, None), (80, 16, 256, SPLIT_LENS), (80, 5, 256, SPLIT_LENS)],
-    ids=["cap10_m16", "cap80_m16", "cap80_m5"])
+    PQ_SHAPES[s] for s in ("cap10_m16", "cap80_m16", "cap80_m5",
+                           "cap80_m16_nq9", "cap33_m16_nq24", "cap80_m32_t4",
+                           "cap10_m256_l2")],
+    ids=["cap10_m16", "cap80_m16", "cap80_m5", "cap80_m16_nq9",
+         "cap33_m16_nq24", "cap80_m32_t4", "cap10_m256_l2"])
 @pytest.mark.parametrize("masked", [True, False])
 def test_bf16_cinter_and_pqscore_equal_plain(card, nb, th_r, shape, masked):
-    cap, m, ksub, lens = shape
-    cs_t, lut, codes, res, lens, qm = _bf16_pq(card, nb, nb, 150, cap, m,
-                                               ksub, lens)
+    cap, m, ksub, lens, n_q, nd = shape
+    cs_t, lut, codes, res, lens, qm = _bf16_pq(card, nb, nb, nd, cap, m,
+                                               ksub, lens, n_q)
     qm = qm if masked else None
     before = (kci.launches, kps.launches)
     sbar = ops.cinter_batched(cs_t, codes, lens, qm)
@@ -624,7 +704,7 @@ PQ_CUTS = (
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("nb", [1, 5, 32])   # the rank counted; sorted
+@pytest.mark.parametrize("nb", [1, 5, 32, 40])   # the rank counted; sorted
 @pytest.mark.parametrize("cut", PQ_CUTS, ids=lambda c: "_".join(map(str, c)))
 @pytest.mark.parametrize("form", ["float32", "bfloat16", "doc_pass",
                                   "doc_pass_few"])

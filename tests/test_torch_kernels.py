@@ -108,6 +108,10 @@ def test_prefilter_single_query_matches_pallas():
 @pytest.mark.parametrize("nb,n_q,n_c,nf,cap,m,ksub,n_docs,k", [
     (3, 32, 100, 70, 10, 8, 16, 20, 7),     # ragged nf and n_docs
     (2, 16, 64, 40, 7, 4, 256, 40, 40),     # n_docs == nf, k == n_docs
+    # term counts whose last group of 8 is ragged on the card
+    (2, 9, 100, 50, 12, 16, 256, 20, 7),
+    (2, 17, 80, 40, 10, 8, 16, 16, 5),
+    (3, 24, 90, 45, 9, 5, 7, 25, 10),
 ])
 @pytest.mark.parametrize("th_r", [None, 0.25])
 @pytest.mark.parametrize("masked", [False, True])
@@ -309,6 +313,11 @@ def test_cinter_matches_pallas(nb, n_q, n_c, nd, cap, lens, masked):
     # emvb-msmarco's shape: n_q 32, m 16, K 256, cap 80
     pytest.param(2, 32, 100, 24, 80, 16, 256, SPLIT_LENS,
                  id="2-32-100-24-80-16-256-split_lens"),
+    # term counts whose last group of 8 is ragged on the card
+    pytest.param(2, 9, 100, 24, 80, 16, 256, SPLIT_LENS,
+                 id="2-9-100-24-80-16-256-split_lens"),
+    pytest.param(2, 17, 100, 30, 33, 8, 16, None, id="2-17-100-30-33-8-16"),
+    pytest.param(3, 24, 100, 40, 12, 5, 7, None, id="3-24-100-40-12-5-7"),
 ])
 @pytest.mark.parametrize("th_r", [None, 0.25])
 @pytest.mark.parametrize("masked", [False, True])
@@ -330,6 +339,44 @@ def test_pqscore_matches_pallas(nb, n_q, n_c, nd, cap, m, ksub, lens, th_r,
     single = tops.pqscore(*_t(cs_t[0], lut[0], codes[0], res[0], mask[0]),
                           th_r, None if tqm is None else tqm[0])
     assert torch.equal(single.view(torch.int32), port[0].view(torch.int32))
+
+
+@pytest.mark.parametrize("n_q,terms,m,ksub", [
+    (1, 1, 16, 256), (7, 8, 16, 256), (8, 8, 16, 256), (9, 8, 16, 256),
+    (17, 8, 8, 16), (32, 8, 16, 256),
+    (32, 4, 32, 256),        # a slice of 8 terms would not fit: T = 4
+    (17, 2, 5, 7), (9, 1, 3, 5),    # rows padded to 16-byte slices
+    (32, 32, 16, 256), (3, 3, 5, 7),    # the L2 form's one group of n_q
+])
+def test_flat_lut_puts_each_entry_where_the_pass_reads_it(n_q, terms, m,
+                                                          ksub):
+    """lut[b, i, s, k] lies at [b, i // T, s * K + k, i % T] of the grouped
+    layout, the element the Eq. 5/6 pass of group i // T reads for term
+    i % T at code k of subspace s; the padding is zero. With T = n_q the
+    layout is the L2 form's flat (B, m * K, n_q) table."""
+    rng = np.random.default_rng(n_q * 100 + terms)
+    nb = 3
+    lut = rng.normal(size=(nb, n_q, m, ksub)).astype(np.float32)
+    out = tpqinter.flat_lut(torch.from_numpy(lut), terms).numpy()
+    groups = -(-n_q // terms)
+    rows = tpqinter.lut_rows(m * ksub, terms)
+    assert out.shape == (nb, groups, rows, terms)
+    assert rows >= m * ksub
+    if terms in (1, 2, 4, 8):     # the cluster pass stages 16-byte pieces
+        assert (rows * terms) % 4 == 0
+    # the pass's read: flat index ((b * G + g) * rows + s * K + k) * T + j
+    b, i, sub, k = np.meshgrid(np.arange(nb), np.arange(n_q), np.arange(m),
+                               np.arange(ksub), indexing="ij")
+    at = (((b * groups + i // terms) * rows + sub * ksub + k) * terms
+          + i % terms)
+    np.testing.assert_array_equal(out.ravel()[at.ravel()], lut.ravel())
+    pad = np.ones(out.size, bool)
+    pad[at.ravel()] = False
+    assert not out.ravel()[pad].any()
+    if terms == n_q:
+        np.testing.assert_array_equal(
+            out.reshape(nb, m * ksub, n_q),
+            lut.transpose(0, 2, 3, 1).reshape(nb, m * ksub, n_q))
 
 
 def test_unfused_wrappers_refuse_out_of_slice_operands():
