@@ -216,10 +216,14 @@ def centroid_scores(q: torch.Tensor, centroids: torch.Tensor,
 
 
 def candidate_bitmap(ivf: torch.Tensor, ivf_lens: torch.Tensor,
-                     probe_ids: torch.Tensor, n_docs: int) -> torch.Tensor:
+                     probe_ids: torch.Tensor, n_docs: int,
+                     wait_span=trace.NOOP_SPAN) -> torch.Tensor:
     """Union of the IVF lists of the probed centroids (ref
     ``engine.py:237``). probe_ids (..., n_q, nprobe) -> (..., n_docs) bool.
-    Probe ids >= n_c (the masked-term sentinel) contribute nothing."""
+    Probe ids >= n_c (the masked-term sentinel) contribute nothing.
+    ``wait_span``, an unstarted span, is opened around the scatter and
+    given its ``postings``: every valid (row, term, probe, list slot)
+    entry, duplicates included."""
     n_c, list_cap = ivf.shape
     lead = tuple(probe_ids.shape[:-2])
     flat = probe_ids.reshape(*lead, -1).long()
@@ -232,7 +236,12 @@ def candidate_bitmap(ivf: torch.Tensor, ivf_lens: torch.Tensor,
     nrows = math.prod(lead)
     row = torch.arange(nrows, device=ivf.device).reshape(*lead, 1, 1)
     bitmap = torch.zeros(nrows * n_docs, dtype=torch.bool, device=ivf.device)
-    bitmap[(row * n_docs + ids)[valid]] = True
+    keys = row * n_docs + ids
+    # the boolean index is a nonzero: the host waits here for the card
+    with wait_span as sp:
+        hits = keys[valid]
+        bitmap[hits] = True
+        sp.set(postings=hits.numel())
     return bitmap.reshape(*lead, n_docs)
 
 
@@ -293,11 +302,14 @@ def _compact_candidates(bitmap: torch.Tensor, cfg: EngineConfig):
 
 def _candidates(index: PackedIndex, cs: torch.Tensor, cfg: EngineConfig,
                 q_masks=None) -> torch.Tensor:
-    """Phase 1 after CS: masked top-nprobe probes -> (B, n_docs) bitmap."""
+    """Phase 1 after CS: masked top-nprobe probes -> (B, n_docs) bitmap,
+    the host's wait at its scatter in the span
+    ``engine.candgen.bitmap_wait``."""
     probe_ids = bitvector.masked_topk_centroids(cs, cfg.th, cfg.nprobe,
                                                 q_masks)
     return candidate_bitmap(index.ivf, index.ivf_lens, probe_ids,
-                            index.codes.shape[0])
+                            index.codes.shape[0],
+                            trace.span("engine.candgen.bitmap_wait"))
 
 
 def _phase1(index: PackedIndex, queries: torch.Tensor, cfg: EngineConfig,
@@ -415,33 +427,40 @@ def _phase4(index: PackedIndex, queries: torch.Tensor, cs_t: torch.Tensor,
 
 def _phase12_batch(index: PackedIndex, queries: torch.Tensor,
                    cfg: EngineConfig, q_masks=None, *, cs=None):
-    """Phases 1-2 -> (cs (B, n_q, n_c), sel1 (B, n_filter) int64)."""
+    """Phases 1-2 -> (cs (B, n_q, n_c), sel1 (B, n_filter) int64), in the
+    stream-timed spans ``engine.candgen`` and ``engine.prefilter``."""
+    dev = queries.device
     if not (cfg.use_kernels and cfg.fused_prefilter):
-        cs, bits, bitmap = _phase1(index, queries, cfg, q_masks, cs=cs)
-        return cs, _phase2(index, bits, bitmap, cfg)
-    if cs is None:
-        cs = centroid_scores(queries, index.centroids, cfg.cs_dtype)
-    bitmap = _candidates(index, cs, cfg, q_masks)
-    if cfg.candidate_mode == "compact":
-        # the filter goes in before compaction: failing docs never take a
-        # slot of the buffer; the buffer's lengths are not masked by
-        # cand_valid, which goes in as the bitmap (ref engine.py:339-352)
-        doc_pass = _doc_pass(index, cfg)
-        if doc_pass is not None:
-            bitmap = bitmap & doc_pass
-        cand_ids, cand_valid = _compact_candidates(bitmap, cfg)
-        _, local, _ = ops.prefilter_batched(
-            cs, cfg.th, index.codes[cand_ids], index.doc_lens[cand_ids],
-            cand_valid, cfg.n_filter, q_masks)
-        return cs, torch.gather(cand_ids, 1, local.long())
-    # score_all: the plan's verdict on each doc's predicate word is ANDed
-    # into the bitmap inside the kernel
-    plan = None if cfg.doc_filter is None else cfg.doc_filter.clauses
-    _, sel1, _ = ops.prefilter_batched(cs, cfg.th, index.codes,
-                                       index.doc_lens, bitmap, cfg.n_filter,
-                                       q_masks, pred_words=index.pred_words,
-                                       plan=plan)
-    return cs, sel1.long()
+        with trace.span("engine.candgen", device=dev):
+            cs, bits, bitmap = _phase1(index, queries, cfg, q_masks, cs=cs)
+        with trace.span("engine.prefilter", device=dev):
+            return cs, _phase2(index, bits, bitmap, cfg)
+    compact = cfg.candidate_mode == "compact"
+    with trace.span("engine.candgen", device=dev):
+        if cs is None:
+            cs = centroid_scores(queries, index.centroids, cfg.cs_dtype)
+        bitmap = _candidates(index, cs, cfg, q_masks)
+        if compact:
+            # the filter goes in before compaction: failing docs never take
+            # a slot of the buffer; the buffer's lengths are not masked by
+            # cand_valid, which goes in as the bitmap (ref engine.py:339-352)
+            doc_pass = _doc_pass(index, cfg)
+            if doc_pass is not None:
+                bitmap = bitmap & doc_pass
+            cand_ids, cand_valid = _compact_candidates(bitmap, cfg)
+    with trace.span("engine.prefilter", device=dev):
+        if compact:
+            _, local, _ = ops.prefilter_batched(
+                cs, cfg.th, index.codes[cand_ids], index.doc_lens[cand_ids],
+                cand_valid, cfg.n_filter, q_masks)
+            return cs, torch.gather(cand_ids, 1, local.long())
+        # score_all: the plan's verdict on each doc's predicate word is
+        # ANDed into the bitmap inside the kernel
+        plan = None if cfg.doc_filter is None else cfg.doc_filter.clauses
+        _, sel1, _ = ops.prefilter_batched(
+            cs, cfg.th, index.codes, index.doc_lens, bitmap, cfg.n_filter,
+            q_masks, pred_words=index.pred_words, plan=plan)
+        return cs, sel1.long()
 
 
 LUT_CHUNK = 32   # queries one LUT product covers
@@ -487,22 +506,25 @@ def _survivor_operands(index: PackedIndex, cs: torch.Tensor,
 def _phase34_batch(index: PackedIndex, queries: torch.Tensor,
                    cs: torch.Tensor, sel1: torch.Tensor, cfg: EngineConfig,
                    q_masks=None, *, lut=None) -> RetrievalResult:
-    """Phases 3-4 -> RetrievalResult with (B, k) scores and doc ids."""
-    if lut is None:
-        lut = _query_lut(index, queries)
-    sel1 = sel1.long()
-    if cfg.use_kernels and cfg.fused_late_interaction:
-        doc_pass = _doc_pass(index, cfg)
-        scores, pos, _, _ = ops.pqinter_batched(
-            *_survivor_operands(index, cs, lut, sel1), cfg.th_r, cfg.n_docs,
-            cfg.k, q_masks,
-            doc_pass=None if doc_pass is None else doc_pass[sel1])
-        ids = torch.gather(sel1, 1, pos.long())
-    else:
-        cs_t = _transposed(cs)
-        sel2 = _phase3(index, cs_t, sel1, cfg, q_masks)
-        scores, ids = _phase4(index, queries, cs_t, lut, sel2, cfg, q_masks)
-    return RetrievalResult(scores, ids.to(torch.int32))
+    """Phases 3-4 -> RetrievalResult with (B, k) scores and doc ids, in the
+    stream-timed span ``engine.late``."""
+    with trace.span("engine.late", device=queries.device):
+        if lut is None:
+            lut = _query_lut(index, queries)
+        sel1 = sel1.long()
+        if cfg.use_kernels and cfg.fused_late_interaction:
+            doc_pass = _doc_pass(index, cfg)
+            scores, pos, _, _ = ops.pqinter_batched(
+                *_survivor_operands(index, cs, lut, sel1), cfg.th_r,
+                cfg.n_docs, cfg.k, q_masks,
+                doc_pass=None if doc_pass is None else doc_pass[sel1])
+            ids = torch.gather(sel1, 1, pos.long())
+        else:
+            cs_t = _transposed(cs)
+            sel2 = _phase3(index, cs_t, sel1, cfg, q_masks)
+            scores, ids = _phase4(index, queries, cs_t, lut, sel2, cfg,
+                                  q_masks)
+        return RetrievalResult(scores, ids.to(torch.int32))
 
 
 def _retrieve_batch(index: PackedIndex, queries: torch.Tensor,

@@ -1,5 +1,6 @@
 """Low-overhead hierarchical span tracing for the serving path (a copy of
-``repro/obs/trace.py``, same span vocabulary).
+``repro/obs/trace.py``, the same API and span vocabulary, plus the two
+additions and the engine's phase spans below).
 
 A **span** is one timed region of the serving loop — a batcher drain, a
 per-generation cache lookup, a miss-lane execute, a top-k merge, a
@@ -32,6 +33,23 @@ the serving loop it instruments (docs/SERVING.md); CUDA launches are
 asynchronous, so a span around a call whose result is not synchronized
 times the launches, not the device work — span names note ``dispatch``
 where that applies.
+
+Two things the reference's tracer does not do:
+
+* **Stream-timed spans.** ``span(name, device=d)`` with a CUDA device
+  records a CUDA event on the current stream as it opens and as it closes;
+  the record gets ``stream_ms``, the device time between the two. It is
+  read from the events only when the ring is read (:meth:`Tracer.finished`,
+  :meth:`Tracer.drain`, :meth:`Tracer.export_jsonl`), never inside the
+  traced call, so a span adds no host wait. On the CPU it is a host span.
+* **The profiler's clock.** While a ``torch.profiler`` records, every live
+  span also opens a ``record_function`` of its own name, so the program's
+  spans land in the profiler's trace beside the device operations they
+  launched.
+
+The engine's phase spans (:data:`PORT_ONLY`) are the port's own; the rest
+of the vocabulary is the reference's. docs/PORT_OBSERVABILITY.md describes
+both additions and the phase spans.
 """
 from __future__ import annotations
 
@@ -39,6 +57,20 @@ import json
 import time
 from collections import deque
 from typing import Callable, Optional
+
+import torch
+
+# The spans the port's engine opens inside ``engine.retrieve.dispatch`` that
+# the reference has no counterpart of: candidate generation (with the host's
+# wait at the candidate bitmap inside it), the prefilter and late
+# interaction. No span of the reference's vocabulary opens inside them.
+PORT_ONLY = ("engine.candgen", "engine.candgen.bitmap_wait",
+             "engine.prefilter", "engine.late")
+
+
+def _profiling() -> bool:
+    """Whether a ``torch.profiler`` is recording on this thread now."""
+    return torch._C._autograd._profiler_enabled()
 
 
 class _NoopSpan:
@@ -72,8 +104,9 @@ class _NoopTracer:
 
     enabled = False
 
-    def span(self, name: str, **attrs):
-        """-> the shared :data:`NOOP_SPAN` (no allocation, no clock)."""
+    def span(self, name: str, device=None, **attrs):
+        """-> the shared :data:`NOOP_SPAN` (no allocation, no clock, no
+        event)."""
         return NOOP_SPAN
 
     def record(self, name: str, duration_s: float, **attrs) -> None:
@@ -93,12 +126,20 @@ class Span:
     attributes mid-span (e.g. a hit count known only after the lookup
     loop). Attribute values should be JSON-able; the exporter falls back
     to ``str()`` for anything that is not.
+
+    With a CUDA ``device`` the span also records a CUDA event on that
+    device's current stream (``_stream``) at each end (``_events``), which
+    the tracer reads into ``stream_ms`` when its ring is read; while a
+    profiler records, ``_range`` is the ``record_function`` the span
+    opened.
     """
 
     __slots__ = ("_tracer", "name", "attrs", "start", "span_id",
-                 "parent_id", "trace_id")
+                 "parent_id", "trace_id", "_device", "_stream", "_events",
+                 "_range")
 
-    def __init__(self, tracer: "Tracer", name: str, attrs: dict):
+    def __init__(self, tracer: "Tracer", name: str, attrs: dict,
+                 device=None):
         """Built by :meth:`Tracer.span`; not started until ``__enter__``."""
         self._tracer = tracer
         self.name = name
@@ -107,6 +148,9 @@ class Span:
         self.span_id = 0
         self.parent_id: Optional[int] = None
         self.trace_id = 0
+        self._device = (device if device is not None and
+                        torch.device(device).type == "cuda" else None)
+        self._stream = self._events = self._range = None
 
     def set(self, **attrs) -> "Span":
         """Merge attributes into the span; returns itself for chaining."""
@@ -127,6 +171,14 @@ class Span:
             self.parent_id = None
             self.trace_id = self.span_id
         t._stack.append(self)
+        if _profiling():
+            self._range = torch.profiler.record_function(self.name)
+            self._range.__enter__()
+        if self._device is not None:
+            self._stream = torch.cuda.current_stream(self._device)
+            self._events = (torch.cuda.Event(enable_timing=True),
+                            torch.cuda.Event(enable_timing=True))
+            self._events[0].record(self._stream)
         self.start = t.clock()
         return self
 
@@ -137,6 +189,10 @@ class Span:
         span marks ``error: true`` and propagates (never swallowed)."""
         t = self._tracer
         end = t.clock()
+        if self._events is not None:
+            self._events[1].record(self._stream)
+        if self._range is not None:
+            self._range.__exit__(exc_type, exc, tb)
         while t._stack and t._stack.pop() is not self:
             pass
         rec = {
@@ -151,6 +207,8 @@ class Span:
         if exc_type is not None:
             rec["error"] = True
         t._emit(rec)
+        if self._events is not None:
+            t._timed.append((rec, *self._events))
         return False
 
 
@@ -179,6 +237,11 @@ class Tracer:
         self._spans: deque = deque()
         self._stack: list[Span] = []
         self._ids = 0
+        # (record, start event, end event) of the stream-timed spans not
+        # read yet; the ring holds at most ``capacity`` records, so an
+        # entry that falls off this deque's far end belongs to a record
+        # the ring has dropped too
+        self._timed: deque = deque(maxlen=self.capacity)
 
     def _next_id(self) -> int:
         self._ids += 1
@@ -190,10 +253,11 @@ class Tracer:
             self.dropped += 1
         self._spans.append(rec)
 
-    def span(self, name: str, **attrs) -> Span:
+    def span(self, name: str, device=None, **attrs) -> Span:
         """-> an unstarted :class:`Span` context manager (``with
-        tracer.span("name", key=val):``)."""
-        return Span(self, name, attrs)
+        tracer.span("name", key=val):``); with a CUDA ``device`` its record
+        also gets ``stream_ms``."""
+        return Span(self, name, attrs, device)
 
     def record(self, name: str, duration_s: float, **attrs) -> None:
         """Record a PRE-MEASURED event as a finished span ending now.
@@ -216,13 +280,25 @@ class Tracer:
             "attrs": attrs,
         })
 
+    def _resolve(self) -> None:
+        """Give each stream-timed record its ``stream_ms``: the device ms
+        between its two events, waiting for the later one to complete."""
+        while self._timed:
+            rec, start, end = self._timed.popleft()
+            end.synchronize()
+            rec["stream_ms"] = start.elapsed_time(end)
+
     def finished(self) -> list[dict]:
-        """The ring's finished span records, oldest first (a copy)."""
+        """The ring's finished span records, oldest first (a copy), the
+        stream-timed ones with their ``stream_ms``."""
+        self._resolve()
         return list(self._spans)
 
     def drain(self) -> list[dict]:
-        """Pop and return every finished span (the export-loop primitive);
-        ``dropped`` keeps its cumulative count."""
+        """Pop and return every finished span (the export-loop primitive),
+        as :meth:`finished` gives them; ``dropped`` keeps its cumulative
+        count."""
+        self._resolve()
         out = list(self._spans)
         self._spans.clear()
         return out
@@ -271,13 +347,14 @@ def disable():
     return set_tracer(NOOP_TRACER)
 
 
-def span(name: str, **attrs):
+def span(name: str, device=None, **attrs):
     """A span on the CURRENT tracer — the call instrumented code makes.
 
     Disabled (the default): returns the shared :data:`NOOP_SPAN` with no
-    allocation. Enabled: returns a live :class:`Span` context manager.
+    allocation. Enabled: returns a live :class:`Span` context manager,
+    stream-timed when ``device`` is a CUDA device.
     """
-    return _tracer.span(name, **attrs)
+    return _tracer.span(name, device, **attrs)
 
 
 def record(name: str, duration_s: float, **attrs) -> None:

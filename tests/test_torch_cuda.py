@@ -1641,3 +1641,39 @@ def test_lm_cell_on_one_card_counts_as_on_meta(card):
         runs.append((to_reference_layout(m), metrics["loss"]))
     assert torch.equal(runs[0][1], runs[1][1])
     assert all(torch.equal(runs[0][0][k], runs[1][0][k]) for k in runs[0][0])
+
+
+# --- the engine's stream-timed phase spans on the card ---------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lane", sorted(TL_LANES))
+def test_phase_spans_stream_time_on_card(card, lane):
+    """Under a tracer, ``retrieve``'s three phase spans carry a positive
+    ``stream_ms`` once the ring is drained, the host spans none, and the
+    phases' stream times sum to no more than the call's wall time."""
+    import time
+
+    from repro_torch import obs
+    from repro_torch.core import engine as teng
+    from repro_torch.data import synthetic
+    index, _ = synthetic.make_packed_index(0, device=card, **TL_WIDTHS)
+    q, _ = synthetic.make_queries(index, 1, 32, TL_ENGINE["n_q"])
+    cfg = teng.EngineConfig(**TL_ENGINE, **TL_LANES[lane])
+    want = teng.retrieve(index, q, cfg)
+    torch.cuda.synchronize()
+    with obs.tracing() as tr:
+        t0 = time.perf_counter()
+        got = teng.retrieve(index, q, cfg)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+        spans = tr.drain()
+    assert torch.equal(got.doc_ids, want.doc_ids)
+    assert torch.equal(got.scores.view(torch.int32),
+                       want.scores.view(torch.int32))
+    phases = ("engine.candgen", "engine.prefilter", "engine.late")
+    timed = [s for s in spans if "stream_ms" in s]
+    assert [s["name"] for s in timed] == list(phases)
+    assert all(s["stream_ms"] > 0 for s in timed)
+    assert sum(s["stream_ms"] for s in timed) <= wall_ms
+    (wait,) = [s for s in spans if s["name"] == "engine.candgen.bitmap_wait"]
+    assert wait["attrs"]["postings"] > 0
