@@ -615,6 +615,7 @@ def small_phase(dev, cs_dtype: str = "float32") -> dict:
     from repro_torch.kernels import pqinter as kpq
     from repro_torch.kernels import pqscore as kps
     from repro_torch.kernels import prefilter as kpf
+    from repro_torch.kernels import topnprobe as ktp
 
     def t(x):
         return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
@@ -656,6 +657,11 @@ def small_phase(dev, cs_dtype: str = "float32") -> dict:
         args = (bits, t(codes), t(lens))
         hold("bitfilter", (ops.bitfilter_batched(*args),),
              (kbf.bitfilter_batched_ref(*args),))
+        for nprobe in (1, 4, 32, 33):          # both forms of the kernel
+            for q in (t(qm), None):
+                args = (c(cs), th, nprobe, q)
+                hold("topnprobe", (ktp.masked_topk(*args),),
+                     (ktp.masked_topk_ref(*args),))
 
         nf, m, ksub, n_docs2, k = 700, 16, 256, 90, 25
         cs_t = _quant(rng, (nb, n_c, n_q), 0.5, 2)
@@ -937,6 +943,14 @@ def bitpack_bound(cs) -> dict:
                   nb * n_q * n_c)
 
 
+def topnprobe_bound(cs, nprobe: int) -> dict:
+    """Least bytes topnprobe must move: the CS, the term mask, the ids; one
+    compare an entry."""
+    nb, n_q, n_c = cs.shape
+    return _bound(cs.numel() * cs.element_size() + nb * n_q
+                  + nb * n_q * nprobe * 4, nb * n_q * n_c)
+
+
 def _sectors(nbytes: int) -> int:
     """Bytes of the 32-byte L2 sectors a contiguous read of nbytes takes."""
     return -(-nbytes // 32) * 32
@@ -1036,8 +1050,11 @@ def hold_phases(index, q, cfg, plain_step: int = None) -> dict:
     from repro_torch.core import engine as teng
     from repro_torch.kernels import ops
     from repro_torch.kernels import prefilter as kpf
+    from repro_torch.kernels import topnprobe as ktp
     cs = teng.centroid_scores(q, index.centroids, cfg.cs_dtype)
     bitmap = teng._candidates(index, cs, cfg)
+    err_tp = _exact((ktp.masked_topk(cs, cfg.th, cfg.nprobe),),
+                    (ktp.masked_topk_ref(cs, cfg.th, cfg.nprobe),))
     doc_pass = teng._doc_pass(index, cfg)
     cand_ids = None
     if cfg.candidate_mode == "compact":
@@ -1067,7 +1084,8 @@ def hold_phases(index, q, cfg, plain_step: int = None) -> dict:
     return dict(cs=cs, bitmap=bitmap, doc_pass=doc_pass, pf_args=pf_args,
                 pf_kw=pf_kw, pf=pf, sel1=sel1, lut=lut,
                 operands=operands, s1_pass=s1_pass, pq=pq,
-                err={"prefilter": err_pf, "pqinter": err_pq},
+                err={"prefilter": err_pf, "pqinter": err_pq,
+                     "topnprobe": err_tp},
                 ids=torch.gather(sel1, 1, pq[1].long()).to(torch.int32))
 
 
@@ -1296,7 +1314,8 @@ def serve_lanes(index, cfgs: dict, queries, gt) -> tuple:
         torch.cuda.synchronize()
         launches[lane]["b1"] = ops.launch_counts()
         for name, kern in KERNELS.items():
-            want = (len(batches), N_SINGLE) if kern["lane"] == lane else (0, 0)
+            want = ((len(batches), N_SINGLE) if _on_lane(kern, lane)
+                    else (0, 0))
             got = (launches[lane]["b32"][name], launches[lane]["b1"][name])
             if got != want:
                 raise AssertionError(
@@ -1474,7 +1493,7 @@ def filter_phase(full: dict) -> dict:
             torch.cuda.synchronize()
             launches[lane]["b1"] = ops.launch_counts()
             for kname, kern in KERNELS.items():
-                want = ((len(batches), N_SINGLE) if kern["lane"] == lane
+                want = ((len(batches), N_SINGLE) if _on_lane(kern, lane)
                         else (0, 0))
                 got = tuple(launches[lane][b][kname] for b in ("b32", "b1"))
                 if got != want:
@@ -1756,7 +1775,7 @@ def timeline_phase(full: dict) -> dict:
         launches[lane]["b1"] = ops.launch_counts()
         for kname, kern in KERNELS.items():
             want = ((len(batches) * len(tl), N_SINGLE * len(tl))
-                    if kern["lane"] == lane else (0, 0))
+                    if _on_lane(kern, lane) else (0, 0))
             got = tuple(launches[lane][x][kname] for x in ("b32", "b1"))
             if got != want:
                 raise AssertionError(f"timeline {lane}: {kname} launched "
@@ -2160,7 +2179,7 @@ def serving_phase(full: dict, filt: dict, tlres: dict) -> dict:
     launches = ops.launch_counts()
     want_launches = len(batches) * (len(tl) + 1)   # cold: every generation
     for name, kern in KERNELS.items():
-        want = want_launches if kern["lane"] == "fused" else 0
+        want = want_launches if _on_lane(kern, "fused") else 0
         if launches[name] != want:
             raise AssertionError(f"serving: {name} launched "
                                  f"{launches[name]}x, expected {want}x")
@@ -2667,7 +2686,10 @@ def explain_phase(full: dict, filt: dict, tlres: dict,
     launches = ops.launch_counts()
     n_exp = len(cases) + len(tl)
     want = {"bitpack": n_exp, "bitfilter": n_exp, "cinter": n_exp,
-            "pqscore": n_exp, "prefilter": len(tl), "pqinter": len(tl)}
+            "pqscore": n_exp, "prefilter": len(tl), "pqinter": len(tl),
+            # phase 1 and the report's probes of each explain, and the
+            # timeline's retrieve a generation
+            "topnprobe": 2 * n_exp + len(tl)}
     if launches != want:
         raise AssertionError(f"explain: launches {launches}, expected {want}")
     out = {}
@@ -2826,7 +2848,7 @@ def distributed_phase(full: dict, tlres: dict, fingerprints: tuple,
             torch.cuda.synchronize()
             launches["b1"] = ops.launch_counts()
             for b, n in (("b32", len(batches)), ("b1", N_SINGLE)):
-                want = {"prefilter": n, "pqinter": n}
+                want = {"prefilter": n, "pqinter": n, "topnprobe": n}
                 if {k: v for k, v in launches[b].items() if v} != want:
                     raise AssertionError(f"distributed {b}: launches "
                                          f"{launches[b]}, expected {want}")
@@ -3628,7 +3650,7 @@ def mind_emvb(model, cfg, dev) -> dict:
         torch.cuda.synchronize()
         launches[lane]["b1"] = ops.launch_counts()
         for name, kern in KERNELS.items():
-            want = (1, n1) if kern["lane"] == lane else (0, 0)
+            want = (1, n1) if _on_lane(kern, lane) else (0, 0)
             got = (launches[lane]["b32"][name], launches[lane]["b1"][name])
             if got != want:
                 raise AssertionError(f"mind_emvb {lane}: {name} launched "
@@ -4632,7 +4654,7 @@ def dryrun_retrieval_phase(full: dict) -> dict:
                 got = cell.fn(stacked, q)
                 torch.cuda.synchronize()
                 launches[shape] = ops.launch_counts()
-                want = {"prefilter": 1, "pqinter": 1}
+                want = {"prefilter": 1, "pqinter": 1, "topnprobe": 1}
                 if {k: v for k, v in launches[shape].items() if v} != want:
                     raise AssertionError(f"dryrun {shape}: launches "
                                          f"{launches[shape]}, expected {want}")
@@ -4809,6 +4831,7 @@ def timing_phase(full: dict) -> dict:
     from repro_torch.kernels import pqinter as kpq
     from repro_torch.kernels import pqscore as kps
     from repro_torch.kernels import prefilter as kpf
+    from repro_torch.kernels import topnprobe as ktp
     index, cfg, ucfg = full["index"], full["cfg"], full["ucfg"]
     flush = torch.empty(64 << 20, dtype=torch.int32, device=index.device)
     out = {}
@@ -4824,7 +4847,7 @@ def timing_phase(full: dict) -> dict:
         f, sel2 = u["f"], u["sel2"]
         steps = {
             "cs_matmul": lambda: teng.centroid_scores(q, index.centroids),
-            "probe_topk": lambda: bitvector.masked_topk_centroids(
+            "topnprobe_kernel": lambda: bitvector.masked_topk_centroids(
                 cs, cfg.th, cfg.nprobe),
             "bitmap": lambda: teng.candidate_bitmap(
                 index.ivf, index.ivf_lens, probe, index.codes.shape[0]),
@@ -4835,8 +4858,8 @@ def timing_phase(full: dict) -> dict:
                 index.res_codes[sel1], index.doc_lens[sel1]),
             "pqinter_kernel": lambda: ops.pqinter_batched(*pq_args),
         }
-        # the unfused lane's own steps; cs_matmul, probe_topk and bitmap are
-        # the fused lane's
+        # the unfused lane's own steps; cs_matmul, topnprobe_kernel and
+        # bitmap are the fused lane's
         usteps = {
             "bitpack_kernel": lambda: ops.bitpack_batched(cs, cfg.th),
             "bitfilter_kernel": lambda: ops.bitfilter_batched(*bf_args),
@@ -4880,12 +4903,16 @@ def timing_phase(full: dict) -> dict:
                               n=5, warmup=1, flush=flush),
             "pqscore": time_ms(lambda: kps.pqscore_batched_ref(
                 *u["ps_args"]), n=5, warmup=1, flush=flush),
+            "topnprobe": time_ms(lambda: ktp.masked_topk_ref(
+                cs, cfg.th, cfg.nprobe), n=5, warmup=1, flush=flush),
         }
         wrapper_host = {
             "prefilter": host_ms(lambda: ops.prefilter_batched(*pf_args)),
             "pqinter": host_ms(lambda: ops.pqinter_batched(*pq_args)),
             "bitpack": host_ms(lambda: ops.bitpack_batched(cs, cfg.th)),
-            "cinter": host_ms(lambda: ops.cinter_batched(*u["ci_args"]))}
+            "cinter": host_ms(lambda: ops.cinter_batched(*u["ci_args"])),
+            "topnprobe": host_ms(lambda: ktp.masked_topk(
+                cs, cfg.th, cfg.nprobe))}
         ci_cs_t, ci_codes, ci_lens = u["ci_args"]
         ps_cs_t, ps_lut, ps_codes, _, ps_lens, _ = u["ps_args"]
         bounds = {
@@ -4898,6 +4925,7 @@ def timing_phase(full: dict) -> dict:
                 u["bits"], full["token_hist"])["lit_tokens"]),
             "cinter": cinter_bound(ci_cs_t, ci_codes, ci_lens),
             "pqscore": pqscore_bound(ps_cs_t, ps_lut, ps_codes, ps_lens),
+            "topnprobe": topnprobe_bound(cs, cfg.nprobe),
         }
         nb = q.shape[0]
         out[name] = dict(step_ms=ms, end_to_end=e2e, unfused_step_ms=ums,
@@ -5093,7 +5121,7 @@ def bf16_phase(dev, full: dict, filt: dict) -> dict:
             torch.cuda.synchronize()
             launches[lane]["b1"] = ops.launch_counts()
             for kname, kern in KERNELS.items():
-                want = ((len(batches), N_SINGLE) if kern["lane"] == lane
+                want = ((len(batches), N_SINGLE) if _on_lane(kern, lane)
                         else (0, 0))
                 got = tuple(launches[lane][b][kname] for b in ("b32", "b1"))
                 if got != want:
@@ -5162,7 +5190,7 @@ def bf16_phase(dev, full: dict, filt: dict) -> dict:
         steps[b] = {k: time_ms(fn, flush=flush) for k, fn in {
             "cs_matmul": lambda: teng.centroid_scores(
                 q, index.centroids, "bfloat16"),
-            "probe_topk": lambda: bitvector.masked_topk_centroids(
+            "topnprobe_kernel": lambda: bitvector.masked_topk_centroids(
                 cs, cfg.th, cfg.nprobe),
             "bitmap": lambda: teng.candidate_bitmap(
                 index.ivf, index.ivf_lens, probe, index.codes.shape[0]),
@@ -5448,7 +5476,7 @@ def budget_case(index, q, cfg, ucfg, flush) -> dict:
             fused, peak = res, torch.cuda.max_memory_allocated()
         ms[lane] = time_ms(lambda: teng.retrieve(index, q, c), n=5, warmup=1)
         for kname, kern in KERNELS.items():
-            if (launches[lane][kname] > 0) != (kern["lane"] == lane):
+            if (launches[lane][kname] > 0) != _on_lane(kern, lane):
                 raise AssertionError(f"{lane} lane: {kname} launched "
                                      f"{launches[lane][kname]} times")
     plain_pq = cfg.n_filter < index.codes.shape[0]
@@ -5542,6 +5570,8 @@ KERNEL_FUNCTIONS = {
                   "bitfilter_query_kernel"),
     "cinter": ("cinter_kernel",),
     "pqscore": ("pqscore_kernel", "pqscore_l2_kernel"),
+    "topnprobe": ("topnprobe_kernel", "topnprobe_select_kernel",
+                  "topnprobe_compact_kernel", "topnprobe_rank_kernel"),
 }
 
 
@@ -5696,7 +5726,18 @@ KERNELS = {
         lane="unfused",
         source="src/repro_torch/kernels/csrc/pqscore.cu",
         replaces="src/repro/kernels/pqscore.py:127"),
+    # candidate generation, which both lanes run; it replaces no Pallas
+    # kernel: the reference selects with lax.top_k
+    "topnprobe": dict(
+        lane="both",
+        source="src/repro_torch/kernels/csrc/topnprobe.cu",
+        replaces=None, selects_as="src/repro/core/bitvector.py:86"),
 }
+
+
+def _on_lane(kern: dict, lane: str) -> bool:
+    """Whether a KERNELS entry launches on ``lane``'s retrieve."""
+    return kern["lane"] in (lane, "both")
 
 
 def _path_launches(name: str, pl: dict, expl: dict, distr: dict) -> dict:
@@ -5773,7 +5814,7 @@ def kernels_line(small_err: dict, full: dict, timing: dict,
     for name, info in KERNELS.items():
         kforms = {**ftiming["forms"].get(name, {}),
                   **bf16["forms"].get(name, {}), **bforms.get(name, {})}
-        lane = info["lane"]
+        lane = "fused" if _on_lane(info, "fused") else "unfused"
         key = "held" if lane == "fused" else "held_u"
         held_err = [h[key][b]["err"][name] for h in (full, build)
                     for b in ("b32", "b1")]

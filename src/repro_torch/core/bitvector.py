@@ -99,7 +99,21 @@ def masked_topk_centroids(cs: torch.Tensor, th: float, nprobe: int,
     ``-1e6``, and masked terms return the one-past-end sentinel ``n_c``.
     The threshold test runs in the reference's dtype (``precision.greater``:
     bf16 on bf16 CS against a Python number).
-    cs (..., n_q, n_c) -> (..., n_q, nprobe) int32."""
+    cs (..., n_q, n_c) -> (..., n_q, nprobe) int32. A CUDA tensor goes to
+    the kernel of ``kernels/topnprobe.py``, which gives the same ids; any
+    other to :func:`masked_topk_plain`."""
+    if cs.device.type == "cuda":
+        from ..kernels import topnprobe   # kernels/ imports this module
+        return topnprobe.masked_topk(cs, th, nprobe, q_mask)
+    return masked_topk_plain(cs, th, nprobe, q_mask)
+
+
+def masked_topk_plain(cs: torch.Tensor, th: float, nprobe: int,
+                      q_mask: Optional[torch.Tensor] = None
+                      ) -> torch.Tensor:
+    """:func:`masked_topk_centroids` in plain PyTorch on any device: the
+    lax.top_k selection of ``core/topk.py`` over the masked float32
+    scores."""
     cs32 = cs.to(torch.float32)
     keep = cs32 > round_to(th, compare_dtype(cs.dtype, th))
     masked = torch.where(keep, cs32, cs32 - 1e6)

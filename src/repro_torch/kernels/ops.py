@@ -23,10 +23,12 @@ from . import cinter as _cinter
 from . import pqinter as _pqinter
 from . import pqscore as _pqscore
 from . import prefilter as _prefilter
+from . import topnprobe as _topnprobe
 
 _KERNELS = {"prefilter": _prefilter, "pqinter": _pqinter,
             "bitpack": _bitpack, "bitfilter": _bitfilter,
-            "cinter": _cinter, "pqscore": _pqscore}
+            "cinter": _cinter, "pqscore": _pqscore,
+            "topnprobe": _topnprobe}
 
 
 def launch_counts() -> dict:

@@ -15,6 +15,8 @@ from repro_torch.core import bitvector as tbv
 from repro_torch.core import interaction as tint
 from repro_torch.core import pq as tpq
 from repro_torch.core.topk import topk
+from repro_torch.kernels import topnprobe
+from torch_inputs import topnprobe_inputs
 
 torch.set_num_threads(1)
 
@@ -111,6 +113,50 @@ def test_masked_topk_centroids(levels, masked):
         torch.from_numpy(cs), 0.4, 4,
         None if qm is None else torch.from_numpy(qm))
     _bits_eq(port, ref)
+
+
+# (nprobe, n_c, th, CS dtype): fewer survivors than nprobe in some rows,
+# ties before and after the -1e6 offset, entries equal to th and bf16(th)
+# (torch_inputs.topnprobe_inputs); signed zeros survive at th < 0; a numpy
+# th compares bf16 CS in float32 (hazard 8).
+TOPNPROBE_CASES = {
+    "nprobe4": (4, 301, 0.4, torch.float32),
+    "nprobe1": (1, 301, 0.4, torch.float32),
+    "nprobe33": (33, 301, 0.4, torch.float32),
+    "odd_n_c": (4, 1001, 0.4, torch.float32),
+    "signed_zeros": (4, 301, -0.25, torch.float32),
+    "bf16": (4, 301, 0.4, torch.bfloat16),
+    "bf16_numpy_th": (4, 301, np.float32(0.4), torch.bfloat16),
+}
+
+
+@pytest.mark.parametrize("case", sorted(TOPNPROBE_CASES))
+def test_masked_topk_centroids_edges(case):
+    """The CPU route of masked_topk_centroids (the plain version the card's
+    topnprobe kernel is held to) == the reference on the kernel's edge
+    cases, with a term mask."""
+    nprobe, n_c, th, dtype = TOPNPROBE_CASES[case]
+    cs, qm = topnprobe_inputs(5, 3, 32, n_c, nprobe, th)
+    cs = cs.to(dtype)
+    jcs = jnp.asarray(cs.float().numpy(),
+                      jnp.bfloat16 if dtype == torch.bfloat16 else None)
+    ref = jax.vmap(lambda c, m: rbv.masked_topk_centroids(c, th, nprobe, m))(
+        jcs, jnp.asarray(qm.numpy()))
+    port = tbv.masked_topk_centroids(cs, th, nprobe, qm)
+    _bits_eq(port, ref)
+    _bits_eq(topnprobe.masked_topk(cs, th, nprobe, qm), ref)
+
+
+def test_topnprobe_wrapper_refuses():
+    """The kernel's wrapper raises on nprobe > n_c (as torch.topk and
+    lax.top_k fail) and on a CS it cannot read as rows, on every device."""
+    cs = torch.zeros(2, 4, 9)
+    with pytest.raises(ValueError, match="nprobe=10"):
+        topnprobe.masked_topk(cs, 0.4, 10)
+    with pytest.raises(ValueError, match="not contiguous"):
+        topnprobe.masked_topk(cs.transpose(0, 1), 0.4, 2)
+    with pytest.raises(ValueError, match="q_mask"):
+        topnprobe.masked_topk(cs, 0.4, 2, torch.ones(2, 5, dtype=torch.bool))
 
 
 def _interaction_inputs(seed, levels):

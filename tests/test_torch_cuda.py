@@ -19,9 +19,11 @@ from repro_torch.kernels import ops
 from repro_torch.kernels import pqinter as kpq
 from repro_torch.kernels import pqscore as kps
 from repro_torch.kernels import prefilter as kpf
+from repro_torch.kernels import topnprobe as ktp
 from torch_inputs import (BF16_EDGES, BF16_TH, BF16_TH_R, bf16_edges,
                           compact_inputs, doc_pass_rows, lit_row_words,
-                          plan_words, pqinter_inputs, prefilter_inputs)
+                          plan_words, pqinter_inputs, prefilter_inputs,
+                          topnprobe_inputs)
 
 
 @pytest.fixture
@@ -191,6 +193,87 @@ def test_wrappers_refuse_bad_card_operands(card):
     with pytest.raises(ValueError, match="expected"):
         ops.pqinter_batched(cs_t[:1].contiguous(), lut, pcodes, res, plens,
                             None, 8, 4, pqm)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_c", [262_144, 1001])
+@pytest.mark.parametrize("nb", [1, 16, 17, 32, 40])
+@pytest.mark.parametrize("nprobe", [1, 2, 4, 8, 32, 33, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_topnprobe_kernel_equals_plain(card, dtype, nprobe, nb, n_c):
+    """The masked top-nprobe kernel == its plain version on the card, ids
+    exactly, in one launch: both forms (nprobe <= 32 in registers, 33 and
+    256 the exact form), one block a row and the cluster split of small
+    batches, n_c = 2^18 and an odd n_c (rows off 16-byte boundaries), rows
+    with 0, 1, nprobe - 1, nprobe and n_c survivors, ties before and after
+    the -1e6 offset, signed zeros, entries equal to th and bf16(th), masked
+    terms."""
+    cs, qm = topnprobe_inputs(nb, nb, 32, n_c, nprobe, 0.4, card)
+    cs = cs.to(dtype)
+    before = ktp.launches
+    got = ktp.masked_topk(cs, 0.4, nprobe, qm)
+    torch.cuda.synchronize()
+    assert ktp.launches == before + 1
+    _same((got,), (ktp.masked_topk_ref(cs, 0.4, nprobe, qm),))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_c", [262_144, 40_001, 1001])
+@pytest.mark.parametrize("th", [-0.25, 0.4, np.float32(0.4)])
+@pytest.mark.parametrize("nprobe", [4, 33])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_topnprobe_thresholds_and_layouts(card, dtype, nprobe, th, n_c):
+    """Through ``masked_topk_centroids``, the engine's call: signed zeros
+    among the survivors (th < 0), a numpy th (bf16 CS compared in
+    float32), no term mask, and a CS whose base lies off a 16-byte
+    boundary, at B = 17 and at B = 1 (a cluster of blocks a row, whose
+    parts start off 16-byte boundaries at the odd n_c); the ids equal the
+    plain version's."""
+    from repro_torch.core import bitvector as tbv
+    for nb in (17, 1):
+        cs, qm = topnprobe_inputs(7, nb, 32, n_c, nprobe, th, card)
+        cs = cs.to(dtype)
+        flat = torch.empty(cs.numel() + 1, dtype=dtype, device=card)
+        off = flat[1:].view(cs.shape)
+        off.copy_(cs)
+        for x, m in ((cs, qm), (cs, None), (off, qm)):
+            before = ktp.launches
+            got = tbv.masked_topk_centroids(x, th, nprobe, m)
+            torch.cuda.synchronize()
+            assert ktp.launches == before + 1
+            _same((got,), (ktp.masked_topk_ref(x, th, nprobe, m),))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lane", ["fused", "unfused"])
+@pytest.mark.parametrize("nb", [1, 32])
+def test_retrieve_launches_topnprobe_once(card, lane, nb, monkeypatch):
+    """One retrieve selects its probes in one topnprobe launch on either
+    lane, and returns the ids and score bits it returns with the plain
+    selection."""
+    import dataclasses
+
+    from repro_torch.core import bitvector as tbv
+    from repro_torch.core import engine as teng
+    from repro_torch.data import synthetic
+    w = dict(n_docs=20_000, cap=40, d=64, n_centroids=1024, m=16,
+             list_cap=1024)
+    spec = _small_emvb_spec(w["n_docs"], w["cap"], w["d"], w["n_centroids"],
+                            w["m"], w["list_cap"])
+    index, _ = synthetic.make_packed_index(0, min_len=20, nbits=8,
+                                           device=card, **w)
+    queries, _ = synthetic.make_queries(index, 1, nb, 32)
+    cfg = dataclasses.replace(spec.make_config().engine, use_kernels=True)
+    if lane == "unfused":
+        cfg = dataclasses.replace(cfg, fused_prefilter=False,
+                                  fused_late_interaction=False)
+    ops.reset_launches()
+    got = teng.retrieve(index, queries, cfg)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["topnprobe"] == 1
+    monkeypatch.setattr(tbv, "masked_topk_centroids", tbv.masked_topk_plain)
+    want = teng.retrieve(index, queries, cfg)
+    _same((got.doc_ids, got.scores), (want.doc_ids, want.scores))
 
 
 @pytest.mark.cuda
@@ -887,7 +970,7 @@ def test_timeline_on_card_equals_plain(card, lane, nb):
                               lambda _: (cs, lut))
     torch.cuda.synchronize()
     launched = {k: v - before[k] for k, v in ops.launch_counts().items()}
-    assert sum(launched.values()) == len(tl) * (2 if lane == "fused" else 4)
+    assert sum(launched.values()) == len(tl) * (3 if lane == "fused" else 5)
     want = teng._timeline_topk(tl_cpu, q, cfg, None, None,
                                lambda _: (cs.cpu(), lut.cpu()))
     _same((got.doc_ids.cpu(), got.scores.cpu()),
@@ -1033,7 +1116,7 @@ def test_service_on_card_equals_retrieve_timeline(card, lane):
         before = dict(ops.launch_counts())
         tickets = [svc.submit(x) for x in qs[:8]]
         launched = sum(v - before[k] for k, v in ops.launch_counts().items())
-        per = 2 if lane == "fused" else 4
+        per = 3 if lane == "fused" else 5
         assert launched == per * (len(tl) if rnd == 0 else 1)
         for i, t in enumerate(tickets):
             s, ids = t.result()
@@ -1578,7 +1661,7 @@ def test_retrieval_cell_on_one_card_equals_retrieve(card, shape, tmp_path):
         got = cell.fn(*args)
         torch.cuda.synchronize()
         assert {k: v for k, v in ops.launch_counts().items() if v} == {
-            "prefilter": 1, "pqinter": 1}
+            "prefilter": 1, "pqinter": 1, "topnprobe": 1}
         want = teng.retrieve(index, q, cfg)
         assert torch.equal(got.doc_ids, want.doc_ids)
         assert torch.equal(got.scores.view(torch.int32),

@@ -130,3 +130,42 @@ def bf16_edges(seed, x, share=0.15, values=BF16_EDGES):
     for i, v in enumerate(values):
         x[(pick >= i * share) & (pick < (i + 1) * share)] = v
     return x
+
+
+def topnprobe_inputs(seed, nb, n_q, n_c, nprobe, th, device="cpu"):
+    """The masked top-nprobe's edge cases as torch tensors on ``device``
+    (made there, so the card's full-width rows need no host copy) -> cs
+    (B, n_q, n_c) float32, q_mask (B, n_q) bool with dead terms.
+
+    The rows take turns: exactly 0, 1, nprobe - 1, nprobe and n_c survivors
+    (> th, in a run of columns that starts at a random column and wraps),
+    then a free row. Values lie on eighths above th, and on eighths less
+    0.00, 0.01 or 0.02 at or below it, so ties are everywhere, entries
+    equal to th are there, and entries below th that differ tie again after
+    the -1e6 offset (whose float32 ulp is 0.0625). A free row holds -0.0,
+    0.0, th and bf16(th) at four columns."""
+    import torch
+    gen = torch.Generator(device=device).manual_seed(seed)
+    rows, th32 = nb * n_q, float(np.float32(th))
+
+    def draw(lo, hi):
+        return torch.randint(lo, hi, (rows, n_c), generator=gen,
+                             device=device).float()
+    above = th32 + draw(1, 9) / 8
+    below = th32 - draw(0, 8) / 8 - draw(0, 3) / 100
+    counts = [0, 1, max(nprobe - 1, 0), nprobe, n_c, -1]
+    want = torch.tensor(counts, device=device).repeat(
+        rows // len(counts) + 1)[:rows]
+    start = torch.randint(0, n_c, (rows, 1), generator=gen, device=device)
+    run = (torch.arange(n_c, device=device) - start) % n_c
+    free = torch.randint(0, 2, (rows, n_c), generator=gen,
+                         device=device).bool()
+    keep = torch.where(want[:, None] < 0, free, run < want[:, None])
+    cs = torch.where(keep, above, below)
+    bf16_th = float(torch.tensor(th32).to(torch.bfloat16).float())
+    for i, v in enumerate((-0.0, 0.0, th32, bf16_th)):
+        col = (start[:, 0] + i * (n_c // 4 + 1)) % n_c
+        cs[want < 0, col[want < 0]] = v
+    q_mask = torch.rand((nb, n_q), generator=gen, device=device) < 0.8
+    q_mask[:, 0] = True
+    return cs.reshape(nb, n_q, n_c), q_mask
