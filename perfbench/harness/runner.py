@@ -160,6 +160,10 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, *,
          f"{calls} calls in {win.window_s:.3f} s, pool "
          f"{tf.batches.shape[0]} batches ({pool_bytes / 1e9:.3f} GB), "
          f"IVF entries dropped {system.n_dropped}")
+    if calls == tf.batches.shape[0] and win.window_s < seconds:
+        _log(f"the pool's {calls} batches ran out after {win.window_s:.3f} "
+             f"s of the window's {seconds:g} s: raise the mix's "
+             "pool_batches_per_s")
 
     view = None
     if trace:

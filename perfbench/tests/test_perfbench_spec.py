@@ -1,57 +1,25 @@
-"""BENCHMARK.json's form (keys, names, units, bounds, a full check's time)
-and every cell and metric of it found by name."""
+"""BENCHMARK.json's form (keys, names, units, bounds, a full check's time),
+every cell and metric of it found by name, and every configuration file of
+its form (``conftest.config_faults``): the checks hold a cell and a
+configuration by their form, so that a new one needs no edit here."""
 import json
 import os
-import re
 
 import pytest
 
-from conftest import PERFBENCH, REPO
+from conftest import (PERFBENCH, REPO, bench, check_bench, check_cell,
+                      config_faults)
 
-BENCH = json.load(open(os.path.join(REPO, "BENCHMARK.json")))
-NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
-UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
+BENCH = bench()
 
 
 def test_keys_and_limits():
-    assert set(BENCH) == {"command", "paths", "run_seconds", "configs",
-                          "workloads", "end_to_end", "per_layer"}
-    assert BENCH["paths"] == ["perfbench"]
-    assert 1 <= BENCH["run_seconds"] <= 51
-    runs = 2 + 14 * 24
-    assert runs * (BENCH["run_seconds"] + 60) + 24 * 180 + 1200 <= 43200
-    names = [x["name"] for k in ("configs", "workloads", "end_to_end",
-                                 "per_layer") for x in BENCH[k]]
-    assert len(names) == len(set(names))
-    assert all(NAME.match(n) for n in names)
-    for m in BENCH["end_to_end"] + BENCH["per_layer"]:
-        assert UNIT.match(m["unit"]) and m["better"] in ("lower", "higher")
-    for m in BENCH["end_to_end"]:
-        assert 0.01 <= m["bound"] <= 0.25
-        assert m["source"] in ("host_clock", "device_trace")
-    e2e = {m["name"] for m in BENCH["end_to_end"]}
-    assert "setup_s" in e2e
-    for m in BENCH["per_layer"]:
-        assert m["moves"] in e2e
-        assert set(m["workloads"]) <= {w["name"] for w in BENCH["workloads"]}
-    for w in BENCH["workloads"]:
-        assert w["chips"] == 1 and len(w["why"]) <= 200
+    check_bench(BENCH)
 
 
 @pytest.mark.parametrize("name", [w["name"] for w in BENCH["workloads"]])
 def test_cell_resolves_by_name(name):
-    from harness import spec
-    cell = spec.cell(name, REPO)
-    assert cell.config["name"] in {c["name"] for c in BENCH["configs"]}
-    assert {m["name"] for m in cell.end_to_end} == \
-        {"qps", "latency_p95_ms", "peak_mem_gb", "setup_s"}
-    assert {m.entry["name"] for m in cell.per_layer} == \
-        {m["name"] for m in BENCH["per_layer"]}
-    assert all(callable(m.read) for m in cell.per_layer)
-    assert hasattr(cell.system, "System")
-    assert hasattr(cell.reference, "Reference")
-    assert hasattr(cell.loop, "Loop")
-    assert set(cell.limits) >= {"score_err", "topk_gap"}
+    check_cell(name, REPO)
 
 
 @pytest.mark.parametrize("mix", sorted(
@@ -77,7 +45,4 @@ def test_metric_ranges_name_functions_of_the_program(metric):
 
 @pytest.mark.parametrize("entry", BENCH["configs"], ids=lambda c: c["name"])
 def test_config_file_states_its_sizes(entry):
-    cfg = json.load(open(os.path.join(REPO, entry["file"])))
-    assert cfg["name"] == entry["name"] and entry["reduced"] == []
-    assert (cfg["n_docs"], cfg["cap"], cfg["d"], cfg["n_centroids"],
-            cfg["m"], cfg["nbits"]) == (8_841_823, 80, 128, 1 << 18, 16, 8)
+    assert config_faults(entry, REPO) == []
