@@ -498,26 +498,38 @@ def _transposed(cs: torch.Tensor) -> torch.Tensor:
 def _survivor_operands(index: PackedIndex, cs: torch.Tensor,
                        lut: torch.Tensor, sel1: torch.Tensor):
     """What the phase 3-4 kernel reads: (cs_t (B, n_c, n_q), lut, and the
-    survivors' codes, residual codes and token lengths)."""
-    return (_transposed(cs), lut, index.codes[sel1], index.res_codes[sel1],
-            index.doc_lens[sel1])
+    survivors' codes, residual codes and token lengths). The three gathers
+    run in the stream-timed span ``engine.late.gather``, whose ``bytes`` is
+    what they write, taken from the shapes."""
+    cs_t = _transposed(cs)
+    with trace.span("engine.late.gather", device=sel1.device) as sp:
+        codes, res = index.codes[sel1], index.res_codes[sel1]
+        lens = index.doc_lens[sel1]
+        sp.set(bytes=codes.nbytes + res.nbytes + lens.nbytes)
+    return cs_t, lut, codes, res, lens
 
 
 def _phase34_batch(index: PackedIndex, queries: torch.Tensor,
                    cs: torch.Tensor, sel1: torch.Tensor, cfg: EngineConfig,
                    q_masks=None, *, lut=None) -> RetrievalResult:
     """Phases 3-4 -> RetrievalResult with (B, k) scores and doc ids, in the
-    stream-timed span ``engine.late``."""
-    with trace.span("engine.late", device=queries.device):
+    stream-timed span ``engine.late``; on the fused lane the survivor
+    gathers and the kernel in ``engine.late.gather`` and
+    ``engine.late.pqinter`` inside it."""
+    dev = queries.device
+    with trace.span("engine.late", device=dev):
         if lut is None:
             lut = _query_lut(index, queries)
         sel1 = sel1.long()
         if cfg.use_kernels and cfg.fused_late_interaction:
             doc_pass = _doc_pass(index, cfg)
-            scores, pos, _, _ = ops.pqinter_batched(
-                *_survivor_operands(index, cs, lut, sel1), cfg.th_r,
-                cfg.n_docs, cfg.k, q_masks,
-                doc_pass=None if doc_pass is None else doc_pass[sel1])
+            operands = _survivor_operands(index, cs, lut, sel1)
+            if doc_pass is not None:
+                doc_pass = doc_pass[sel1]
+            with trace.span("engine.late.pqinter", device=dev):
+                scores, pos, _, _ = ops.pqinter_batched(
+                    *operands, cfg.th_r, cfg.n_docs, cfg.k, q_masks,
+                    doc_pass=doc_pass)
             ids = torch.gather(sel1, 1, pos.long())
         else:
             cs_t = _transposed(cs)

@@ -63,9 +63,12 @@ import torch
 # The spans the port's engine opens inside ``engine.retrieve.dispatch`` that
 # the reference has no counterpart of: candidate generation (with the host's
 # wait at the candidate bitmap inside it), the prefilter and late
-# interaction. No span of the reference's vocabulary opens inside them.
+# interaction (with, on the fused lane, the survivor gathers and the
+# kernel inside it). No span of the reference's vocabulary opens inside
+# them.
 PORT_ONLY = ("engine.candgen", "engine.candgen.bitmap_wait",
-             "engine.prefilter", "engine.late")
+             "engine.prefilter", "engine.late", "engine.late.gather",
+             "engine.late.pqinter")
 
 
 def _profiling() -> bool:

@@ -1731,9 +1731,11 @@ def test_lm_cell_on_one_card_counts_as_on_meta(card):
 @pytest.mark.cuda
 @pytest.mark.parametrize("lane", sorted(TL_LANES))
 def test_phase_spans_stream_time_on_card(card, lane):
-    """Under a tracer, ``retrieve``'s three phase spans carry a positive
-    ``stream_ms`` once the ring is drained, the host spans none, and the
-    phases' stream times sum to no more than the call's wall time."""
+    """Under a tracer, ``retrieve``'s three phase spans (and on the fused
+    lane the two inside ``engine.late``) carry a positive ``stream_ms``
+    once the ring is drained, the host spans none, the phases' stream times
+    sum to no more than the call's wall time, and the inner two to no more
+    than ``engine.late``'s."""
     import time
 
     from repro_torch import obs
@@ -1754,9 +1756,13 @@ def test_phase_spans_stream_time_on_card(card, lane):
     assert torch.equal(got.scores.view(torch.int32),
                        want.scores.view(torch.int32))
     phases = ("engine.candgen", "engine.prefilter", "engine.late")
+    late = (("engine.late.gather", "engine.late.pqinter") if lane == "fused"
+            else ())
     timed = [s for s in spans if "stream_ms" in s]
-    assert [s["name"] for s in timed] == list(phases)
+    assert [s["name"] for s in timed] == list(phases[:2] + late + phases[2:])
     assert all(s["stream_ms"] > 0 for s in timed)
-    assert sum(s["stream_ms"] for s in timed) <= wall_ms
+    ms = {s["name"]: s["stream_ms"] for s in timed}
+    assert sum(ms[p] for p in phases) <= wall_ms
+    assert sum(ms[p] for p in late) <= ms["engine.late"]
     (wait,) = [s for s in spans if s["name"] == "engine.candgen.bitmap_wait"]
     assert wait["attrs"]["postings"] > 0

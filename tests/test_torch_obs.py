@@ -286,7 +286,8 @@ def test_service_telemetry_equals_reference(obs_corpus, timelines):
         children.setdefault(s["parent_id"], []).append(s["name"])
     phases = {"engine.retrieve.dispatch": ["engine.candgen",
                                            "engine.prefilter", "engine.late"],
-              "engine.candgen": ["engine.candgen.bitmap_wait"]}
+              "engine.candgen": ["engine.candgen.bitmap_wait"],
+              "engine.late": ["engine.late.gather", "engine.late.pqinter"]}
     for s in spans:
         if s["name"] in phases:
             assert children[s["span_id"]] == phases[s["name"]], s["name"]

@@ -2,8 +2,11 @@
 ``repro_torch.core.engine``): ``engine.candgen`` (with the host's wait at
 the candidate bitmap, ``engine.candgen.bitmap_wait``, inside it),
 ``engine.prefilter`` and ``engine.late`` under ``engine.retrieve.dispatch``
-on every lane; nothing when tracing is off; the same results either way;
-the bitmap's ``postings`` count; the spans in a ``torch.profiler`` trace;
+on every lane, and inside ``engine.late`` on the fused lane the survivor
+gathers (``engine.late.gather``, with the ``bytes`` they write) and the
+kernel (``engine.late.pqinter``); nothing when tracing is off; the same
+results either way; the bitmap's ``postings`` count; the spans in a
+``torch.profiler`` trace;
 and ``stream_ms`` read from the CUDA events only when the ring is read
 (the events faked here; ``tests/test_torch_cuda.py`` reads real ones)."""
 import json
@@ -38,6 +41,18 @@ PHASES = ["engine.candgen", "engine.prefilter", "engine.late"]
 # the order spans finish in: innermost first
 ORDER = ["engine.candgen.bitmap_wait", "engine.candgen", "engine.prefilter",
          "engine.late", "engine.retrieve.dispatch"]
+# inside engine.late on the fused late-interaction lane only
+LATE = ["engine.late.gather", "engine.late.pqinter"]
+FUSED_LATE = {"fused", "compact"}
+
+
+def _order(lane):
+    """The spans of one ``retrieve`` on ``lane``, in the order they
+    finish."""
+    if lane not in FUSED_LATE:
+        return ORDER
+    at = ORDER.index("engine.late")
+    return ORDER[:at] + LATE + ORDER[at:]
 
 
 @pytest.fixture(scope="module")
@@ -75,7 +90,7 @@ def test_disabled_tracing_emits_nothing(planted, tmp_path):
     path = tmp_path / "off.json"
     prof.export_chrome_trace(str(path))
     names = {e.get("name") for e in json.load(open(path))["traceEvents"]}
-    assert not names & set(ORDER)
+    assert not names & set(ORDER + LATE)
 
 
 @pytest.mark.parametrize("lane", sorted(LANES))
@@ -83,7 +98,7 @@ def test_phase_spans_nest_under_dispatch(planted, lane):
     with obs.tracing() as tr:
         _retrieve(planted, lane)
     spans = tr.finished()
-    assert [s["name"] for s in spans] == ORDER
+    assert [s["name"] for s in spans] == _order(lane)
     by_name = {s["name"]: s for s in spans}
     dispatch = by_name["engine.retrieve.dispatch"]
     for name in PHASES:
@@ -91,10 +106,39 @@ def test_phase_spans_nest_under_dispatch(planted, lane):
         assert by_name[name]["trace_id"] == dispatch["trace_id"], name
     assert by_name["engine.candgen.bitmap_wait"]["parent_id"] == \
         by_name["engine.candgen"]["span_id"]
+    # the unfused lanes open neither of the late phase's inner spans
+    for name in LATE if lane in FUSED_LATE else ():
+        assert by_name[name]["parent_id"] == \
+            by_name["engine.late"]["span_id"], name
     # host spans on the CPU: no device, no stream time
     assert all("stream_ms" not in s for s in spans)
     starts = [by_name[n]["start"] for n in PHASES]
     assert starts == sorted(starts)
+    if lane in FUSED_LATE:
+        late = [by_name[n]["start"] for n in ["engine.late"] + LATE]
+        assert late == sorted(late)
+
+
+@pytest.mark.parametrize("lane", sorted(FUSED_LATE))
+def test_gather_bytes_are_what_the_gathers_write(planted, lane, monkeypatch):
+    """``bytes`` of ``engine.late.gather`` is the ``nbytes`` of the codes,
+    residual codes and lengths handed to the phase 3-4 kernel, and
+    ``batch x n_filter x (cap x (4 + m) + 4)`` by the shapes."""
+    index, q, _ = planted
+    seen = []
+    pqinter = teng.ops.pqinter_batched
+
+    def spy(cs_t, lut, codes, res_codes, lens, *args, **kwargs):
+        seen.append(codes.nbytes + res_codes.nbytes + lens.nbytes)
+        return pqinter(cs_t, lut, codes, res_codes, lens, *args, **kwargs)
+    monkeypatch.setattr(teng.ops, "pqinter_batched", spy)
+    with obs.tracing() as tr:
+        _retrieve(planted, lane)
+    (gather,) = [s for s in tr.finished()
+                 if s["name"] == "engine.late.gather"]
+    n_docs, cap, m = index.res_codes.shape
+    assert gather["attrs"] == {"bytes": seen[0]}
+    assert seen == [q.shape[0] * ENGINE["n_filter"] * (cap * (4 + m) + 4)]
 
 
 @pytest.mark.parametrize("lane", sorted(LANES))
@@ -175,7 +219,7 @@ def _annotations(path):
     events = json.load(open(path))["traceEvents"]
     return sorted(((e["name"], e["ts"], e["ts"] + e["dur"]) for e in events
                    if e.get("cat") == "user_annotation"
-                   and e.get("name") in ORDER), key=lambda e: e[1])
+                   and e.get("name") in ORDER + LATE), key=lambda e: e[1])
 
 
 @pytest.mark.parametrize("lane", ["fused", "unfused", "compact"])
@@ -197,6 +241,12 @@ def test_spans_land_in_the_profiler_trace(planted, lane, tmp_path):
     assert inside("engine.candgen.bitmap_wait", "engine.candgen")
     assert iv["engine.candgen"][1] <= iv["engine.prefilter"][0]
     assert iv["engine.prefilter"][1] <= iv["engine.late"][0]
+    if lane in FUSED_LATE:
+        for name in LATE:
+            assert inside(name, "engine.late"), name
+        assert iv["engine.late.gather"][1] <= iv["engine.late.pqinter"][0]
+    else:
+        assert not set(LATE) & set(iv)
 
 
 def test_no_profiler_range_when_no_profiler_records(planted, monkeypatch):
@@ -205,7 +255,7 @@ def test_no_profiler_range_when_no_profiler_records(planted, monkeypatch):
     monkeypatch.setattr(torch.profiler, "record_function", refuse)
     with obs.tracing() as tr:
         _retrieve(planted, "fused")
-    assert [s["name"] for s in tr.finished()] == ORDER
+    assert [s["name"] for s in tr.finished()] == _order("fused")
 
 
 class _FakeEvent:
@@ -286,7 +336,8 @@ def test_stream_timed_span_records_its_end_when_the_body_raises(fake_cuda):
 
 
 def test_port_only_names_are_the_engine_phases():
-    assert set(trace.PORT_ONLY) == set(ORDER) - {"engine.retrieve.dispatch"}
+    assert set(trace.PORT_ONLY) == \
+        set(ORDER + LATE) - {"engine.retrieve.dispatch"}
     # the benchmark's range labels are not span names: a span of one of
     # those names would be read as the range
     labels = {"engine.centroid_scores", "bitvector.masked_topk_centroids",
